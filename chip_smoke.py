@@ -1,0 +1,429 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (the script then exits non-zero):
+
+1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
+2. the build: ``src/repro_torch/kernels/csrc/paged_attention.cu``
+   compiled with ``nvcc``;
+3. each kernel against its plain PyTorch version on the card, at the main
+   path's shapes (yi-9b: B=16, H=32, Hk=4, Dh=128, page 16, up to 2048
+   tokens, a zero-length row, NaN in every page no row owns) in bf16
+   (within one bf16 ulp: ``rtol = 2**-7``, ``atol = 1e-5``) and float32
+   (``atol = rtol = 1e-5``), a sliding window, the serve phase's own
+   batch, table and pool shapes, a sweep of G, Dh and page size, and page
+   ids outside the pool; then times: kernel, plain
+   version, ``scaled_dot_product_attention`` over the gathered KV (a
+   yardstick the port never calls) and the least time the card could take;
+4. end-to-end parity: a 2-layer model with yi-9b's head layout in float32,
+   served by the port on the CPU (plain path) and on the card (kernel
+   path); greedy streams must be identical;
+5. the serve phase: ``repro_torch.serving.llm.LLM`` on full-width,
+   full-depth yi-9b in bf16 with random weights from the seed, 20 requests
+   of 64-768 prompt tokens and 32 new tokens, greedy and sampled mixed;
+   every request must finish at full length with finite log-probs, and the
+   kernel's launch count must equal decode ticks x 48.
+
+It prints a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line,
+and last ``{"ok": true, "device": {...}}``.  It exits non-zero without a
+result when no CUDA device is visible.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12             # H100 SXM HBM3
+PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core bf16
+              "float32": 67e12}       # float32 outside the tensor cores
+YI_LAYERS = 48
+# kernel against plain version, (atol, rtol).  Both compute in float32 and
+# round once to the output dtype, so bf16 outputs differ by at most one
+# bf16 ulp (2**-7 of the value) where the float32 results straddle a
+# rounding boundary; atol covers float32 summation order near zero.
+TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2 ** -7)}
+# the serve phase: batch, pool and traffic (phase 3 also checks the kernel
+# at exactly these shapes)
+SERVE_MB, SERVE_N_MB, SERVE_PAGE, SERVE_MAX_PAGES = 16, 1, 16, 64
+SERVE_POOL_PAGES = SERVE_MB * SERVE_N_MB * SERVE_MAX_PAGES + 1
+SERVE_REQUESTS, SERVE_PROMPTS, SERVE_NEW = 20, (64, 768), 32
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timing helpers
+# ---------------------------------------------------------------------------
+
+
+def time_ms(torch, fn, iters: int, flush=None) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches, by CUDA events
+    around each launch; ``flush`` runs between launches, outside the
+    timed spans (cold L2, as a layer's own pool is on the main path)."""
+    for _ in range(3):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    for s, e in zip(starts, ends):
+        if flush is not None:
+            flush()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+# ---------------------------------------------------------------------------
+# paged attention inputs
+# ---------------------------------------------------------------------------
+
+
+def paged_case(torch, np, rng, *, b, h, hk, dh, page, max_pages, lens,
+               dtype, device, pool_pages=0):
+    """Random pools (at least ``pool_pages`` pages) where each row owns its
+    own pages, unused table slots point at foreign pages, and every slot no
+    row's tokens occupy holds NaN (foreign pages and the tail of each row's
+    last page)."""
+    lens = np.asarray(lens, np.int32)
+    need = [-(-int(n) // page) for n in lens]
+    n_pool = max(pool_pages, 1 + sum(need) + 2)
+    perm = rng.permutation(np.arange(1, 1 + sum(need)))
+    kp = torch.randn((n_pool, page, hk, dh), device=device)
+    vp = torch.randn((n_pool, page, hk, dh), device=device)
+    valid = torch.zeros((n_pool, page), dtype=torch.bool, device=device)
+    pt = np.zeros((b, max_pages), np.int32)
+    at = 0
+    for r in range(b):
+        own = list(perm[at:at + need[r]])
+        at += need[r]
+        pt[r] = own + [n_pool - 1 - (r + j) % 2
+                       for j in range(max_pages - len(own))]
+        for j, p in enumerate(own):
+            valid[p, :min(page, int(lens[r]) - j * page)] = True
+    kp[~valid] = float("nan")
+    vp[~valid] = float("nan")
+    q = torch.randn((b, h, dh), device=device)
+    return (q.to(dtype), kp.to(dtype), vp.to(dtype),
+            torch.from_numpy(pt).to(device), torch.from_numpy(lens).to(device))
+
+
+def bound(case_lens, window, h, hk, dh, esize, dtype_name, b, max_pages):
+    """Least time for the work: K and V rows each read once for the tokens
+    attended, q / table / lengths read once, out written once; and the
+    flops 4 * H * Dh per token over the peak rate of the dtype."""
+    toks = sum(min(int(n), window) if window else int(n) for n in case_lens)
+    nbytes = toks * hk * dh * 2 * esize + 2 * b * h * dh * esize \
+        + b * max_pages * 4 + b * 4
+    flops = 4 * h * dh * toks
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_card(torch):
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    line = smi.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    log(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"device 0: {name}; devices visible: {torch.cuda.device_count()}")
+    log(f"[card] nvidia-smi: {line}")
+    return line, name
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    info = build.build("paged_attention")
+    regs = [ln.strip() for ln in info.log.splitlines() if "registers" in ln]
+    log(f"[build] paged_attention: {info.seconds:.2f}s nvcc"
+        f"{' (cached)' if info.cached else ''} -> {info.path.name}; "
+        f"{len(regs)} kernel instances, e.g. {regs[-1] if regs else '-'}")
+    build.load("paged_attention")
+
+
+def phase_kernel(torch, np):
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED)
+    torch.manual_seed(SEED)
+
+    def check(label, args, window):
+        atol, rtol = TOL[str(args[0].dtype).split(".")[-1]]
+        got = pa.paged_decode_attention(*args, window=window)
+        torch.cuda.synchronize()
+        want = ref.paged_decode_attention_ref(*args, window=window)
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{label}: non-finite kernel output")
+        zero = args[4] == 0
+        if not (got[zero] == 0).all():
+            raise AssertionError(f"{label}: a seq_len == 0 row is not zeros")
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol, msg=lambda m: f"{label}: {m}")
+        log(f"[kernel] {label}: max |kernel - plain| = {err:.3e} "
+            f"(atol {atol:g}, rtol {rtol:g}) ok")
+        return err
+
+    # the main path's shapes: yi-9b heads, 16 rows, up to 2048 tokens
+    B, H, HK, DH, PAGE, MAXP = 16, 32, 4, 128, 16, 128
+    lens = rng.randint(1, MAXP * PAGE + 1, B)
+    lens[1], lens[5] = MAXP * PAGE, 0
+    main = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = paged_case(torch, np, rng, b=B, h=H, hk=HK, dh=DH, page=PAGE,
+                          max_pages=MAXP, lens=lens, dtype=dtype, device=dev)
+        name = str(dtype).split(".")[-1]
+        main[name] = (args, check(f"yi-9b shapes {name}", args, 0))
+        check(f"yi-9b shapes {name} window=500", args, 500)
+        # the serve phase's own shapes: its batch, table width and pool,
+        # its context lengths, and an idle row (1 token on scratch page 0)
+        sl = rng.randint(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + SERVE_NEW + 1,
+                         SERVE_MB)
+        sl[3] = 0
+        args = paged_case(torch, np, rng, b=SERVE_MB, h=H, hk=HK, dh=DH,
+                          page=SERVE_PAGE, max_pages=SERVE_MAX_PAGES,
+                          lens=sl, dtype=dtype, device=dev,
+                          pool_pages=SERVE_POOL_PAGES)
+        q, kp, vp, pt, sl = args
+        pt[7], sl[7] = 0, 1
+        kp[0, 0], vp[0, 0] = torch.randn((2, HK, DH), device=dev).to(dtype)
+        check(f"serve-phase shapes {name} (table {tuple(pt.shape)}, pool "
+              f"{tuple(kp.shape)})", args, 0)
+    for g in (1, 2, 4, 8):
+        for dh in (64, 128):
+            for page in (8, 16, 32):
+                sl = rng.randint(1, 8 * page + 1, 4)
+                sl[2] = 0
+                for dtype in (torch.float32, torch.bfloat16):
+                    args = paged_case(torch, np, rng, b=4, h=2 * g, hk=2,
+                                      dh=dh, page=page, max_pages=8, lens=sl,
+                                      dtype=dtype, device=dev)
+                    win = 0 if page == 16 else page + 3
+                    check(f"sweep G={g} Dh={dh} page={page} "
+                          f"{str(dtype).split('.')[-1]} window={win}",
+                          args, win)
+
+    # page ids out of the pool clamp to [0, P-1], as the TPU kernel's
+    # wrapper clamps them (clean pools: a clamped id may land anywhere)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kp, vp, pt, sl = paged_case(torch, np, rng, b=4, h=16, hk=2,
+                                       dh=128, page=16, max_pages=6,
+                                       lens=[70, 96, 33, 5], dtype=dtype,
+                                       device=dev)
+        kp, vp = torch.nan_to_num(kp), torch.nan_to_num(vp)
+        pt[0, 1], pt[1, 0], pt[2, 2] = kp.shape[0] + 5, -4, 10 ** 6
+        check(f"clamped page ids {str(dtype).split('.')[-1]}",
+              (q, kp, vp, pt, sl), 0)
+
+    # times at the main shape, bf16 (the serve phase's dtype)
+    args, err = main["bfloat16"]
+    q, kp, vp, pt, sl = args
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    ms = time_ms(torch, lambda: pa.paged_decode_attention(q, kp, vp, pt, sl),
+                 50, flush)
+    plain_ms = time_ms(torch, lambda: ref.paged_decode_attention_ref(
+        q, kp, vp, pt, sl), 20, flush)
+    # yardstick: SDPA over the gathered, contiguous KV with a length mask
+    c = MAXP * PAGE
+    pos = torch.arange(c, device=dev)
+    mask = (pos[None] < sl[:, None].long())[:, None, None, :]
+    kg = torch.nan_to_num(kp[pt.long()].reshape(B, c, HK, DH)).transpose(
+        1, 2).contiguous()
+    vg = torch.nan_to_num(vp[pt.long()].reshape(B, c, HK, DH)).transpose(
+        1, 2).contiguous()
+    qs = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(torch, lambda: sdpa(qs, kg, vg, attn_mask=mask,
+                                             enable_gqa=True), 50, flush)
+    bound_ms, bound_by = bound(sl.tolist(), 0, H, HK, DH, 2, "bfloat16", B,
+                               MAXP)
+    log(f"[kernel] times at B={B} H={H} Hk={HK} Dh={DH} page={PAGE} "
+        f"tokens={int(sl.sum())} bf16, cold L2: kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms(sdpa)={library_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}); "
+        f"kernel at {bound_ms / ms:.1%} of the bound")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def phase_parity(torch, np):
+    """The port on the CPU (plain attention) against the port on the card
+    (the kernel), float32, on identical weights."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import Runtime
+    from repro_torch.serving.kv_cache import PoolConfig
+    from repro_torch.serving.llm import LLM, EngineConfig
+    from repro_torch.serving.request import SamplingParams
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("yi-9b"), name="yi-9b-2layer",
+                              num_layers=2, d_model=512, d_ff=1024,
+                              vocab_size=2048)
+    rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
+    cpu_params = model_lib.init_params(cfg, SEED, rt, "cpu")
+    rng = np.random.RandomState(SEED + 1)
+    prompts = [list(rng.randint(1, cfg.vocab_size, n))
+               for n in rng.randint(20, 200, 10)]
+    sp = SamplingParams(temperature=0.0, max_new_tokens=16)
+    streams = {}
+    for dev in ("cpu", "cuda"):
+        params = {"embed": {k: v.to(dev) for k, v in
+                            cpu_params["embed"].items()},
+                  "final_norm": cpu_params["final_norm"].to(dev),
+                  "layers": [{k: v.to(dev) for k, v in w.items()}
+                             for w in cpu_params["layers"]]}
+        econf = EngineConfig(mb_size=4, num_microbatches=2,
+                             pool=PoolConfig(page_size=16,
+                                             n_local_pages=8 * 16 + 1,
+                                             max_pages_per_seq=16))
+        llm = LLM(cfg, config=econf, params=params, rt=rt, device=dev)
+        outs = llm.generate(prompts, sp)
+        if not all(o.finished and len(o.token_ids) == 16 for o in outs):
+            raise AssertionError(f"parity run on {dev}: unfinished requests")
+        streams[dev] = [o.token_ids for o in outs]
+        log(f"[parity] {dev}: {len(outs)} greedy streams, "
+            f"{llm.engine.backend.decode_ticks} decode ticks")
+    if streams["cpu"] != streams["cuda"]:
+        bad = [i for i, (a, b) in enumerate(zip(streams["cpu"],
+                                                streams["cuda"])) if a != b]
+        raise AssertionError(f"greedy streams differ CPU vs card: {bad}")
+    log("[parity] greedy streams identical, plain path (CPU) vs kernel "
+        "path (card)")
+
+
+def phase_serve(torch, np, card: str):
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import Runtime
+    from repro_torch.serving.kv_cache import PoolConfig
+    from repro_torch.serving.llm import LLM, EngineConfig
+    from repro_torch.serving.request import SamplingParams
+
+    cfg = get_arch("yi-9b")
+    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    mb_size, n_mb, max_pages = SERVE_MB, SERVE_N_MB, SERVE_MAX_PAGES
+    n_req, max_new = SERVE_REQUESTS, SERVE_NEW
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, SEED, rt, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in
+                   [*params["embed"].values(), params["final_norm"]]
+                   + [w for layer in params["layers"] for w in layer.values()])
+    log(f"[serve] yi-9b full width and depth: {cfg.num_layers} layers, "
+        f"{n_params / 1e9:.3f}B params bf16 from seed {SEED} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    econf = EngineConfig(
+        mb_size=mb_size, num_microbatches=n_mb,
+        pool=PoolConfig(page_size=SERVE_PAGE, n_local_pages=SERVE_POOL_PAGES,
+                        max_pages_per_seq=max_pages),
+        seed=SEED, max_prefill_tokens_per_tick=256)
+    llm = LLM(cfg, config=econf, params=params, rt=rt, reduced=False,
+              device="cuda")
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1, n_req)
+    prompts = [list(rng.randint(1, cfg.vocab_size, n)) for n in lens]
+    sps = [SamplingParams(temperature=0.0, max_new_tokens=max_new,
+                          logprobs=True) if i % 2 == 0 else
+           SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                          max_new_tokens=max_new, logprobs=True)
+           for i in range(n_req)]
+    pa.paged_decode_attention.launches = 0
+    t1 = time.perf_counter()
+    outs = llm.generate(prompts, sps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = pa.paged_decode_attention.launches
+    rep = llm.stats()
+    ticks = rep["decode_ticks"]
+    bad = [o.request_id for o in outs
+           if not o.finished or len(o.token_ids) != max_new
+           or not all(math.isfinite(x) for x in o.logprobs)
+           or not all(0 <= t < cfg.vocab_size for t in o.token_ids)]
+    if bad:
+        raise AssertionError(f"serve: requests {bad} unfinished, short, or "
+                             "with non-finite log-probs")
+    if ticks == 0 or launches != ticks * YI_LAYERS:
+        raise AssertionError(f"serve: {launches} kernel launches for {ticks} "
+                             f"decode ticks x {YI_LAYERS} layers")
+    ttft = sorted(o.ttft_s for o in outs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gen = sum(len(o.token_ids) for o in outs)
+    log(f"[serve] {len(outs)}/{n_req} requests finished, {max_new} tokens "
+        f"each; prompts {int(lens.min())}-{int(lens.max())} tokens "
+        f"({int(lens.sum())} total); batch {mb_size}x{n_mb}, page "
+        f"{SERVE_PAGE}, "
+        f"max_pages_per_seq {max_pages}, prefill chunk "
+        f"{llm.engine.prefill_chunk} x {llm.engine.prefill_rows} rows")
+    log(f"[serve] on {card}: decode_tok_per_s={rep['decode_tok_per_s']:.1f} "
+        f"prefill_tok_per_s={rep['prefill_tok_per_s']:.1f} "
+        f"(engine phase clocks; decode {rep['decode_time_s']:.3f}s, "
+        f"prefill {rep['prefill_time_s']:.3f}s); wall {wall:.3f}s for "
+        f"{gen} generated + {rep['prefill_tokens']} prompt tokens")
+    log(f"[serve] ttft_s p50={ttft[len(ttft) // 2]:.3f} max={ttft[-1]:.3f} "
+        f"mean={sum(ttft) / len(ttft):.3f} (n={len(ttft)}); "
+        f"peak_mem_gib={peak:.2f}; engine steps {rep['steps']}, decode "
+        f"ticks {ticks}, paged-kernel launches {launches} "
+        f"(= {ticks} x {YI_LAYERS})")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; this script measures the "
+              "port on the card and has no CPU mode", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    smi_line, name = phase_card(torch)
+    phase_build()
+    kern = phase_kernel(torch, np)
+    phase_parity(torch, np)
+    launches = phase_serve(torch, np, smi_line)
+    entry = {"name": "paged_decode_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+             "replaces": "src/repro/kernels/paged_attention.py:206",
+             "ok": True, "launches": launches, **kern}
+    print(json.dumps({"kernels": [entry]}))
+    print(smi_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,27 @@
+"""Dispatch between the hand-written kernels and their plain versions.
+
+The route is decided by where the tensors lie, and nothing else: a CPU
+tensor goes to the plain PyTorch version in ``kernels.ref``; a CUDA tensor
+goes to the Hopper kernel, which raises on a shape or dtype it does not
+take.  No shape ever sends a CUDA tensor to the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.paged_attention import \
+    paged_decode_attention as _paged_cuda
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           seq_lens: torch.Tensor, *,
+                           window: int = 0) -> torch.Tensor:
+    """Paged decode attention; shapes as in ``kernels.ref``."""
+    if q.device.type == "cpu":
+        return ref.paged_decode_attention_ref(q, k_pages, v_pages, page_table,
+                                              seq_lens, window=window)
+    return _paged_cuda(q, k_pages, v_pages, page_table, seq_lens,
+                       window=window)

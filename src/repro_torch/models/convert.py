@@ -1,0 +1,45 @@
+"""Carry the JAX package's parameters into the port.
+
+``from_jax_params`` takes the tree ``repro.models.model.init_params`` makes,
+already turned into numpy (``jax.tree.map(np.asarray, params)``), and
+returns the port's per-layer dict (``models.model``).  The JAX tree keeps
+``"scan"`` leaves stacked over pattern periods (leading axis
+``n_periods``) and the remainder layers under ``"tail"``; layer order is
+period by period, then the tail.  Weights keep their ``(in, out)`` layout.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models.common import DEFAULT_RUNTIME, Runtime, \
+    make_layer_plan
+from repro_torch.models.model import check_supported
+
+
+def from_jax_params(np_tree: dict, cfg: ModelConfig,
+                    rt: Runtime = DEFAULT_RUNTIME, device="cpu") -> dict:
+    check_supported(cfg)
+    plan = make_layer_plan(cfg.num_layers, cfg.block_pattern)
+
+    def t(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+            device=device, dtype=rt.param_dtype)
+
+    def layer(d: dict) -> dict:
+        return {k: t(a) for k, a in d.items()}
+
+    layers = []
+    for p in range(plan.n_periods):
+        for pos in range(len(plan.period_kinds)):
+            layers.append(layer({k: a[p] for k, a in
+                                 np_tree["scan"][pos].items()}))
+    layers.extend(layer(d) for d in np_tree["tail"])
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: the tree holds {len(layers)} layers, "
+                         f"the config {cfg.num_layers}")
+    return {"embed": {k: t(a) for k, a in np_tree["embed"].items()},
+            "final_norm": t(np_tree["final_norm"]),
+            "layers": layers}

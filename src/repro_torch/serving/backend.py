@@ -1,0 +1,160 @@
+"""Execution backend for the offline serving engine (counterpart of
+``repro.serving.backend``; the local backend only).
+
+The engine owns the bookkeeping (queue, slots, page allocator, host page
+table, positions); the backend owns the device caches and the compute:
+
+  ``prefill_step(chunk)`` — run one :class:`PrefillChunk` (a fixed-shape
+        batch of prompt-token rows with their own page-table rows) and
+        return its :class:`PrefillResult`;
+  ``decode(mb, tokens, cur_pos, samp)`` — advance microbatch ``mb`` one
+        token and return its :class:`DecodeResult`;
+  ``set_page_table`` — push the engine's host table to the device.
+
+PyTorch runs eagerly, so ``_chunk_fn`` / ``_decode_fn`` are plain methods
+where the JAX package jits.  The ``PipelinedBackend`` of §4.3 comes with
+the pipeline slice of the port.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import model as model_lib
+from repro_torch.models.common import Runtime
+from repro_torch.serving import kv_cache as kvc
+from repro_torch.serving.sampler import (RowSampling, greedy, gumbel_noise,
+                                         sample_batched, token_logprobs)
+
+
+@dataclass
+class DecodeResult:
+    """One drained microbatch tick: ``tokens[i]`` is the next token for
+    slot ``mb * mb_size + i`` (the engine decides which rows are live)."""
+    mb: int
+    tokens: np.ndarray                  # (mb_size,) int32
+    logprobs: np.ndarray                # (mb_size,) f32, raw-logits logprob
+
+
+@dataclass
+class PrefillChunk:
+    """One per-tick prefill work unit: up to R rows of C prompt tokens,
+    shapes fixed by the engine (``prefill_rows`` x ``prefill_chunk``);
+    padded rows carry ``n_valid == 0``."""
+    tokens: np.ndarray                  # (R, C) int32
+    offsets: np.ndarray                 # (R,) int32 tokens already prefilled
+    n_valid: np.ndarray                 # (R,) int32 real tokens this chunk
+    lasts: np.ndarray                   # (R,) int32 within-chunk index of the
+                                        # final prompt token (-1: not final)
+    tables: np.ndarray                  # (R, max_pages) int32 table rows
+    seqs: list                          # engine-side SequenceState refs
+
+
+@dataclass
+class PrefillResult:
+    """A finished prefill chunk: ``logits[i]`` are row ``i``'s
+    last-position logits, meaningful only where ``chunk.lasts[i] >= 0``.
+    They stay on the device (the engine samples first tokens there)."""
+    chunk: PrefillChunk
+    logits: torch.Tensor                # (R, V) float32, on the device
+
+
+class LocalBackend:
+    """The single-device path: one model call per prefill chunk and one per
+    microbatch decode tick, over an ``mb_size`` row view of the caches."""
+
+    name = "local"
+
+    def __init__(self, cfg: ModelConfig, params: dict, rt: Runtime, *,
+                 mb_size: int, num_microbatches: int, pool: kvc.PoolConfig,
+                 device: torch.device):
+        self.cfg = cfg
+        self.params = params
+        self.rt = rt
+        self.mb_size = mb_size
+        self.num_microbatches = num_microbatches
+        self.batch = mb_size * num_microbatches
+        self.pool = pool
+        self.device = device
+        self.caches = kvc.build_paged_caches(cfg, self.batch, pool, rt, device)
+        self.noise_gen = torch.Generator(device=device)
+        self.decode_ticks = 0           # model decode calls (kernel ticks)
+
+    def set_page_table(self, table: np.ndarray) -> None:
+        self.caches = kvc.set_page_table(self.caches, table)
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # -- chunked prefill ---------------------------------------------------
+
+    def prefill_step(self, chunk: Optional[PrefillChunk]
+                     ) -> List[PrefillResult]:
+        if chunk is None:
+            return []
+        logits = self._chunk_fn(
+            self.params, self.caches, self._tensor(chunk.tokens),
+            self._tensor(chunk.offsets), self._tensor(chunk.n_valid),
+            self._tensor(chunk.lasts), self._tensor(chunk.tables),
+            cfg=self.cfg, rt=self.rt)
+        if self.device.type == "cuda":
+            # the chunk's work ends inside the engine's prefill phase, so
+            # its prefill/decode time split measures the card, not the queue
+            torch.cuda.synchronize(self.device)
+        return [PrefillResult(chunk=chunk, logits=logits)]
+
+    @staticmethod
+    def _chunk_fn(params, caches, tokens, offsets, n_valid, lasts, tables,
+                  *, cfg, rt):
+        """One prefill chunk: the model sees the chunk's own table rows
+        (the device-wide table keeps prefilling slots parked on the scratch
+        page until activation); pools are written in place."""
+        view = {"layers": caches["layers"], "page_table": tables}
+        logits, _ = model_lib.prefill_chunk(params, tokens, view, offsets,
+                                            n_valid, lasts, cfg, rt)
+        return logits
+
+    # -- decode --------------------------------------------------------------
+
+    def decode(self, mb: int, tokens: np.ndarray, cur_pos: np.ndarray,
+               samp: RowSampling, active: bool = True) -> List[DecodeResult]:
+        if not active:
+            return []
+        dev = self.device
+        sampled = samp.any_sampled
+        noise = gumbel_noise(samp, self.cfg.vocab_size, dev, self.noise_gen) \
+            if sampled else None
+        toks, lps = self._decode_fn(
+            self.params, self.caches, self._tensor(tokens),
+            self._tensor(cur_pos), mb * self.mb_size, noise,
+            self._tensor(samp.temp), self._tensor(samp.top_k),
+            self._tensor(samp.top_p), cfg=self.cfg, rt=self.rt,
+            mb_size=self.mb_size, sampled=sampled)
+        self.decode_ticks += 1
+        # the tick's one device-to-host transfer: the engine books the
+        # microbatch's tokens on the host
+        out = torch.stack([toks.float(), lps]).cpu().numpy()
+        return [DecodeResult(mb=mb, tokens=out[0].astype(np.int32),
+                             logprobs=out[1])]
+
+    @staticmethod
+    def _decode_fn(params, caches, tokens, cur_pos, row0, noise, temp, top_k,
+                   top_p, *, cfg, rt, mb_size, sampled):
+        """One decode tick over an ``mb_size`` row view of the caches; rows
+        outside the microbatch are untouched.  The view aliases the table
+        rows and the pools are written in place, so there is nothing to
+        merge back.  ``sampled`` (decided on the host) skips the truncation
+        pass when every row is greedy."""
+        view = kvc.slot_view(caches, row0, mb_size)
+        logits, _ = model_lib.decode_step(params, tokens, view, cur_pos, cfg,
+                                          rt)
+        if sampled:
+            toks = sample_batched(logits, noise, temp, top_k, top_p)
+        else:
+            toks = greedy(logits)
+        return toks, token_logprobs(logits, toks)

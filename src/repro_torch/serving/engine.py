@@ -1,0 +1,422 @@
+"""Offline serving engine with continuous batching and chunked prefill
+(counterpart of ``repro.serving.engine.OfflineEngine``, local backend).
+
+The engine owns ``N_B`` microbatches of ``mb_size`` decode slots.  Each
+step reaps finished sequences, runs one budgeted prefill chunk (up to
+``prefill_rows`` prompts x ``prefill_chunk`` tokens), and ticks one
+microbatch of decode, round-robin.  Prefilling slots stay parked on
+scratch page 0 in the device table (chunks carry their own table rows);
+a slot's real row is pushed when its prefill completes.  Idle rows decode
+greedily on page 0 and their results are discarded.
+
+Sampling is per request: each slot carries its temperature / top-k /
+top-p and a base seed derived from ``(seed, request_id)``; token ``t``'s
+noise comes from ``token_seed(base, t)`` (``serving.sampler``).
+
+Not in this slice (each later slice of the port brings its part): the
+offloader and global pools, the pipelined backend, fault plans, reshard,
+the prefix cache, SLO admission, the tracing recorder, the strict
+auditor, exact-length prefill and ``from_plan``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from collections import deque
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models.common import Runtime, resolve_device
+from repro_torch.models.model import check_supported
+from repro_torch.serving import kv_cache as kvc
+from repro_torch.serving.backend import (DecodeResult, LocalBackend,
+                                         PrefillChunk, PrefillResult)
+from repro_torch.serving.request import (EngineStats, Request, SamplingParams,
+                                         SequenceState, Status)
+from repro_torch.serving.sampler import (RowSampling, gumbel_noise,
+                                         request_seed, sample_batched,
+                                         token_logprobs)
+
+log = logging.getLogger(__name__)
+
+
+class OfflineEngine:
+    def __init__(self, cfg: ModelConfig, params: dict, rt: Runtime, *,
+                 mb_size: int = 4, num_microbatches: int = 1,
+                 pool: Optional[kvc.PoolConfig] = None,
+                 sampling: Optional[SamplingParams] = None, seed: int = 0,
+                 prefill_chunk: int = 0, max_prefill_tokens_per_tick: int = 0,
+                 device=None):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.params = params
+        self.rt = rt
+        self.device = resolve_device(device)
+        self.mb_size = mb_size
+        self.num_microbatches = num_microbatches
+        self.batch = mb_size * num_microbatches
+        self.pool = pool or kvc.PoolConfig()
+        self.default_sampling = sampling or SamplingParams()
+        self.seed = seed
+        self.backend = LocalBackend(cfg, params, rt, mb_size=mb_size,
+                                    num_microbatches=num_microbatches,
+                                    pool=self.pool, device=self.device)
+
+        self.alloc = kvc.PageAllocator(self.pool)
+        self.table = np.zeros((self.batch, self.pool.max_pages_per_seq),
+                              np.int32)
+        self.cur_pos = np.zeros((self.batch,), np.int32)   # next position
+        self.active = np.zeros((self.batch,), bool)
+        self.slots: List[Optional[SequenceState]] = [None] * self.batch
+        # per-slot sampling state (set at first token, benign when idle)
+        self.samp_keys = np.zeros((self.batch,), np.int64)
+        self.samp_temp = np.zeros((self.batch,), np.float32)
+        self.samp_top_k = np.zeros((self.batch,), np.int32)
+        self.samp_top_p = np.ones((self.batch,), np.float32)
+
+        cap = self.pool.max_pages_per_seq * self.pool.page_size
+        if not prefill_chunk:           # default chunk: 32 tokens, shrunk
+            prefill_chunk = min(32,     # to an explicit per-tick budget
+                                max_prefill_tokens_per_tick or 32)
+        self.prefill_chunk = min(cap, prefill_chunk)
+        if self.prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, "
+                             f"got {self.prefill_chunk}")
+        budget = max_prefill_tokens_per_tick or self.prefill_chunk
+        if budget < self.prefill_chunk:
+            raise ValueError(
+                f"max_prefill_tokens_per_tick={budget} < prefill_chunk="
+                f"{self.prefill_chunk}: the per-tick budget must fit at "
+                "least one chunk")
+        self.max_prefill_tokens_per_tick = budget
+        self.prefill_rows = max(1, budget // self.prefill_chunk)
+        self.prefilling: List[SequenceState] = []   # own a slot, not done
+        self._pending_activation: List[SequenceState] = []
+
+        self.queue: deque = deque()
+        self.finished: List[SequenceState] = []
+        self.stats = EngineStats()
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+
+    def submit(self, requests: List[Request]) -> List[SequenceState]:
+        cap = self.pool.max_pages_per_seq * self.pool.page_size
+        resolved = []
+        for r in requests:          # validate all before enqueueing any
+            sp = dataclasses.replace(r.sampling if r.sampling is not None
+                                     else self.default_sampling)
+            sp.validate()
+            resolved.append(sp)
+            if not r.prompt:
+                raise ValueError(f"request {r.request_id}: empty prompt")
+            if len(r.prompt) >= cap:
+                raise ValueError(
+                    f"request {r.request_id}: prompt length {len(r.prompt)} "
+                    f">= per-sequence KV capacity {cap} tokens "
+                    f"(max_pages_per_seq={self.pool.max_pages_per_seq} x "
+                    f"page_size={self.pool.page_size})")
+        now = time.perf_counter()
+        seqs = []
+        for r, sp in zip(requests, resolved):
+            seq = SequenceState(request=r, sampling=sp,
+                                submit_step=self.stats.steps, submit_time=now)
+            self.queue.append(seq)
+            seqs.append(seq)
+        self.stats.queue_depth = len(self.queue)
+        return seqs
+
+    def run(self, max_steps: int = 10_000) -> List[SequenceState]:
+        """Step until drained (or ``max_steps``); returns finished
+        sequences.  Exhausting the budget with work pending sets
+        ``stats.aborted``."""
+        self.stats.aborted = False
+        for _ in range(max_steps):
+            if not self.step():
+                return self.finished
+        if self.pending():
+            self.stats.aborted = True
+            log.warning("OfflineEngine.run(max_steps=%d) exhausted its step "
+                        "budget with %d request(s) pending", max_steps,
+                        len(self.pending()))
+        return self.finished
+
+    def pending(self) -> List[SequenceState]:
+        """Sequences submitted but not finished (queued or in a slot)."""
+        return [s for s in self.slots if s is not None] + list(self.queue)
+
+    def status_counts(self) -> Dict[str, int]:
+        counts = {s.value: 0 for s in Status}
+        for seq in self.pending():
+            counts[seq.status.value] += 1
+        counts[Status.FINISHED.value] += len(self.finished)
+        self.stats.status_counts = counts
+        return counts
+
+    def step(self) -> bool:
+        """One engine tick: reap finished, run one prefill chunk, tick one
+        microbatch.  Returns False when fully drained."""
+        t0 = time.perf_counter()
+        self._reap()
+        tp = time.perf_counter()
+        chunk = self._build_chunk()
+        for res in self.backend.prefill_step(chunk):
+            self._apply_prefill_result(res)
+        self._activate_ready()
+        tp2 = time.perf_counter()
+        self.stats.queue_depth = len(self.queue)
+        self.stats.prefill_time_s += tp2 - tp
+        if not any(s is not None for s in self.slots) and not self.queue:
+            self.stats.decode_time_s += tp - t0
+            self.stats.wall_time_s += time.perf_counter() - t0
+            return False
+        self._decode_microbatch(self.stats.steps % self.num_microbatches)
+        self.stats.steps += 1
+        t1 = time.perf_counter()
+        self.stats.decode_time_s += (tp - t0) + (t1 - tp2)
+        self.stats.wall_time_s += t1 - t0
+        return True
+
+    # ------------------------------------------------------------------
+    # slot management
+    # ------------------------------------------------------------------
+
+    def _mb_of_slot(self, slot: int) -> int:
+        return slot // self.mb_size
+
+    def _reap(self) -> None:
+        changed = False
+        now = time.perf_counter()
+        for slot, seq in enumerate(self.slots):
+            if seq is not None and seq.is_done():
+                seq.status = Status.FINISHED
+                seq.finish_step = self.stats.steps
+                seq.finish_time = now
+                self.finished.append(seq)
+                self.stats.finished_requests += 1
+                self.alloc.release(slot)
+                self.slots[slot] = None
+                self.active[slot] = False
+                self.table[slot] = 0            # park on scratch page 0
+                self.cur_pos[slot] = 0
+                self.samp_temp[slot] = 0.0      # idle rows decode greedily
+                self.samp_top_k[slot] = 0
+                self.samp_top_p[slot] = 1.0
+                self.samp_keys[slot] = 0
+                changed = True
+        if changed:
+            self.backend.set_page_table(self.table)
+
+    # ------------------------------------------------------------------
+    # chunked prefill
+    # ------------------------------------------------------------------
+
+    def _allocate_slot(self, seq: SequenceState, slot: int) -> None:
+        """Allocate the slot's full page budget and bind the sequence to it
+        (MemoryError with nothing bound on exhaustion).  The slot's real
+        table row is pushed only at activation."""
+        sp = seq.sampling
+        plen = seq.prompt_len
+        cap = self.pool.max_pages_per_seq * self.pool.page_size
+        n_pages = -(-min(plen + sp.max_new_tokens, cap) // self.pool.page_size)
+        self.alloc.allocate(slot, n_pages)
+        seq.slot = slot
+        seq.prefill_pos = 0
+        seq.status = Status.PREFILLING
+        seq.budget = min(sp.max_new_tokens, cap - plen)
+        self.slots[slot] = seq
+
+    def _build_chunk(self) -> Optional[PrefillChunk]:
+        """This tick's prefill work: continue partially prefilled sequences
+        first (FIFO), then admit queued prompts into free slots, up to
+        ``prefill_rows`` rows of ``prefill_chunk`` tokens.  Head-of-line
+        blocking on page exhaustion: the queue front retries next tick."""
+        rows_cap = self.prefill_rows
+        rows: List[SequenceState] = []
+        for seq in self.prefilling:
+            if len(rows) == rows_cap:
+                break
+            if not seq.chunk_inflight:
+                rows.append(seq)
+        if len(rows) < rows_cap and self.queue:
+            for slot in range(self.batch):
+                if not self.queue or len(rows) == rows_cap:
+                    break
+                if self.slots[slot] is not None:
+                    continue
+                seq = self.queue[0]
+                try:
+                    self._allocate_slot(seq, slot)
+                except MemoryError:
+                    break               # head-of-line retry next tick
+                self.queue.popleft()
+                self.prefilling.append(seq)
+                rows.append(seq)
+        if not rows:
+            return None
+
+        R, C = self.prefill_rows, self.prefill_chunk
+        tokens = np.zeros((R, C), np.int32)
+        offsets = np.zeros((R,), np.int32)
+        n_valid = np.zeros((R,), np.int32)
+        lasts = np.full((R,), -1, np.int32)
+        tables = np.zeros((R, self.pool.max_pages_per_seq), np.int32)
+        for i, seq in enumerate(rows):
+            prompt = seq.request.prompt
+            take = min(C, len(prompt) - seq.prefill_pos)
+            tokens[i, :take] = prompt[seq.prefill_pos:seq.prefill_pos + take]
+            offsets[i] = seq.prefill_pos
+            n_valid[i] = take
+            if seq.prefill_pos + take == len(prompt):
+                lasts[i] = take - 1
+            tables[i] = self.alloc.table_row(seq.slot)
+            seq.chunk_inflight = True
+        return PrefillChunk(tokens=tokens, offsets=offsets,
+                            n_valid=n_valid, lasts=lasts, tables=tables,
+                            seqs=rows)
+
+    def _apply_prefill_result(self, res: PrefillResult) -> None:
+        for i, seq in enumerate(res.chunk.seqs):
+            seq.chunk_inflight = False
+            take = int(res.chunk.n_valid[i])
+            seq.prefill_pos += take
+            self.stats.prefill_tokens += take
+            if seq.prefill_pos >= seq.prompt_len:
+                self._sample_first_token(seq, seq.slot, res.logits[i])
+                self.prefilling.remove(seq)
+                if not seq.is_done():       # finished at prefill: reap
+                    self._pending_activation.append(seq)  # without decoding
+
+    def _activate_ready(self) -> None:
+        """Push real page-table rows and activate completed prefills (the
+        local backend has no tick in flight, so none is held back)."""
+        if not self._pending_activation:
+            return
+        for seq in self._pending_activation:
+            self.table[seq.slot] = self.alloc.table_row(seq.slot)
+            seq.status = Status.DECODING
+            self.active[seq.slot] = True
+        self._pending_activation = []
+        self.backend.set_page_table(self.table)
+
+    def _sample_first_token(self, seq: SequenceState, slot: int,
+                            logits_row: torch.Tensor) -> None:
+        """Set the slot's sampling state and sample the request's first
+        token from its last-position prefill logits (token index 0), the
+        same path as every decode token."""
+        sp = seq.sampling
+        self.samp_keys[slot] = request_seed(self.seed, seq.request.request_id)
+        self.samp_temp[slot] = sp.temperature
+        self.samp_top_k[slot] = sp.top_k
+        self.samp_top_p[slot] = sp.top_p
+        samp = RowSampling(keys=self.samp_keys[slot:slot + 1].copy(),
+                           steps=np.zeros((1,), np.int32),
+                           temp=self.samp_temp[slot:slot + 1].copy(),
+                           top_k=self.samp_top_k[slot:slot + 1].copy(),
+                           top_p=self.samp_top_p[slot:slot + 1].copy())
+        dev = self.device
+        logits = logits_row[None]
+        noise = gumbel_noise(samp, logits.shape[-1], dev,
+                             self.backend.noise_gen)
+        first = sample_batched(
+            logits, noise, torch.from_numpy(samp.temp).to(dev),
+            torch.from_numpy(samp.top_k).to(dev),
+            torch.from_numpy(samp.top_p).to(dev))
+        first_lp = token_logprobs(logits, first)
+        # repro-audit: allow(host-sync) — first-token host booking, once per request at prefill completion
+        tok, lp = first[0].item(), first_lp[0].item()
+        if sp.logprobs:
+            seq.logprobs = [lp]
+        seq.generated.append(tok)
+        seq.first_token_time = time.perf_counter()   # engine-side TTFT mark
+        self.cur_pos[slot] = seq.prompt_len     # position of the first token
+        self.stats.decode_tokens += 1
+
+    # ------------------------------------------------------------------
+    # decode
+    # ------------------------------------------------------------------
+
+    def _row_sampling(self, lo: int, hi: int) -> RowSampling:
+        steps = np.zeros((hi - lo,), np.int32)
+        for i, slot in enumerate(range(lo, hi)):
+            seq = self.slots[slot]
+            if seq is not None:
+                steps[i] = len(seq.generated)   # index of the token sampled
+        return RowSampling(keys=self.samp_keys[lo:hi].copy(), steps=steps,
+                           temp=self.samp_temp[lo:hi].copy(),
+                           top_k=self.samp_top_k[lo:hi].copy(),
+                           top_p=self.samp_top_p[lo:hi].copy())
+
+    def _decode_microbatch(self, mb: int) -> None:
+        lo = mb * self.mb_size
+        hi = lo + self.mb_size
+        if not self.active[lo:hi].any():
+            return
+        tokens = np.zeros((self.mb_size,), np.int32)
+        for i, slot in enumerate(range(lo, hi)):
+            seq = self.slots[slot]
+            if seq is not None and seq.generated:
+                tokens[i] = seq.generated[-1]
+        live = self.active[lo:hi].copy()
+        results = self.backend.decode(mb, tokens, self.cur_pos[lo:hi],
+                                      self._row_sampling(lo, hi))
+        for res in results:
+            self._apply_result(res, live)
+
+    def _apply_result(self, res: DecodeResult, live: np.ndarray) -> None:
+        """Book one microbatch tick for the rows that were live at its
+        injection."""
+        lo = res.mb * self.mb_size
+        for i, slot in enumerate(range(lo, lo + self.mb_size)):
+            seq = self.slots[slot]
+            if seq is None or not live[i] or seq.is_done():
+                continue
+            seq.generated.append(int(res.tokens[i]))
+            if seq.logprobs is not None:
+                seq.logprobs.append(float(res.logprobs[i]))
+            self.cur_pos[slot] += 1
+            self.stats.decode_tokens += 1
+            need = self.cur_pos[slot] + 1
+            have = len(self.alloc.pages_of(slot)) * self.pool.page_size
+            if need > have:
+                self.alloc.extend(slot)
+                self.table[slot] = self.alloc.table_row(slot)
+                self.backend.set_page_table(self.table)
+
+    # ------------------------------------------------------------------
+
+    def throughput_report(self) -> dict:
+        lat_steps = [s.latency_steps for s in self.finished
+                     if s.latency_steps is not None]
+        lat_s = [s.latency_s for s in self.finished
+                 if s.latency_s is not None]
+        ttft = [s.ttft_s for s in self.finished if s.ttft_s is not None]
+        self.status_counts()
+        return {
+            "backend": self.backend.name,
+            "device": str(self.device),
+            "prefill_tokens": self.stats.prefill_tokens,
+            "decode_tokens": self.stats.decode_tokens,
+            "total_tokens": self.stats.total_tokens,
+            "finished": self.stats.finished_requests,
+            "steps": self.stats.steps,
+            "decode_ticks": self.backend.decode_ticks,
+            "wall_time_s": self.stats.wall_time_s,
+            "prefill_time_s": self.stats.prefill_time_s,
+            "decode_time_s": self.stats.decode_time_s,
+            "decode_tok_per_s": self.stats.decode_tok_per_s,
+            "prefill_tok_per_s": self.stats.prefill_tok_per_s,
+            "queue_depth": self.stats.queue_depth,
+            "status_counts": self.stats.status_counts,
+            "aborted": self.stats.aborted,
+            "mean_latency_steps":
+                float(np.mean(lat_steps)) if lat_steps else 0.0,
+            "mean_latency_s": float(np.mean(lat_s)) if lat_s else 0.0,
+            "mean_ttft_s": float(np.mean(ttft)) if ttft else 0.0,
+        }

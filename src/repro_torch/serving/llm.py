@@ -1,0 +1,199 @@
+"""Per-request generation front end: ``LLM`` / ``EngineConfig`` /
+``RequestOutput`` (counterpart of ``repro.serving.llm``).
+
+    llm = LLM("yi-9b", config=EngineConfig(mb_size=2, num_microbatches=2))
+    outs = llm.generate(prompts, SamplingParams(temperature=0.8, top_p=0.95))
+
+Runs on ``cuda`` unless ``device="cpu"`` is passed; with no GPU and no
+explicit CPU request it raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Union
+
+import torch
+
+from repro_torch.config import ModelConfig, get_arch, reduced_config
+from repro_torch.models import model as model_lib
+from repro_torch.models.common import Runtime, resolve_device
+from repro_torch.serving.engine import OfflineEngine
+from repro_torch.serving.kv_cache import PoolConfig
+from repro_torch.serving.request import (Request, SamplingParams,
+                                         SequenceState, Status)
+
+# Knobs of repro.serving.llm.EngineConfig whose machinery a later slice of
+# the port brings: field -> (value that asks for nothing, the slice).
+_LATER = {
+    "backend": ("local", "the pipeline slice (PipelinedBackend)"),
+    "n_stages": (2, "the pipeline slice (PipelinedBackend)"),
+    "mesh": (None, "the pipeline slice (PipelinedBackend)"),
+    "transport": (None, "the pipeline slice (inter-stage links)"),
+    "schedule": ("circular", "the pipeline slice (round_flush schedule)"),
+    "wire_dtype": ("fp32", "the pipeline slice (int8 wire codec)"),
+    "fault_plan": (None, "the resilience slice (fault plans and reshard)"),
+    "prefill_mode": ("auto", "the exact-length prefill slice"),
+    "prefix_cache": (False, "the online-serving slice (prefix cache)"),
+    "slo": (None, "the online-serving slice (SLO admission)"),
+    "trace": (None, "the tracing slice (flight recorder)"),
+    "strict": (None, "the audit slice (strict invariant auditor)"),
+    "plan_args": (None, "the offload and planning slice (EngineConfig.plan)"),
+}
+
+
+@dataclass
+class EngineConfig:
+    """Everything needed to build an :class:`OfflineEngine`, validated.
+
+    The fields of ``repro.serving.llm.EngineConfig`` that this slice does
+    not serve are kept so that a config asking for one fails loudly: any
+    value other than the default raises ``NotImplementedError`` naming
+    the slice that will bring it (``_LATER``).  ``prefill_mode="chunked"``
+    is the path this slice runs and is accepted."""
+    mb_size: int = 4                  # sequences per microbatch
+    num_microbatches: int = 1         # N_B
+    pool: Optional[PoolConfig] = None
+    seed: int = 0
+    prefill_chunk: int = 0            # tokens per chunk (0 = 32)
+    max_prefill_tokens_per_tick: int = 0   # per-tick budget (0 = one chunk)
+    backend: str = "local"
+    n_stages: int = 2
+    mesh: Optional[object] = None
+    transport: Optional[object] = None
+    schedule: str = "circular"
+    wire_dtype: str = "fp32"
+    fault_plan: Optional[object] = None
+    prefill_mode: str = "auto"
+    prefix_cache: bool = False
+    slo: Optional[object] = None
+    trace: object = None
+    strict: Optional[bool] = None
+    plan_args: Optional[dict] = None
+
+    def __post_init__(self) -> None:
+        for name, (default, slice_) in _LATER.items():
+            value = getattr(self, name)
+            if name == "prefill_mode" and value == "chunked":
+                continue
+            if value != default:
+                raise NotImplementedError(
+                    f"EngineConfig({name}={value!r}) is not ported yet: it "
+                    f"comes with {slice_}")
+        if self.pool is not None and self.pool.n_global_pages:
+            raise NotImplementedError(
+                "global page pools and their offloader come with the "
+                "offload slice")
+        if self.mb_size < 1:
+            raise ValueError(f"mb_size must be >= 1, got {self.mb_size}")
+        if self.num_microbatches < 1:
+            raise ValueError("num_microbatches must be >= 1, "
+                             f"got {self.num_microbatches}")
+        if self.prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0, "
+                             f"got {self.prefill_chunk}")
+        if self.max_prefill_tokens_per_tick < 0:
+            raise ValueError("max_prefill_tokens_per_tick must be >= 0, "
+                             f"got {self.max_prefill_tokens_per_tick}")
+
+    def build(self, cfg: ModelConfig, params: dict, rt: Runtime,
+              device=None) -> OfflineEngine:
+        return OfflineEngine(
+            cfg, params, rt, mb_size=self.mb_size,
+            num_microbatches=self.num_microbatches,
+            pool=self.pool or PoolConfig(), seed=self.seed,
+            prefill_chunk=self.prefill_chunk,
+            max_prefill_tokens_per_tick=self.max_prefill_tokens_per_tick,
+            device=device)
+
+
+@dataclass
+class RequestOutput:
+    """What a caller gets back for one request — no engine internals."""
+    request_id: int
+    prompt: List[int]
+    token_ids: List[int]
+    finished: bool
+    finish_reason: Optional[str]      # "eos" | "length" | "page_budget"
+    status: str
+    logprobs: Optional[List[float]] = None
+    latency_steps: Optional[int] = None
+    latency_s: Optional[float] = None
+    ttft_s: Optional[float] = None
+
+    @classmethod
+    def from_seq(cls, seq: SequenceState) -> "RequestOutput":
+        reason = seq.finish_reason()
+        done = seq.status is Status.FINISHED
+        return cls(
+            request_id=seq.request.request_id,
+            prompt=list(seq.request.prompt),
+            token_ids=list(seq.generated),
+            finished=done,
+            finish_reason=reason.value if reason is not None and done
+            else None,
+            status=seq.status.value,
+            logprobs=list(seq.logprobs) if seq.logprobs is not None else None,
+            latency_steps=seq.latency_steps,
+            latency_s=seq.latency_s,
+            ttft_s=seq.ttft_s)
+
+
+class LLM:
+    """Front door for offline generation.
+
+    ``model`` is an arch name (``"yi-9b"``) or a :class:`ModelConfig`.  By
+    default the registered arch is shrunk with ``reduced_config`` and the
+    weights are random from ``config.seed``; pass ``reduced=False`` and/or
+    ``params=`` for real deployments.  ``device`` defaults to ``cuda``."""
+
+    def __init__(self, model: Union[str, ModelConfig], *,
+                 config: Optional[EngineConfig] = None,
+                 params: Optional[dict] = None, rt: Optional[Runtime] = None,
+                 reduced: bool = True, device=None):
+        cfg = get_arch(model) if isinstance(model, str) else model
+        if reduced and isinstance(model, str):
+            cfg = reduced_config(cfg)
+        self.config = config or EngineConfig()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.rt = rt or Runtime(param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+        if params is None:
+            params = model_lib.init_params(cfg, self.config.seed, self.rt,
+                                           self.device)
+        self.params = params
+        self.engine = self.config.build(cfg, params, self.rt, self.device)
+        self._next_id = 0
+
+    def _make_requests(self, prompts: Sequence[Sequence[int]],
+                       sampling_params) -> List[Request]:
+        if sampling_params is None:
+            sampling_params = self.engine.default_sampling
+        if isinstance(sampling_params, SamplingParams):
+            sampling_params = [sampling_params] * len(prompts)
+        if len(sampling_params) != len(prompts):
+            raise ValueError(f"got {len(prompts)} prompts but "
+                             f"{len(sampling_params)} sampling_params")
+        reqs = []
+        for p, sp in zip(prompts, sampling_params):
+            reqs.append(Request(self._next_id, [int(t) for t in p],
+                                dataclasses.replace(sp)))
+            self._next_id += 1
+        return reqs
+
+    def generate(self, prompts: Sequence[Sequence[int]],
+                 sampling_params: Union[SamplingParams,
+                                        Sequence[SamplingParams],
+                                        None] = None, *,
+                 max_steps: int = 100_000) -> List[RequestOutput]:
+        """Generate to completion for every prompt; one
+        :class:`RequestOutput` per prompt, in prompt order."""
+        seqs = self.engine.submit(self._make_requests(prompts,
+                                                      sampling_params))
+        self.engine.run(max_steps=max_steps)
+        return [RequestOutput.from_seq(s) for s in seqs]
+
+    def stats(self) -> Dict:
+        return self.engine.throughput_report()

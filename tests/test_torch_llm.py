@@ -1,0 +1,144 @@
+"""``repro_torch.serving.llm.LLM`` end to end against ``repro.serving.llm.LLM``.
+
+Both front ends serve the same prompts on the same weights (the JAX
+package's ``init_params``, carried across with ``from_jax_params``), in
+float32 on the CPU, through the same chunked-prefill schedule.  Greedy
+streams must be identical token for token.  Sampled streams cannot be
+compared across the two (``jax.random`` and ``torch.Generator`` draw
+different noise), so they are checked for shape here and for layout
+invariance inside the port.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# tiny tensors: one intra-op thread is as fast, and leaves the cores to
+# the other test workers
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.config import get_arch as jax_get_arch  # noqa: E402
+from repro.config import reduced_config as jax_reduced  # noqa: E402
+from repro.models import model as jax_model  # noqa: E402
+from repro.models.common import Runtime as JaxRuntime  # noqa: E402
+from repro.serving import llm as jax_llm  # noqa: E402
+from repro.serving.kv_cache import PoolConfig as JaxPool  # noqa: E402
+from repro.serving.request import SamplingParams as JaxSP  # noqa: E402
+from repro_torch.config import get_arch, reduced_config  # noqa: E402
+from repro_torch.models.common import Runtime  # noqa: E402
+from repro_torch.models.convert import from_jax_params  # noqa: E402
+from repro_torch.serving import llm  # noqa: E402
+from repro_torch.serving.kv_cache import PoolConfig  # noqa: E402
+from repro_torch.serving.request import SamplingParams  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+JRT = JaxRuntime(param_dtype=jnp.float32, compute_dtype=jnp.float32)
+TRT = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
+VARIANTS = {"reduced": {},
+            "hd64": dict(num_heads=8, num_kv_heads=2, head_dim=64)}
+POOL = dict(page_size=8, n_local_pages=64, max_pages_per_seq=16)
+MAX_NEW = 8
+# prompt lengths around and past the 32-token default chunk
+LENGTHS = (40, 7, 70, 12, 33, 5)
+# (temperature, top_k, top_p) per request; even requests greedy
+POLICIES = [(0.0, 0, 1.0), (0.8, 0, 1.0), (0.0, 0, 1.0), (1.0, 20, 1.0),
+            (0.0, 0, 1.0), (0.9, 0, 0.9)]
+
+
+def setup(variant):
+    kw = VARIANTS[variant]
+    jcfg = dataclasses.replace(jax_reduced(jax_get_arch("yi-9b")), **kw)
+    tcfg = dataclasses.replace(reduced_config(get_arch("yi-9b")), **kw)
+    jparams = jax_model.init_params(jcfg, jax.random.PRNGKey(0), JRT)
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, TRT)
+    rng = np.random.RandomState(1)
+    prompts = [list(rng.randint(1, tcfg.vocab_size, n)) for n in LENGTHS]
+    return jcfg, tcfg, jparams, tparams, prompts
+
+
+def port_llm(tcfg, tparams, mb, n_mb):
+    cfg = llm.EngineConfig(mb_size=mb, num_microbatches=n_mb,
+                           pool=PoolConfig(**POOL))
+    return llm.LLM(tcfg, config=cfg, params=tparams, rt=TRT, device="cpu")
+
+
+def sampling(cls, mixed):
+    return [cls(temperature=t if mixed else 0.0, top_k=k if mixed else 0,
+                top_p=p if mixed else 1.0, max_new_tokens=MAX_NEW)
+            for t, k, p in POLICIES]
+
+
+@pytest.mark.parametrize("variant,mb,n_mb,mixed", [
+    ("reduced", 2, 1, False),
+    ("reduced", 2, 1, True),
+    ("reduced", 2, 2, True),
+    ("hd64", 2, 1, True),
+    ("hd64", 2, 2, True),
+])
+def test_greedy_streams_match_jax(variant, mb, n_mb, mixed):
+    jcfg, tcfg, jparams, tparams, prompts = setup(variant)
+    jax_cfg = jax_llm.EngineConfig(mb_size=mb, num_microbatches=n_mb,
+                                   pool=JaxPool(**POOL))
+    want = jax_llm.LLM(jcfg, config=jax_cfg, params=jparams, rt=JRT
+                       ).generate(prompts, sampling(JaxSP, mixed))
+    got = port_llm(tcfg, tparams, mb, n_mb).generate(
+        prompts, sampling(SamplingParams, mixed))
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.finished and w.finished
+        assert len(g.token_ids) == len(w.token_ids) == MAX_NEW
+        assert all(0 <= t < tcfg.vocab_size for t in g.token_ids)
+        if sampling(SamplingParams, mixed)[i].temperature <= 0:
+            assert g.token_ids == w.token_ids, f"request {i}"
+
+
+def test_sampled_stream_does_not_depend_on_batch_layout():
+    _, tcfg, _, tparams, prompts = setup("reduced")
+    sps = sampling(SamplingParams, True)
+    a = port_llm(tcfg, tparams, 1, 1).generate(prompts, sps)
+    b = port_llm(tcfg, tparams, 2, 2).generate(prompts, sps)
+    assert [o.token_ids for o in a] == [o.token_ids for o in b]
+    assert a[1].token_ids != a[0].token_ids     # sampling did something
+
+
+@pytest.mark.parametrize("knob", [
+    dict(backend="pipelined"), dict(prefix_cache=True), dict(strict=True),
+    dict(prefill_mode="exact"), dict(trace=True),
+    dict(pool=PoolConfig(n_global_pages=4)),
+])
+def test_later_slice_knobs_raise(knob):
+    with pytest.raises(NotImplementedError, match="slice"):
+        llm.EngineConfig(**knob)
+
+
+def test_entry_points_never_fall_back_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is legitimate")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        llm.LLM("yi-9b")
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = (
+        "import pkgutil, importlib, sys, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.startswith("ok")

@@ -1,0 +1,218 @@
+"""The port's decoder (``repro_torch.models.model``) against the JAX
+package's (``repro.models.model``) on the same weights and inputs.
+
+Weights come from ``repro.models.model.init_params`` and are carried
+across with ``repro_torch.models.convert.from_jax_params``.  Both sides run
+in float32 on the CPU; logits agree within ``1e-4`` (the two frameworks
+sum matmuls, softmaxes and RoPE angles in another order, and on the
+Pallas route the kernel sums per block of pages).  The ``head_dim=64``
+variant sends the JAX side through the Pallas paged kernel (interpret
+mode) and the port through its plain paged attention.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# tiny tensors: one intra-op thread is as fast, and leaves the cores to
+# the other test workers
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.config import get_arch as jax_get_arch  # noqa: E402
+from repro.config import reduced_config as jax_reduced  # noqa: E402
+from repro.models import model as jax_model  # noqa: E402
+from repro.models.common import Runtime as JaxRuntime  # noqa: E402
+from repro.serving import kv_cache as jax_kv  # noqa: E402
+from repro_torch.config import get_arch, reduced_config  # noqa: E402
+from repro_torch.models import model as tmodel  # noqa: E402
+from repro_torch.models.common import Runtime  # noqa: E402
+from repro_torch.models.convert import from_jax_params  # noqa: E402
+from repro_torch.serving import kv_cache as tkv  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+TOL = 1e-4
+JRT = JaxRuntime(param_dtype=jnp.float32, compute_dtype=jnp.float32)
+TRT = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
+# reduced yi-9b (head_dim 16: the JAX router takes its jnp reference), and
+# 8 heads over 2 KV heads at head_dim 64 (the JAX router takes Pallas)
+VARIANTS = {"reduced": {},
+            "hd64": dict(num_heads=8, num_kv_heads=2, head_dim=64)}
+
+
+def configs(variant):
+    kw = VARIANTS[variant]
+    return (dataclasses.replace(jax_reduced(jax_get_arch("yi-9b")), **kw),
+            dataclasses.replace(reduced_config(get_arch("yi-9b")), **kw))
+
+
+def weights(jcfg, tcfg, seed=0):
+    params = jax_model.init_params(jcfg, jax.random.PRNGKey(seed), JRT)
+    return params, from_jax_params(jax.tree.map(np.asarray, params), tcfg,
+                                   TRT)
+
+
+POOL = dict(page_size=8, n_local_pages=16, max_pages_per_seq=4)
+
+
+def jax_pools(jcfg, table):
+    pool = jax_kv.PoolConfig(**POOL)
+    caches = jax_kv.build_paged_caches(jcfg, table.shape[0], pool, JRT)
+    return jax_kv.set_page_table(caches, table)
+
+
+def torch_pools(tcfg, table):
+    pool = tkv.PoolConfig(**POOL)
+    caches = tkv.build_paged_caches(tcfg, table.shape[0], pool, TRT)
+    return tkv.set_page_table(caches, table)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_prefill_chunks_then_decode_match_jax(variant):
+    jcfg, tcfg = configs(variant)
+    jparams, tparams = weights(jcfg, tcfg)
+    rng = np.random.RandomState(0)
+    table = np.asarray([[1, 2, 3, 4], [5, 6, 7, 8]], np.int32)
+    jc, tc = jax_pools(jcfg, table), torch_pools(tcfg, table)
+    prompts = [rng.randint(1, jcfg.vocab_size, 13), rng.randint(1, 50, 5)]
+    C = 8
+    offsets = np.zeros(2, np.int32)
+    logits = {}
+    # two chunks: row 0 takes 8 then 5 tokens; row 1 takes 5 (3 pad
+    # positions), then sits out the second chunk as a padding row
+    for step in range(2):
+        tokens = np.zeros((2, C), np.int32)
+        n_valid = np.zeros(2, np.int32)
+        lasts = np.full(2, -1, np.int32)
+        for r, p in enumerate(prompts):
+            take = max(0, min(C, len(p) - offsets[r]))
+            tokens[r, :take] = p[offsets[r]:offsets[r] + take]
+            n_valid[r] = take
+            if take and offsets[r] + take == len(p):
+                lasts[r] = take - 1
+        jl, jc = jax_model.prefill_chunk(
+            jparams, jnp.asarray(tokens), jc, jnp.asarray(offsets),
+            jnp.asarray(n_valid), jnp.asarray(lasts), jcfg, JRT)
+        tl, tc = tmodel.prefill_chunk(
+            tparams, _t(tokens), tc, _t(offsets), _t(n_valid), _t(lasts),
+            tcfg, TRT)
+        for r in range(2):
+            if lasts[r] >= 0:
+                np.testing.assert_allclose(tl[r].numpy(), np.asarray(jl[r]),
+                                           rtol=TOL, atol=TOL)
+                logits[r] = tl[r]
+        offsets += n_valid
+    # the pools the two sides wrote agree where rows own pages
+    for i, layer in enumerate(tc["layers"]):
+        for name in ("k_pages", "v_pages"):
+            np.testing.assert_allclose(
+                layer[name][1:9].numpy(),
+                np.asarray(jc["scan"][0][name][i][1:9]), rtol=TOL, atol=TOL)
+    # three decode steps, greedy, from the prefill logits
+    cur = np.asarray([len(p) for p in prompts], np.int32)
+    toks = np.asarray([int(logits[r].argmax()) for r in range(2)], np.int32)
+    for _ in range(3):
+        jl, jc = jax_model.decode_step(jparams, jnp.asarray(toks), jc,
+                                       jnp.asarray(cur), jcfg, JRT)
+        tl, tc = tmodel.decode_step(tparams, _t(toks), tc, _t(cur), tcfg, TRT)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
+                                   atol=TOL)
+        toks = np.asarray(tl.argmax(-1), np.int32)
+        assert (toks == np.asarray(jnp.argmax(jl, -1))).all()
+        cur = cur + 1
+
+
+def test_pad_positions_drop_their_kv_writes():
+    """Positions marked -1 write nothing: every pool entry other than the
+    valid positions' (page, offset) keeps its value bit for bit."""
+    jcfg, tcfg = configs("reduced")
+    _, tparams = weights(jcfg, tcfg)
+    table = np.asarray([[1, 2, 3, 4], [5, 6, 7, 8], [0, 0, 0, 0]], np.int32)
+    tc = torch_pools(tcfg, table)
+    gen = torch.Generator().manual_seed(0)
+    for layer in tc["layers"]:
+        for name in ("k_pages", "v_pages"):
+            layer[name].copy_(torch.randn(layer[name].shape, generator=gen))
+    before = [{n: t.clone() for n, t in layer.items()}
+              for layer in tc["layers"]]
+    tokens = torch.randint(1, tcfg.vocab_size, (3, 8), generator=gen)
+    offsets = torch.tensor([3, 10, 0], dtype=torch.int32)
+    n_valid = torch.tensor([2, 8, 0], dtype=torch.int32)   # row 2: all pad
+    lasts = torch.tensor([1, -1, -1], dtype=torch.int32)
+    tmodel.prefill_chunk(tparams, tokens, tc, offsets, n_valid, lasts, tcfg,
+                         TRT)
+    written = {(1, 3), (1, 4)} | {(5 + p // 8, p % 8) for p in range(10, 18)}
+    for layer, old in zip(tc["layers"], before):
+        for name in ("k_pages", "v_pages"):
+            changed = (layer[name] != old[name]).flatten(2).any(-1)
+            got = {tuple(ix) for ix in changed.nonzero().tolist()}
+            assert got == written, name
+
+
+def test_unported_layer_kinds_raise():
+    base = reduced_config(get_arch("yi-9b"))
+    for kinds in (("local", "global"), ("rglru", "attn")):
+        cfg = dataclasses.replace(base, block_pattern=kinds)
+        with pytest.raises(NotImplementedError, match="slice"):
+            tmodel.init_params(cfg, 0, TRT)
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_plain_attention_matches_jax(window):
+    """``chunk_attention`` and ``decode_attention`` against
+    ``repro.models.attention`` on the same random inputs (float32, 1e-5:
+    only the summation order differs)."""
+    from repro.models import attention as jax_attn
+    from repro_torch.models import attention as tattn
+    rng = np.random.RandomState(window)
+    b, c, t, h, hk, dh = 2, 4, 12, 8, 2, 16
+    q = rng.randn(b, c, h, dh).astype(np.float32)
+    k = rng.randn(b, t, hk, dh).astype(np.float32)
+    v = rng.randn(b, t, hk, dh).astype(np.float32)
+    q_pos = np.asarray([[6, 7, 8, 9], [0, 1, -1, -1]], np.int32)
+    want = jax_attn.chunk_attention(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), jnp.arange(t),
+                                    jnp.asarray(q_pos), window=window)
+    got = tattn.chunk_attention(_t(q), _t(k), _t(v), torch.arange(t),
+                                _t(q_pos), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    slot_pos = np.where(np.arange(t)[None] < [[9], [12]], np.arange(t),
+                        -1).astype(np.int32)
+    cur = np.asarray([8, 11], np.int32)
+    want = jax_attn.decode_attention(jnp.asarray(q[:, 0]), jnp.asarray(k),
+                                     jnp.asarray(v), jnp.asarray(slot_pos),
+                                     jnp.asarray(cur), window=window)
+    got = tattn.decode_attention(_t(q[:, 0]), _t(k), _t(v), _t(slot_pos),
+                                 _t(cur), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_rope_and_rms_norm_match_jax():
+    """RoPE rotates split halves with float64 frequencies cast to float32;
+    RMSNorm scales by ``1 + w``.  Both against ``repro.models.common``."""
+    from repro.models import common as jax_common
+    from repro_torch.models import common as tcommon
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 5, 4, 64).astype(np.float32)
+    pos = rng.randint(0, 4000, (2, 5)).astype(np.int32)
+    want = jax_common.apply_rope(jnp.asarray(x), jnp.asarray(pos), 5e6)
+    got = tcommon.apply_rope(_t(x), _t(pos), 5e6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    w = (0.1 * rng.randn(64)).astype(np.float32)
+    want = jax_common.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-6)
+    got = tcommon.rms_norm(_t(x), _t(w), 1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
