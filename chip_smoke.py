@@ -1,30 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
-2. the build: ``src/repro_torch/kernels/csrc/paged_attention.cu``
-   compiled with ``nvcc``;
-3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (yi-9b: B=16, H=32, Hk=4, Dh=128, page 16, up to 2048
-   tokens, a zero-length row, NaN in every page no row owns) in bf16
-   (within one bf16 ulp: ``rtol = 2**-7``, ``atol = 1e-5``) and float32
-   (``atol = rtol = 1e-5``), a sliding window, the serve phase's own
-   batch, table and pool shapes, a sweep of G, Dh and page size, and page
-   ids outside the pool; then times: kernel, plain
+2. the build: every ``src/repro_torch/kernels/csrc/*.cu`` compiled with
+   ``nvcc``, one process per source, all started together;
+3. the paged decode kernel against its plain PyTorch version on the card,
+   at the main paths' shapes (yi-9b: B=16, H=32, Hk=4, Dh=128, page 16, up
+   to 2048 tokens, a zero-length row, NaN in every page no row owns;
+   gemma3-12b's global layers: B=16, H=16, Hk=8, Dh=256, up to 2080
+   tokens) in bf16 (within one bf16 ulp: ``rtol = 2**-7``, ``atol =
+   1e-5``) and float32 (``atol = rtol = 1e-5``), a sliding window, the yi-9b
+   serve phase's own batch, table and pool shapes, a sweep of G, Dh and
+   page size, and page ids outside the pool; then times: kernel, plain
    version, ``scaled_dot_product_attention`` over the gathered KV (a
    yardstick the port never calls) and the least time the card could take;
-4. end-to-end parity: a 2-layer model with yi-9b's head layout in float32,
-   served by the port on the CPU (plain path) and on the card (kernel
-   path); greedy streams must be identical;
-5. the serve phase: ``repro_torch.serving.llm.LLM`` on full-width,
+4. the flash-attention kernel against its plain version at gemma3-12b's
+   prefill shapes (B=1, H=16, Hk=8, Dh=256, S from 8 to 2048, causal, with
+   and without the 1024-token window), a sweep of Dh, G, non-causal and
+   Sq != Skv, bf16 and float32 with the same tolerances, every K/V the
+   first Skv rows of a tensor whose tail is NaN; then the same four times;
+5. end-to-end parity, float32, served by the port on the CPU (plain path)
+   and on the card (kernel path), greedy streams identical: a 2-layer model
+   with yi-9b's head layout (chunked prefill, paged kernel), and a 4-layer
+   ``(local, global)`` model at head_dim 64 with a 32-token window (exact
+   prefill through the flash kernel, rings, paged kernel), prompts past the
+   window;
+6. the yi-9b serve phase: ``repro_torch.serving.llm.LLM`` on full-width,
    full-depth yi-9b in bf16 with random weights from the seed, 20 requests
    of 64-768 prompt tokens and 32 new tokens, greedy and sampled mixed;
    every request must finish at full length with finite log-probs, and the
-   kernel's launch count must equal decode ticks x 48.
+   paged kernel's launch count must equal decode ticks x 48;
+7. the gemma3 serve phase: full-width, full-depth gemma3-12b in bf16 (48
+   layers, 5 local : 1 global), 20 requests of 256-2048 prompt tokens, 32
+   new tokens each; ``prefill_mode="auto"`` must pick exact-length
+   prefill, every request must finish at full length with finite
+   log-probs, the flash kernel must run 20 x 48 times and the paged kernel
+   decode ticks x 8 times.
 
 It prints a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.  It exits non-zero without a
@@ -48,6 +63,7 @@ HBM_BYTES_PER_S = 3.35e12             # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core bf16
               "float32": 67e12}       # float32 outside the tensor cores
 YI_LAYERS = 48
+KERNELS = ("paged_attention", "flash_attention")
 # kernel against plain version, (atol, rtol).  Both compute in float32 and
 # round once to the output dtype, so bf16 outputs differ by at most one
 # bf16 ulp (2**-7 of the value) where the float32 results straddle a
@@ -58,6 +74,12 @@ TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2 ** -7)}
 SERVE_MB, SERVE_N_MB, SERVE_PAGE, SERVE_MAX_PAGES = 16, 1, 16, 64
 SERVE_POOL_PAGES = SERVE_MB * SERVE_N_MB * SERVE_MAX_PAGES + 1
 SERVE_REQUESTS, SERVE_PROMPTS, SERVE_NEW = 20, (64, 768), 32
+# the gemma3-12b serve phase (phases 3 and 4 check the kernels at its
+# decode and prefill shapes)
+GEMMA_MB, GEMMA_PAGE, GEMMA_MAX_PAGES = 16, 16, 136        # 2,176 tokens
+GEMMA_POOL_PAGES = GEMMA_MB * GEMMA_MAX_PAGES + 1
+GEMMA_REQUESTS, GEMMA_PROMPTS, GEMMA_NEW = 20, (256, 2048), 32
+FLASH_LENGTHS = (8, 100, 1023, 1024, 1500, 2048)
 
 
 def log(msg: str) -> None:
@@ -154,15 +176,21 @@ def phase_card(torch):
 
 def phase_build():
     from repro_torch.kernels import build
-    info = build.build("paged_attention")
-    regs = [ln.strip() for ln in info.log.splitlines() if "registers" in ln]
-    log(f"[build] paged_attention: {info.seconds:.2f}s nvcc"
-        f"{' (cached)' if info.cached else ''} -> {info.path.name}; "
-        f"{len(regs)} kernel instances, e.g. {regs[-1] if regs else '-'}")
-    build.load("paged_attention")
+    t0 = time.perf_counter()
+    infos = build.build_many(KERNELS)
+    wall = time.perf_counter() - t0
+    for name in KERNELS:
+        info = infos[name]
+        regs = [ln.strip() for ln in info.log.splitlines()
+                if "registers" in ln]
+        log(f"[build] {name}: {info.seconds:.2f}s nvcc"
+            f"{' (cached)' if info.cached else ''} -> {info.path.name}; "
+            f"{len(regs)} kernel instances, e.g. {regs[-1] if regs else '-'}")
+        build.load(name)
+    log(f"[build] {len(KERNELS)} sources in parallel: {wall:.2f}s wall")
 
 
-def phase_kernel(torch, np):
+def phase_kernel_paged(torch, np):
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     dev = torch.device("cuda")
@@ -211,8 +239,22 @@ def phase_kernel(torch, np):
         kp[0, 0], vp[0, 0] = torch.randn((2, HK, DH), device=dev).to(dtype)
         check(f"serve-phase shapes {name} (table {tuple(pt.shape)}, pool "
               f"{tuple(kp.shape)})", args, 0)
+    # gemma3-12b's global layers at its serve phase's decode shape: 16
+    # rows, 16 heads over 8 kv heads of 256, table 136 pages, up to 2,080
+    # tokens (2,048 of prompt + 32 new)
+    gl = rng.randint(GEMMA_PROMPTS[0], GEMMA_PROMPTS[1] + GEMMA_NEW + 1,
+                     GEMMA_MB)
+    gl[2] = GEMMA_PROMPTS[1] + GEMMA_NEW
+    gemma = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = paged_case(torch, np, rng, b=GEMMA_MB, h=16, hk=8, dh=256,
+                          page=GEMMA_PAGE, max_pages=GEMMA_MAX_PAGES,
+                          lens=gl, dtype=dtype, device=dev)
+        name = str(dtype).split(".")[-1]
+        gemma[name] = args
+        check(f"gemma3-12b decode shapes {name}", args, 0)
     for g in (1, 2, 4, 8):
-        for dh in (64, 128):
+        for dh in (64, 128, 256):
             for page in (8, 16, 32):
                 sl = rng.randint(1, 8 * page + 1, 4)
                 sl[2] = 0
@@ -268,14 +310,146 @@ def phase_kernel(torch, np):
         f"plain_ms={plain_ms:.4f} library_ms(sdpa)={library_ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({bound_by}); "
         f"kernel at {bound_ms / ms:.1%} of the bound")
+
+    # the same four times at gemma3-12b's decode shape
+    q, kp, vp, pt, sl = gemma["bfloat16"]
+    c = GEMMA_MAX_PAGES * GEMMA_PAGE
+    g_ms = time_ms(torch, lambda: pa.paged_decode_attention(q, kp, vp, pt,
+                                                            sl), 50, flush)
+    g_plain = time_ms(torch, lambda: ref.paged_decode_attention_ref(
+        q, kp, vp, pt, sl), 20, flush)
+    pos = torch.arange(c, device=dev)
+    mask = (pos[None] < sl[:, None].long())[:, None, None, :]
+    kg = torch.nan_to_num(kp[pt.long()].reshape(GEMMA_MB, c, 8, 256)
+                          ).transpose(1, 2).contiguous()
+    vg = torch.nan_to_num(vp[pt.long()].reshape(GEMMA_MB, c, 8, 256)
+                          ).transpose(1, 2).contiguous()
+    g_lib = time_ms(torch, lambda: sdpa(q[:, :, None, :], kg, vg,
+                                        attn_mask=mask, enable_gqa=True),
+                    50, flush)
+    g_bound, g_by = bound(sl.tolist(), 0, 16, 8, 256, 2, "bfloat16",
+                          GEMMA_MB, GEMMA_MAX_PAGES)
+    log(f"[kernel] times at gemma3-12b decode B={GEMMA_MB} H=16 Hk=8 "
+        f"Dh=256 page={GEMMA_PAGE} tokens={int(sl.sum())} bf16, cold L2: "
+        f"kernel_ms={g_ms:.4f} plain_ms={g_plain:.4f} "
+        f"library_ms(sdpa)={g_lib:.4f} bound_ms={g_bound:.4f} ({g_by}); "
+        f"kernel at {g_bound / g_ms:.1%} of the bound")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms,
+            "gemma3_decode": {"ms": g_ms, "plain_ms": g_plain,
+                              "bound_ms": g_bound, "bound_by": g_by,
+                              "library_ms": g_lib}}
+
+
+def flash_bound(sq, skv, causal, window, h, hk, dh, esize, dtype_name):
+    """Least time for the work: the live (query, key) pairs cost 4 * Dh
+    flops a head over the peak rate of the dtype; q, k, v read once and the
+    output written once over the memory rate.  The larger wins."""
+    live = 0                                  # visible (query, key) pairs
+    for i in range(sq):
+        hi = min(i, skv - 1) if causal else skv - 1
+        lo = max(0, i - window + 1) if window > 0 else 0
+        live += max(0, hi - lo + 1)
+    flops = 4 * dh * h * live
+    nbytes = (2 * sq * h * dh + 2 * skv * hk * dh) * esize
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_kernel_flash(torch, np):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    torch.manual_seed(SEED + 2)
+
+    def case(b, sq, skv, h, hk, dh, dtype):
+        """q, and k/v as the first Skv rows of (B, Skv + 64, Hk, Dh)
+        tensors whose tail is NaN: a read past Skv reaches the output.
+        (At B = 1 the slices are contiguous, as the kernel needs.)"""
+        q = torch.randn((b, sq, h, dh), device=dev).to(dtype)
+        kv = []
+        for _ in range(2):
+            big = torch.randn((b, skv + 64, hk, dh), device=dev)
+            big[:, skv:] = float("nan")
+            kv.append(big.to(dtype)[:, :skv])
+        return q, kv[0], kv[1]
+
+    def check(label, args, causal, window):
+        name = str(args[0].dtype).split(".")[-1]
+        atol, rtol = TOL[name]
+        got = fa.flash_attention(*args, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(*args, causal=causal, window=window)
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{label}: non-finite kernel output")
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol, msg=lambda m: f"{label}: {m}")
+        log(f"[flash] {label} {name}: max |kernel - plain| = {err:.3e} "
+            f"(atol {atol:g}, rtol {rtol:g}) ok")
+        return err
+
+    # gemma3-12b prefill: 16 heads over 8 kv heads of 256, the global
+    # layers' causal attention and the local layers' 1024-token window
+    main = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for s_len in FLASH_LENGTHS:
+            args = case(1, s_len, s_len, 16, 8, 256, dtype)
+            for window in (0, 1024):
+                err = check(f"gemma3-12b prefill S={s_len} causal "
+                            f"window={window}", args, True, window)
+                if s_len == FLASH_LENGTHS[-1] and dtype == torch.bfloat16:
+                    main[window] = (args, err)
+    # every head dim and group size, non-causal, Sq != Skv both ways
+    for dh in (64, 128, 256):
+        for g in (1, 2, 4, 8):
+            for dtype in (torch.float32, torch.bfloat16):
+                sq, skv = (77, 130) if g % 2 else (130, 77)
+                check(f"sweep Dh={dh} G={g} Sq={sq} Skv={skv} non-causal",
+                      case(1, sq, skv, 2 * g, 2, dh, dtype), False, 0)
+                check(f"sweep Dh={dh} G={g} Sq={skv} Skv={sq} causal "
+                      "window=37", case(1, skv, sq, 2 * g, 2, dh, dtype),
+                      True, 37)
+
+    # times at S = 2048, bf16, for both layer kinds (warm L2: a prefill
+    # layer has just written its q, k, v)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    for window in (0, 1024):
+        (q, k, v), err = main[window]
+        s_len = q.shape[1]
+        ms = time_ms(torch, lambda: fa.flash_attention(
+            q, k, v, causal=True, window=window), 20)
+        plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
+            q, k, v, causal=True, window=window), 5)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        if window:
+            i = torch.arange(s_len, device=dev)
+            band = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+            lib = lambda: sdpa(qt, kt, vt, attn_mask=band, enable_gqa=True)
+        else:
+            lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        library_ms = time_ms(torch, lib, 20)
+        bound_ms, bound_by = flash_bound(s_len, s_len, True, window, 16, 8,
+                                         256, 2, "bfloat16")
+        log(f"[flash] times at gemma3-12b prefill B=1 S={s_len} H=16 Hk=8 "
+            f"Dh=256 causal window={window} bf16: kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms(sdpa)={library_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}); kernel at "
+            f"{bound_ms / ms:.1%} of the bound")
+        times[window] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": library_ms}
+    return {**times[0], "window_1024": times[1024]}
 
 
 def phase_parity(torch, np):
     """The port on the CPU (plain attention) against the port on the card
-    (the kernel), float32, on identical weights."""
+    (the kernels), float32, on identical weights: the chunked path of a
+    yi-9b-shaped model, and the exact path of a (local, global) model."""
     import dataclasses
 
     from repro_torch.config import get_arch
@@ -287,43 +461,66 @@ def phase_parity(torch, np):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_arch("yi-9b"), name="yi-9b-2layer",
-                              num_layers=2, d_model=512, d_ff=1024,
-                              vocab_size=2048)
     rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
-    cpu_params = model_lib.init_params(cfg, SEED, rt, "cpu")
-    rng = np.random.RandomState(SEED + 1)
-    prompts = [list(rng.randint(1, cfg.vocab_size, n))
-               for n in rng.randint(20, 200, 10)]
+    models = {
+        # chunked prefill, the paged kernel
+        "yi-9b-2layer": (dataclasses.replace(
+            get_arch("yi-9b"), name="yi-9b-2layer", num_layers=2,
+            d_model=512, d_ff=1024, vocab_size=2048), (20, 200), True),
+        # exact prefill through the flash kernel (both layers; head_dim 64
+        # so the kernels take it), a 32-slot ring, the paged kernel
+        "gemma3-local-global": (dataclasses.replace(
+            get_arch("gemma3-12b"), name="gemma3-local-global",
+            num_layers=4, block_pattern=("local", "global"), d_model=512,
+            num_heads=8, num_kv_heads=4, head_dim=64, d_ff=1024,
+            vocab_size=2048, window_size=32), (20, 101), False),
+    }
     sp = SamplingParams(temperature=0.0, max_new_tokens=16)
-    streams = {}
-    for dev in ("cpu", "cuda"):
-        params = {"embed": {k: v.to(dev) for k, v in
-                            cpu_params["embed"].items()},
-                  "final_norm": cpu_params["final_norm"].to(dev),
-                  "layers": [{k: v.to(dev) for k, v in w.items()}
-                             for w in cpu_params["layers"]]}
-        econf = EngineConfig(mb_size=4, num_microbatches=2,
-                             pool=PoolConfig(page_size=16,
-                                             n_local_pages=8 * 16 + 1,
-                                             max_pages_per_seq=16))
-        llm = LLM(cfg, config=econf, params=params, rt=rt, device=dev)
-        outs = llm.generate(prompts, sp)
-        if not all(o.finished and len(o.token_ids) == 16 for o in outs):
-            raise AssertionError(f"parity run on {dev}: unfinished requests")
-        streams[dev] = [o.token_ids for o in outs]
-        log(f"[parity] {dev}: {len(outs)} greedy streams, "
-            f"{llm.engine.backend.decode_ticks} decode ticks")
-    if streams["cpu"] != streams["cuda"]:
-        bad = [i for i, (a, b) in enumerate(zip(streams["cpu"],
-                                                streams["cuda"])) if a != b]
-        raise AssertionError(f"greedy streams differ CPU vs card: {bad}")
-    log("[parity] greedy streams identical, plain path (CPU) vs kernel "
-        "path (card)")
+    for label, (cfg, (lo, hi), chunked) in models.items():
+        cpu_params = model_lib.init_params(cfg, SEED, rt, "cpu")
+        rng = np.random.RandomState(SEED + 1)
+        lens = rng.randint(lo, hi, 10)
+        if not chunked:   # past the window and not a multiple of 8
+            lens[:3] = (33, 61, 100)
+        prompts = [list(rng.randint(1, cfg.vocab_size, n)) for n in lens]
+        streams = {}
+        for dev in ("cpu", "cuda"):
+            params = {"embed": {k: v.to(dev) for k, v in
+                                cpu_params["embed"].items()},
+                      "final_norm": cpu_params["final_norm"].to(dev),
+                      "layers": [{k: v.to(dev) for k, v in w.items()}
+                                 for w in cpu_params["layers"]]}
+            econf = EngineConfig(mb_size=4, num_microbatches=2,
+                                 pool=PoolConfig(page_size=16,
+                                                 n_local_pages=8 * 16 + 1,
+                                                 max_pages_per_seq=16))
+            llm = LLM(cfg, config=econf, params=params, rt=rt, device=dev)
+            if llm.engine.chunked_prefill != chunked:
+                raise AssertionError(f"parity {label}: chunked prefill "
+                                     f"{llm.engine.chunked_prefill}, want "
+                                     f"{chunked}")
+            outs = llm.generate(prompts, sp)
+            if not all(o.finished and len(o.token_ids) == 16 for o in outs):
+                raise AssertionError(f"parity {label} on {dev}: unfinished "
+                                     "requests")
+            streams[dev] = [o.token_ids for o in outs]
+            log(f"[parity] {label} on {dev}: {len(outs)} greedy streams, "
+                f"prompts {int(lens.min())}-{int(lens.max())} tokens, "
+                f"{'chunked' if chunked else 'exact'} prefill, "
+                f"{llm.engine.backend.decode_ticks} decode ticks")
+        if streams["cpu"] != streams["cuda"]:
+            bad = [i for i, (a, b) in enumerate(zip(streams["cpu"],
+                                                    streams["cuda"]))
+                   if a != b]
+            raise AssertionError(f"parity {label}: greedy streams differ "
+                                 f"CPU vs card: {bad}")
+        log(f"[parity] {label}: greedy streams identical, plain path (CPU) "
+            "vs kernel path (card)")
 
 
 def phase_serve(torch, np, card: str):
     from repro_torch.config import get_arch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import Runtime
@@ -361,11 +558,13 @@ def phase_serve(torch, np, card: str):
                           max_new_tokens=max_new, logprobs=True)
            for i in range(n_req)]
     pa.paged_decode_attention.launches = 0
+    fa.flash_attention.launches = 0
     t1 = time.perf_counter()
     outs = llm.generate(prompts, sps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = pa.paged_decode_attention.launches
+    flash_launches = fa.flash_attention.launches
     rep = llm.stats()
     ticks = rep["decode_ticks"]
     bad = [o.request_id for o in outs
@@ -378,6 +577,9 @@ def phase_serve(torch, np, card: str):
     if ticks == 0 or launches != ticks * YI_LAYERS:
         raise AssertionError(f"serve: {launches} kernel launches for {ticks} "
                              f"decode ticks x {YI_LAYERS} layers")
+    if flash_launches:      # yi-9b is fully paged: chunked prefill
+        raise AssertionError(f"serve: {flash_launches} flash launches on the "
+                             "chunked path")
     ttft = sorted(o.ttft_s for o in outs)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     gen = sum(len(o.token_ids) for o in outs)
@@ -397,7 +599,101 @@ def phase_serve(torch, np, card: str):
         f"peak_mem_gib={peak:.2f}; engine steps {rep['steps']}, decode "
         f"ticks {ticks}, paged-kernel launches {launches} "
         f"(= {ticks} x {YI_LAYERS})")
-    return launches
+    return {"paged_attention": launches, "flash_attention": flash_launches}
+
+
+def phase_serve_gemma(torch, np, card: str):
+    import gc
+
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import Runtime
+    from repro_torch.serving.kv_cache import PoolConfig
+    from repro_torch.serving.llm import LLM, EngineConfig
+    from repro_torch.serving.request import SamplingParams
+
+    gc.collect()                        # the yi-9b phase's weights and pools
+    torch.cuda.empty_cache()
+    cfg = get_arch("gemma3-12b")
+    kinds = cfg.layer_kinds()
+    n_global = sum(k == "global" for k in kinds)
+    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, SEED, rt, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in
+                   [*params["embed"].values(), params["final_norm"]]
+                   + [w for layer in params["layers"] for w in layer.values()])
+    log(f"[gemma3] gemma3-12b full width and depth: {cfg.num_layers} layers "
+        f"({kinds.count('local')} local, window {cfg.window_size}; "
+        f"{n_global} global), {n_params / 1e9:.3f}B params bf16 from seed "
+        f"{SEED} in {time.perf_counter() - t0:.1f}s")
+    econf = EngineConfig(
+        mb_size=GEMMA_MB, num_microbatches=1,
+        pool=PoolConfig(page_size=GEMMA_PAGE, n_local_pages=GEMMA_POOL_PAGES,
+                        max_pages_per_seq=GEMMA_MAX_PAGES),
+        seed=SEED, prefill_mode="auto")
+    llm = LLM(cfg, config=econf, params=params, rt=rt, reduced=False,
+              device="cuda")
+    if llm.engine.chunked_prefill:
+        raise AssertionError("gemma3: prefill_mode='auto' picked chunked "
+                             "prefill for a sliding-window arch")
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(GEMMA_PROMPTS[0], GEMMA_PROMPTS[1] + 1, GEMMA_REQUESTS)
+    prompts = [list(rng.randint(1, cfg.vocab_size, n)) for n in lens]
+    sps = [SamplingParams(temperature=0.0, max_new_tokens=GEMMA_NEW,
+                          logprobs=True) if i % 2 == 0 else
+           SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                          max_new_tokens=GEMMA_NEW, logprobs=True)
+           for i in range(GEMMA_REQUESTS)]
+    pa.paged_decode_attention.launches = 0
+    fa.flash_attention.launches = 0
+    t1 = time.perf_counter()
+    outs = llm.generate(prompts, sps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    paged = pa.paged_decode_attention.launches
+    flash = fa.flash_attention.launches
+    rep = llm.stats()
+    ticks = rep["decode_ticks"]
+    bad = [o.request_id for o in outs
+           if not o.finished or len(o.token_ids) != GEMMA_NEW
+           or not all(math.isfinite(x) for x in o.logprobs)
+           or not all(0 <= t < cfg.vocab_size for t in o.token_ids)]
+    if bad:
+        raise AssertionError(f"gemma3: requests {bad} unfinished, short, or "
+                             "with non-finite log-probs")
+    if flash != GEMMA_REQUESTS * cfg.num_layers:
+        raise AssertionError(f"gemma3: {flash} flash launches, want "
+                             f"{GEMMA_REQUESTS} requests x {cfg.num_layers} "
+                             "layers")
+    if ticks == 0 or paged != ticks * n_global:
+        raise AssertionError(f"gemma3: {paged} paged launches for {ticks} "
+                             f"decode ticks x {n_global} global layers")
+    ttft = sorted(o.ttft_s for o in outs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gen = sum(len(o.token_ids) for o in outs)
+    log(f"[gemma3] {len(outs)}/{GEMMA_REQUESTS} requests finished, "
+        f"{GEMMA_NEW} tokens each; prompts {int(lens.min())}-"
+        f"{int(lens.max())} tokens ({int(lens.sum())} total, "
+        f"{int((lens > cfg.window_size).sum())} past the window); batch "
+        f"{GEMMA_MB}x1, page {GEMMA_PAGE}, max_pages_per_seq "
+        f"{GEMMA_MAX_PAGES}; exact-length prefill")
+    log(f"[gemma3] on {card}: decode_tok_per_s={rep['decode_tok_per_s']:.1f} "
+        f"prefill_tok_per_s={rep['prefill_tok_per_s']:.1f} "
+        f"(engine phase clocks; decode {rep['decode_time_s']:.3f}s, "
+        f"prefill {rep['prefill_time_s']:.3f}s); wall {wall:.3f}s for "
+        f"{gen} generated + {rep['prefill_tokens']} prompt tokens")
+    log(f"[gemma3] ttft_s p50={ttft[len(ttft) // 2]:.3f} max={ttft[-1]:.3f} "
+        f"mean={sum(ttft) / len(ttft):.3f} (n={len(ttft)}); "
+        f"peak_mem_gib={peak:.2f}; engine steps {rep['steps']}, decode "
+        f"ticks {ticks}, flash launches {flash} (= {GEMMA_REQUESTS} x "
+        f"{cfg.num_layers}), paged launches {paged} (= {ticks} x "
+        f"{n_global})")
+    return {"paged_attention": paged, "flash_attention": flash}
 
 
 def main() -> int:
@@ -410,14 +706,30 @@ def main() -> int:
 
     smi_line, name = phase_card(torch)
     phase_build()
-    kern = phase_kernel(torch, np)
+    paged = phase_kernel_paged(torch, np)
+    flash = phase_kernel_flash(torch, np)
     phase_parity(torch, np)
-    launches = phase_serve(torch, np, smi_line)
-    entry = {"name": "paged_decode_attention", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-             "replaces": "src/repro/kernels/paged_attention.py:206",
-             "ok": True, "launches": launches, **kern}
-    print(json.dumps({"kernels": [entry]}))
+    yi = phase_serve(torch, np, smi_line)
+    gemma = phase_serve_gemma(torch, np, smi_line)
+    entries = [
+        {"name": "paged_decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:206",
+         "ok": True,
+         "launches": yi["paged_attention"] + gemma["paged_attention"],
+         "launches_by_path": {"yi-9b": yi["paged_attention"],
+                              "gemma3-12b": gemma["paged_attention"]},
+         **paged},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:136",
+         "ok": True,
+         "launches": yi["flash_attention"] + gemma["flash_attention"],
+         "launches_by_path": {"yi-9b": yi["flash_attention"],
+                              "gemma3-12b": gemma["flash_attention"]},
+         **flash},
+    ]
+    print(json.dumps({"kernels": entries}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -19,7 +19,7 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -53,26 +53,55 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str) -> BuildInfo:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source and
-    flags exists; returns the build's :class:`BuildInfo`."""
+def _library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
-    if out.exists():
-        return BuildInfo(out, 0.0, "", cached=True)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {src.name} "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)            # atomic: no loader sees a partial file
-    return BuildInfo(out, seconds, proc.stdout + proc.stderr, cached=False)
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_many(names: Sequence[str]) -> Dict[str, BuildInfo]:
+    """Compile ``csrc/<name>.cu`` for every name that has no library of the
+    same source and flags yet, one ``nvcc`` per source, all started
+    together; returns each name's :class:`BuildInfo`."""
+    out: Dict[str, BuildInfo] = {}
+    running = {}
+    for name in names:
+        path = _library_path(name)
+        if path.exists():
+            out[name] = BuildInfo(path, 0.0, "", cached=True)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        # nvcc's report goes to a file: pipes read one process at a time
+        # could fill up and stall the others
+        log = path.with_suffix(f".{os.getpid()}.log")
+        with open(log, "w") as fh:
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / f"{name}.cu")], stdout=fh, stderr=fh)
+        running[name] = (proc, path, tmp, log, time.perf_counter())
+    failed = []
+    for name, (proc, path, tmp, log, t0) in running.items():
+        proc.wait()
+        seconds = time.perf_counter() - t0
+        report = log.read_text()
+        log.unlink()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed building {name}.cu (exit "
+                          f"{proc.returncode}):\n{report}")
+            continue
+        os.replace(tmp, path)       # atomic: no loader sees a partial file
+        out[name] = BuildInfo(path, seconds, report, cached=False)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+def build(name: str) -> BuildInfo:
+    """Compile ``csrc/<name>.cu`` unless a library of the same source and
+    flags exists; returns the build's :class:`BuildInfo`."""
+    return build_many([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

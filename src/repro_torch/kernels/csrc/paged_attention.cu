@@ -132,10 +132,14 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     int window, float scale) {
   constexpr int DPL = DH / 32;            // output dims per lane in P.V
   constexpr int CH = 16 / sizeof(T);      // elements per 16-byte K load
-  __shared__ float q_s[G * DH];
+  // q (G x DH) and the warps' accumulators (kWarps x G x DH) live in
+  // dynamic shared memory, sized by smem_bytes<G, DH>(): at DH = 256 and
+  // G = 8 they take 72 KB, past the 48 KB that static arrays may use
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* acc_s = q_s + G * DH;            // [kWarps][G][DH]
   __shared__ float m_s[kWarps][G];
   __shared__ float l_s[kWarps][G];
-  __shared__ float acc_s[kWarps][G][DH];
 
   const int b = blockIdx.x / Hk;
   const int kvh = blockIdx.x % Hk;
@@ -232,7 +236,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc_s[warp][g][lane * DPL + i] = acc[g][i];
+    for (int i = 0; i < DPL; ++i)
+      acc_s[(warp * G + g) * DH + lane * DPL + i] = acc[g][i];
   __syncthreads();
 
   T* ob = out + head0 * DH;
@@ -247,7 +252,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     for (int w = 0; w < kWarps; ++w) {
       const float f = expf(m_s[w][g] - m);
       l += l_s[w][g] * f;
-      o += acc_s[w][g][d] * f;
+      o += acc_s[(w * G + g) * DH + d] * f;
     }
     store(ob + idx, o / fmaxf(l, 1e-30f));
   }
@@ -260,9 +265,23 @@ struct Args {
   float scale;
 };
 
+template <int G, int DH>
+constexpr int smem_bytes() {
+  return (G * DH + kWarps * G * DH) * static_cast<int>(sizeof(float));
+}
+
 template <typename T, int DH, int G>
 int launch(const Args& a, cudaStream_t stream) {
-  paged_decode_kernel<T, DH, G><<<a.B * a.Hk, kWarps * 32, 0, stream>>>(
+  constexpr int bytes = smem_bytes<G, DH>();
+  if (bytes > 48 * 1024) {
+    // above 48 KB a kernel must opt in to dynamic shared memory; the
+    // attribute is per kernel instance and cheap to set again
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_decode_kernel<T, DH, G>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  paged_decode_kernel<T, DH, G><<<a.B * a.Hk, kWarps * 32, bytes, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.pt, a.lens, static_cast<T*>(a.out),
       a.H, a.Hk, a.n_pool, a.page_size, a.max_pages, a.window, a.scale);
@@ -285,6 +304,7 @@ int launch_dh(int Dh, int G, const Args& a, cudaStream_t stream) {
   switch (Dh) {
     case 64: return launch_g<T, 64>(G, a, stream);
     case 128: return launch_g<T, 128>(G, a, stream);
+    case 256: return launch_g<T, 256>(G, a, stream);
     default: return -1;
   }
 }

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import \
+    flash_attention as _flash_cuda
 from repro_torch.kernels.paged_attention import \
     paged_decode_attention as _paged_cuda
 
@@ -25,3 +27,14 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                               seq_lens, window=window)
     return _paged_cuda(q, k_pages, v_pages, page_table, seq_lens,
                        window=window)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Whole-sequence attention forward (exact-length prefill); shapes as
+    in ``kernels.ref``.  The JAX router also asks for ``q_offset == 0`` and
+    ``Sq, Skv >= 8``: the exact path always meets both (prompts are
+    bucketed to at least 8 tokens), and the kernel raises otherwise."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _flash_cuda(q, k, v, causal=causal, window=window)

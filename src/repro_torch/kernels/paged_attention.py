@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 GROUP_SIZES = (1, 2, 4, 8)
 PAGE_SIZES = (8, 16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

@@ -57,3 +57,40 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
     out = torch.einsum("bkgc,bckd->bkgd", p, v) / l
     return out.reshape(b, h, dh).to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Whole-sequence GQA attention with a float32 softmax.
+
+    q (B, Sq, H, Dh); k/v (B, Skv, Hk, Dh) -> (B, Sq, H, Dh) in q's dtype.
+
+    Computes what ``repro.kernels.flash_attention.flash_attention_pallas``
+    and ``repro.models.attention.flash_attention`` compute with
+    ``q_offset == 0``: query ``i`` sees key ``j`` when ``j <= i`` (causal)
+    and ``j > i - window`` (window > 0), scores scaled by ``1/sqrt(Dh)``
+    and masked with ``NEG_INF``, ``l`` floored at ``1e-30``.  The JAX
+    function's ``q_chunk`` / ``kv_chunk`` / ``scheme`` only bound its
+    memory, so this version is not chunked.  A masked score contributes
+    exactly zero, so a row that sees no key is zeros (the JAX functions
+    there return a padding-dependent mean of V; the serving path never
+    asks, since every causal query sees itself).
+    """
+    b, sq, h, dh = q.shape
+    skv, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    qg = q.float().reshape(b, sq, hk, g, dh)
+    s = torch.einsum("bqkgd,bckd->bkgqc", qg, k.float()) * (1.0 / math.sqrt(dh))
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(skv, device=q.device)[None]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window > 0:
+        mask &= kp > qp - window
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    out = torch.einsum("bkgqc,bckd->bkgqd", p, v.float()) / l
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)

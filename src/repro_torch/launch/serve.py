@@ -2,7 +2,12 @@
 the local backend (counterpart of ``repro.launch.serve``, local path).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \\
-      --requests 16 --max-new 24 [--mixed] [--full] [--device cpu|cuda]
+      --requests 16 --max-new 24 [--mixed] [--full] [--device cpu|cuda] \\
+      [--prefill-mode auto|chunked|exact]
+
+``--arch`` takes every registered arch of the port (``yi-9b``,
+``gemma3-12b``, ``gemma3-1b``); gemma3's sliding-window layers are served
+through exact-length prefill, which ``--prefill-mode auto`` picks.
 
 Runs on ``cuda`` by default and raises when there is none; ``--device cpu``
 runs the plain PyTorch path.  ``--full`` serves the registered width and
@@ -27,6 +32,10 @@ def main(argv=None) -> None:
                     help="KV pages per sequence")
     ap.add_argument("--prefill-chunk", type=int, default=0)
     ap.add_argument("--max-prefill-tokens", type=int, default=0)
+    ap.add_argument("--prefill-mode", default="auto",
+                    choices=["auto", "chunked", "exact"],
+                    help="chunked admission (fully-paged archs) vs the "
+                         "exact-length fallback; auto picks per arch")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--mixed", action="store_true",
                     help="serve greedy and sampled requests side by side")
@@ -61,15 +70,20 @@ def main(argv=None) -> None:
     econfig = EngineConfig(mb_size=args.mb_size,
                            num_microbatches=args.microbatches, pool=pool,
                            seed=args.seed, prefill_chunk=args.prefill_chunk,
-                           max_prefill_tokens_per_tick=args.max_prefill_tokens)
+                           max_prefill_tokens_per_tick=args.max_prefill_tokens,
+                           prefill_mode=args.prefill_mode)
     llm = LLM(cfg, config=econfig, rt=rt, device=args.device)
     engine = llm.engine
     print(f"arch={cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
           f"params={cfg.param_count() / 1e6:.1f}M dtype={rt.param_dtype} "
           f"device={engine.device}")
-    print(f"prefill: chunked (chunk={engine.prefill_chunk} tokens, "
-          f"budget={engine.max_prefill_tokens_per_tick} tokens/tick, "
-          f"rows={engine.prefill_rows})")
+    if engine.chunked_prefill:
+        print(f"prefill: chunked (chunk={engine.prefill_chunk} tokens, "
+              f"budget={engine.max_prefill_tokens_per_tick} tokens/tick, "
+              f"rows={engine.prefill_rows})")
+    else:
+        print("prefill: exact-length (one whole prompt per free slot, "
+              "padded to a multiple of 8)")
 
     rng = np.random.RandomState(args.seed)
     prompts = [list(rng.randint(1, cfg.vocab_size, rng.randint(4, 24)))

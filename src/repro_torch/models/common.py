@@ -20,10 +20,21 @@ import torch
 @dataclass(frozen=True)
 class Runtime:
     """Execution dtypes.  Parameters and activations default to bf16, the
-    dtype of the main path on the card; the CPU tests use float32."""
+    dtype of the main path on the card; the CPU tests use float32.
+    ``kv_dtype="int8"`` stores the dense and ring caches as int8 with bf16
+    per-(token, head) scales (the paged pools keep ``compute_dtype``, as in
+    the JAX package).  The JAX ``Runtime``'s ``use_pallas``, ``q_chunk``,
+    ``kv_chunk`` and ``causal_scheme`` choose among XLA and Pallas routes
+    and are not ported: on the card the CUDA kernels always run."""
 
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
+    kv_dtype: str = "bf16"            # bf16 | int8 (quantized KV cache)
+
+    def __post_init__(self):
+        if self.kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype must be 'bf16' or 'int8', "
+                             f"got {self.kv_dtype!r}")
 
 
 DEFAULT_RUNTIME = Runtime()

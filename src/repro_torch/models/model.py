@@ -1,5 +1,5 @@
-"""The dense decoder for serving: weights, chunked prefill, decode
-(counterpart of ``repro.models.model``, attention kinds only).
+"""The decoder for serving: weights, chunked and exact-length prefill,
+decode (counterpart of ``repro.models.model``, attention kinds only).
 
 Parameters are a plain dict of tensors, one entry per layer, with the JAX
 package's ``(in, out)`` weight layout::
@@ -7,13 +7,26 @@ package's ``(in, out)`` weight layout::
     {"embed": {"tok": (V, D), "untok": (V, D)}, "final_norm": (D,),
      "layers": [{"ln1", "wq", "wk", "wv", "wo", "ln2", "wg", "wu", "wd"}]}
 
-Caches are the serving engine's paged pools (``serving.kv_cache``)::
+(``"untok"`` is absent with tied embeddings; ``"q_norm"``/``"k_norm"``
+join a layer with qk-norm.)  Caches hold one entry per layer::
 
-    {"layers": [{"k_pages": (P, page, Hk, Dh), "v_pages": ...}],
-     "page_table": (B, max_pages) int32}
+    {"layers": [...], "page_table": (B, max_pages) int32}
 
-one page table shared by every layer.  The pools are updated **in place**
-(``index_put_``): a full-width pool is gigabytes, and a functional copy per
+where a layer's entry is either a paged pool shared by every row
+(``"attn"``/``"global"`` in the serving engine, ``serving.kv_cache``)::
+
+    {"k_pages": (P, page, Hk, Dh), "v_pages": ...}
+
+or a per-row dense cache, a ring of ``window`` slots for ``"local"``
+layers (``init_caches``, ``_kind_cache``)::
+
+    {"k": (B, C, Hk, Dh), "v": ..., "pos": (B, C) int32 (-1 empty)}
+    (+ "k_scale", "v_scale": (B, C, Hk) bf16 when ``Runtime.kv_dtype`` is
+    "int8", with int8 "k"/"v")
+
+one page table shared by every paged layer (absent when no layer is
+paged).  Pools and rings are updated **in place** (``index_put_``, slice
+assignment): a full-width pool is gigabytes, and a functional copy per
 layer per step would double it.  ``run_layers`` is a loop over layers.
 """
 
@@ -29,9 +42,10 @@ from repro_torch.models.common import (DEFAULT_RUNTIME, Runtime, dense_init,
                                        rms_norm, rope_tables, rotate, swiglu)
 
 PAGED_KINDS = ("attn", "global")
+ATTN_KINDS = ("attn", "local", "global")
+LOCAL_ROPE_THETA = 10000.0      # gemma3: local layers keep the small base
 # the slice of the port that brings each layer kind this one refuses
 _LATER_KINDS = {
-    "local": "the exact-length prefill and ring-cache slice",
     "rglru": "the other-architectures slice",
     "mlstm": "the other-architectures slice",
     "slstm": "the other-architectures slice",
@@ -40,13 +54,20 @@ _LATER_KINDS = {
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for an arch this slice cannot run:
-    every layer must be a paged attention kind."""
+    every layer must be an attention kind."""
     for kind in set(cfg.layer_kinds()):
-        if kind not in PAGED_KINDS:
+        if kind not in ATTN_KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: layer kind {kind!r} is not ported yet — it "
                 f"comes with {_LATER_KINDS[kind]}; this slice serves "
-                f"{PAGED_KINDS} layers only")
+                f"{ATTN_KINDS} layers only")
+
+
+def layer_theta(kind: str, cfg: ModelConfig) -> float:
+    """RoPE base of a layer: gemma3's sliding-window layers keep 10k."""
+    if kind == "local" and cfg.window_size:
+        return LOCAL_ROPE_THETA
+    return cfg.rope_theta
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +114,63 @@ def init_params(cfg: ModelConfig, seed: int, rt: Runtime = DEFAULT_RUNTIME,
 
 
 # ---------------------------------------------------------------------------
+# Dense and ring caches (the JAX package's ``init_caches`` / ``_kind_cache``)
+# ---------------------------------------------------------------------------
+
+
+def _kind_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int,
+                rt: Runtime, device="cpu") -> dict:
+    """A per-row dense cache of an attention kind: ``capacity`` slots, or a
+    ring of ``window_size`` slots for ``"local"``; int8 values with bf16
+    per-(token, head) scales when ``rt.kv_dtype == "int8"``."""
+    if kind not in ATTN_KINDS:
+        raise NotImplementedError(f"layer kind {kind!r} has no cache in this "
+                                  "slice of the port")
+    Hk, Dh = cfg.num_kv_heads, cfg.head_dim
+    c = capacity if (kind != "local" or cfg.window_size == 0) else min(
+        cfg.window_size, capacity)
+    shape = (batch, c, Hk, Dh)
+    pos = torch.full((batch, c), -1, dtype=torch.int32, device=device)
+    if rt.kv_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                       device=device),
+                "pos": pos}
+    return {"k": torch.zeros(shape, dtype=rt.compute_dtype, device=device),
+            "v": torch.zeros(shape, dtype=rt.compute_dtype, device=device),
+            "pos": pos}
+
+
+def init_caches(cfg: ModelConfig, batch: int, capacity: int,
+                rt: Runtime = DEFAULT_RUNTIME, device="cpu") -> dict:
+    """Dense caches for every layer (no paged pool, no page table)."""
+    return {"layers": [_kind_cache(k, cfg, batch, capacity, rt, device)
+                       for k in cfg.layer_kinds()]}
+
+
+def _quantize_kv(x: torch.Tensor):
+    """(..., Hk, Dh) -> (int8 values, bf16 per-(..., Hk) scales).  The
+    scale is max|x| / 127 (floored at 1e-8), the values are rounded half to
+    even, as ``jnp.round`` rounds."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) / 127.0).clamp(min=1e-8)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def _dequant_kv(cache: dict, dtype: torch.dtype):
+    k = cache["k"]
+    if k.dtype != torch.int8:
+        return cache["k"], cache["v"]
+    kf = k.float() * cache["k_scale"].float()[..., None]
+    vf = cache["v"].float() * cache["v_scale"].float()[..., None]
+    return kf.to(dtype), vf.to(dtype)
+
+
+# ---------------------------------------------------------------------------
 # Paged KV addressing (once per step: every layer's pool has one layout)
 # ---------------------------------------------------------------------------
 
@@ -102,12 +180,13 @@ def _step_index(mode: str, positions: torch.Tensor, page_table: torch.Tensor,
     """Where each token's K/V goes in the pools, and what attention reads.
 
     Decode: ``page``/``off`` of the current token and ``seq_lens`` for the
-    kernel.  Chunk: ``page``/``off``/``keep`` for ``_write_prefill_paged``
-    and the row's table ``pt`` for the gather.  Positions marked ``-1``
-    (padding) must not touch a live page.  JAX drops their scatter as out
-    of bounds; torch indexing would raise instead, and selecting only the
-    valid positions would cost a device-to-host sync.  So a pad position is
-    sent to scratch page 0, offset 0, with ``keep`` False."""
+    kernel.  Chunk and prefill: ``page``/``off``/``keep`` for
+    ``_write_prefill_paged`` and the row's table ``pt`` for the gather.
+    Positions marked ``-1`` (padding) must not touch a live page.  JAX drops
+    their scatter as out of bounds; torch indexing would raise instead, and
+    selecting only the valid positions would cost a device-to-host sync.
+    So a pad position is sent to scratch page 0, offset 0, with ``keep``
+    False."""
     pos = positions.long()
     pt = page_table.long()
     if mode == "decode":
@@ -135,17 +214,55 @@ def _write_prefill_paged(cache: dict, k: torch.Tensor, v: torch.Tensor,
                         torch.where(keep, new.to(pool.dtype), pool[page, off]))
 
 
+def _write_prefill_cache(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                         positions: torch.Tensor, idx: dict) -> None:
+    """Write a whole prefill's k/v (B, S, Hk, Dh) into a layer's cache, in
+    place: the paged pool, or a dense cache / ring of C slots.
+
+    ``S <= C``: the S tokens go to slots 0..S-1, pad positions included
+    (their ``pos`` is -1, so attention never reads them).  ``S > C`` (a
+    ring): the last C tokens of the sequence go to slot ``i % C`` (a
+    prefill's token ``i`` sits at position ``i``); pad positions write
+    nothing, as the JAX package drops their out-of-bounds scatter.
+
+    This keeps the reference's behaviour exactly, defect included: with a
+    prompt padded past the window, the last C tokens of the *padded*
+    sequence hold up to C-1 pad positions, so up to that many in-window
+    real tokens are never written (C = 8, padded 16, true length 13 holds
+    positions [8..12] and -1 three times; 6 and 7 are lost)."""
+    if "k_pages" in cache:
+        _write_prefill_paged(cache, k, v, idx)
+        return
+    new = {"k": k, "v": v, "pos": positions.to(torch.int32)}
+    if cache["k"].dtype == torch.int8:
+        new["k"], new["k_scale"] = _quantize_kv(k)
+        new["v"], new["v_scale"] = _quantize_kv(v)
+    C = cache["k"].shape[1]
+    S = k.shape[1]
+    if S <= C:
+        for name, t in new.items():
+            cache[name][:, :S] = t
+        return
+    slots = torch.arange(S - C, S, device=k.device) % C
+    keep = new["pos"][:, S - C:] >= 0                         # (B, C)
+    for name, t in new.items():
+        dst = cache[name]
+        t = t[:, S - C:].to(dst.dtype)
+        mask = keep.reshape(keep.shape + (1,) * (t.dim() - 2))
+        dst[:, slots] = torch.where(mask, t, dst[:, slots])
+
+
 # ---------------------------------------------------------------------------
 # Layer application
 # ---------------------------------------------------------------------------
 
 
-def _attn_layer(w: dict, x: torch.Tensor, cfg: ModelConfig, *,
+def _attn_layer(kind: str, w: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor, mode: str, cache: dict,
-                page_table: torch.Tensor, rope: tuple,
-                idx: dict) -> torch.Tensor:
+                page_table, rope: tuple, idx) -> torch.Tensor:
     B, S = x.shape[:2]
     H, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    window = cfg.window_size if kind == "local" else 0
     h = rms_norm(x, w["ln1"], cfg.norm_eps)
     q = (h @ w["wq"]).reshape(B, S, H, Dh)
     k = (h @ w["wk"]).reshape(B, S, Hk, Dh)
@@ -155,22 +272,46 @@ def _attn_layer(w: dict, x: torch.Tensor, cfg: ModelConfig, *,
         k = rms_norm(k, w["k_norm"], cfg.norm_eps)
     q, k = rotate(q, *rope), rotate(k, *rope)
 
-    if mode == "decode":
+    if mode == "decode" and "k_pages" in cache:
         cache["k_pages"].index_put_((idx["page"], idx["off"]), k[:, 0])
         cache["v_pages"].index_put_((idx["page"], idx["off"]), v[:, 0])
         out = kops.paged_decode_attention(
             q[:, 0], cache["k_pages"], cache["v_pages"], page_table,
-            idx["seq_lens"])[:, None]                       # (B, 1, H, Dh)
-    else:
+            idx["seq_lens"], window=window)[:, None]        # (B, 1, H, Dh)
+    elif mode == "decode":
+        # dense / ring cache: the token goes to slot cur % C of its row
+        cur = positions[:, 0]
+        slot = (cur % cache["k"].shape[1]).long()
+        rows = torch.arange(B, device=x.device)
+        new = {"k": k[:, 0], "v": v[:, 0], "pos": cur.to(torch.int32)}
+        if cache["k"].dtype == torch.int8:
+            new["k"], new["k_scale"] = _quantize_kv(k[:, 0])
+            new["v"], new["v_scale"] = _quantize_kv(v[:, 0])
+        for name, t in new.items():
+            cache[name].index_put_((rows, slot), t.to(cache[name].dtype))
+        kf, vf = _dequant_kv(cache, q.dtype)
+        out = attn_lib.decode_attention(q[:, 0], kf, vf, cache["pos"], cur,
+                                        window=window)[:, None]
+    elif mode == "chunk":
         # write the chunk's KV into the pool, then attend the chunk's
         # queries against the row's whole gathered extent
+        if "k_pages" not in cache:
+            raise NotImplementedError(
+                "chunked prefill supports paged attention layers only; "
+                "ring (sliding-window) layers must use exact-length prefill")
         _write_prefill_paged(cache, k, v, idx)
         pt = idx["pt"]
         n_ctx = pt.shape[1] * cache["k_pages"].shape[1]
         kg = cache["k_pages"][pt].reshape(B, n_ctx, Hk, Dh)
         vg = cache["v_pages"][pt].reshape(B, n_ctx, Hk, Dh)
         out = attn_lib.chunk_attention(
-            q, kg, vg, torch.arange(n_ctx, device=x.device), positions)
+            q, kg, vg, torch.arange(n_ctx, device=x.device), positions,
+            window=window)
+    else:
+        # exact-length prefill: the whole sequence through the flash
+        # kernel (its plain version on the CPU), then the cache write
+        out = kops.flash_attention(q, k, v, causal=True, window=window)
+        _write_prefill_cache(cache, k, v, positions, idx)
 
     x = x + out.reshape(B, S, H * Dh) @ w["wo"]
     if cfg.d_ff > 0:
@@ -182,20 +323,24 @@ def _attn_layer(w: dict, x: torch.Tensor, cfg: ModelConfig, *,
 def run_layers(params: dict, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
                *, mode: str, caches: dict,
                positions: torch.Tensor) -> torch.Tensor:
-    """Apply every layer in order; the caches' pools change in place.  The
-    RoPE tables and the pool addressing depend on the positions only, so
-    they are computed once here for all layers."""
-    if mode not in ("decode", "chunk"):
-        raise ValueError(f"mode must be 'decode' or 'chunk', got {mode!r}")
-    page_table = caches["page_table"]
-    page_size = caches["layers"][0]["k_pages"].shape[1]
-    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta,
-                       cfg.rope_scaling)
-    idx = _step_index(mode, positions, page_table, page_size)
-    for w, cache in zip(params["layers"], caches["layers"]):
-        x = _attn_layer(w, x, cfg, positions=positions, mode=mode,
-                        cache=cache, page_table=page_table, rope=rope,
-                        idx=idx)
+    """Apply every layer in order; the caches change in place.  The RoPE
+    tables (one per base in use) and the pool addressing depend on the
+    positions only, so they are computed once here for all layers."""
+    if mode not in ("decode", "chunk", "prefill"):
+        raise ValueError("mode must be 'decode', 'chunk' or 'prefill', "
+                         f"got {mode!r}")
+    kinds = cfg.layer_kinds()
+    ropes = {theta: rope_tables(positions, cfg.head_dim, theta,
+                                cfg.rope_scaling)
+             for theta in {layer_theta(k, cfg) for k in kinds}}
+    page_table = caches.get("page_table")
+    paged = next((c for c in caches["layers"] if "k_pages" in c), None)
+    idx = None if paged is None else _step_index(
+        mode, positions, page_table, paged["k_pages"].shape[1])
+    for kind, w, cache in zip(kinds, params["layers"], caches["layers"]):
+        x = _attn_layer(kind, w, x, cfg, positions=positions, mode=mode,
+                        cache=cache, page_table=page_table,
+                        rope=ropes[layer_theta(kind, cfg)], idx=idx)
     return x
 
 
@@ -204,11 +349,41 @@ def run_layers(params: dict, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
 # ---------------------------------------------------------------------------
 
 
+def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+            rt: Runtime = DEFAULT_RUNTIME, capacity: int = 0, caches=None,
+            last_index=None):
+    """Exact-length prefill of whole prompts.  tokens (B, S).  Returns
+    (last_logits (B, V) float32, caches).
+
+    ``caches`` may be pre-built (the serving engine's pools and rings,
+    written in place); otherwise dense caches of ``capacity`` slots are
+    made.  When the prompts are right-padded, ``last_index`` (B,) selects
+    each row's true last position for the logits and marks the positions
+    after it ``-1``, so the cache writes drop them.  The last position is
+    taken before the final norm and the unembedding, so no (S, V) logits
+    are made."""
+    B, S = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(S, device=dev)[None].expand(B, S)
+    if last_index is not None:
+        li = torch.as_tensor(last_index, device=dev).long().reshape(B)
+        positions = torch.where(positions > li[:, None], -1, positions)
+    if caches is None:
+        caches = init_caches(cfg, B, capacity, rt, dev)
+    x = embed_lib.embed_tokens(params["embed"], tokens, cfg, rt.compute_dtype)
+    x = run_layers(params, x, cfg, rt, mode="prefill", caches=caches,
+                   positions=positions)
+    x_last = x[:, -1] if last_index is None else \
+        x[torch.arange(B, device=dev), li]
+    x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
+    return embed_lib.unembed(params["embed"], x_last, cfg), caches
+
+
 def prefill_chunk(params: dict, tokens: torch.Tensor, caches: dict,
                   offsets: torch.Tensor, n_valid: torch.Tensor,
                   last_in_chunk: torch.Tensor, cfg: ModelConfig,
                   rt: Runtime = DEFAULT_RUNTIME):
-    """One chunk of a batched chunked prefill.
+    """One chunk of a batched chunked prefill (paged layers only).
 
     tokens        (B, C) — the next C prompt tokens of B rows
     offsets       (B,)   — tokens already prefilled per row
@@ -241,4 +416,3 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict,
                    positions=cur_pos[:, None])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return embed_lib.unembed(params["embed"], x[:, 0], cfg), caches
-

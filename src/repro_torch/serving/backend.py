@@ -7,13 +7,17 @@ table, positions); the backend owns the device caches and the compute:
   ``prefill_step(chunk)`` — run one :class:`PrefillChunk` (a fixed-shape
         batch of prompt-token rows with their own page-table rows) and
         return its :class:`PrefillResult`;
+  ``prefill(tokens, slot, last_index)`` — the exact-length path: run one
+        whole (padded) prompt into ``slot`` and return its last-position
+        logits;
+  ``reset_slot(slot)`` — clear a reassigned slot's ring positions;
   ``decode(mb, tokens, cur_pos, samp)`` — advance microbatch ``mb`` one
         token and return its :class:`DecodeResult`;
   ``set_page_table`` — push the engine's host table to the device.
 
-PyTorch runs eagerly, so ``_chunk_fn`` / ``_decode_fn`` are plain methods
-where the JAX package jits.  The ``PipelinedBackend`` of §4.3 comes with
-the pipeline slice of the port.
+PyTorch runs eagerly, so ``_chunk_fn`` / ``_prefill_fn`` / ``_decode_fn``
+are plain methods where the JAX package jits.  The ``PipelinedBackend`` of
+§4.3 comes with the pipeline slice of the port.
 """
 
 from __future__ import annotations
@@ -88,8 +92,43 @@ class LocalBackend:
     def set_page_table(self, table: np.ndarray) -> None:
         self.caches = kvc.set_page_table(self.caches, table)
 
+    def reset_slot(self, slot: int) -> None:
+        self.caches = kvc.reset_slot(self.caches, slot)
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # -- exact-length prefill ------------------------------------------------
+
+    def prefill(self, tokens: np.ndarray, slot: int,
+                last_index: int) -> torch.Tensor:
+        """Prefill one whole prompt, right-padded to ``len(tokens)``, into
+        ``slot``; returns its logits (V,) at ``last_index``, on the
+        device."""
+        logits = self._prefill_fn(self.params, self.caches,
+                                  self._tensor(tokens[None]), slot,
+                                  last_index, cfg=self.cfg, rt=self.rt)
+        if self.device.type == "cuda":
+            # as prefill_step: the prefill phase's clock measures the card
+            torch.cuda.synchronize(self.device)
+        return logits
+
+    @staticmethod
+    def _prefill_fn(params, caches, tokens, slot, last_idx, *, cfg, rt):
+        """One sequence into the batch-wide caches at ``slot``: a one-row
+        view of the rings and of the page table stands in for the JAX
+        package's slot_view / slot_merge (pools and rings are written in
+        place through it).  Ring positions past the true last index are
+        cleaned back to -1 afterwards."""
+        view = kvc.slot_view(caches, slot, 1)
+        last = torch.full((1,), last_idx, dtype=torch.int32,
+                          device=tokens.device)
+        logits, _ = model_lib.prefill(params, tokens, cfg, rt, 0,
+                                      caches=view, last_index=last)
+        for layer in view["layers"]:
+            if "pos" in layer:
+                layer["pos"].masked_fill_(layer["pos"] > last_idx, -1)
+        return logits[0]
 
     # -- chunked prefill ---------------------------------------------------
 

@@ -1,13 +1,21 @@
-"""Offline serving engine with continuous batching and chunked prefill
-(counterpart of ``repro.serving.engine.OfflineEngine``, local backend).
+"""Offline serving engine with continuous batching, chunked and
+exact-length prefill (counterpart of ``repro.serving.engine.OfflineEngine``,
+local backend).
 
 The engine owns ``N_B`` microbatches of ``mb_size`` decode slots.  Each
-step reaps finished sequences, runs one budgeted prefill chunk (up to
-``prefill_rows`` prompts x ``prefill_chunk`` tokens), and ticks one
-microbatch of decode, round-robin.  Prefilling slots stay parked on
-scratch page 0 in the device table (chunks carry their own table rows);
-a slot's real row is pushed when its prefill completes.  Idle rows decode
-greedily on page 0 and their results are discarded.
+step reaps finished sequences, runs the prefill phase, and ticks one
+microbatch of decode, round-robin.  Idle rows decode greedily on page 0
+and their results are discarded.
+
+The prefill phase is chunked when every layer is paged (``"attn"`` /
+``"global"``) and ``prefill_mode`` is not ``"exact"``: one budgeted chunk
+(up to ``prefill_rows`` prompts x ``prefill_chunk`` tokens) a step.
+Prefilling slots stay parked on scratch page 0 in the device table (chunks
+carry their own table rows); a slot's real row is pushed when its prefill
+completes.  Otherwise (sliding-window archs, whose rings the chunk path
+cannot write, or ``prefill_mode="exact"``) a step admits queued requests
+into every free slot, each with one exact-length prefill of its whole
+prompt, padded to a multiple of 8.
 
 Sampling is per request: each slot carries its temperature / top-k /
 top-p and a base seed derived from ``(seed, request_id)``; token ``t``'s
@@ -16,7 +24,7 @@ noise comes from ``token_seed(base, t)`` (``serving.sampler``).
 Not in this slice (each later slice of the port brings its part): the
 offloader and global pools, the pipelined backend, fault plans, reshard,
 the prefix cache, SLO admission, the tracing recorder, the strict
-auditor, exact-length prefill and ``from_plan``.
+auditor and ``from_plan``.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.common import Runtime, resolve_device
-from repro_torch.models.model import check_supported
+from repro_torch.models.model import PAGED_KINDS, check_supported
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.backend import (DecodeResult, LocalBackend,
                                          PrefillChunk, PrefillResult)
@@ -51,7 +59,7 @@ class OfflineEngine:
                  pool: Optional[kvc.PoolConfig] = None,
                  sampling: Optional[SamplingParams] = None, seed: int = 0,
                  prefill_chunk: int = 0, max_prefill_tokens_per_tick: int = 0,
-                 device=None):
+                 prefill_mode: str = "auto", device=None):
         check_supported(cfg)
         self.cfg = cfg
         self.params = params
@@ -79,6 +87,20 @@ class OfflineEngine:
         self.samp_top_k = np.zeros((self.batch,), np.int32)
         self.samp_top_p = np.ones((self.batch,), np.float32)
 
+        # chunked prefill writes through per-chunk page-table rows, so it
+        # needs every layer's KV in the shared pools; sliding-window rings
+        # take the exact-length path
+        supports_chunked = all(k in PAGED_KINDS for k in cfg.layer_kinds())
+        if prefill_mode not in ("auto", "chunked", "exact"):
+            raise ValueError(
+                f"prefill_mode must be 'auto'|'chunked'|'exact', "
+                f"got {prefill_mode!r}")
+        if prefill_mode == "chunked" and not supports_chunked:
+            raise ValueError(
+                f"{cfg.name}: prefill_mode='chunked' needs every layer kind "
+                "to be paged ('attn'/'global'); recurrent and sliding-window "
+                "archs must use exact-length prefill")
+        self.chunked_prefill = supports_chunked and prefill_mode != "exact"
         cap = self.pool.max_pages_per_seq * self.pool.page_size
         if not prefill_chunk:           # default chunk: 32 tokens, shrunk
             prefill_chunk = min(32,     # to an explicit per-tick budget
@@ -160,15 +182,19 @@ class OfflineEngine:
         return counts
 
     def step(self) -> bool:
-        """One engine tick: reap finished, run one prefill chunk, tick one
+        """One engine tick: reap finished, run the prefill phase (one
+        budgeted chunk, or the exact-length admission), tick one
         microbatch.  Returns False when fully drained."""
         t0 = time.perf_counter()
         self._reap()
         tp = time.perf_counter()
-        chunk = self._build_chunk()
-        for res in self.backend.prefill_step(chunk):
-            self._apply_prefill_result(res)
-        self._activate_ready()
+        if self.chunked_prefill:
+            chunk = self._build_chunk()
+            for res in self.backend.prefill_step(chunk):
+                self._apply_prefill_result(res)
+            self._activate_ready()
+        else:
+            self._admit()
         tp2 = time.perf_counter()
         self.stats.queue_depth = len(self.queue)
         self.stats.prefill_time_s += tp2 - tp
@@ -213,14 +239,32 @@ class OfflineEngine:
         if changed:
             self.backend.set_page_table(self.table)
 
+    def _admit(self) -> None:
+        """Exact-length admission: prefill queued requests into every free
+        slot, in queue order.  On page exhaustion the request goes back to
+        the queue front and retries next step.  (The local backend has no
+        tick in flight, so no microbatch is held back as busy.)"""
+        for slot in range(self.batch):
+            if self.slots[slot] is not None or not self.queue:
+                continue
+            seq = self.queue.popleft()
+            seq.status = Status.PREFILLING
+            try:
+                self._prefill_into_slot(seq, slot)
+            except MemoryError:
+                seq.status = Status.QUEUED
+                self.queue.appendleft(seq)      # retry when pages free up
+                break
+
     # ------------------------------------------------------------------
     # chunked prefill
     # ------------------------------------------------------------------
 
     def _allocate_slot(self, seq: SequenceState, slot: int) -> None:
         """Allocate the slot's full page budget and bind the sequence to it
-        (MemoryError with nothing bound on exhaustion).  The slot's real
-        table row is pushed only at activation."""
+        (MemoryError with nothing bound on exhaustion).  The caller decides
+        when to push the slot's real table row: the chunked path parks it
+        until activation, the exact path pushes it at once."""
         sp = seq.sampling
         plen = seq.prompt_len
         cap = self.pool.max_pages_per_seq * self.pool.page_size
@@ -305,11 +349,38 @@ class OfflineEngine:
         self._pending_activation = []
         self.backend.set_page_table(self.table)
 
+    # ------------------------------------------------------------------
+    # exact-length prefill (sliding-window archs, or prefill_mode="exact")
+    # ------------------------------------------------------------------
+
+    def _prefill_len(self, n: int) -> int:
+        """Prompt length padded to a multiple of 8 (at least 8), which bounds
+        the number of distinct prefill shapes.  (The JAX engine buckets
+        recurrent archs to powers of two; they come with a later slice.)"""
+        return max(8, (n + 7) // 8 * 8)
+
+    def _prefill_into_slot(self, seq: SequenceState, slot: int) -> None:
+        prompt = seq.request.prompt
+        plen = len(prompt)
+        self._allocate_slot(seq, slot)          # pages + budget + binding
+        self.table[slot] = self.alloc.table_row(slot)
+        self.backend.reset_slot(slot)
+        self.backend.set_page_table(self.table)
+
+        toks = np.zeros((self._prefill_len(plen),), np.int32)
+        toks[:plen] = prompt
+        logits = self.backend.prefill(toks, slot, plen - 1)
+        self._sample_first_token(seq, slot, logits)
+        seq.status = Status.DECODING
+        self.active[slot] = True
+        self.stats.prefill_tokens += plen
+
     def _sample_first_token(self, seq: SequenceState, slot: int,
                             logits_row: torch.Tensor) -> None:
         """Set the slot's sampling state and sample the request's first
         token from its last-position prefill logits (token index 0), the
-        same path as every decode token."""
+        same path as every decode token.  Shared by the chunked and exact
+        prefill paths."""
         sp = seq.sampling
         self.samp_keys[slot] = request_seed(self.seed, seq.request.request_id)
         self.samp_temp[slot] = sp.temperature

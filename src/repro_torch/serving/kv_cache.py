@@ -1,11 +1,13 @@
-"""Paged KV cache: shared page pools + host-side page-table allocator
-(counterpart of ``repro.serving.kv_cache``).
+"""Paged KV cache: shared page pools, per-slot rings, and the host-side
+page-table allocator (counterpart of ``repro.serving.kv_cache``).
 
-Device state is one ``(P, page, Hk, Dh)`` K pool and V pool per attention
-layer plus one ``(batch, max_pages)`` int32 page table shared by every
-layer.  Bookkeeping (free list, per-slot page lists) is host Python.  This
-slice has local pages only: the global pools of the §4.2 offloader come
-with the offload slice.
+Device state is one ``(P, page, Hk, Dh)`` K pool and V pool per paged
+attention layer (``"attn"``/``"global"``) plus one ``(batch, max_pages)``
+int32 page table shared by every paged layer, and one ring of
+``window_size`` slots per row for each sliding-window (``"local"``) layer.
+Bookkeeping (free list, per-slot page lists) is host Python.  This slice
+has local pages only: the global pools of the §4.2 offloader come with the
+offload slice.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.common import Runtime
-from repro_torch.models.model import check_supported
+from repro_torch.models.model import PAGED_KINDS, _kind_cache, \
+    check_supported
 
 
 @dataclass(frozen=True)
@@ -85,17 +88,26 @@ class PageAllocator:
 
 def build_paged_caches(cfg: ModelConfig, batch: int, pool: PoolConfig,
                        rt: Runtime, device="cpu") -> dict:
-    """Zeroed pools for every layer and a zero (scratch-parked) table."""
+    """Engine caches: zeroed pools for the paged kinds, empty rings
+    (``pos`` -1) of ``window_size`` slots for ``"local"``, and a zero
+    (scratch-parked) table."""
     check_supported(cfg)
     shape = (pool.n_pages, pool.page_size, cfg.num_kv_heads, cfg.head_dim)
-    layers = [{"k_pages": torch.zeros(shape, dtype=rt.compute_dtype,
-                                      device=device),
-               "v_pages": torch.zeros(shape, dtype=rt.compute_dtype,
-                                      device=device)}
-              for _ in range(cfg.num_layers)]
+
+    def layer(kind: str) -> dict:
+        if kind in PAGED_KINDS:
+            return {"k_pages": torch.zeros(shape, dtype=rt.compute_dtype,
+                                           device=device),
+                    "v_pages": torch.zeros(shape, dtype=rt.compute_dtype,
+                                           device=device)}
+        cap = cfg.window_size if kind == "local" and cfg.window_size else \
+            pool.max_pages_per_seq * pool.page_size
+        return _kind_cache(kind, cfg, batch, cap, rt, device)
+
     table = torch.zeros((batch, pool.max_pages_per_seq), dtype=torch.int32,
                         device=device)
-    return {"layers": layers, "page_table": table}
+    return {"layers": [layer(k) for k in cfg.layer_kinds()],
+            "page_table": table}
 
 
 def set_page_table(caches: dict, table: np.ndarray) -> dict:
@@ -106,9 +118,24 @@ def set_page_table(caches: dict, table: np.ndarray) -> dict:
     return caches
 
 
+def reset_slot(caches: dict, slot: int) -> dict:
+    """Clear a slot's per-row state when it is reassigned, in place: ring
+    positions back to -1.  Paged pools need no clearing (validity is
+    governed by the sequence lengths)."""
+    for layer in caches["layers"]:
+        if "pos" in layer:
+            layer["pos"][slot] = -1
+    return caches
+
+
 def slot_view(caches: dict, start: int, size: int) -> dict:
     """A ``size``-row view of the batch starting at ``start``: the page
-    table rows are a view (no copy), the shared pools pass through whole.
-    The model writes the pools in place, so nothing is merged back."""
-    return {"layers": caches["layers"],
+    table rows and each ring's rows are views (no copy), the shared pools
+    pass through whole.  The model writes pools and rings in place, so
+    nothing is merged back."""
+    def rows(layer: dict) -> dict:
+        if "k_pages" in layer:
+            return layer
+        return {name: t[start:start + size] for name, t in layer.items()}
+    return {"layers": [rows(layer) for layer in caches["layers"]],
             "page_table": caches["page_table"][start:start + size]}

@@ -34,7 +34,6 @@ _LATER = {
     "schedule": ("circular", "the pipeline slice (round_flush schedule)"),
     "wire_dtype": ("fp32", "the pipeline slice (int8 wire codec)"),
     "fault_plan": (None, "the resilience slice (fault plans and reshard)"),
-    "prefill_mode": ("auto", "the exact-length prefill slice"),
     "prefix_cache": (False, "the online-serving slice (prefix cache)"),
     "slo": (None, "the online-serving slice (SLO admission)"),
     "trace": (None, "the tracing slice (flight recorder)"),
@@ -50,8 +49,9 @@ class EngineConfig:
     The fields of ``repro.serving.llm.EngineConfig`` that this slice does
     not serve are kept so that a config asking for one fails loudly: any
     value other than the default raises ``NotImplementedError`` naming
-    the slice that will bring it (``_LATER``).  ``prefill_mode="chunked"``
-    is the path this slice runs and is accepted."""
+    the slice that will bring it (``_LATER``).  ``prefill_mode`` is
+    ``"auto"`` (chunked where every layer is paged, else exact-length),
+    ``"chunked"`` or ``"exact"``."""
     mb_size: int = 4                  # sequences per microbatch
     num_microbatches: int = 1         # N_B
     pool: Optional[PoolConfig] = None
@@ -75,8 +75,6 @@ class EngineConfig:
     def __post_init__(self) -> None:
         for name, (default, slice_) in _LATER.items():
             value = getattr(self, name)
-            if name == "prefill_mode" and value == "chunked":
-                continue
             if value != default:
                 raise NotImplementedError(
                     f"EngineConfig({name}={value!r}) is not ported yet: it "
@@ -90,6 +88,9 @@ class EngineConfig:
         if self.num_microbatches < 1:
             raise ValueError("num_microbatches must be >= 1, "
                              f"got {self.num_microbatches}")
+        if self.prefill_mode not in ("auto", "chunked", "exact"):
+            raise ValueError("prefill_mode must be 'auto'|'chunked'|'exact'"
+                             f", got {self.prefill_mode!r}")
         if self.prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, "
                              f"got {self.prefill_chunk}")
@@ -105,7 +106,7 @@ class EngineConfig:
             pool=self.pool or PoolConfig(), seed=self.seed,
             prefill_chunk=self.prefill_chunk,
             max_prefill_tokens_per_tick=self.max_prefill_tokens_per_tick,
-            device=device)
+            prefill_mode=self.prefill_mode, device=device)
 
 
 @dataclass

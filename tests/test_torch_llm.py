@@ -2,7 +2,9 @@
 
 Both front ends serve the same prompts on the same weights (the JAX
 package's ``init_params``, carried across with ``from_jax_params``), in
-float32 on the CPU, through the same chunked-prefill schedule.  Greedy
+float32 on the CPU, through the same prefill schedule: chunked for the
+fully-paged yi-9b, exact-length for the sliding-window gemma3 (and for
+yi-9b under ``prefill_mode="exact"``).  Greedy
 streams must be identical token for token.  Sampled streams cannot be
 compared across the two (``jax.random`` and ``torch.Generator`` draw
 different noise), so they are checked for shape here and for layout
@@ -55,10 +57,10 @@ POLICIES = [(0.0, 0, 1.0), (0.8, 0, 1.0), (0.0, 0, 1.0), (1.0, 20, 1.0),
             (0.0, 0, 1.0), (0.9, 0, 0.9)]
 
 
-def setup(variant):
+def setup(variant, arch="yi-9b"):
     kw = VARIANTS[variant]
-    jcfg = dataclasses.replace(jax_reduced(jax_get_arch("yi-9b")), **kw)
-    tcfg = dataclasses.replace(reduced_config(get_arch("yi-9b")), **kw)
+    jcfg = dataclasses.replace(jax_reduced(jax_get_arch(arch)), **kw)
+    tcfg = dataclasses.replace(reduced_config(get_arch(arch)), **kw)
     jparams = jax_model.init_params(jcfg, jax.random.PRNGKey(0), JRT)
     tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, TRT)
     rng = np.random.RandomState(1)
@@ -66,9 +68,10 @@ def setup(variant):
     return jcfg, tcfg, jparams, tparams, prompts
 
 
-def port_llm(tcfg, tparams, mb, n_mb):
+def port_llm(tcfg, tparams, mb, n_mb, prefill_mode="auto"):
     cfg = llm.EngineConfig(mb_size=mb, num_microbatches=n_mb,
-                           pool=PoolConfig(**POOL))
+                           pool=PoolConfig(**POOL),
+                           prefill_mode=prefill_mode)
     return llm.LLM(tcfg, config=cfg, params=tparams, rt=TRT, device="cpu")
 
 
@@ -76,6 +79,24 @@ def sampling(cls, mixed):
     return [cls(temperature=t if mixed else 0.0, top_k=k if mixed else 0,
                 top_p=p if mixed else 1.0, max_new_tokens=MAX_NEW)
             for t, k, p in POLICIES]
+
+
+def assert_streams_match_jax(arch, variant, mb, n_mb, mixed, mode="auto"):
+    jcfg, tcfg, jparams, tparams, prompts = setup(variant, arch)
+    jax_cfg = jax_llm.EngineConfig(mb_size=mb, num_microbatches=n_mb,
+                                   pool=JaxPool(**POOL), prefill_mode=mode)
+    want = jax_llm.LLM(jcfg, config=jax_cfg, params=jparams, rt=JRT
+                       ).generate(prompts, sampling(JaxSP, mixed))
+    port = port_llm(tcfg, tparams, mb, n_mb, mode)
+    assert port.engine.chunked_prefill == (arch == "yi-9b" and
+                                           mode != "exact")
+    got = port.generate(prompts, sampling(SamplingParams, mixed))
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.finished and w.finished
+        assert len(g.token_ids) == len(w.token_ids) == MAX_NEW
+        assert all(0 <= t < tcfg.vocab_size for t in g.token_ids)
+        if sampling(SamplingParams, mixed)[i].temperature <= 0:
+            assert g.token_ids == w.token_ids, f"request {i}"
 
 
 @pytest.mark.parametrize("variant,mb,n_mb,mixed", [
@@ -86,19 +107,37 @@ def sampling(cls, mixed):
     ("hd64", 2, 2, True),
 ])
 def test_greedy_streams_match_jax(variant, mb, n_mb, mixed):
-    jcfg, tcfg, jparams, tparams, prompts = setup(variant)
-    jax_cfg = jax_llm.EngineConfig(mb_size=mb, num_microbatches=n_mb,
-                                   pool=JaxPool(**POOL))
-    want = jax_llm.LLM(jcfg, config=jax_cfg, params=jparams, rt=JRT
-                       ).generate(prompts, sampling(JaxSP, mixed))
-    got = port_llm(tcfg, tparams, mb, n_mb).generate(
-        prompts, sampling(SamplingParams, mixed))
-    for i, (g, w) in enumerate(zip(got, want)):
-        assert g.finished and w.finished
-        assert len(g.token_ids) == len(w.token_ids) == MAX_NEW
-        assert all(0 <= t < tcfg.vocab_size for t in g.token_ids)
-        if sampling(SamplingParams, mixed)[i].temperature <= 0:
-            assert g.token_ids == w.token_ids, f"request {i}"
+    assert_streams_match_jax("yi-9b", variant, mb, n_mb, mixed)
+
+
+# Reduced gemma3 (window 32; prompts of 33-70 tokens run past it) takes
+# the exact-length path under "auto"; yi-9b takes it under "exact".
+@pytest.mark.parametrize("arch,mb,n_mb,mode", [
+    ("gemma3-1b", 2, 1, "auto"),
+    ("gemma3-1b", 2, 2, "auto"),
+    ("yi-9b", 2, 2, "exact"),
+])
+def test_exact_prefill_greedy_streams_match_jax(arch, mb, n_mb, mode):
+    assert_streams_match_jax(arch, "reduced", mb, n_mb, True, mode)
+
+
+def test_exact_prefill_streams_equal_chunked_streams():
+    """Both admission paths of the port give yi-9b the same greedy streams
+    (the chunked path's attention is the exact path's, cut into chunks)."""
+    _, tcfg, _, tparams, prompts = setup("reduced")
+    sps = sampling(SamplingParams, False)
+    exact = port_llm(tcfg, tparams, 2, 2, "exact").generate(prompts, sps)
+    chunked = port_llm(tcfg, tparams, 2, 2, "chunked").generate(prompts, sps)
+    assert [o.token_ids for o in exact] == [o.token_ids for o in chunked]
+
+
+def test_chunked_prefill_of_a_sliding_window_arch_raises():
+    """As in the JAX engine: rings cannot take chunked prefill."""
+    _, tcfg, _, tparams, _ = setup("reduced", "gemma3-1b")
+    with pytest.raises(ValueError, match="exact-length"):
+        port_llm(tcfg, tparams, 2, 1, "chunked")
+    with pytest.raises(ValueError, match="prefill_mode"):
+        llm.EngineConfig(prefill_mode="bucketed")
 
 
 def test_sampled_stream_does_not_depend_on_batch_layout():
@@ -112,7 +151,7 @@ def test_sampled_stream_does_not_depend_on_batch_layout():
 
 @pytest.mark.parametrize("knob", [
     dict(backend="pipelined"), dict(prefix_cache=True), dict(strict=True),
-    dict(prefill_mode="exact"), dict(trace=True),
+    dict(wire_dtype="int8"), dict(trace=True),
     dict(pool=PoolConfig(n_global_pages=4)),
 ])
 def test_later_slice_knobs_raise(knob):

@@ -7,7 +7,9 @@ in float32 on the CPU; logits agree within ``1e-4`` (the two frameworks
 sum matmuls, softmaxes and RoPE angles in another order, and on the
 Pallas route the kernel sums per block of pages).  The ``head_dim=64``
 variant sends the JAX side through the Pallas paged kernel (interpret
-mode) and the port through its plain paged attention.
+mode) and the port through its plain paged attention.  The gemma3 tests
+run the exact-length ``prefill`` and the dense / ring ``decode_step`` of
+the sliding-window archs, with float32 and int8 caches.
 """
 
 import dataclasses
@@ -161,7 +163,7 @@ def test_pad_positions_drop_their_kv_writes():
 
 def test_unported_layer_kinds_raise():
     base = reduced_config(get_arch("yi-9b"))
-    for kinds in (("local", "global"), ("rglru", "attn")):
+    for kinds in (("mlstm", "slstm"), ("rglru", "attn")):
         cfg = dataclasses.replace(base, block_pattern=kinds)
         with pytest.raises(NotImplementedError, match="slice"):
             tmodel.init_params(cfg, 0, TRT)
@@ -216,3 +218,151 @@ def test_rope_and_rms_norm_match_jax():
     got = tcommon.rms_norm(_t(x), _t(w), 1e-6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# exact-length prefill, dense and ring caches (gemma3)
+# ---------------------------------------------------------------------------
+
+
+def gemma_configs(arch, **kw):
+    return (dataclasses.replace(jax_reduced(jax_get_arch(arch)), **kw),
+            dataclasses.replace(reduced_config(get_arch(arch)), **kw))
+
+
+def jax_layer_caches(jc, cfg):
+    """The JAX cache tree as the port's per-layer list: scan leaves are
+    stacked over periods, layer order is period by period, then the
+    tail."""
+    period = len(cfg.block_pattern)
+    n_periods = cfg.num_layers // period
+    layers = [{k: np.asarray(a[p]) for k, a in jc["scan"][i].items()}
+              for p in range(n_periods) for i in range(period)]
+    layers += [{k: np.asarray(a) for k, a in c.items()} for c in jc["tail"]]
+    return layers
+
+
+# jitted JAX entry points: op-by-op dispatch of a scanned model is slower
+# on the CPU than one compile
+jax_prefill = jax.jit(jax_model.prefill, static_argnums=(2, 3, 4))
+jax_decode = jax.jit(jax_model.decode_step, static_argnums=(4, 5))
+
+
+def _np(t):
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "gemma3-12b"])
+def test_exact_prefill_then_ring_decode_match_jax(arch, kv_dtype):
+    """``prefill`` over dense caches (rings of ``window`` slots for the
+    local layers), prompts longer than the window, one row right-padded,
+    then decode steps that wrap the rings; logits and caches against
+    ``repro.models.model.prefill`` / ``decode_step``."""
+    jcfg, tcfg = gemma_configs(arch)
+    jrt, trt = JRT.replace(kv_dtype=kv_dtype), \
+        dataclasses.replace(TRT, kv_dtype=kv_dtype)
+    jparams = jax_model.init_params(jcfg, jax.random.PRNGKey(1), jrt)
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, trt)
+    rng = np.random.RandomState(2)
+    S, cap = 40, 64                         # window 32 < S < capacity
+    tokens = rng.randint(1, jcfg.vocab_size, (2, S)).astype(np.int32)
+    last = np.asarray([S - 1, 33], np.int32)
+    jl, jc = jax_prefill(jparams, {"tokens": jnp.asarray(tokens)}, jcfg, jrt,
+                         cap, last_index=jnp.asarray(last))
+    tl, tc = tmodel.prefill(tparams, _t(tokens), tcfg, trt, cap,
+                            last_index=_t(last))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
+    for kind, want, got in zip(tcfg.layer_kinds(),
+                               jax_layer_caches(jc, jcfg), tc["layers"]):
+        assert got["k"].shape[1] == (32 if kind == "local" else cap)
+        np.testing.assert_array_equal(got["pos"].numpy(), want["pos"])
+        if kv_dtype == "int8":
+            # the same int8 values; the bf16 scales round float32 maxima
+            # that may differ in their last bits: one bf16 ulp (2**-7)
+            np.testing.assert_array_equal(got["k"].numpy(), want["k"])
+            np.testing.assert_allclose(_np(got["k_scale"]),
+                                       want["k_scale"].astype(np.float32),
+                                       rtol=2 ** -7)
+        else:
+            np.testing.assert_allclose(got["k"].numpy(), want["k"],
+                                       rtol=TOL, atol=TOL)
+    cur = last + 1
+    toks = np.asarray(tl.argmax(-1), np.int32)
+    for _ in range(4):
+        jl, jc = jax_decode(jparams, jnp.asarray(toks), jc, jnp.asarray(cur),
+                            jcfg, jrt)
+        tl, tc = tmodel.decode_step(tparams, _t(toks), tc, _t(cur), tcfg,
+                                    trt)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
+                                   atol=TOL)
+        toks = np.asarray(tl.argmax(-1), np.int32)
+        cur = cur + 1
+    for want, got in zip(jax_layer_caches(jc, jcfg), tc["layers"]):
+        np.testing.assert_array_equal(got["pos"].numpy(), want["pos"])
+
+
+def test_padded_ring_prefill_keeps_the_reference_behaviour():
+    """A ring of 8 slots, a prompt of 13 tokens padded to 16: both packages
+    keep the last 8 slots of the *padded* sequence, so the ring holds
+    positions 8..12 and three empty slots, and the in-window positions 6
+    and 7 are never written (a defect of the reference that the port
+    reproduces for parity)."""
+    jcfg, tcfg = gemma_configs("gemma3-1b", window_size=8)
+    jparams = jax_model.init_params(jcfg, jax.random.PRNGKey(0), JRT)
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, TRT)
+    tokens = np.random.RandomState(3).randint(
+        1, jcfg.vocab_size, (1, 16)).astype(np.int32)
+    last = np.asarray([12], np.int32)
+    _, jc = jax_prefill(jparams, {"tokens": jnp.asarray(tokens)}, jcfg, JRT,
+                        64, last_index=jnp.asarray(last))
+    _, tc = tmodel.prefill(tparams, _t(tokens), tcfg, TRT, 64,
+                           last_index=_t(last))
+    ring = [8, 9, 10, 11, 12, -1, -1, -1]
+    for kind, want, got in zip(tcfg.layer_kinds(),
+                               jax_layer_caches(jc, jcfg), tc["layers"]):
+        if kind == "local":
+            assert want["pos"][0].tolist() == ring
+            assert got["pos"][0].tolist() == ring
+        else:
+            assert got["pos"][0, :16].tolist() == list(range(13)) + [-1] * 3
+
+
+def test_int8_quantization_matches_jax():
+    """``_quantize_kv`` / ``_dequant_kv`` bit for bit, ties included (both
+    round half to even)."""
+    rng = np.random.RandomState(4)
+    x = rng.randn(3, 5, 2, 16).astype(np.float32)
+    x[0, 0, 0, :4] = [127.0, 0.5, 1.5, -2.5]     # scale 1: exact .5 ties
+    jq, js = jax_model._quantize_kv(jnp.asarray(x))
+    tq, ts = tmodel._quantize_kv(_t(x))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(_np(ts), np.asarray(js, np.float32))
+    assert tq[0, 0, 0, :4].tolist() == [127, 0, 2, -2]
+    jk, _ = jax_model._dequant_kv({"k": jq, "v": jq, "k_scale": js,
+                                   "v_scale": js}, jnp.float32)
+    tk, _ = tmodel._dequant_kv({"k": tq, "v": tq, "k_scale": ts,
+                                "v_scale": ts}, torch.float32)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+
+
+def test_engine_caches_put_local_layers_on_rings():
+    """``build_paged_caches``: paged pools for the global layers, rings of
+    ``window_size`` slots (positions -1) for the local ones, as
+    ``repro.serving.kv_cache.build_paged_caches``; ``reset_slot`` empties
+    one row of every ring."""
+    jcfg, tcfg = gemma_configs("gemma3-1b")
+    table = np.zeros((3, 4), np.int32)
+    jc = jax_layer_caches(jax_pools(jcfg, table), jcfg)
+    tc = torch_pools(tcfg, table)
+    for kind, want, got in zip(tcfg.layer_kinds(), jc, tc["layers"]):
+        assert sorted(got) == sorted(k for k in want if k != "page_table")
+        for name, t in got.items():
+            assert tuple(t.shape) == want[name].shape, (kind, name)
+        if kind == "local":
+            assert (got["pos"] == -1).all()
+            got["pos"].fill_(5)
+    tkv.reset_slot(tc, 1)
+    for kind, got in zip(tcfg.layer_kinds(), tc["layers"]):
+        if kind == "local":
+            assert (got["pos"][1] == -1).all() and (got["pos"][0] == 5).all()

@@ -30,12 +30,14 @@ TOL = 1e-5
 BF16_TOL = (1e-5, 2 ** -7)
 
 # (G, Dh, page, window): both group sizes the main path cares about (1, 8),
-# both head dims, both page sizes, with and without a sliding window
+# every head dim (256: gemma3's global layers), both page sizes, with and
+# without a sliding window
 CASES = [
     (1, 64, 8, 0),
     (8, 128, 16, 0),
     (8, 64, 16, 20),
     (1, 128, 8, 13),
+    (2, 256, 16, 0),
 ]
 
 
