@@ -7,7 +7,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
 2. the build: every ``src/repro_torch/kernels/csrc/*.cu`` compiled with
-   ``nvcc``, one process per source, all started together;
+   ``nvcc``, one process per source, all started together (paged
+   attention, flash attention, the RG-LRU scan);
 3. the paged decode kernel against its plain PyTorch version on the card,
    at the main paths' shapes (yi-9b: B=16, H=32, Hk=4, Dh=128, page 16, up
    to 2048 tokens, a zero-length row, NaN in every page no row owns;
@@ -23,23 +24,47 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and without the 1024-token window), a sweep of Dh, G, non-causal and
    Sq != Skv, bf16 and float32 with the same tolerances, every K/V the
    first Skv rows of a tensor whose tail is NaN; then the same four times;
-5. end-to-end parity, float32, served by the port on the CPU (plain path)
+   and at recurrentgemma-9b's local layers (B=1, H=16 over one kv head:
+   G=16, Dh=256, causal, window 2048, S from 8 to 4096), with its times;
+5. the RG-LRU scan kernel against its plain version (a float32 loop over
+   time) at recurrentgemma-9b's prefill shapes (B=1, Dr=4096, S in 8, 100,
+   2048, 4096, random h0) and a sweep of B in {1, 3}, Dr in {128, 4000},
+   S=257, with and without h0, every input the front of a buffer whose
+   tail is NaN; both round each step's multiply and add once, so they must
+   agree exactly (held at ``atol = rtol = 1e-6``); then kernel, plain and
+   bound times (no single PyTorch call computes the recurrence, so no
+   library time);
+6. end-to-end parity, float32, served by the port on the CPU (plain path)
    and on the card (kernel path), greedy streams identical: a 2-layer model
-   with yi-9b's head layout (chunked prefill, paged kernel), and a 4-layer
+   with yi-9b's head layout (chunked prefill, paged kernel), a 4-layer
    ``(local, global)`` model at head_dim 64 with a 32-token window (exact
-   prefill through the flash kernel, rings, paged kernel), prompts past the
-   window;
-6. the yi-9b serve phase: ``repro_torch.serving.llm.LLM`` on full-width,
+   prefill through the flash kernel, rings, paged kernel), and a 4-layer
+   ``(rglru, rglru, local)`` model at head_dim 64 (16 heads over one kv
+   head) with a 32-token window (the scan and flash kernels, recurrent
+   states, rings); prompts past the window, more requests than slots;
+7. the yi-9b serve phase: ``repro_torch.serving.llm.LLM`` on full-width,
    full-depth yi-9b in bf16 with random weights from the seed, 20 requests
    of 64-768 prompt tokens and 32 new tokens, greedy and sampled mixed;
    every request must finish at full length with finite log-probs, and the
    paged kernel's launch count must equal decode ticks x 48;
-7. the gemma3 serve phase: full-width, full-depth gemma3-12b in bf16 (48
+8. the gemma3 serve phase: full-width, full-depth gemma3-12b in bf16 (48
    layers, 5 local : 1 global), 20 requests of 256-2048 prompt tokens, 32
    new tokens each; ``prefill_mode="auto"`` must pick exact-length
    prefill, every request must finish at full length with finite
    log-probs, the flash kernel must run 20 x 48 times and the paged kernel
-   decode ticks x 8 times.
+   decode ticks x 8 times;
+9. the recurrentgemma serve phase: full-width, full-depth
+   recurrentgemma-9b in bf16 (38 layers: 26 rglru, 12 local with a
+   2,048-token window), 20 requests of 256-3072 prompt tokens bucketed to
+   powers of two, 32 new tokens each; exact-length prefill, every request
+   at full length with finite log-probs, the scan kernel 20 x 26 times,
+   the flash kernel 20 x 12 times, the paged kernel never; it prints how
+   many in-window tokens the rings lost to the reference's padded-ring
+   behaviour (ROADMAP Queue 3).
+
+Each serve phase sets every kernel's launch count to 0 just before it
+drives its path and reads them just after; the kernels line reports those
+counts by path.
 
 It prints a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.  It exits non-zero without a
@@ -63,7 +88,7 @@ HBM_BYTES_PER_S = 3.35e12             # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core bf16
               "float32": 67e12}       # float32 outside the tensor cores
 YI_LAYERS = 48
-KERNELS = ("paged_attention", "flash_attention")
+KERNELS = ("paged_attention", "flash_attention", "rglru_scan")
 # kernel against plain version, (atol, rtol).  Both compute in float32 and
 # round once to the output dtype, so bf16 outputs differ by at most one
 # bf16 ulp (2**-7 of the value) where the float32 results straddle a
@@ -80,6 +105,14 @@ GEMMA_MB, GEMMA_PAGE, GEMMA_MAX_PAGES = 16, 16, 136        # 2,176 tokens
 GEMMA_POOL_PAGES = GEMMA_MB * GEMMA_MAX_PAGES + 1
 GEMMA_REQUESTS, GEMMA_PROMPTS, GEMMA_NEW = 20, (256, 2048), 32
 FLASH_LENGTHS = (8, 100, 1023, 1024, 1500, 2048)
+# the recurrentgemma-9b serve phase (phases 4 and 5 check the flash kernel
+# at G = 16 and the scan kernel at its prefill shapes)
+RG_MB, RG_PAGE, RG_MAX_PAGES = 16, 16, 196                 # 3,136 tokens
+RG_POOL_PAGES = RG_MB * RG_MAX_PAGES + 1
+RG_REQUESTS, RG_PROMPTS, RG_NEW = 20, (256, 3072), 32
+RG_FLASH_LENGTHS = (8, 100, 1500, 2048, 2049, 4096)   # power-of-two buckets
+SCAN_LENGTHS = (8, 100, 2048, 4096)                     # and ragged lengths
+SCAN_TOL = 1e-6     # atol = rtol; the kernel and plain loop round alike
 
 
 def log(msg: str) -> None:
@@ -107,6 +140,25 @@ def time_ms(torch, fn, iters: int, flush=None) -> float:
         e.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def _counted():
+    """Each kernel wrapper, by kernel; ``.launches`` is its count."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rglru_scan as rs
+    return {"paged_attention": pa.paged_decode_attention,
+            "flash_attention": fa.flash_attention,
+            "rglru_scan": rs.rglru_scan}
+
+
+def reset_counts() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -414,6 +466,22 @@ def phase_kernel_flash(torch, np):
                       "window=37", case(1, skv, sq, 2 * g, 2, dh, dtype),
                       True, 37)
 
+    # recurrentgemma-9b's local layers: 16 heads over one kv head of 256
+    # (G = 16: a block holds 4 query positions x 16 heads), causal, window
+    # 2048, at the power-of-two prefill buckets and lengths around them
+    rg = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for s_len in RG_FLASH_LENGTHS:
+            args = case(1, s_len, s_len, 16, 1, 256, dtype)
+            err = check(f"recurrentgemma-9b prefill G=16 S={s_len} causal "
+                        "window=2048", args, True, 2048)
+            if s_len == RG_FLASH_LENGTHS[-1] and dtype == torch.bfloat16:
+                rg = {"args": args, "err": err}
+    for dh in (64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            check(f"sweep Dh={dh} G=16 Sq=77 Skv=130 non-causal",
+                  case(1, 77, 130, 16, 1, dh, dtype), False, 0)
+
     # times at S = 2048, bf16, for both layer kinds (warm L2: a prefill
     # layer has just written its q, k, v)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -443,13 +511,108 @@ def phase_kernel_flash(torch, np):
         times[window] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": library_ms}
-    return {**times[0], "window_1024": times[1024]}
+    # the same four times at recurrentgemma-9b's longest prefill bucket
+    q, k, v = rg["args"]
+    s_len, window = q.shape[1], 2048
+    ms = time_ms(torch, lambda: fa.flash_attention(
+        q, k, v, causal=True, window=window), 20)
+    plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
+        q, k, v, causal=True, window=window), 3)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    i = torch.arange(s_len, device=dev)
+    band = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+    library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=band,
+                                             enable_gqa=True), 20)
+    bound_ms, bound_by = flash_bound(s_len, s_len, True, window, 16, 1, 256,
+                                     2, "bfloat16")
+    log(f"[flash] times at recurrentgemma-9b prefill B=1 S={s_len} H=16 "
+        f"Hk=1 Dh=256 causal window={window} bf16: kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms(sdpa, band mask)="
+        f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}); kernel at "
+        f"{bound_ms / ms:.1%} of the bound")
+    rg_times = {"max_abs_err": rg["err"], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+    return {**times[0], "window_1024": times[1024],
+            "recurrentgemma_prefill": rg_times}
+
+
+def phase_kernel_scan(torch, np):
+    """The RG-LRU scan kernel against its plain loop, exactly."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rs
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+
+    def nan_tailed(shape, fill):
+        """A float32 tensor of ``shape`` at the front of a buffer whose
+        tail is NaN: a read past its end reaches the output."""
+        n = math.prod(shape)
+        buf = torch.full((n + 4096,), float("nan"), device=dev)
+        buf[:n] = fill(n)
+        return buf[:n].view(shape)
+
+    def case(b, s_len, dr, with_h0):
+        a = nan_tailed((b, s_len, dr), lambda n: torch.sigmoid(
+            torch.randn(n, generator=gen, device=dev)))
+        bb = nan_tailed((b, s_len, dr), lambda n: torch.randn(
+            n, generator=gen, device=dev))
+        h0 = nan_tailed((b, dr), lambda n: torch.randn(
+            n, generator=gen, device=dev)) if with_h0 else None
+        return a, bb, h0
+
+    def check(label, args):
+        got = rs.rglru_scan(*args)
+        torch.cuda.synchronize()
+        want = ref.rglru_scan_ref(*args)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{label}: non-finite kernel output")
+        err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, rtol=SCAN_TOL, atol=SCAN_TOL,
+                                   msg=lambda m: f"{label}: {m}")
+        log(f"[scan] {label}: max |kernel - plain| = {err:.3e} "
+            f"(atol {SCAN_TOL:g}, rtol {SCAN_TOL:g}) ok")
+        return err
+
+    main = None
+    for s_len in SCAN_LENGTHS:
+        args = case(1, s_len, 4096, True)
+        err = check(f"recurrentgemma-9b prefill B=1 S={s_len} Dr=4096 h0",
+                    args)
+        if s_len == SCAN_LENGTHS[-1]:
+            main = (args, err)
+    for b in (1, 3):
+        for dr in (128, 4000):
+            for with_h0 in (True, False):
+                check(f"sweep B={b} S=257 Dr={dr} "
+                      f"{'h0' if with_h0 else 'no h0'}",
+                      case(b, 257, dr, with_h0))
+
+    (a, bb, h0), err = main
+    b, s_len, dr = a.shape
+    ms = time_ms(torch, lambda: rs.rglru_scan(a, bb, h0), 20)
+    plain_ms = time_ms(torch, lambda: ref.rglru_scan_ref(a, bb, h0), 3)
+    # a and b read once, every h_t written once: 12 bytes a step and
+    # channel, 2 flops
+    t_bytes = 12 * b * s_len * dr / HBM_BYTES_PER_S
+    t_ops = 2 * b * s_len * dr / PEAK_FLOPS["float32"]
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[scan] times at recurrentgemma-9b prefill B={b} S={s_len} "
+        f"Dr={dr} float32: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms=none (no single PyTorch call computes the "
+        f"recurrence) bound_ms={bound_ms:.4f} ({bound_by}); kernel at "
+        f"{bound_ms / ms:.1%} of the bound")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def phase_parity(torch, np):
-    """The port on the CPU (plain attention) against the port on the card
+    """The port on the CPU (plain versions) against the port on the card
     (the kernels), float32, on identical weights: the chunked path of a
-    yi-9b-shaped model, and the exact path of a (local, global) model."""
+    yi-9b-shaped model, the exact path of a (local, global) model and of
+    an (rglru, rglru, local) model."""
     import dataclasses
 
     from repro_torch.config import get_arch
@@ -474,6 +637,14 @@ def phase_parity(torch, np):
             num_layers=4, block_pattern=("local", "global"), d_model=512,
             num_heads=8, num_kv_heads=4, head_dim=64, d_ff=1024,
             vocab_size=2048, window_size=32), (20, 101), False),
+        # exact prefill through the scan kernel (3 rglru layers) and the
+        # flash kernel at G = 16 (the local layer), recurrent states reset
+        # as 10 requests pass through 8 slots, a 32-slot ring
+        "recurrentgemma-rglru-local": (dataclasses.replace(
+            get_arch("recurrentgemma-9b"), name="recurrentgemma-rglru-local",
+            num_layers=4, d_model=512, d_rnn=512, num_heads=16,
+            num_kv_heads=1, head_dim=64, d_ff=1024, vocab_size=2048,
+            window_size=32), (20, 101), False),
     }
     sp = SamplingParams(temperature=0.0, max_new_tokens=16)
     for label, (cfg, (lo, hi), chunked) in models.items():
@@ -520,8 +691,6 @@ def phase_parity(torch, np):
 
 def phase_serve(torch, np, card: str):
     from repro_torch.config import get_arch
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import Runtime
     from repro_torch.serving.kv_cache import PoolConfig
@@ -557,14 +726,14 @@ def phase_serve(torch, np, card: str):
            SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
                           max_new_tokens=max_new, logprobs=True)
            for i in range(n_req)]
-    pa.paged_decode_attention.launches = 0
-    fa.flash_attention.launches = 0
+    reset_counts()
     t1 = time.perf_counter()
     outs = llm.generate(prompts, sps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    launches = pa.paged_decode_attention.launches
-    flash_launches = fa.flash_attention.launches
+    counts = read_counts()
+    launches = counts["paged_attention"]
+    flash_launches = counts["flash_attention"]
     rep = llm.stats()
     ticks = rep["decode_ticks"]
     bad = [o.request_id for o in outs
@@ -577,9 +746,10 @@ def phase_serve(torch, np, card: str):
     if ticks == 0 or launches != ticks * YI_LAYERS:
         raise AssertionError(f"serve: {launches} kernel launches for {ticks} "
                              f"decode ticks x {YI_LAYERS} layers")
-    if flash_launches:      # yi-9b is fully paged: chunked prefill
-        raise AssertionError(f"serve: {flash_launches} flash launches on the "
-                             "chunked path")
+    if flash_launches or counts["rglru_scan"]:   # fully paged, chunked
+        raise AssertionError(f"serve: {flash_launches} flash and "
+                             f"{counts['rglru_scan']} scan launches on the "
+                             "chunked path of an attention-only arch")
     ttft = sorted(o.ttft_s for o in outs)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     gen = sum(len(o.token_ids) for o in outs)
@@ -599,15 +769,13 @@ def phase_serve(torch, np, card: str):
         f"peak_mem_gib={peak:.2f}; engine steps {rep['steps']}, decode "
         f"ticks {ticks}, paged-kernel launches {launches} "
         f"(= {ticks} x {YI_LAYERS})")
-    return {"paged_attention": launches, "flash_attention": flash_launches}
+    return counts
 
 
 def phase_serve_gemma(torch, np, card: str):
     import gc
 
     from repro_torch.config import get_arch
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import Runtime
     from repro_torch.serving.kv_cache import PoolConfig
@@ -649,14 +817,14 @@ def phase_serve_gemma(torch, np, card: str):
            SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
                           max_new_tokens=GEMMA_NEW, logprobs=True)
            for i in range(GEMMA_REQUESTS)]
-    pa.paged_decode_attention.launches = 0
-    fa.flash_attention.launches = 0
+    reset_counts()
     t1 = time.perf_counter()
     outs = llm.generate(prompts, sps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    paged = pa.paged_decode_attention.launches
-    flash = fa.flash_attention.launches
+    counts = read_counts()
+    paged = counts["paged_attention"]
+    flash = counts["flash_attention"]
     rep = llm.stats()
     ticks = rep["decode_ticks"]
     bad = [o.request_id for o in outs
@@ -673,6 +841,9 @@ def phase_serve_gemma(torch, np, card: str):
     if ticks == 0 or paged != ticks * n_global:
         raise AssertionError(f"gemma3: {paged} paged launches for {ticks} "
                              f"decode ticks x {n_global} global layers")
+    if counts["rglru_scan"]:
+        raise AssertionError(f"gemma3: {counts['rglru_scan']} scan launches "
+                             "on an arch without recurrent layers")
     ttft = sorted(o.ttft_s for o in outs)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     gen = sum(len(o.token_ids) for o in outs)
@@ -693,7 +864,126 @@ def phase_serve_gemma(torch, np, card: str):
         f"ticks {ticks}, flash launches {flash} (= {GEMMA_REQUESTS} x "
         f"{cfg.num_layers}), paged launches {paged} (= {ticks} x "
         f"{n_global})")
-    return {"paged_attention": paged, "flash_attention": flash}
+    return counts
+
+
+def ring_loss(lengths, bucket, window: int):
+    """In-window prompt tokens that the reference's padded-ring behaviour
+    (ROADMAP Queue 3) keeps out of a ring of ``window`` slots: a prompt of
+    n tokens is padded to P = ``bucket(n)``, and when P > window the ring
+    receives only the last ``window`` positions of the *padded* sequence,
+    of which positions P - window .. n - 1 are real; the next token's
+    window wants the last min(n, window).  Returns (total, max, requests
+    that lost any)."""
+    lost = []
+    for n in lengths:
+        held = n - max(bucket(n) - window, 0)
+        lost.append(min(n, window) - max(held, 0))
+    return sum(lost), max(lost), sum(1 for x in lost if x)
+
+
+def phase_serve_recurrentgemma(torch, np, card: str):
+    import gc
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import Runtime
+    from repro_torch.serving.kv_cache import PoolConfig
+    from repro_torch.serving.llm import LLM, EngineConfig
+    from repro_torch.serving.request import SamplingParams
+
+    gc.collect()                        # the gemma3 phase's weights and rings
+    torch.cuda.empty_cache()
+    cfg = get_arch("recurrentgemma-9b")
+    kinds = cfg.layer_kinds()
+    n_rglru, n_local = kinds.count("rglru"), kinds.count("local")
+    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, SEED, rt, "cuda")
+    torch.cuda.synchronize()
+    leaves = [*params["embed"].values(), params["final_norm"]] + \
+        [w for layer in params["layers"] for w in layer.values()]
+    n_params = sum(t.numel() for t in leaves)
+    n_f32 = sum(t.numel() for t in leaves if t.dtype == torch.float32)
+    log(f"[recurrentgemma] recurrentgemma-9b full width and depth: "
+        f"{cfg.num_layers} layers ({n_rglru} rglru, d_rnn {cfg.d_rnn}; "
+        f"{n_local} local, window {cfg.window_size}, {cfg.num_heads} heads "
+        f"over {cfg.num_kv_heads}), {n_params / 1e9:.3f}B params bf16 "
+        f"({n_f32} float32 gate biases and Lambda) from seed {SEED} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    econf = EngineConfig(
+        mb_size=RG_MB, num_microbatches=1,
+        pool=PoolConfig(page_size=RG_PAGE, n_local_pages=RG_POOL_PAGES,
+                        max_pages_per_seq=RG_MAX_PAGES),
+        seed=SEED, prefill_mode="auto")
+    llm = LLM(cfg, config=econf, params=params, rt=rt, reduced=False,
+              device="cuda")
+    engine = llm.engine
+    if engine.chunked_prefill:
+        raise AssertionError("recurrentgemma: prefill_mode='auto' picked "
+                             "chunked prefill for a recurrent arch")
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(RG_PROMPTS[0], RG_PROMPTS[1] + 1, RG_REQUESTS)
+    prompts = [list(rng.randint(1, cfg.vocab_size, n)) for n in lens]
+    sps = [SamplingParams(temperature=0.0, max_new_tokens=RG_NEW,
+                          logprobs=True) if i % 2 == 0 else
+           SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                          max_new_tokens=RG_NEW, logprobs=True)
+           for i in range(RG_REQUESTS)]
+    reset_counts()
+    t1 = time.perf_counter()
+    outs = llm.generate(prompts, sps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = read_counts()
+    rep = llm.stats()
+    ticks = rep["decode_ticks"]
+    bad = [o.request_id for o in outs
+           if not o.finished or len(o.token_ids) != RG_NEW
+           or not all(math.isfinite(x) for x in o.logprobs)
+           or not all(0 <= t < cfg.vocab_size for t in o.token_ids)]
+    if bad:
+        raise AssertionError(f"recurrentgemma: requests {bad} unfinished, "
+                             "short, or with non-finite log-probs")
+    want = {"rglru_scan": RG_REQUESTS * n_rglru,
+            "flash_attention": RG_REQUESTS * n_local, "paged_attention": 0}
+    if counts != want:
+        raise AssertionError(f"recurrentgemma: launches {counts}, want "
+                             f"{want} ({RG_REQUESTS} requests x {n_rglru} "
+                             f"rglru / {n_local} local layers, no paged "
+                             "layer)")
+    buckets = sorted({engine._prefill_len(int(n)) for n in lens})
+    lost, lost_max, n_lossy = ring_loss([int(n) for n in lens],
+                                        engine._prefill_len, cfg.window_size)
+    ttft = sorted(o.ttft_s for o in outs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gen = sum(len(o.token_ids) for o in outs)
+    log(f"[recurrentgemma] {len(outs)}/{RG_REQUESTS} requests finished, "
+        f"{RG_NEW} tokens each; prompts {int(lens.min())}-{int(lens.max())} "
+        f"tokens ({int(lens.sum())} total, "
+        f"{int((lens > cfg.window_size).sum())} past the window), bucketed "
+        f"to {buckets}; batch {RG_MB}x1, page {RG_PAGE}, max_pages_per_seq "
+        f"{RG_MAX_PAGES}; exact-length prefill")
+    log(f"[recurrentgemma] on {card}: "
+        f"decode_tok_per_s={rep['decode_tok_per_s']:.1f} "
+        f"prefill_tok_per_s={rep['prefill_tok_per_s']:.1f} "
+        f"(engine phase clocks, prompt tokens without padding; decode "
+        f"{rep['decode_time_s']:.3f}s, prefill {rep['prefill_time_s']:.3f}s)"
+        f"; wall {wall:.3f}s for {gen} generated + {rep['prefill_tokens']} "
+        f"prompt tokens")
+    log(f"[recurrentgemma] ttft_s p50={ttft[len(ttft) // 2]:.3f} "
+        f"max={ttft[-1]:.3f} mean={sum(ttft) / len(ttft):.3f} "
+        f"(n={len(ttft)}); peak_mem_gib={peak:.2f}; engine steps "
+        f"{rep['steps']}, decode ticks {ticks}, scan launches "
+        f"{counts['rglru_scan']} (= {RG_REQUESTS} x {n_rglru}), flash "
+        f"launches {counts['flash_attention']} (= {RG_REQUESTS} x "
+        f"{n_local}), paged launches {counts['paged_attention']}")
+    log(f"[recurrentgemma] padded-ring loss (reference behaviour, ROADMAP "
+        f"Queue 3): {lost} in-window prompt tokens never reached the rings "
+        f"over {n_lossy} of {RG_REQUESTS} requests (at most {lost_max} for "
+        f"one request; window {cfg.window_size})")
+    return counts
 
 
 def main() -> int:
@@ -708,26 +998,31 @@ def main() -> int:
     phase_build()
     paged = phase_kernel_paged(torch, np)
     flash = phase_kernel_flash(torch, np)
+    scan = phase_kernel_scan(torch, np)
     phase_parity(torch, np)
-    yi = phase_serve(torch, np, smi_line)
-    gemma = phase_serve_gemma(torch, np, smi_line)
+    paths = {"yi-9b": phase_serve(torch, np, smi_line),
+             "gemma3-12b": phase_serve_gemma(torch, np, smi_line),
+             "recurrentgemma-9b": phase_serve_recurrentgemma(torch, np,
+                                                             smi_line)}
+
+    def launches(kernel):
+        by_path = {path: c[kernel] for path, c in paths.items()}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
+
     entries = [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:206",
-         "ok": True,
-         "launches": yi["paged_attention"] + gemma["paged_attention"],
-         "launches_by_path": {"yi-9b": yi["paged_attention"],
-                              "gemma3-12b": gemma["paged_attention"]},
-         **paged},
+         "ok": True, **launches("paged_attention"), **paged},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:136",
-         "ok": True,
-         "launches": yi["flash_attention"] + gemma["flash_attention"],
-         "launches_by_path": {"yi-9b": yi["flash_attention"],
-                              "gemma3-12b": gemma["flash_attention"]},
-         **flash},
+         "ok": True, **launches("flash_attention"), **flash},
+        {"name": "rglru_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan.py:54",
+         "ok": True, **launches("rglru_scan"), **scan},
     ]
     print(json.dumps({"kernels": entries}))
     print(smi_line)

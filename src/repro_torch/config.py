@@ -1,9 +1,10 @@
 """Model configuration for the PyTorch port (own copy of ``repro.config``).
 
-Only the fields the ported path serves are kept.  A :class:`ModelConfig`
+Only the fields the ported paths serve are kept.  A :class:`ModelConfig`
 describes an architecture by a *block pattern* of layer kinds tiled over
-the depth; this slice runs the attention kinds ``"attn"`` and ``"global"``
-and refuses every other kind at model construction (see
+the depth; the port runs the attention kinds (``"attn"``, ``"local"``,
+``"global"``) and the Griffin recurrent kind ``"rglru"``, and refuses the
+xLSTM kinds (``"mlstm"``, ``"slstm"``) at model construction (see
 ``repro_torch.models.model.check_supported``).
 """
 
@@ -14,7 +15,9 @@ import importlib
 import pkgutil
 from dataclasses import dataclass
 
-ALL_KINDS = ("attn", "local", "global", "rglru", "mlstm", "slstm")
+ATTN_KINDS = ("attn", "local", "global")       # consume / produce KV
+RECURRENT_KINDS = ("rglru", "mlstm", "slstm")  # carry O(1) state a row
+ALL_KINDS = ATTN_KINDS + RECURRENT_KINDS
 
 
 @dataclass(frozen=True)
@@ -39,12 +42,16 @@ class ModelConfig:
     use_qk_norm: bool = False
     logit_softcap: float = 0.0
     scale_embeddings: bool = False
+    d_rnn: int = 0                   # recurrent width (0 -> d_model)
+    conv_width: int = 4              # temporal-conv width, recurrent blocks
     max_position_embeddings: int = 131072
     source: str = ""
 
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.d_rnn == 0:
+            object.__setattr__(self, "d_rnn", self.d_model)
         if self.num_heads % max(self.num_kv_heads, 1):
             raise ValueError(f"{self.name}: q heads {self.num_heads} not "
                              f"divisible by kv heads {self.num_kv_heads}")
@@ -56,17 +63,34 @@ class ModelConfig:
         p = self.block_pattern
         return tuple(p[i % len(p)] for i in range(self.num_layers))
 
+    def recurrent_layer_count(self) -> int:
+        return sum(1 for k in self.layer_kinds() if k in RECURRENT_KINDS)
+
     def param_count(self) -> int:
-        """Total parameters of a dense attention decoder."""
-        D, F, V = self.d_model, self.d_ff, self.vocab_size
+        """Total parameters (embedding counted once when tied), layer by
+        layer as ``repro.config.ModelConfig.param_count`` counts them."""
+        total = self.vocab_size * self.d_model + self.d_model  # + final norm
+        if not self.tie_embeddings:
+            total += self.d_model * self.vocab_size
+        return total + sum(self._layer_params(k) for k in self.layer_kinds())
+
+    def _layer_params(self, kind: str) -> int:
+        D, F, Dr = self.d_model, self.d_ff, self.d_rnn
         H, Hk, Dh = self.num_heads, self.num_kv_heads, self.head_dim
-        per_layer = D * H * Dh + 2 * D * Hk * Dh + H * Dh * D + 2 * D
-        if self.use_qk_norm:
-            per_layer += 2 * Dh
-        if F > 0:
-            per_layer += 3 * D * F
-        total = V * D + D + self.num_layers * per_layer
-        return total if self.tie_embeddings else total + D * V
+        mlp = 3 * D * F if F > 0 else 0
+        if kind in ATTN_KINDS:
+            n = D * H * Dh + 2 * D * Hk * Dh + H * Dh * D + 2 * D
+            return n + (2 * Dh if self.use_qk_norm else 0) + mlp
+        if kind == "rglru":
+            # in-projections, conv, block-diagonal gates, 2 * Dr for Lambda
+            # and the biases (the JAX package's count), out-projection, two
+            # norms, the MLP
+            return (2 * D * Dr + self.conv_width * Dr
+                    + 2 * (Dr * Dr // max(H, 1)) + 2 * Dr
+                    + Dr * D + 2 * D + mlp)
+        if kind == "mlstm":
+            return 2 * D * Dr + 3 * Dr * Dr // max(H, 1) + 3 * Dr + Dr * D + D
+        return 4 * D * Dr + 4 * (Dr * Dr // max(H, 1)) + 4 * Dr + Dr * D + D
 
 
 _REGISTRY: dict = {}
@@ -114,5 +138,6 @@ def reduced_config(cfg: ModelConfig, *, num_layers: int = 0,
         d_ff=0 if cfg.d_ff == 0 else 4 * d_model,
         vocab_size=vocab,
         window_size=min(cfg.window_size, 32) if cfg.window_size else 0,
+        d_rnn=d_model,
         max_position_embeddings=4096,
     )

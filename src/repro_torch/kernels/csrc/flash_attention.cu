@@ -25,7 +25,11 @@
 // is far above the card's ~295 flops per byte.  Common to both paths:
 //   * one block per (batch row, kv head, tile of 64 / G query positions):
 //     the G query heads of a kv head are folded into the block's 64 score
-//     rows, so one load of each K/V tile serves all G heads (GQA reuse);
+//     rows, so one load of each K/V tile serves all G heads (GQA reuse).
+//     G is 1, 2, 4, 8 or 16; at G = 16 (recurrentgemma's local layers, 16
+//     heads over one kv head) a block holds 4 positions.  Every row maps to
+//     its own (position, head) by r / G and r % G, and no tile size depends
+//     on 64 / G, so the small position tile needs nothing else;
 //   * the block loops over kv tiles from the first tile inside the window
 //     to the last tile at or below the diagonal, skipping whole tiles
 //     outside the span as the TPU kernel's pl.when(live) does;
@@ -573,6 +577,7 @@ int launch_g(int G, const Args& a, cudaStream_t stream) {
     case 2: return launch<T, DH, 2>(a, stream);
     case 4: return launch<T, DH, 4>(a, stream);
     case 8: return launch<T, DH, 8>(a, stream);
+    case 16: return launch<T, DH, 16>(a, stream);
     default: return -1;
   }
 }

@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (64, 128, 256)
-GROUP_SIZES = (1, 2, 4, 8)
+GROUP_SIZES = (1, 2, 4, 8, 16)
 MIN_SEQ = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -8,6 +8,8 @@ take.  No shape ever sends a CUDA tensor to the plain version.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import ref
@@ -15,6 +17,7 @@ from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_cuda
 from repro_torch.kernels.paged_attention import \
     paged_decode_attention as _paged_cuda
+from repro_torch.kernels.rglru_scan import rglru_scan as _rglru_cuda
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -38,3 +41,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     return _flash_cuda(q, k, v, causal=causal, window=window)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor,
+               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t`` (prefill of the
+    recurrent layers); shapes as in ``kernels.ref``.  The JAX router sends
+    only ``Dr % 128 == 0, S >= 8`` to its kernel; the CUDA kernel takes
+    every S and Dr, so no shape is routed elsewhere."""
+    if a.device.type == "cpu":
+        return ref.rglru_scan_ref(a, b, h0)
+    return _rglru_cuda(a, b, h0)

@@ -8,6 +8,7 @@ never takes them for a CUDA tensor.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -94,3 +95,28 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
     out = torch.einsum("bkgqc,bckd->bkgqd", p, v.float()) / l
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The RG-LRU linear recurrence ``h_t = a_t * h_{t-1} + b_t``.
+
+    a, b (B, S, Dr); h0 (B, Dr) or None (zeros) -> every h_t (B, S, Dr)
+    float32.
+
+    Computes what ``repro.kernels.rglru_scan.rglru_scan_pallas`` and the
+    associative scan ``repro.models.rglru.rglru_scan`` compute, as a plain
+    loop over time in float32.  Each step is a multiply, rounded, and then
+    an add, rounded: two operations, never one fused multiply-add, which is
+    how the CUDA kernel rounds too, so the two agree bit for bit.
+    """
+    a, b = a.float(), b.float()
+    bsz, s, dr = a.shape
+    h = torch.zeros((bsz, dr), dtype=torch.float32, device=a.device) \
+        if h0 is None else h0.float()
+    out = torch.empty((bsz, s, dr), dtype=torch.float32, device=a.device)
+    for t in range(s):
+        h = torch.mul(a[:, t], h)
+        h = torch.add(h, b[:, t])
+        out[:, t] = h
+    return out

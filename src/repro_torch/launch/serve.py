@@ -6,8 +6,13 @@ the local backend (counterpart of ``repro.launch.serve``, local path).
       [--prefill-mode auto|chunked|exact]
 
 ``--arch`` takes every registered arch of the port (``yi-9b``,
-``gemma3-12b``, ``gemma3-1b``); gemma3's sliding-window layers are served
-through exact-length prefill, which ``--prefill-mode auto`` picks.
+``gemma3-12b``, ``gemma3-1b``, ``recurrentgemma-9b``); the sliding-window
+layers of gemma3 and recurrentgemma and recurrentgemma's RG-LRU layers are
+served through exact-length prefill, which ``--prefill-mode auto`` picks.
+For example, full-width recurrentgemma on the card:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma-9b --full --device cuda
 
 Runs on ``cuda`` by default and raises when there is none; ``--device cpu``
 runs the plain PyTorch path.  ``--full`` serves the registered width and
@@ -82,8 +87,10 @@ def main(argv=None) -> None:
               f"budget={engine.max_prefill_tokens_per_tick} tokens/tick, "
               f"rows={engine.prefill_rows})")
     else:
-        print("prefill: exact-length (one whole prompt per free slot, "
-              "padded to a multiple of 8)")
+        pad = "the next power of two" if cfg.recurrent_layer_count() else \
+            "a multiple of 8"
+        print(f"prefill: exact-length (one whole prompt per free slot, "
+              f"padded to {pad})")
 
     rng = np.random.RandomState(args.seed)
     prompts = [list(rng.randint(1, cfg.vocab_size, rng.randint(4, 24)))

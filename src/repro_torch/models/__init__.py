@@ -1,1 +1,2 @@
-"""Model components of the port: norms, RoPE, attention, the decoder."""
+"""Model components of the port: norms, RoPE, attention, the Griffin
+recurrent block, the decoder."""

@@ -6,6 +6,9 @@ returns the port's per-layer dict (``models.model``).  The JAX tree keeps
 ``"scan"`` leaves stacked over pattern periods (leading axis
 ``n_periods``) and the remainder layers under ``"tail"``; layer order is
 period by period, then the tail.  Weights keep their ``(in, out)`` layout.
+Every leaf is cast to ``rt.param_dtype`` except an ``"rglru"`` layer's
+gate biases and Lambda (``model.FLOAT32_LEAVES``), which the JAX package
+keeps in float32 whatever the parameter dtype.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.models.common import DEFAULT_RUNTIME, Runtime, \
     make_layer_plan
-from repro_torch.models.model import check_supported
+from repro_torch.models.model import FLOAT32_LEAVES, check_supported
 
 
 def from_jax_params(np_tree: dict, cfg: ModelConfig,
@@ -24,12 +27,13 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig,
     check_supported(cfg)
     plan = make_layer_plan(cfg.num_layers, cfg.block_pattern)
 
-    def t(a) -> torch.Tensor:
+    def t(a, dtype=rt.param_dtype) -> torch.Tensor:
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=device, dtype=rt.param_dtype)
+            device=device, dtype=dtype)
 
     def layer(d: dict) -> dict:
-        return {k: t(a) for k, a in d.items()}
+        return {k: t(a, torch.float32 if k in FLOAT32_LEAVES else
+                     rt.param_dtype) for k, a in d.items()}
 
     layers = []
     for p in range(plan.n_periods):

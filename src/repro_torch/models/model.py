@@ -1,5 +1,6 @@
 """The decoder for serving: weights, chunked and exact-length prefill,
-decode (counterpart of ``repro.models.model``, attention kinds only).
+decode (counterpart of ``repro.models.model``; attention kinds and the
+Griffin recurrent kind ``"rglru"``).
 
 Parameters are a plain dict of tensors, one entry per layer, with the JAX
 package's ``(in, out)`` weight layout::
@@ -8,7 +9,11 @@ package's ``(in, out)`` weight layout::
      "layers": [{"ln1", "wq", "wk", "wv", "wo", "ln2", "wg", "wu", "wd"}]}
 
 (``"untok"`` is absent with tied embeddings; ``"q_norm"``/``"k_norm"``
-join a layer with qk-norm.)  Caches hold one entry per layer::
+join a layer with qk-norm.)  An ``"rglru"`` layer holds ``"ln1", "wg",
+"wx", "conv_w", "conv_b", "gate_a_w", "gate_a_b", "gate_x_w", "gate_x_b",
+"lam", "wo"`` and its MLP under ``"ln2", "wg_mlp", "wu", "wd"``; the gate
+biases and ``"lam"`` are float32 whatever ``param_dtype`` is
+(``FLOAT32_LEAVES``).  Caches hold one entry per layer::
 
     {"layers": [...], "page_table": (B, max_pages) int32}
 
@@ -24,43 +29,53 @@ layers (``init_caches``, ``_kind_cache``)::
     (+ "k_scale", "v_scale": (B, C, Hk) bf16 when ``Runtime.kv_dtype`` is
     "int8", with int8 "k"/"v")
 
-one page table shared by every paged layer (absent when no layer is
-paged).  Pools and rings are updated **in place** (``index_put_``, slice
-assignment): a full-width pool is gigabytes, and a functional copy per
-layer per step would double it.  ``run_layers`` is a loop over layers.
+or a recurrent state a row (``"rglru"``)::
+
+    {"h": (B, Dr) float32, "conv": (B, cw-1, Dr) compute dtype}
+
+and one page table shared by every paged layer (absent when no layer is
+paged).  Pools, rings and recurrent states are updated **in place**
+(``index_put_``, slice assignment, ``copy_``): a full-width pool is
+gigabytes, and a functional copy per layer per step would double it; and
+the serving backend hands the model a row *view* of its caches
+(``serving.kv_cache.slot_view``), through which only in-place writes
+reach the batch-wide tensors.  ``run_layers`` is a loop over layers.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ATTN_KINDS, ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import embedding as embed_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models.common import (DEFAULT_RUNTIME, Runtime, dense_init,
                                        rms_norm, rope_tables, rotate, swiglu)
 
 PAGED_KINDS = ("attn", "global")
-ATTN_KINDS = ("attn", "local", "global")
+SERVED_KINDS = ATTN_KINDS + ("rglru",)
 LOCAL_ROPE_THETA = 10000.0      # gemma3: local layers keep the small base
-# the slice of the port that brings each layer kind this one refuses
+# the slice of the port that brings each layer kind it refuses
 _LATER_KINDS = {
-    "rglru": "the other-architectures slice",
-    "mlstm": "the other-architectures slice",
-    "slstm": "the other-architectures slice",
+    "mlstm": "the other-architectures slice (xLSTM)",
+    "slstm": "the other-architectures slice (xLSTM)",
 }
+# leaves of an "rglru" layer that stay float32 whatever param_dtype is
+FLOAT32_LEAVES = ("gate_a_b", "gate_x_b", "lam")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for an arch this slice cannot run:
-    every layer must be an attention kind."""
+    """Raise ``NotImplementedError`` for an arch the port cannot run yet:
+    every layer must be an attention kind or ``"rglru"``."""
     for kind in set(cfg.layer_kinds()):
-        if kind not in ATTN_KINDS:
+        if kind not in SERVED_KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: layer kind {kind!r} is not ported yet — it "
-                f"comes with {_LATER_KINDS[kind]}; this slice serves "
-                f"{ATTN_KINDS} layers only")
+                f"comes with {_LATER_KINDS[kind]}; the port serves "
+                f"{SERVED_KINDS} layers")
 
 
 def layer_theta(kind: str, cfg: ModelConfig) -> float:
@@ -100,7 +115,10 @@ def init_params(cfg: ModelConfig, seed: int, rt: Runtime = DEFAULT_RUNTIME,
     if not cfg.tie_embeddings:
         embed["untok"] = dense((cfg.vocab_size, D), fan_in=D)
     layers = []
-    for _ in range(cfg.num_layers):
+    for kind in cfg.layer_kinds():
+        if kind == "rglru":
+            layers.append(_init_rglru_layer(cfg, dense, zeros, device))
+            continue
         w = {"ln1": zeros(D), "wq": dense((D, H * Dh)),
              "wk": dense((D, Hk * Dh)), "wv": dense((D, Hk * Dh)),
              "wo": dense((H * Dh, D), fan_in=H * Dh)}
@@ -113,6 +131,30 @@ def init_params(cfg: ModelConfig, seed: int, rt: Runtime = DEFAULT_RUNTIME,
     return {"embed": embed, "final_norm": zeros(D), "layers": layers}
 
 
+def _init_rglru_layer(cfg: ModelConfig, dense, zeros, device) -> dict:
+    """``repro.models.model._init_rglru_layer``'s recipe: Lambda from
+    ``a ~ U[0.9, 0.999]`` (numpy, seed 0, as the JAX package draws it) as
+    ``softplus^-1(-log(a) / c)``; the gate biases and Lambda in float32."""
+    D, F, Dr, H = cfg.d_model, cfg.d_ff, cfg.d_rnn, cfg.num_heads
+    dh = Dr // H
+    a = np.random.RandomState(0).uniform(0.9, 0.999, (Dr,))
+    lam = np.log(np.expm1(-np.log(a) / rglru_lib.RGLRU_C))
+    f32 = dict(dtype=torch.float32, device=device)
+    w = {"ln1": zeros(D), "wg": dense((D, Dr)), "wx": dense((D, Dr)),
+         "conv_w": dense((cfg.conv_width, Dr), fan_in=cfg.conv_width),
+         "conv_b": zeros(Dr),
+         "gate_a_w": dense((H, dh, dh), fan_in=dh),
+         "gate_a_b": torch.zeros((Dr,), **f32),
+         "gate_x_w": dense((H, dh, dh), fan_in=dh),
+         "gate_x_b": torch.zeros((Dr,), **f32),
+         "lam": torch.as_tensor(lam, dtype=torch.float32).to(device),
+         "wo": dense((Dr, D), fan_in=Dr)}
+    if F > 0:
+        w.update(ln2=zeros(D), wg_mlp=dense((D, F)), wu=dense((D, F)),
+                 wd=dense((F, D), fan_in=F))
+    return w
+
+
 # ---------------------------------------------------------------------------
 # Dense and ring caches (the JAX package's ``init_caches`` / ``_kind_cache``)
 # ---------------------------------------------------------------------------
@@ -120,12 +162,18 @@ def init_params(cfg: ModelConfig, seed: int, rt: Runtime = DEFAULT_RUNTIME,
 
 def _kind_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int,
                 rt: Runtime, device="cpu") -> dict:
-    """A per-row dense cache of an attention kind: ``capacity`` slots, or a
-    ring of ``window_size`` slots for ``"local"``; int8 values with bf16
-    per-(token, head) scales when ``rt.kv_dtype == "int8"``."""
+    """A per-row cache: for an attention kind ``capacity`` slots, or a
+    ring of ``window_size`` slots for ``"local"``, with int8 values and
+    bf16 per-(token, head) scales when ``rt.kv_dtype == "int8"``; for
+    ``"rglru"`` the recurrent state and the conv's trailing inputs."""
+    if kind == "rglru":
+        return {"h": torch.zeros((batch, cfg.d_rnn), dtype=torch.float32,
+                                 device=device),
+                "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.d_rnn),
+                                    dtype=rt.compute_dtype, device=device)}
     if kind not in ATTN_KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} has no cache in this "
-                                  "slice of the port")
+        raise NotImplementedError(f"layer kind {kind!r} has no cache in the "
+                                  "port yet")
     Hk, Dh = cfg.num_kv_heads, cfg.head_dim
     c = capacity if (kind != "local" or cfg.window_size == 0) else min(
         cfg.window_size, capacity)
@@ -320,24 +368,61 @@ def _attn_layer(kind: str, w: dict, x: torch.Tensor, cfg: ModelConfig, *,
     return x
 
 
+def _rglru_layer(w: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                 positions: torch.Tensor, mode: str,
+                 cache: dict) -> torch.Tensor:
+    """A Griffin residual block: RG-LRU mixer, then the MLP.  In a prefill
+    the positions marked -1 (right padding) are identity steps of the
+    recurrence (``_recurrent_valid``).  The new state is copied into the
+    cache's own tensors: they may be a row view of the batch-wide caches,
+    and rebinding the dict entry would lose it."""
+    if mode == "chunk":
+        raise NotImplementedError(
+            "chunked prefill is not supported for recurrent layers")
+    h = rms_norm(x, w["ln1"], cfg.norm_eps)
+    y, new = rglru_lib.rglru_block(h, w, cfg.num_heads, mode=mode,
+                                   state=cache,
+                                   valid=_recurrent_valid(positions, mode))
+    cache["h"].copy_(new["h"])
+    cache["conv"].copy_(new["conv"])
+    x = x + y
+    if cfg.d_ff > 0:
+        x = x + swiglu(rms_norm(x, w["ln2"], cfg.norm_eps), w["wg_mlp"],
+                       w["wu"], w["wd"])
+    return x
+
+
+def _recurrent_valid(positions: torch.Tensor, mode: str):
+    """Which tokens update the recurrent state: in a prefill, the positions
+    not marked -1 (right padding of a bucketed prompt); decode positions
+    are all real, so no mask."""
+    return positions >= 0 if mode == "prefill" else None
+
+
 def run_layers(params: dict, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
                *, mode: str, caches: dict,
                positions: torch.Tensor) -> torch.Tensor:
     """Apply every layer in order; the caches change in place.  The RoPE
-    tables (one per base in use) and the pool addressing depend on the
-    positions only, so they are computed once here for all layers."""
+    tables (one per base the attention layers use) and the pool addressing
+    depend on the positions only, so they are computed once here for all
+    layers."""
     if mode not in ("decode", "chunk", "prefill"):
         raise ValueError("mode must be 'decode', 'chunk' or 'prefill', "
                          f"got {mode!r}")
     kinds = cfg.layer_kinds()
     ropes = {theta: rope_tables(positions, cfg.head_dim, theta,
                                 cfg.rope_scaling)
-             for theta in {layer_theta(k, cfg) for k in kinds}}
+             for theta in {layer_theta(k, cfg) for k in kinds
+                           if k in ATTN_KINDS}}
     page_table = caches.get("page_table")
     paged = next((c for c in caches["layers"] if "k_pages" in c), None)
     idx = None if paged is None else _step_index(
         mode, positions, page_table, paged["k_pages"].shape[1])
     for kind, w, cache in zip(kinds, params["layers"], caches["layers"]):
+        if kind == "rglru":
+            x = _rglru_layer(w, x, cfg, positions=positions, mode=mode,
+                             cache=cache)
+            continue
         x = _attn_layer(kind, w, x, cfg, positions=positions, mode=mode,
                         cache=cache, page_table=page_table,
                         rope=ropes[layer_theta(kind, cfg)], idx=idx)

@@ -10,7 +10,8 @@ table, positions); the backend owns the device caches and the compute:
   ``prefill(tokens, slot, last_index)`` — the exact-length path: run one
         whole (padded) prompt into ``slot`` and return its last-position
         logits;
-  ``reset_slot(slot)`` — clear a reassigned slot's ring positions;
+  ``reset_slot(slot)`` — clear a reassigned slot's ring positions and
+        recurrent states;
   ``decode(mb, tokens, cur_pos, samp)`` — advance microbatch ``mb`` one
         token and return its :class:`DecodeResult`;
   ``set_page_table`` — push the engine's host table to the device.
@@ -93,6 +94,8 @@ class LocalBackend:
         self.caches = kvc.set_page_table(self.caches, table)
 
     def reset_slot(self, slot: int) -> None:
+        """Clear a reassigned slot's per-row state (ring positions,
+        recurrent states), in place."""
         self.caches = kvc.reset_slot(self.caches, slot)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -116,10 +119,10 @@ class LocalBackend:
     @staticmethod
     def _prefill_fn(params, caches, tokens, slot, last_idx, *, cfg, rt):
         """One sequence into the batch-wide caches at ``slot``: a one-row
-        view of the rings and of the page table stands in for the JAX
-        package's slot_view / slot_merge (pools and rings are written in
-        place through it).  Ring positions past the true last index are
-        cleaned back to -1 afterwards."""
+        view of the rings, the recurrent states and the page table stands
+        in for the JAX package's slot_view / slot_merge (pools, rings and
+        states are written in place through it).  Ring positions past the
+        true last index are cleaned back to -1 afterwards."""
         view = kvc.slot_view(caches, slot, 1)
         last = torch.full((1,), last_idx, dtype=torch.int32,
                           device=tokens.device)
@@ -185,10 +188,11 @@ class LocalBackend:
     def _decode_fn(params, caches, tokens, cur_pos, row0, noise, temp, top_k,
                    top_p, *, cfg, rt, mb_size, sampled):
         """One decode tick over an ``mb_size`` row view of the caches; rows
-        outside the microbatch are untouched.  The view aliases the table
-        rows and the pools are written in place, so there is nothing to
-        merge back.  ``sampled`` (decided on the host) skips the truncation
-        pass when every row is greedy."""
+        outside the microbatch are untouched.  The view aliases the table,
+        ring and recurrent-state rows, and pools, rings and states are
+        written in place, so there is nothing to merge back.  ``sampled``
+        (decided on the host) skips the truncation pass when every row is
+        greedy."""
         view = kvc.slot_view(caches, row0, mb_size)
         logits, _ = model_lib.decode_step(params, tokens, view, cur_pos, cfg,
                                           rt)

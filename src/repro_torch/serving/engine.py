@@ -12,10 +12,11 @@ The prefill phase is chunked when every layer is paged (``"attn"`` /
 (up to ``prefill_rows`` prompts x ``prefill_chunk`` tokens) a step.
 Prefilling slots stay parked on scratch page 0 in the device table (chunks
 carry their own table rows); a slot's real row is pushed when its prefill
-completes.  Otherwise (sliding-window archs, whose rings the chunk path
-cannot write, or ``prefill_mode="exact"``) a step admits queued requests
-into every free slot, each with one exact-length prefill of its whole
-prompt, padded to a multiple of 8.
+completes.  Otherwise (sliding-window and recurrent archs, whose rings and
+states the chunk path cannot write, or ``prefill_mode="exact"``) a step
+admits queued requests into every free slot, each with one exact-length
+prefill of its whole prompt, padded to a multiple of 8, or to a power of
+two when the arch has recurrent layers (``_prefill_len``).
 
 Sampling is per request: each slot carries its temperature / top-k /
 top-p and a base seed derived from ``(seed, request_id)``; token ``t``'s
@@ -89,7 +90,7 @@ class OfflineEngine:
 
         # chunked prefill writes through per-chunk page-table rows, so it
         # needs every layer's KV in the shared pools; sliding-window rings
-        # take the exact-length path
+        # and recurrent states take the exact-length path
         supports_chunked = all(k in PAGED_KINDS for k in cfg.layer_kinds())
         if prefill_mode not in ("auto", "chunked", "exact"):
             raise ValueError(
@@ -354,9 +355,15 @@ class OfflineEngine:
     # ------------------------------------------------------------------
 
     def _prefill_len(self, n: int) -> int:
-        """Prompt length padded to a multiple of 8 (at least 8), which bounds
-        the number of distinct prefill shapes.  (The JAX engine buckets
-        recurrent archs to powers of two; they come with a later slice.)"""
+        """Prompt length padded to a multiple of 8 (at least 8), or, for an
+        arch with recurrent layers, to the next power of two (at least 8),
+        as the JAX engine pads them.  The pad positions are marked -1, so
+        the rings drop their writes and the recurrences step over them
+        (``model.prefill``).  The port compiles nothing per shape; it pads
+        as the JAX package does so that both write the same rings (the
+        padded-ring behaviour of ROADMAP Queue 3 included)."""
+        if self.cfg.recurrent_layer_count() > 0:
+            return max(8, 1 << (n - 1).bit_length())
         return max(8, (n + 7) // 8 * 8)
 
     def _prefill_into_slot(self, seq: SequenceState, slot: int) -> None:

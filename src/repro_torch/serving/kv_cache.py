@@ -1,13 +1,17 @@
-"""Paged KV cache: shared page pools, per-slot rings, and the host-side
-page-table allocator (counterpart of ``repro.serving.kv_cache``).
+"""Paged KV cache: shared page pools, per-slot rings and recurrent states,
+and the host-side page-table allocator (counterpart of
+``repro.serving.kv_cache``).
 
 Device state is one ``(P, page, Hk, Dh)`` K pool and V pool per paged
 attention layer (``"attn"``/``"global"``) plus one ``(batch, max_pages)``
-int32 page table shared by every paged layer, and one ring of
-``window_size`` slots per row for each sliding-window (``"local"``) layer.
-Bookkeeping (free list, per-slot page lists) is host Python.  This slice
-has local pages only: the global pools of the §4.2 offloader come with the
-offload slice.
+int32 page table shared by every paged layer, one ring of
+``window_size`` slots per row for each sliding-window (``"local"``) layer,
+and one recurrent state per row for each ``"rglru"`` layer (``h`` and the
+conv's trailing inputs).  An arch with no paged layer (recurrentgemma)
+still has the table, which the allocator's bookkeeping fills, and no
+pool.  Bookkeeping (free list, per-slot page lists) is host Python.  The
+port has local pages only: the global pools of the §4.2 offloader come
+with the offload slice.
 """
 
 from __future__ import annotations
@@ -89,8 +93,8 @@ class PageAllocator:
 def build_paged_caches(cfg: ModelConfig, batch: int, pool: PoolConfig,
                        rt: Runtime, device="cpu") -> dict:
     """Engine caches: zeroed pools for the paged kinds, empty rings
-    (``pos`` -1) of ``window_size`` slots for ``"local"``, and a zero
-    (scratch-parked) table."""
+    (``pos`` -1) of ``window_size`` slots for ``"local"``, zero recurrent
+    states for ``"rglru"``, and a zero (scratch-parked) table."""
     check_supported(cfg)
     shape = (pool.n_pages, pool.page_size, cfg.num_kv_heads, cfg.head_dim)
 
@@ -120,19 +124,23 @@ def set_page_table(caches: dict, table: np.ndarray) -> dict:
 
 def reset_slot(caches: dict, slot: int) -> dict:
     """Clear a slot's per-row state when it is reassigned, in place: ring
-    positions back to -1.  Paged pools need no clearing (validity is
-    governed by the sequence lengths)."""
+    positions back to -1, recurrent states (``h``, ``conv``) back to
+    zeros, as ``repro.serving.kv_cache.reset_slot`` does.  Paged pools
+    need no clearing (validity is governed by the sequence lengths)."""
     for layer in caches["layers"]:
         if "pos" in layer:
             layer["pos"][slot] = -1
+        elif "h" in layer:
+            layer["h"][slot] = 0.0
+            layer["conv"][slot] = 0.0
     return caches
 
 
 def slot_view(caches: dict, start: int, size: int) -> dict:
     """A ``size``-row view of the batch starting at ``start``: the page
-    table rows and each ring's rows are views (no copy), the shared pools
-    pass through whole.  The model writes pools and rings in place, so
-    nothing is merged back."""
+    table rows and each ring's and recurrent state's rows are views (no
+    copy), the shared pools pass through whole.  The model writes pools,
+    rings and states in place, so nothing is merged back."""
     def rows(layer: dict) -> dict:
         if "k_pages" in layer:
             return layer

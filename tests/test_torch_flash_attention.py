@@ -42,6 +42,8 @@ CASES = [
     (4, 64, 11, 19, True, 5),
     (1, 64, 19, 11, False, 0),
     (2, 16, 13, 22, False, 5),
+    (16, 64, 21, 21, True, 5),      # recurrentgemma: 16 heads, 1 kv head
+    (16, 16, 11, 19, False, 0),
 ]
 
 
@@ -137,6 +139,8 @@ CUDA_CASES = [
     (4, 128, 70, 45, False, 0),
     (8, 64, 33, 80, True, 17),
     (8, 256, 40, 40, False, 9),
+    (16, 256, 100, 100, True, 40),   # recurrentgemma's local layers
+    (16, 64, 70, 45, False, 0),
 ]
 
 

@@ -163,7 +163,7 @@ def test_pad_positions_drop_their_kv_writes():
 
 def test_unported_layer_kinds_raise():
     base = reduced_config(get_arch("yi-9b"))
-    for kinds in (("mlstm", "slstm"), ("rglru", "attn")):
+    for kinds in (("mlstm", "slstm"), ("rglru", "mlstm")):
         cfg = dataclasses.replace(base, block_pattern=kinds)
         with pytest.raises(NotImplementedError, match="slice"):
             tmodel.init_params(cfg, 0, TRT)
@@ -366,3 +366,135 @@ def test_engine_caches_put_local_layers_on_rings():
     for kind, got in zip(tcfg.layer_kinds(), tc["layers"]):
         if kind == "local":
             assert (got["pos"][1] == -1).all() and (got["pos"][0] == 5).all()
+
+
+# ---------------------------------------------------------------------------
+# the Griffin recurrent block (recurrentgemma)
+# ---------------------------------------------------------------------------
+
+
+def test_recurrentgemma_prefill_then_decode_match_jax():
+    """Reduced recurrentgemma ``(rglru, rglru, local, rglru)``, window 32:
+    an exact prefill of 40 tokens (past the window), the same prompts
+    right-padded with ``last_index`` (row 1 has 29 real tokens), then four
+    decode steps; logits, recurrent states and rings against
+    ``repro.models.model.prefill`` / ``decode_step``."""
+    jcfg, tcfg = gemma_configs("recurrentgemma-9b")
+    assert tcfg.layer_kinds() == ("rglru", "rglru", "local", "rglru")
+    jparams = jax_model.init_params(jcfg, jax.random.PRNGKey(2), JRT)
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, TRT)
+    rng = np.random.RandomState(5)
+    S, cap = 40, 64
+    tokens = rng.randint(1, jcfg.vocab_size, (2, S)).astype(np.int32)
+    jl, _ = jax_prefill(jparams, {"tokens": jnp.asarray(tokens)}, jcfg, JRT,
+                        cap)
+    tl, _ = tmodel.prefill(tparams, _t(tokens), tcfg, TRT, cap)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
+
+    last = np.asarray([S - 1, 28], np.int32)
+    jl, jc = jax_prefill(jparams, {"tokens": jnp.asarray(tokens)}, jcfg, JRT,
+                         cap, last_index=jnp.asarray(last))
+    tl, tc = tmodel.prefill(tparams, _t(tokens), tcfg, TRT, cap,
+                            last_index=_t(last))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
+
+    def check_caches():
+        for kind, want, got in zip(tcfg.layer_kinds(),
+                                   jax_layer_caches(jc, jcfg), tc["layers"]):
+            assert sorted(got) == sorted(want), kind
+            if kind == "rglru":
+                assert got["h"].dtype == torch.float32
+                for name in ("h", "conv"):
+                    np.testing.assert_allclose(got[name].numpy(), want[name],
+                                               rtol=TOL, atol=TOL)
+            else:
+                np.testing.assert_array_equal(got["pos"].numpy(),
+                                              want["pos"])
+
+    check_caches()
+    cur = last + 1
+    toks = np.asarray(tl.argmax(-1), np.int32)
+    for _ in range(4):
+        jl, jc = jax_decode(jparams, jnp.asarray(toks), jc, jnp.asarray(cur),
+                            jcfg, JRT)
+        tl, tc = tmodel.decode_step(tparams, _t(toks), tc, _t(cur), tcfg,
+                                    TRT)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
+                                   atol=TOL)
+        toks = np.asarray(tl.argmax(-1), np.int32)
+        cur = cur + 1
+    check_caches()
+
+
+def test_padded_prefill_carries_the_exact_recurrent_state():
+    """A prompt padded past its end leaves every recurrent state and the
+    last logits as the unpadded prompt does: pad steps are identities of
+    the recurrence and the conv keeps the window of the last real inputs.
+    Within 1e-6, not bit for bit: the projections are matmuls of another
+    length, which the CPU's BLAS blocks and sums differently."""
+    _, tcfg = gemma_configs("recurrentgemma-9b")
+    tparams = tmodel.init_params(tcfg, 3, TRT)
+    tokens = torch.randint(1, tcfg.vocab_size, (1, 13),
+                           generator=torch.Generator().manual_seed(0))
+    padded = torch.cat([tokens, torch.zeros((1, 3), dtype=tokens.dtype)], 1)
+    want, wc = tmodel.prefill(tparams, tokens, tcfg, TRT, 64)
+    got, gc = tmodel.prefill(tparams, padded, tcfg, TRT, 64,
+                             last_index=torch.tensor([12]))
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    for kind, w, g in zip(tcfg.layer_kinds(), wc["layers"], gc["layers"]):
+        if kind == "rglru":
+            torch.testing.assert_close(g["h"], w["h"], rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(g["conv"], w["conv"], rtol=1e-6,
+                                       atol=1e-6)
+
+
+def test_from_jax_params_keeps_float32_leaves_under_bf16():
+    """``gate_a_b``, ``gate_x_b`` and ``lam`` stay float32 with bf16
+    parameters, as in the JAX package; ``init_params`` makes them so too."""
+    jcfg, tcfg = gemma_configs("recurrentgemma-9b")
+    jrt = JaxRuntime(param_dtype=jnp.bfloat16, compute_dtype=jnp.bfloat16)
+    trt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    jparams = jax_model.init_params(jcfg, jax.random.PRNGKey(0), jrt)
+    converted = from_jax_params(
+        jax.tree.map(lambda a: np.asarray(a, np.float32), jparams), tcfg, trt)
+    made = tmodel.init_params(tcfg, 0, trt)
+    jlayers = jax_layer_caches(jparams, jcfg)
+    for kind, jw, cw, mw in zip(tcfg.layer_kinds(), jlayers,
+                                converted["layers"], made["layers"]):
+        assert sorted(cw) == sorted(mw) == sorted(jw), kind
+        for name, t in cw.items():
+            want = torch.float32 if jw[name].dtype == np.float32 else \
+                torch.bfloat16
+            assert t.dtype == mw[name].dtype == want, (kind, name)
+            assert tuple(t.shape) == tuple(mw[name].shape) == jw[name].shape
+        if kind == "rglru":
+            assert {n for n, t in cw.items() if t.dtype == torch.float32} \
+                == set(tmodel.FLOAT32_LEAVES)
+            np.testing.assert_array_equal(mw["lam"].numpy(), jw["lam"])
+
+
+def test_engine_caches_hold_recurrent_states_and_reset_them():
+    """``build_paged_caches`` for recurrentgemma: a state ``h`` (float32)
+    and ``conv`` per row for each rglru layer, a ring for the local one, no
+    pool, and the page table; ``reset_slot`` zeros one row of every state,
+    as ``repro.serving.kv_cache.reset_slot`` does."""
+    jcfg, tcfg = gemma_configs("recurrentgemma-9b")
+    table = np.zeros((3, 4), np.int32)
+    jc = jax_layer_caches(jax_pools(jcfg, table), jcfg)
+    tc = torch_pools(tcfg, table)
+    assert tuple(tc["page_table"].shape) == (3, 4)
+    for kind, want, got in zip(tcfg.layer_kinds(), jc, tc["layers"]):
+        assert sorted(got) == sorted(k for k in want if k != "page_table")
+        for name, t in got.items():
+            assert tuple(t.shape) == want[name].shape, (kind, name)
+        if kind == "rglru":
+            got["h"].fill_(2.0)
+            got["conv"].fill_(3.0)
+    view = tkv.slot_view(tc, 1, 1)
+    tkv.reset_slot(tc, 1)
+    for kind, got, v in zip(tcfg.layer_kinds(), tc["layers"],
+                            view["layers"]):
+        if kind == "rglru":
+            assert (got["h"][1] == 0).all() and (got["conv"][1] == 0).all()
+            assert (got["h"][0] == 2).all() and (got["conv"][2] == 3).all()
+            assert v["h"].data_ptr() == got["h"][1:2].data_ptr()
