@@ -8,7 +8,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
 2. the build: every ``src/repro_torch/kernels/csrc/*.cu`` compiled with
    ``nvcc``, one process per source, all started together (paged
-   attention, flash attention, the RG-LRU scan);
+   attention, flash attention, the RG-LRU scan), with each library's count
+   of ``HGMMA`` (wgmma), ``UTMALDG`` (TMA loads), ``LDGSTS`` (cp.async)
+   and ``HMMA`` (mma.sync) instructions from ``cuobjdump -sass``;
 3. the paged decode kernel against its plain PyTorch version on the card,
    at the main paths' shapes (yi-9b: B=16, H=32, Hk=4, Dh=128, page 16, up
    to 2048 tokens, a zero-length row, NaN in every page no row owns;
@@ -16,14 +18,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    tokens) in bf16 (within one bf16 ulp: ``rtol = 2**-7``, ``atol =
    1e-5``) and float32 (``atol = rtol = 1e-5``), a sliding window, the yi-9b
    serve phase's own batch, table and pool shapes, a sweep of G, Dh and
-   page size, and page ids outside the pool; then times: kernel, plain
-   version, ``scaled_dot_product_attention`` over the gathered KV (a
-   yardstick the port never calls) and the least time the card could take;
+   page size, page ids outside the pool, and the split-KV edges (lengths
+   at a split boundary and one token either side, one row far longer than
+   the rest); then times: kernel (with its TB/s and the previous design's
+   time), plain version, ``scaled_dot_product_attention`` over the
+   gathered KV (a yardstick the port never calls) and the least time the
+   card could take;
 4. the flash-attention kernel against its plain version at gemma3-12b's
    prefill shapes (B=1, H=16, Hk=8, Dh=256, S from 8 to 2048, causal, with
    and without the 1024-token window), a sweep of Dh, G, non-causal and
-   Sq != Skv, bf16 and float32 with the same tolerances, every K/V the
-   first Skv rows of a tensor whose tail is NaN; then the same four times;
+   Sq != Skv, the bf16 kernel's tile edges (Sq, Skv in 127, 128, 129 at
+   G = 1 and 16), bf16 and float32 with the same tolerances, every K/V the
+   first Skv rows of a tensor whose tail is NaN; then the same four times
+   (the kernel's with its TFLOP/s and the previous design's time);
    and at recurrentgemma-9b's local layers (B=1, H=16 over one kv head:
    G=16, Dh=256, causal, window 2048, S from 8 to 4096), with its times;
 5. the RG-LRU scan kernel against its plain version (a float32 loop over
@@ -75,6 +82,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -113,6 +121,16 @@ RG_REQUESTS, RG_PROMPTS, RG_NEW = 20, (256, 3072), 32
 RG_FLASH_LENGTHS = (8, 100, 1500, 2048, 2049, 4096)   # power-of-two buckets
 SCAN_LENGTHS = (8, 100, 2048, 4096)                     # and ragged lengths
 SCAN_TOL = 1e-6     # atol = rtol; the kernel and plain loop round alike
+# the previous designs' times at the timed shapes (the mma.sync flash
+# kernel and the one-block-a-pair paged kernel; PERF.md section 6, on an
+# NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
+PREV_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+PREV_MS = {"paged yi-9b": 0.1784, "paged gemma3-12b": 0.1656,
+           "flash causal": 0.4778, "flash window 1024": 0.3868,
+           "flash recurrentgemma": 1.0455}
+# instructions counted in each library's SASS: wgmma, TMA loads, cp.async
+# and mma.sync
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
 
 
 def log(msg: str) -> None:
@@ -198,7 +216,8 @@ def paged_case(torch, np, rng, *, b, h, hk, dh, page, max_pages, lens,
 def bound(case_lens, window, h, hk, dh, esize, dtype_name, b, max_pages):
     """Least time for the work: K and V rows each read once for the tokens
     attended, q / table / lengths read once, out written once; and the
-    flops 4 * H * Dh per token over the peak rate of the dtype."""
+    flops 4 * H * Dh per token over the peak rate of the dtype.  Returns
+    (ms, what bounds it, bytes)."""
     toks = sum(min(int(n), window) if window else int(n) for n in case_lens)
     nbytes = toks * hk * dh * 2 * esize + 2 * b * h * dh * esize \
         + b * max_pages * 4 + b * 4
@@ -206,7 +225,7 @@ def bound(case_lens, window, h, hk, dh, esize, dtype_name, b, max_pages):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+                                       else "operations"), nbytes
 
 
 # ---------------------------------------------------------------------------
@@ -226,20 +245,53 @@ def phase_card(torch):
     return line, name
 
 
+def sass_counts(path) -> dict:
+    """How many of each of ``SASS_OPS`` the library's SASS holds, by
+    ``cuobjdump -sass`` from ``$CUDA_HOME/bin``; None when the tool is
+    absent or fails (the counts report the design, they decide nothing)."""
+    import os
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                "cuobjdump")
+    if not tool.exists():
+        return None
+    res = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        return None
+    ops = []
+    for ln in res.stdout.splitlines():
+        words = ln.split()      # /*1a90*/ [@P0] OPCODE.MODIFIERS ...
+        if len(words) > 2 and re.fullmatch(r"/\*[0-9a-f]+\*/", words[0]):
+            op = words[2] if words[1].startswith("@") else words[1]
+            ops.append(op.split(".")[0])
+    return {op: ops.count(op) for op in SASS_OPS}
+
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     infos = build.build_many(KERNELS)
     wall = time.perf_counter() - t0
+    sass = {}
     for name in KERNELS:
         info = infos[name]
         regs = [ln.strip() for ln in info.log.splitlines()
                 if "registers" in ln]
+        spills = sum(1 for ln in info.log.splitlines()
+                     if "spill stores" in ln
+                     and " 0 bytes spill stores" not in ln)
         log(f"[build] {name}: {info.seconds:.2f}s nvcc"
             f"{' (cached)' if info.cached else ''} -> {info.path.name}; "
-            f"{len(regs)} kernel instances, e.g. {regs[-1] if regs else '-'}")
+            f"{len(regs)} kernel instances ({spills} with spills), e.g. "
+            f"{regs[-1] if regs else '-'}")
         build.load(name)
+        sass[name] = sass_counts(info.path)
+        log(f"[build] {name} SASS: " + (
+            ", ".join(f"{op} {n}" for op, n in sass[name].items())
+            if sass[name] is not None else
+            "cuobjdump absent from $CUDA_HOME/bin, not counted"))
     log(f"[build] {len(KERNELS)} sources in parallel: {wall:.2f}s wall")
+    return sass
 
 
 def phase_kernel_paged(torch, np):
@@ -331,6 +383,28 @@ def phase_kernel_paged(torch, np):
         check(f"clamped page ids {str(dtype).split('.')[-1]}",
               (q, kp, vp, pt, sl), 0)
 
+    # split-KV edges at the yi-9b shape: lengths at a split boundary and one
+    # token either side, and one row far longer than the rest (the other
+    # rows' later splits are empty)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    pages, n_split = pa.split_plan(MAXP, PAGE, B * HK, n_sm)
+    span = pages * PAGE
+    at_edges = [span - 1, span, span + 1, 2 * span - 1, 2 * span,
+                2 * span + 1, 0, MAXP * PAGE, MAXP * PAGE - 1, 1, 3 * span,
+                3 * span + 1, 5, span // 2, (n_split - 1) * span - 1,
+                (n_split - 1) * span + 1]
+    one_long = [MAXP * PAGE] + list(rng.randint(1, 41, B - 1))
+    for label, lens_e in (("at split boundaries", at_edges),
+                          ("one long row", one_long)):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = paged_case(torch, np, rng, b=B, h=H, hk=HK, dh=DH,
+                              page=PAGE, max_pages=MAXP, lens=lens_e,
+                              dtype=dtype, device=dev)
+            for win in (0, span // 2 + 3):
+                check(f"split-KV {label} ({n_split} splits of {pages} "
+                      f"pages) {str(dtype).split('.')[-1]} window={win}",
+                      args, win)
+
     # times at the main shape, bf16 (the serve phase's dtype)
     args, err = main["bfloat16"]
     q, kp, vp, pt, sl = args
@@ -355,13 +429,15 @@ def phase_kernel_paged(torch, np):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = time_ms(torch, lambda: sdpa(qs, kg, vg, attn_mask=mask,
                                              enable_gqa=True), 50, flush)
-    bound_ms, bound_by = bound(sl.tolist(), 0, H, HK, DH, 2, "bfloat16", B,
-                               MAXP)
+    bound_ms, bound_by, nbytes = bound(sl.tolist(), 0, H, HK, DH, 2,
+                                       "bfloat16", B, MAXP)
     log(f"[kernel] times at B={B} H={H} Hk={HK} Dh={DH} page={PAGE} "
         f"tokens={int(sl.sum())} bf16, cold L2: kernel_ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms(sdpa)={library_ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({bound_by}); "
-        f"kernel at {bound_ms / ms:.1%} of the bound")
+        f"kernel at {bound_ms / ms:.1%} of the bound, "
+        f"{nbytes / ms / 1e9:.3f} TB/s; previous design "
+        f"{PREV_MS['paged yi-9b']:.4f} ms on {PREV_CARD}")
 
     # the same four times at gemma3-12b's decode shape
     q, kp, vp, pt, sl = gemma["bfloat16"]
@@ -379,13 +455,15 @@ def phase_kernel_paged(torch, np):
     g_lib = time_ms(torch, lambda: sdpa(q[:, :, None, :], kg, vg,
                                         attn_mask=mask, enable_gqa=True),
                     50, flush)
-    g_bound, g_by = bound(sl.tolist(), 0, 16, 8, 256, 2, "bfloat16",
-                          GEMMA_MB, GEMMA_MAX_PAGES)
+    g_bound, g_by, g_bytes = bound(sl.tolist(), 0, 16, 8, 256, 2,
+                                   "bfloat16", GEMMA_MB, GEMMA_MAX_PAGES)
     log(f"[kernel] times at gemma3-12b decode B={GEMMA_MB} H=16 Hk=8 "
         f"Dh=256 page={GEMMA_PAGE} tokens={int(sl.sum())} bf16, cold L2: "
         f"kernel_ms={g_ms:.4f} plain_ms={g_plain:.4f} "
         f"library_ms(sdpa)={g_lib:.4f} bound_ms={g_bound:.4f} ({g_by}); "
-        f"kernel at {g_bound / g_ms:.1%} of the bound")
+        f"kernel at {g_bound / g_ms:.1%} of the bound, "
+        f"{g_bytes / g_ms / 1e9:.3f} TB/s; previous design "
+        f"{PREV_MS['paged gemma3-12b']:.4f} ms on {PREV_CARD}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
@@ -397,7 +475,8 @@ def phase_kernel_paged(torch, np):
 def flash_bound(sq, skv, causal, window, h, hk, dh, esize, dtype_name):
     """Least time for the work: the live (query, key) pairs cost 4 * Dh
     flops a head over the peak rate of the dtype; q, k, v read once and the
-    output written once over the memory rate.  The larger wins."""
+    output written once over the memory rate.  The larger wins.  Returns
+    (ms, what bounds it, flops)."""
     live = 0                                  # visible (query, key) pairs
     for i in range(sq):
         hi = min(i, skv - 1) if causal else skv - 1
@@ -408,7 +487,7 @@ def flash_bound(sq, skv, causal, window, h, hk, dh, esize, dtype_name):
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+                                       else "bytes"), flops
 
 
 def phase_kernel_flash(torch, np):
@@ -482,6 +561,20 @@ def phase_kernel_flash(torch, np):
             check(f"sweep Dh={dh} G=16 Sq=77 Skv=130 non-causal",
                   case(1, 77, 130, 16, 1, dh, dtype), False, 0)
 
+    # the bf16 kernel's tile edges: 128 score rows a block (128 / G
+    # positions), 64 keys a kv tile; Sq and Skv one short of a tile,
+    # exactly a tile, and one over, at G = 1 and G = 16
+    for g, hk, dh in ((1, 2, 128), (16, 1, 256)):
+        for sq in (127, 128, 129):
+            for skv in (127, 128, 129):
+                for dtype in (torch.bfloat16, torch.float32):
+                    args = case(1, sq, skv, g * hk, hk, dh, dtype)
+                    for causal, window in ((True, 0), (False, 0),
+                                           (True, 50)):
+                        check(f"tile edge G={g} Dh={dh} Sq={sq} Skv={skv} "
+                              f"causal={causal} window={window}", args,
+                              causal, window)
+
     # times at S = 2048, bf16, for both layer kinds (warm L2: a prefill
     # layer has just written its q, k, v)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -501,13 +594,16 @@ def phase_kernel_flash(torch, np):
         else:
             lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
         library_ms = time_ms(torch, lib, 20)
-        bound_ms, bound_by = flash_bound(s_len, s_len, True, window, 16, 8,
-                                         256, 2, "bfloat16")
+        bound_ms, bound_by, flops = flash_bound(s_len, s_len, True, window,
+                                                16, 8, 256, 2, "bfloat16")
+        prev = PREV_MS["flash window 1024" if window else "flash causal"]
         log(f"[flash] times at gemma3-12b prefill B=1 S={s_len} H=16 Hk=8 "
             f"Dh=256 causal window={window} bf16: kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms(sdpa)={library_ms:.4f} "
             f"bound_ms={bound_ms:.4f} ({bound_by}); kernel at "
-            f"{bound_ms / ms:.1%} of the bound")
+            f"{bound_ms / ms:.1%} of the bound, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s; previous design {prev:.4f} "
+            f"ms on {PREV_CARD}")
         times[window] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": library_ms}
@@ -523,13 +619,15 @@ def phase_kernel_flash(torch, np):
     band = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
     library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=band,
                                              enable_gqa=True), 20)
-    bound_ms, bound_by = flash_bound(s_len, s_len, True, window, 16, 1, 256,
-                                     2, "bfloat16")
+    bound_ms, bound_by, flops = flash_bound(s_len, s_len, True, window, 16,
+                                            1, 256, 2, "bfloat16")
     log(f"[flash] times at recurrentgemma-9b prefill B=1 S={s_len} H=16 "
         f"Hk=1 Dh=256 causal window={window} bf16: kernel_ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms(sdpa, band mask)="
         f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}); kernel at "
-        f"{bound_ms / ms:.1%} of the bound")
+        f"{bound_ms / ms:.1%} of the bound, {flops / ms / 1e9:.1f} TFLOP/s; "
+        f"previous design {PREV_MS['flash recurrentgemma']:.4f} ms on "
+        f"{PREV_CARD}")
     rg_times = {"max_abs_err": rg["err"], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms}
@@ -995,7 +1093,7 @@ def main() -> int:
     import numpy as np
 
     smi_line, name = phase_card(torch)
-    phase_build()
+    sass = phase_build()
     paged = phase_kernel_paged(torch, np)
     flash = phase_kernel_flash(torch, np)
     scan = phase_kernel_scan(torch, np)
@@ -1014,15 +1112,18 @@ def main() -> int:
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:206",
-         "ok": True, **launches("paged_attention"), **paged},
+         "ok": True, **launches("paged_attention"), **paged,
+         "sass": sass["paged_attention"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:136",
-         "ok": True, **launches("flash_attention"), **flash},
+         "ok": True, **launches("flash_attention"), **flash,
+         "sass": sass["flash_attention"]},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:54",
-         "ok": True, **launches("rglru_scan"), **scan},
+         "ok": True, **launches("rglru_scan"), **scan,
+         "sass": sass["rglru_scan"]},
     ]
     print(json.dumps({"kernels": entries}))
     print(smi_line)

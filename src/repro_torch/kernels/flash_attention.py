@@ -7,12 +7,21 @@ The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
 built by ``kernels.build`` and bound with ``ctypes``.  Its plain version is
 ``kernels.ref.flash_attention_ref``.
 
+Design: bf16 runs one warp-specialised kernel per (Dh, G): a block owns
+128 score rows (128 / G query positions x the G heads of one kv head); one
+producer warp loads the Q tile and a ring of 64-key K/V tiles through TMA
+(rank-4 tensor maps over ``(Dh, heads, S, B)``, built per launch, that fill
+zeros past ``Sq`` / ``Skv``); two consumer warpgroups run both products on
+``wgmma`` (P entering P.V as hi + lo bf16 terms) with an online softmax,
+masking only the tiles that cross the diagonal, a window edge or ``Skv``.
+float32 runs scalar FMAs (64 score rows x 32-key tiles).
+
 The wrapper takes CUDA tensors only: it checks them, allocates the output,
 launches on the current stream and counts the launch.  Anything the kernel
 does not take raises — there is no fallback to the plain version.  The TPU
 kernel's ``_TUNED_BLOCKS`` / ``tuned_flash_blocks`` / ``vmem_bytes`` size
 its blocks to TPU VMEM and have no counterpart here: the CUDA kernel's
-tiles are fixed by Hopper's shared memory (64 score rows x 32 keys).
+tiles are fixed by Hopper's shared memory and registers.
 """
 
 from __future__ import annotations

@@ -18,13 +18,15 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.common import DEFAULT_RUNTIME, Runtime, \
-    make_layer_plan
+    make_layer_plan, resolve_device
 from repro_torch.models.model import FLOAT32_LEAVES, check_supported
 
 
 def from_jax_params(np_tree: dict, cfg: ModelConfig,
-                    rt: Runtime = DEFAULT_RUNTIME, device="cpu") -> dict:
+                    rt: Runtime = DEFAULT_RUNTIME, device=None) -> dict:
+    """The port's parameters on ``device`` (``cuda`` unless asked)."""
     check_supported(cfg)
+    device = resolve_device(device)
     plan = make_layer_plan(cfg.num_layers, cfg.block_pattern)
 
     def t(a, dtype=rt.param_dtype) -> torch.Tensor:

@@ -53,7 +53,8 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import embedding as embed_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models.common import (DEFAULT_RUNTIME, Runtime, dense_init,
-                                       rms_norm, rope_tables, rotate, swiglu)
+                                       resolve_device, rms_norm, rope_tables,
+                                       rotate, swiglu)
 
 PAGED_KINDS = ("attn", "global")
 SERVED_KINDS = ATTN_KINDS + ("rglru",)
@@ -91,14 +92,15 @@ def layer_theta(kind: str, cfg: ModelConfig) -> float:
 
 
 def init_params(cfg: ModelConfig, seed: int, rt: Runtime = DEFAULT_RUNTIME,
-                device="cpu") -> dict:
+                device=None) -> dict:
     """Random weights from ``seed`` with ``repro.models.common.dense_init``'s
     recipe (normal x 1/sqrt(fan_in), zero norm weights), made on ``device``
-    one tensor at a time in ``rt.param_dtype``.  The numbers differ from
-    the JAX package's (another generator); tests that compare the two
-    convert the JAX weights instead (``models.convert``)."""
+    (``cuda`` unless asked, see ``resolve_device``) one tensor at a time in
+    ``rt.param_dtype``.  The numbers differ from the JAX package's (another
+    generator); tests that compare the two convert the JAX weights instead
+    (``models.convert``)."""
     check_supported(cfg)
-    device = torch.device(device)
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     pd = rt.param_dtype
@@ -193,8 +195,10 @@ def _kind_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int,
 
 
 def init_caches(cfg: ModelConfig, batch: int, capacity: int,
-                rt: Runtime = DEFAULT_RUNTIME, device="cpu") -> dict:
-    """Dense caches for every layer (no paged pool, no page table)."""
+                rt: Runtime = DEFAULT_RUNTIME, device=None) -> dict:
+    """Dense caches for every layer (no paged pool, no page table), on
+    ``device`` (``cuda`` unless asked)."""
+    device = resolve_device(device)
     return {"layers": [_kind_cache(k, cfg, batch, capacity, rt, device)
                        for k in cfg.layer_kinds()]}
 

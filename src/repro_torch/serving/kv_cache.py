@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.common import Runtime
+from repro_torch.models.common import Runtime, resolve_device
 from repro_torch.models.model import PAGED_KINDS, _kind_cache, \
     check_supported
 
@@ -91,11 +91,13 @@ class PageAllocator:
 
 
 def build_paged_caches(cfg: ModelConfig, batch: int, pool: PoolConfig,
-                       rt: Runtime, device="cpu") -> dict:
-    """Engine caches: zeroed pools for the paged kinds, empty rings
-    (``pos`` -1) of ``window_size`` slots for ``"local"``, zero recurrent
-    states for ``"rglru"``, and a zero (scratch-parked) table."""
+                       rt: Runtime, device=None) -> dict:
+    """Engine caches on ``device`` (``cuda`` unless asked): zeroed pools for
+    the paged kinds, empty rings (``pos`` -1) of ``window_size`` slots for
+    ``"local"``, zero recurrent states for ``"rglru"``, and a zero
+    (scratch-parked) table."""
     check_supported(cfg)
+    device = resolve_device(device)
     shape = (pool.n_pages, pool.page_size, cfg.num_kv_heads, cfg.head_dim)
 
     def layer(kind: str) -> dict:

@@ -182,3 +182,33 @@ def test_kernel_refuses_what_it_does_not_take_on_card():
     q, k, v = [t.cuda() for t in _torch(*make_inputs(2, 64, 4, 16))]
     with pytest.raises(ValueError, match="at least"):
         cuda_flash.flash_attention(q, k, v)
+
+
+# the bf16 kernel's tile edges: a block holds 128 score rows (128 / G
+# positions) and a kv tile 64 keys, so Sq and Skv of 127, 128 and 129 end
+# a tile one short, exactly, or one over, at G = 1 (128 positions a block)
+# and G = 16 (8 positions a block)
+EDGE = (127, 128, 129)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skv", EDGE)
+@pytest.mark.parametrize("sq", EDGE)
+@pytest.mark.parametrize("g", [1, 16])
+def test_kernel_at_tile_edges_on_card(g, sq, skv):
+    _card()
+    dh = 128 if g == 1 else 256
+    q, k, v = make_inputs(g, dh, sq, skv, seed=9, hk=1, b=2)
+    # batch 2: the second row's K/V follow the first's in memory, so only
+    # the per-row bounds of the tensor maps keep a tile from reading them
+    qd, kd, vd = [t.cuda().to(torch.bfloat16) for t in _torch(q, k, v)]
+    for causal, window in ((True, 0), (False, 0), (True, 50)):
+        got = cuda_flash.flash_attention(qd, kd, vd, causal=causal,
+                                         window=window)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(qd, kd, vd, causal=causal,
+                                       window=window)
+        assert torch.isfinite(got.float()).all()
+        atol, rtol = BF16_TOL
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)

@@ -63,7 +63,8 @@ def setup(variant, arch="yi-9b"):
     jcfg = dataclasses.replace(jax_reduced(jax_get_arch(arch)), **kw)
     tcfg = dataclasses.replace(reduced_config(get_arch(arch)), **kw)
     jparams = jax_model.init_params(jcfg, jax.random.PRNGKey(0), JRT)
-    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, TRT)
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, TRT,
+                              device="cpu")
     rng = np.random.RandomState(1)
     prompts = [list(rng.randint(1, tcfg.vocab_size, n)) for n in LENGTHS]
     return jcfg, tcfg, jparams, tparams, prompts

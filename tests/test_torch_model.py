@@ -57,7 +57,7 @@ def configs(variant):
 def weights(jcfg, tcfg, seed=0):
     params = jax_model.init_params(jcfg, jax.random.PRNGKey(seed), JRT)
     return params, from_jax_params(jax.tree.map(np.asarray, params), tcfg,
-                                   TRT)
+                                   TRT, device="cpu")
 
 
 POOL = dict(page_size=8, n_local_pages=16, max_pages_per_seq=4)
@@ -71,7 +71,8 @@ def jax_pools(jcfg, table):
 
 def torch_pools(tcfg, table):
     pool = tkv.PoolConfig(**POOL)
-    caches = tkv.build_paged_caches(tcfg, table.shape[0], pool, TRT)
+    caches = tkv.build_paged_caches(tcfg, table.shape[0], pool, TRT,
+                                    device="cpu")
     return tkv.set_page_table(caches, table)
 
 
@@ -166,7 +167,7 @@ def test_unported_layer_kinds_raise():
     for kinds in (("mlstm", "slstm"), ("rglru", "mlstm")):
         cfg = dataclasses.replace(base, block_pattern=kinds)
         with pytest.raises(NotImplementedError, match="slice"):
-            tmodel.init_params(cfg, 0, TRT)
+            tmodel.init_params(cfg, 0, TRT, device="cpu")
 
 
 @pytest.mark.parametrize("window", [0, 5])
@@ -263,7 +264,8 @@ def test_exact_prefill_then_ring_decode_match_jax(arch, kv_dtype):
     jrt, trt = JRT.replace(kv_dtype=kv_dtype), \
         dataclasses.replace(TRT, kv_dtype=kv_dtype)
     jparams = jax_model.init_params(jcfg, jax.random.PRNGKey(1), jrt)
-    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, trt)
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, trt,
+                              device="cpu")
     rng = np.random.RandomState(2)
     S, cap = 40, 64                         # window 32 < S < capacity
     tokens = rng.randint(1, jcfg.vocab_size, (2, S)).astype(np.int32)
@@ -310,7 +312,8 @@ def test_padded_ring_prefill_keeps_the_reference_behaviour():
     reproduces for parity)."""
     jcfg, tcfg = gemma_configs("gemma3-1b", window_size=8)
     jparams = jax_model.init_params(jcfg, jax.random.PRNGKey(0), JRT)
-    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, TRT)
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, TRT,
+                              device="cpu")
     tokens = np.random.RandomState(3).randint(
         1, jcfg.vocab_size, (1, 16)).astype(np.int32)
     last = np.asarray([12], np.int32)
@@ -382,7 +385,8 @@ def test_recurrentgemma_prefill_then_decode_match_jax():
     jcfg, tcfg = gemma_configs("recurrentgemma-9b")
     assert tcfg.layer_kinds() == ("rglru", "rglru", "local", "rglru")
     jparams = jax_model.init_params(jcfg, jax.random.PRNGKey(2), JRT)
-    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, TRT)
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, TRT,
+                              device="cpu")
     rng = np.random.RandomState(5)
     S, cap = 40, 64
     tokens = rng.randint(1, jcfg.vocab_size, (2, S)).astype(np.int32)
@@ -433,7 +437,7 @@ def test_padded_prefill_carries_the_exact_recurrent_state():
     Within 1e-6, not bit for bit: the projections are matmuls of another
     length, which the CPU's BLAS blocks and sums differently."""
     _, tcfg = gemma_configs("recurrentgemma-9b")
-    tparams = tmodel.init_params(tcfg, 3, TRT)
+    tparams = tmodel.init_params(tcfg, 3, TRT, device="cpu")
     tokens = torch.randint(1, tcfg.vocab_size, (1, 13),
                            generator=torch.Generator().manual_seed(0))
     padded = torch.cat([tokens, torch.zeros((1, 3), dtype=tokens.dtype)], 1)
@@ -456,8 +460,9 @@ def test_from_jax_params_keeps_float32_leaves_under_bf16():
     trt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
     jparams = jax_model.init_params(jcfg, jax.random.PRNGKey(0), jrt)
     converted = from_jax_params(
-        jax.tree.map(lambda a: np.asarray(a, np.float32), jparams), tcfg, trt)
-    made = tmodel.init_params(tcfg, 0, trt)
+        jax.tree.map(lambda a: np.asarray(a, np.float32), jparams), tcfg, trt,
+        device="cpu")
+    made = tmodel.init_params(tcfg, 0, trt, device="cpu")
     jlayers = jax_layer_caches(jparams, jcfg)
     for kind, jw, cw, mw in zip(tcfg.layer_kinds(), jlayers,
                                 converted["layers"], made["layers"]):
@@ -498,3 +503,29 @@ def test_engine_caches_hold_recurrent_states_and_reset_them():
             assert (got["h"][1] == 0).all() and (got["conv"][1] == 0).all()
             assert (got["h"][0] == 2).all() and (got["conv"][2] == 3).all()
             assert v["h"].data_ptr() == got["h"][1:2].data_ptr()
+
+
+def test_entry_points_default_to_the_card():
+    """``init_params``, ``init_caches``, ``build_paged_caches`` and
+    ``from_jax_params`` run on ``cuda`` unless the caller asks for another
+    device: with no card and no ``device`` they raise, never quietly
+    computing on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default resolves to it")
+    jcfg, tcfg = jax_reduced(jax_get_arch("yi-9b")), \
+        reduced_config(get_arch("yi-9b"))
+    np_tree = jax.tree.map(np.asarray, jax_model.init_params(
+        jcfg, jax.random.PRNGKey(0), JRT))
+    calls = [lambda: tmodel.init_params(tcfg, 0, TRT),
+             lambda: tmodel.init_caches(tcfg, 2, 16, TRT),
+             lambda: tkv.build_paged_caches(tcfg, 2, tkv.PoolConfig(**POOL),
+                                            TRT),
+             lambda: from_jax_params(np_tree, tcfg, TRT)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # and the same calls with device="cpu" build on the CPU
+    assert tmodel.init_caches(tcfg, 2, 16, TRT, device="cpu")["layers"][0][
+        "k"].device.type == "cpu"
+    assert from_jax_params(np_tree, tcfg, TRT, device="cpu")[
+        "final_norm"].device.type == "cpu"

@@ -9,6 +9,8 @@ itself is compared with the plain version by the ``cuda``-marked test,
 which needs the card and skips elsewhere.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -212,3 +214,162 @@ def test_kernel_clamps_page_ids_on_card(dtype):
     want = ref.paged_decode_attention_ref(*args)
     atol, rtol = (TOL, TOL) if dtype == "float32" else BF16_TOL
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# split-KV: the wrapper's plan, and the split-and-merge the kernel runs
+# ---------------------------------------------------------------------------
+
+# (max_pages, page_size, pairs, n_sm): yi-9b's kernel-check and serve
+# tables, gemma3-12b's, a small sweep shape, and one split
+PLANS = [(128, 16, 64, 132), (64, 16, 64, 132), (136, 16, 128, 132),
+         (8, 8, 8, 132), (4, 16, 4, 1), (37, 32, 3, 132), (4096, 8, 1, 132),
+         (3000, 8, 2000, 132)]
+
+
+def split_pages(seq_len, window, split, pages, page, max_pages):
+    """The table slots that split ``split`` of a row reads."""
+    begin, end = cuda_paged.split_token_range(seq_len, window, split, pages,
+                                              page, max_pages)
+    return list(range(begin // page, (end - 1) // page + 1)) \
+        if end > begin else []
+
+
+@pytest.mark.parametrize("plan", PLANS)
+def test_split_plan_covers_every_page_once(plan):
+    """Every page that holds a token of ``[lo, seq_len)`` is read by
+    exactly one split, in whole pages, and no other page is read: ragged
+    lengths, ``seq_len == 0``, a full table, windows that start inside a
+    split, and the one-split plan."""
+    max_pages, page, pairs, n_sm = plan
+    pages, n_split = cuda_paged.split_plan(max_pages, page, pairs, n_sm)
+    assert 1 <= pages <= min(max_pages, cuda_paged.MAX_SPLIT_PAGES)
+    assert n_split * pages >= max_pages > (n_split - 1) * pages
+    assert n_split <= cuda_paged.MAX_SPLITS
+    # at least 2 blocks an SM, as far as the split granularity allows
+    unit = max(1, cuda_paged.SPLIT_TOKENS // page)
+    assert n_split >= min(-(-2 * n_sm // pairs), -(-max_pages // unit),
+                          cuda_paged.MAX_SPLITS)
+    span = pages * page
+    lens = [0, 1, span - 1, span, span + 1, max_pages * page,
+            max_pages * page - page // 2, 3 * span // 2]
+    for seq_len in lens:
+        seq_len = min(seq_len, max_pages * page)
+        for window in (0, 1, page + 3, span // 2 + 5, 10 ** 6):
+            lo = max(seq_len - window, 0) if window else 0
+            want = list(range(lo // page, -(-seq_len // page)))
+            got = []
+            for s in range(n_split):
+                begin, end = cuda_paged.split_token_range(
+                    seq_len, window, s, pages, page, max_pages)
+                read = split_pages(seq_len, window, s, pages, page,
+                                   max_pages)
+                if end > begin:
+                    # a split's tokens lie inside its own whole pages
+                    assert s * span <= begin < end <= (s + 1) * span
+                    assert read[0] >= s * pages
+                    assert read[-1] < (s + 1) * pages
+                got += read
+            assert got == want, (seq_len, window)
+
+
+def split_merge(q, kp, vp, pt, seq, window, pages, n_split):
+    """The kernel's algorithm as plain float32 PyTorch: per split the
+    partial ``(m, l, o)`` of its tokens in base-2 units (``m = NEG_INF, l =
+    0, o = 0`` for an empty split), then the merge of the partials."""
+    b, h, dh = q.shape
+    n_pool, page, hk, _ = kp.shape
+    g = h // hk
+    scale = math.log2(math.e) / math.sqrt(dh)
+    out = torch.zeros((b, h, dh), dtype=torch.float32)
+    for r in range(b):
+        for kv in range(hk):
+            qg = q[r, kv * g:(kv + 1) * g].float()
+            parts = []
+            for s in range(n_split):
+                begin, end = cuda_paged.split_token_range(
+                    int(seq[r]), window, s, pages, page, pt.shape[1])
+                if end <= begin:
+                    parts.append((torch.full((g,), ref.NEG_INF),
+                                  torch.zeros(g), torch.zeros(g, dh)))
+                    continue
+                t = torch.arange(begin, end)
+                pid = pt[r, t // page].long().clamp(0, n_pool - 1)
+                kk = kp[pid, t % page, kv].float()
+                vv = vp[pid, t % page, kv].float()
+                sc = (qg @ kk.T) * scale
+                m = sc.amax(-1)
+                p = torch.exp2(sc - m[:, None])
+                parts.append((m, p.sum(-1), p @ vv))
+            m_all = torch.stack([p[0] for p in parts])       # (n_split, g)
+            m = m_all.amax(0)
+            f = torch.exp2(m_all - m)
+            l = sum(p[1] * f[i] for i, p in enumerate(parts))
+            o = sum(p[2] * f[i][:, None] for i, p in enumerate(parts))
+            out[r, kv * g:(kv + 1) * g] = o / l.clamp(min=1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("window", [0, 23])
+@pytest.mark.parametrize("g", [1, 8])
+def test_split_merge_matches_plain(g, window):
+    """Split, then merge, as the kernel does, equals the plain version
+    within float32 1e-6: ragged rows, a zero-length row, rows that leave
+    most splits empty, and a row that fills the table."""
+    page, max_pages = 16, 12
+    q, kp, vp, pt, seq, _, _ = make_inputs(
+        g, 64, page, seed=7, max_pages=max_pages,
+        lens=(0, 5, 29, 70, 130, 192))
+    pages, n_split = cuda_paged.split_plan(max_pages, page, 12, 132)
+    assert n_split == 3
+    args = _torch(q, kp, vp, pt, seq)
+    got = split_merge(*args, window, pages, n_split)
+    want = ref.paged_decode_attention_ref(*args, window=window)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert (got[0] == 0).all()
+
+
+# (G, Dh, lengths): seq_len at a split boundary and one token either side,
+# and one row far longer than the rest (most of the others' splits empty)
+SPLIT_EDGE_CASES = [(8, 128, "boundary"), (1, 64, "boundary"),
+                    (2, 256, "boundary"), (8, 128, "one-long"),
+                    (4, 256, "one-long")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SPLIT_EDGE_CASES)
+def test_kernel_at_split_edges_on_card(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g, dh, kind = case
+    page, max_pages, hk = 16, 128, 2
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    pages, n_split = cuda_paged.split_plan(max_pages, page, 5 * hk, n_sm)
+    assert n_split > 1
+    span = pages * page
+    lens = ((0, span - 1, span, span + 1, 2 * span + 1) if kind == "boundary"
+            else (3, 17, max_pages * page, 1, 40))
+    q, kp, vp, pt, seq, kp_bad, vp_bad = make_inputs(
+        g, dh, page, seed=8, hk=hk, max_pages=max_pages, lens=lens)
+    kp_bad, vp_bad = poison_tails(kp_bad, vp_bad, pt, seq)
+    tdt = getattr(torch, dtype)
+    args = [t.cuda() for t in _torch(q, kp_bad, vp_bad, pt, seq)]
+    args[:3] = [t.to(tdt) for t in args[:3]]
+    atol, rtol = (TOL, TOL) if dtype == "float32" else BF16_TOL
+    for window in (0, span // 2 + 3):
+        got = cuda_paged.paged_decode_attention(*args, window=window)
+        torch.cuda.synchronize()
+        want = ref.paged_decode_attention_ref(*args, window=window)
+        assert torch.isfinite(got.float()).all()
+        assert (got[args[4] == 0] == 0).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+
+
+def test_split_plan_refuses_what_the_kernel_cannot_hold():
+    with pytest.raises(ValueError, match="positive"):
+        cuda_paged.split_plan(0, 16, 4, 132)
+    too_wide = cuda_paged.MAX_SPLITS * cuda_paged.MAX_SPLIT_PAGES + 1
+    with pytest.raises(ValueError, match="wider"):
+        cuda_paged.split_plan(too_wide, 16, 4, 132)
