@@ -9,8 +9,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. the build: every ``src/repro_torch/kernels/csrc/*.cu`` compiled with
    ``nvcc``, one process per source, all started together (paged
    attention, flash attention, the RG-LRU scan), with each library's count
-   of ``HGMMA`` (wgmma), ``UTMALDG`` (TMA loads), ``LDGSTS`` (cp.async)
-   and ``HMMA`` (mma.sync) instructions from ``cuobjdump -sass``;
+   of ``HGMMA`` (wgmma), ``UTMALDG`` / ``UTMASTG`` (TMA loads and stores),
+   ``LDGSTS`` (cp.async) and ``HMMA`` (mma.sync) instructions from
+   ``cuobjdump -sass``;
 3. the paged decode kernel against its plain PyTorch version on the card,
    at the main paths' shapes (yi-9b: B=16, H=32, Hk=4, Dh=128, page 16, up
    to 2048 tokens, a zero-length row, NaN in every page no row owns;
@@ -34,13 +35,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and at recurrentgemma-9b's local layers (B=1, H=16 over one kv head:
    G=16, Dh=256, causal, window 2048, S from 8 to 4096), with its times;
 5. the RG-LRU scan kernel against its plain version (a float32 loop over
-   time) at recurrentgemma-9b's prefill shapes (B=1, Dr=4096, S in 8, 100,
-   2048, 4096, random h0) and a sweep of B in {1, 3}, Dr in {128, 4000},
-   S=257, with and without h0, every input the front of a buffer whose
-   tail is NaN; both round each step's multiply and add once, so they must
-   agree exactly (held at ``atol = rtol = 1e-6``); then kernel, plain and
-   bound times (no single PyTorch call computes the recurrence, so no
-   library time);
+   time) at recurrentgemma-9b's prefill shapes (B=1, Dr=4096, S in 8, 100
+   and the buckets 1024, 2048, 4096, random h0) and a sweep of B in
+   {1, 3}, Dr in {128, 4000}, S=257, with and without h0, every input the
+   front of a buffer whose tail is NaN; both round each step's multiply
+   and add once, so they must agree exactly (``atol = rtol = 0``); then
+   kernel, plain and bound times at each bucket, cold L2 (no single
+   PyTorch call computes the recurrence, so no library time), beside the
+   previous design's and that of ``a + b`` (not the recurrence, but the
+   same bytes moved: what the memory gives this traffic), and the host
+   time of one wrapper call at S=1024;
 6. end-to-end parity, float32, served by the port on the CPU (plain path)
    and on the card (kernel path), greedy streams identical: a 2-layer model
    with yi-9b's head layout (chunked prefill, paged kernel), a 4-layer
@@ -119,18 +123,22 @@ RG_MB, RG_PAGE, RG_MAX_PAGES = 16, 16, 196                 # 3,136 tokens
 RG_POOL_PAGES = RG_MB * RG_MAX_PAGES + 1
 RG_REQUESTS, RG_PROMPTS, RG_NEW = 20, (256, 3072), 32
 RG_FLASH_LENGTHS = (8, 100, 1500, 2048, 2049, 4096)   # power-of-two buckets
-SCAN_LENGTHS = (8, 100, 2048, 4096)                     # and ragged lengths
-SCAN_TOL = 1e-6     # atol = rtol; the kernel and plain loop round alike
+SCAN_BUCKETS = (1024, 2048, 4096)     # the prefill buckets, each timed
+SCAN_LENGTHS = (8, 100) + SCAN_BUCKETS                  # and ragged lengths
+SCAN_TOL = 0        # atol = rtol; the kernel and plain loop round alike
 # the previous designs' times at the timed shapes (the mma.sync flash
-# kernel and the one-block-a-pair paged kernel; PERF.md section 6, on an
-# NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
+# kernel and the one-block-a-pair paged kernel, PERF.md section 6; the
+# one-thread-a-channel scan, timed by this script's scan phase on the
+# tree that still had it, cold L2), all on an NVIDIA H100 80GB HBM3 at
+# 700 W, printed beside this run's
 PREV_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PREV_MS = {"paged yi-9b": 0.1784, "paged gemma3-12b": 0.1656,
            "flash causal": 0.4778, "flash window 1024": 0.3868,
-           "flash recurrentgemma": 1.0455}
-# instructions counted in each library's SASS: wgmma, TMA loads, cp.async
-# and mma.sync
-SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
+           "flash recurrentgemma": 1.0455,
+           "scan 1024": 0.0719, "scan 2048": 0.1328, "scan 4096": 0.2549}
+# instructions counted in each library's SASS: wgmma, TMA loads and
+# stores, cp.async and mma.sync
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "LDGSTS", "HMMA")
 
 
 def log(msg: str) -> None:
@@ -673,13 +681,13 @@ def phase_kernel_scan(torch, np):
             f"(atol {SCAN_TOL:g}, rtol {SCAN_TOL:g}) ok")
         return err
 
-    main = None
+    mains, errs = {}, {}
     for s_len in SCAN_LENGTHS:
         args = case(1, s_len, 4096, True)
         err = check(f"recurrentgemma-9b prefill B=1 S={s_len} Dr=4096 h0",
                     args)
-        if s_len == SCAN_LENGTHS[-1]:
-            main = (args, err)
+        if s_len in SCAN_BUCKETS:
+            mains[s_len], errs[s_len] = args, err
     for b in (1, 3):
         for dr in (128, 4000):
             for with_h0 in (True, False):
@@ -687,23 +695,54 @@ def phase_kernel_scan(torch, np):
                       f"{'h0' if with_h0 else 'no h0'}",
                       case(b, 257, dr, with_h0))
 
-    (a, bb, h0), err = main
-    b, s_len, dr = a.shape
-    ms = time_ms(torch, lambda: rs.rglru_scan(a, bb, h0), 20)
-    plain_ms = time_ms(torch, lambda: ref.rglru_scan_ref(a, bb, h0), 3)
-    # a and b read once, every h_t written once: 12 bytes a step and
-    # channel, 2 flops
-    t_bytes = 12 * b * s_len * dr / HBM_BYTES_PER_S
-    t_ops = 2 * b * s_len * dr / PEAK_FLOPS["float32"]
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"[scan] times at recurrentgemma-9b prefill B={b} S={s_len} "
-        f"Dr={dr} float32: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms=none (no single PyTorch call computes the "
-        f"recurrence) bound_ms={bound_ms:.4f} ({bound_by}); kernel at "
-        f"{bound_ms / ms:.1%} of the bound")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    times = {}
+    for s_len in SCAN_BUCKETS:
+        a, bb, h0 = mains[s_len]
+        b, _, dr = a.shape
+        ms = time_ms(torch, lambda: rs.rglru_scan(a, bb, h0), 50, flush)
+        plain_ms = time_ms(torch, lambda: ref.rglru_scan_ref(a, bb, h0), 3,
+                           flush)
+        # not the recurrence: a + b moves the same bytes (a and b read,
+        # one tensor written), so it shows what the memory gives this
+        # traffic
+        o = torch.empty_like(a)
+        add_ms = time_ms(torch, lambda: torch.add(a, bb, out=o), 50, flush)
+        # a and b read once, every h_t written once: 12 bytes a step and
+        # channel, 2 flops
+        t_bytes = 12 * b * s_len * dr / HBM_BYTES_PER_S
+        t_ops = 2 * b * s_len * dr / PEAK_FLOPS["float32"]
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[scan] times at recurrentgemma-9b prefill B={b} S={s_len} "
+            f"Dr={dr} float32, cold L2: kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms=none (no single PyTorch "
+            f"call computes the recurrence) bound_ms={bound_ms:.4f} "
+            f"({bound_by}); kernel at {bound_ms / ms:.1%} of the bound; "
+            f"a + b over the same bytes {add_ms:.4f}; previous design "
+            f"{PREV_MS[f'scan {s_len}']:.4f} ms on {PREV_CARD}")
+        times[s_len] = {"max_abs_err": errs[s_len], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None,
+                        "same_bytes_add_ms": add_ms}
+    # host cost of a call at the smallest bucket: checks, allocation, the
+    # tensor maps' encoding and the launch, with the card kept busy
+    a, bb, h0 = mains[SCAN_BUCKETS[0]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        rs.rglru_scan(a, bb, h0)
+    host_us = (time.perf_counter() - t0) / 100 * 1e6
+    torch.cuda.synchronize()
+    log(f"[scan] host time of a wrapper call at S={SCAN_BUCKETS[0]}: "
+        f"{host_us:.2f} us (device {times[SCAN_BUCKETS[0]]['ms'] * 1e3:.2f} "
+        f"us)")
+    return {**times[SCAN_BUCKETS[-1]], "host_us_per_call": host_us,
+            "buckets": {str(k): v for k, v in times.items()}}
 
 
 def phase_parity(torch, np):

@@ -48,7 +48,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     """The RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t`` (prefill of the
     recurrent layers); shapes as in ``kernels.ref``.  The JAX router sends
     only ``Dr % 128 == 0, S >= 8`` to its kernel; the CUDA kernel takes
-    every S and Dr, so no shape is routed elsewhere."""
+    every S and every Dr that is a multiple of 4 (its TMA loads need
+    16-byte rows), and raises on any other Dr: no shape is routed
+    elsewhere.  recurrentgemma-9b serves at Dr = 4096."""
     if a.device.type == "cpu":
         return ref.rglru_scan_ref(a, b, h0)
     return _rglru_cuda(a, b, h0)

@@ -8,10 +8,14 @@ is CUDA C++ for ``sm_90a``, built by ``kernels.build`` and bound with
 
 The wrapper takes CUDA tensors only: it checks them, allocates the output,
 launches on the current stream and counts the launch.  Anything the kernel
-does not take raises — there is no fallback to the plain version.  The TPU
-kernel's ``s_blk`` / ``d_blk`` size its VMEM blocks and have no
-counterpart here: a CUDA thread carries one channel over the whole
-sequence.
+does not take raises — there is no fallback to the plain version.  The
+kernel takes every B from 1 to 65,535 and every S from 1; it takes Dr only
+as a multiple of 4, and ``a`` and ``b`` only at 16-byte aligned addresses,
+because it loads them through TMA tensor maps, whose row stride (Dr · 4
+bytes) and base must be multiples of 16 bytes.  The TPU kernel's
+``s_blk`` / ``d_blk`` size its VMEM blocks and have no counterpart here: a
+lane carries one channel over the whole sequence, fed from a ring of
+64-step tiles in shared memory.
 """
 
 from __future__ import annotations
@@ -39,7 +43,22 @@ def _library():
 
 
 def check_inputs(a, b, h0) -> None:
-    """Raise ``ValueError`` for anything the kernel does not take."""
+    """Raise ``ValueError`` for anything the kernel does not take; the
+    shape rules are checked first, on any device."""
+    if a.dim() != 3 or b.shape != a.shape:
+        raise ValueError(f"rglru_scan: want a and b (B, S, Dr) of one shape, "
+                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    bsz, s, dr = a.shape
+    if min(bsz, s, dr) < 1 or bsz > 65535:
+        raise ValueError(f"rglru_scan: shape {tuple(a.shape)}: B, S and Dr "
+                         "must be at least 1, and B at most 65535")
+    if dr % 4:
+        raise ValueError(f"rglru_scan: Dr = {dr} must be a multiple of 4: "
+                         "TMA loads a and b, and a tensor map's row stride "
+                         "(Dr * 4 bytes) must be a multiple of 16 bytes")
+    if h0 is not None and h0.shape != (bsz, dr):
+        raise ValueError(f"rglru_scan: h0 {tuple(h0.shape)}, want "
+                         f"{(bsz, dr)}")
     tensors = {"a": a, "b": b}
     if h0 is not None:
         tensors["h0"] = h0
@@ -53,16 +72,11 @@ def check_inputs(a, b, h0) -> None:
                              "takes float32 only")
         if not t.is_contiguous():
             raise ValueError(f"rglru_scan: {name} must be contiguous")
-    if a.dim() != 3 or b.shape != a.shape:
-        raise ValueError(f"rglru_scan: want a and b (B, S, Dr) of one shape, "
-                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
-    bsz, s, dr = a.shape
-    if min(bsz, s, dr) < 1 or bsz > 65535:
-        raise ValueError(f"rglru_scan: shape {tuple(a.shape)}: B, S and Dr "
-                         "must be at least 1, and B at most 65535")
-    if h0 is not None and h0.shape != (bsz, dr):
-        raise ValueError(f"rglru_scan: h0 {tuple(h0.shape)}, want "
-                         f"{(bsz, dr)}")
+    for name, t in (("a", a), ("b", b)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"rglru_scan: {name} starts at an address that "
+                             "is not a multiple of 16 bytes, as a TMA tensor "
+                             "map's base must be")
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor,

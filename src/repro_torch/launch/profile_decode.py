@@ -73,7 +73,7 @@ def profile(torch, fn, steps: int):
 
 def report(label: str, cfg, step_ms, traced_ms, rows, launches) -> None:
     device_ms = sum(r[0] for r in rows)
-    paged_ms = sum(r[0] for r in rows if "paged_decode" in r[2])
+    paged_ms = sum(r[0] for r in rows if "paged_split" in r[2])
     flash_ms = sum(r[0] for r in rows if "flash_fwd" in r[2])
     scan_ms = sum(r[0] for r in rows if "rglru_scan" in r[2])
     print(f"{label}: step {step_ms:.3f} ms (host clock, untraced); traced "

@@ -94,6 +94,19 @@ def test_router_takes_plain_version_on_cpu():
     assert cuda_scan.rglru_scan.launches == before
 
 
+def test_kernel_refuses_dr_not_a_multiple_of_4_before_any_launch():
+    """TMA needs 16-byte rows: the shape check raises on any device, so a
+    CPU caller of ``check_inputs`` sees the rule, and the wrapper raises
+    before it launches."""
+    a, bb, _ = scan_inputs(1, 8, 6, seed=3)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        cuda_scan.check_inputs(_t(a), _t(bb), None)
+    before = cuda_scan.rglru_scan.launches
+    with pytest.raises(ValueError, match="multiple of 4"):
+        cuda_scan.rglru_scan(_t(a), _t(bb))
+    assert cuda_scan.rglru_scan.launches == before
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     """The CUDA wrapper never computes on the CPU: it raises."""
     a, bb, h0 = scan_inputs(1, 8, 32, seed=3)
@@ -248,9 +261,17 @@ def _on_card_nan_tailed(x):
     return buf[:x.size].view(x.shape)
 
 
-# (B, S, Dr): ragged channel blocks (Dr not a multiple of 32), S not a
-# multiple of the unroll, one step, and the serving width
-CUDA_CASES = [(1, 1, 32), (3, 257, 4000), (2, 100, 128), (1, 33, 4096)]
+# the kernel's ring: kSteps time steps a stage, kStages stages
+# (csrc/rglru_scan.cu)
+RING_T, RING_K = 64, 4
+# (B, S, Dr): one step; fewer steps than a stage; a ring's worth and one
+# step either side; a ring wrapped three times and a partial stage; the
+# smallest TMA row (Dr = 4) and ragged channel blocks (Dr not a multiple
+# of 32); B = 3; and the serving width
+CUDA_CASES = [(1, 1, 32), (2, 17, 128), (1, RING_T * RING_K - 1, 256),
+              (1, RING_T * RING_K, 256), (2, RING_T * RING_K + 1, 96),
+              (1, 3 * RING_T * RING_K + 5, 128), (2, 100, 4), (2, 70, 36),
+              (3, 257, 4000), (2, 100, 128), (1, 33, 4096)]
 
 
 @pytest.mark.cuda
@@ -283,3 +304,11 @@ def test_kernel_refuses_what_it_does_not_take_on_card():
         cuda_scan.rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
     with pytest.raises(ValueError, match="h0"):
         cuda_scan.rglru_scan(a, a, torch.zeros((2, 64), device="cuda"))
+    odd = torch.rand((1, 8, 6), device="cuda")
+    with pytest.raises(ValueError, match="multiple of 4"):
+        cuda_scan.rglru_scan(odd, odd)
+    # a contiguous view 4 bytes into its storage: no TMA base
+    buf = torch.rand((1 + 8 * 64,), device="cuda")
+    shifted = buf[1:].view(1, 8, 64)
+    with pytest.raises(ValueError, match="16 bytes"):
+        cuda_scan.rglru_scan(shifted, a)
