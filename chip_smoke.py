@@ -45,9 +45,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    previous design's and that of ``a + b`` (not the recurrence, but the
    same bytes moved: what the memory gives this traffic), and the host
    time of one wrapper call at S=1024;
+5b. both attention kernels at group sizes they are not built for
+   (``kernels.groups``: the paged kernel at G = 3, 6 and 16, the flash
+   kernel at G = 3 and 6) against their plain versions, and timed beside
+   G = 4 and 8;
 6. end-to-end parity, float32, served by the port on the CPU (plain path)
    and on the card (kernel path), greedy streams identical: a 2-layer model
-   with yi-9b's head layout (chunked prefill, paged kernel), a 4-layer
+   with yi-9b's head layout (chunked prefill, paged kernel), the same with
+   global pools swapped by the offloader at N_B = 4 (equal swap counts on
+   both devices), a 4-layer
    ``(local, global)`` model at head_dim 64 with a 32-token window (exact
    prefill through the flash kernel, rings, paged kernel), and a 4-layer
    ``(rglru, rglru, local)`` model at head_dim 64 (16 heads over one kv
@@ -58,6 +64,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    of 64-768 prompt tokens and 32 new tokens, greedy and sampled mixed;
    every request must finish at full length with finite log-probs, and the
    paged kernel's launch count must equal decode ticks x 48;
+   then, on the same weights and requests, the offloaded serve (4 x 4
+   slots, 400 local pages and two global pools of 400 swapped through
+   pinned host memory on the offloader's copy stream, beside an engine of
+   1,200 local pages: every stream equal token for token, the swap books
+   as the swaps imply, at least a quarter of the requests in global
+   pages, no allocation refused) and the planned serve (the card's pinned
+   copy rate and a measured stage time through ``EngineConfig.plan``,
+   Formula 1's per-microbatch capacity printed beside the allocator's);
 8. the gemma3 serve phase: full-width, full-depth gemma3-12b in bf16 (48
    layers, 5 local : 1 global), 20 requests of 256-2048 prompt tokens, 32
    new tokens each; ``prefill_mode="auto"`` must pick exact-length
@@ -73,12 +87,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    many in-window tokens the rings lost to the reference's padded-ring
    behaviour (ROADMAP Queue 3).
 
+6b. the offloader's stream ordering at yi-9b's full-width pools (48 bf16
+   layers, two global pools of 128 pages, N_B = 4, 8 rounds): after each
+   swap the compute stream reads the resident slice and runs one paged
+   launch over it, exactly against a reference copy, then writes a fresh
+   signature, with no synchronisation until the end.
+
 Each serve phase sets every kernel's launch count to 0 just before it
 drives its path and reads them just after; the kernels line reports those
 counts by path.
 
-It prints a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line,
-and last ``{"ok": true, "device": {...}}``.  It exits non-zero without a
+It prints an ``{"offload": ...}`` line (swap books, copy and wait times,
+the planner's inputs), a ``{"kernels": [...]}`` line, the card's
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  It exits non-zero without a
 result when no CUDA device is visible.
 """
 
@@ -139,6 +160,30 @@ PREV_MS = {"paged yi-9b": 0.1784, "paged gemma3-12b": 0.1656,
 # instructions counted in each library's SASS: wgmma, TMA loads and
 # stores, cp.async and mma.sync
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "LDGSTS", "HMMA")
+# group sizes the kernels are not built for (zero-padded groups, and the
+# paged kernel's G = 16 as two launches of 8), checked and timed beside
+# the built ones
+PAGED_GROUPS = (3, 4, 6, 8, 16)
+FLASH_GROUPS = (3, 4, 6, 8)
+GROUP_SPIN_CYCLES = 2_000_000       # about 1 ms: the host issues a whole
+                                    # regrouped call before its span starts
+# the swap-ordering phase: yi-9b's 48 bf16 layer pools with two global
+# pools of 128 pages (1,572,864 bytes a page across the layers), N_B = 4
+# microbatches visited round robin; before each signature write the
+# compute stream spins, so a copy that ignored its event would read or
+# write early
+SWAP_PAGE, SWAP_LOCAL, SWAP_GLOBAL, SWAP_MBS, SWAP_ROUNDS = 16, 64, 128, 4, 8
+SWAP_SPIN_CYCLES = 4_000_000
+# the offloaded yi-9b serve: the yi-9b phase's 20 requests over 4 x 4
+# slots; 400 local pages and two global pools of 400 (about a third of the
+# requests overflow into a global pool, none ever waits for pages), beside
+# an engine of 1,200 local pages on the same weights
+OFF_MB, OFF_N_MB, OFF_LOCAL, OFF_GLOBAL, OFF_BASE_LOCAL = 4, 4, 400, 400, 1200
+# the planned yi-9b serve (EngineConfig.plan): its inputs, and the pinned
+# host store it may imply before the KV budget is lowered
+PLAN_STAGES, PLAN_LATENCY, PLAN_KV_BYTES = 2, 0.064, 4 * 2 ** 30
+PLAN_MAX_HOST_BYTES = 8 * 2 ** 30
+PLAN_COPY_BYTES = 256 << 20
 
 
 def log(msg: str) -> None:
@@ -150,10 +195,14 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, iters: int, flush=None) -> float:
+def time_ms(torch, fn, iters: int, flush=None, spin: int = 0) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, by CUDA events
     around each launch; ``flush`` runs between launches, outside the
-    timed spans (cold L2, as a layer's own pool is on the main path)."""
+    timed spans (cold L2, as a layer's own pool is on the main path).
+    ``spin`` (GPU clock cycles) keeps the card busy before each span so
+    that the host has issued all of ``fn``'s launches before the span
+    starts: the span is then the device's work alone, without the gaps
+    where it waits for the host."""
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
@@ -161,6 +210,8 @@ def time_ms(torch, fn, iters: int, flush=None) -> float:
     for s, e in zip(starts, ends):
         if flush is not None:
             flush()
+        if spin:
+            torch.cuda._sleep(spin)
         s.record()
         fn()
         e.record()
@@ -234,6 +285,21 @@ def bound(case_lens, window, h, hk, dh, esize, dtype_name, b, max_pages):
     t_ops = flops / PEAK_FLOPS[dtype_name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations"), nbytes
+
+
+def paged_sdpa(torch, q, kp, vp, pt, sl):
+    """The yardstick for a paged decode: one SDPA call over the KV gathered
+    into contiguous (B, Hk, C, Dh) tensors with a length mask (the gather
+    is made here, outside the timed call)."""
+    b, c = pt.shape[0], pt.shape[1] * kp.shape[1]
+    hk, dh = kp.shape[2], kp.shape[3]
+    pos = torch.arange(c, device=q.device)
+    mask = (pos[None] < sl[:, None].long())[:, None, None, :]
+    kg, vg = (torch.nan_to_num(t[pt.long()].reshape(b, c, hk, dh)).transpose(
+        1, 2).contiguous() for t in (kp, vp))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(q[:, :, None, :], kg, vg, attn_mask=mask,
+                        enable_gqa=True)
 
 
 # ---------------------------------------------------------------------------
@@ -425,18 +491,8 @@ def phase_kernel_paged(torch, np):
                  50, flush)
     plain_ms = time_ms(torch, lambda: ref.paged_decode_attention_ref(
         q, kp, vp, pt, sl), 20, flush)
-    # yardstick: SDPA over the gathered, contiguous KV with a length mask
-    c = MAXP * PAGE
-    pos = torch.arange(c, device=dev)
-    mask = (pos[None] < sl[:, None].long())[:, None, None, :]
-    kg = torch.nan_to_num(kp[pt.long()].reshape(B, c, HK, DH)).transpose(
-        1, 2).contiguous()
-    vg = torch.nan_to_num(vp[pt.long()].reshape(B, c, HK, DH)).transpose(
-        1, 2).contiguous()
-    qs = q[:, :, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(torch, lambda: sdpa(qs, kg, vg, attn_mask=mask,
-                                             enable_gqa=True), 50, flush)
+    library_ms = time_ms(torch, paged_sdpa(torch, q, kp, vp, pt, sl), 50,
+                         flush)
     bound_ms, bound_by, nbytes = bound(sl.tolist(), 0, H, HK, DH, 2,
                                        "bfloat16", B, MAXP)
     log(f"[kernel] times at B={B} H={H} Hk={HK} Dh={DH} page={PAGE} "
@@ -454,15 +510,7 @@ def phase_kernel_paged(torch, np):
                                                             sl), 50, flush)
     g_plain = time_ms(torch, lambda: ref.paged_decode_attention_ref(
         q, kp, vp, pt, sl), 20, flush)
-    pos = torch.arange(c, device=dev)
-    mask = (pos[None] < sl[:, None].long())[:, None, None, :]
-    kg = torch.nan_to_num(kp[pt.long()].reshape(GEMMA_MB, c, 8, 256)
-                          ).transpose(1, 2).contiguous()
-    vg = torch.nan_to_num(vp[pt.long()].reshape(GEMMA_MB, c, 8, 256)
-                          ).transpose(1, 2).contiguous()
-    g_lib = time_ms(torch, lambda: sdpa(q[:, :, None, :], kg, vg,
-                                        attn_mask=mask, enable_gqa=True),
-                    50, flush)
+    g_lib = time_ms(torch, paged_sdpa(torch, q, kp, vp, pt, sl), 50, flush)
     g_bound, g_by, g_bytes = bound(sl.tolist(), 0, 16, 8, 256, 2,
                                    "bfloat16", GEMMA_MB, GEMMA_MAX_PAGES)
     log(f"[kernel] times at gemma3-12b decode B={GEMMA_MB} H=16 Hk=8 "
@@ -748,8 +796,9 @@ def phase_kernel_scan(torch, np):
 def phase_parity(torch, np):
     """The port on the CPU (plain versions) against the port on the card
     (the kernels), float32, on identical weights: the chunked path of a
-    yi-9b-shaped model, the exact path of a (local, global) model and of
-    an (rglru, rglru, local) model."""
+    yi-9b-shaped model (also with global pools swapped by the offloader,
+    N_B = 4, equal swap counts on both devices), the exact path of a
+    (local, global) model and of an (rglru, rglru, local) model."""
     import dataclasses
 
     from repro_torch.config import get_arch
@@ -762,11 +811,17 @@ def phase_parity(torch, np):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
+    yi2 = dataclasses.replace(get_arch("yi-9b"), name="yi-9b-2layer",
+                              num_layers=2, d_model=512, d_ff=1024,
+                              vocab_size=2048)
+    local_pool = dict(mb_size=4, num_microbatches=2, pool=PoolConfig(
+        page_size=16, n_local_pages=8 * 16 + 1, max_pages_per_seq=16))
     models = {
         # chunked prefill, the paged kernel
-        "yi-9b-2layer": (dataclasses.replace(
-            get_arch("yi-9b"), name="yi-9b-2layer", num_layers=2,
-            d_model=512, d_ff=1024, vocab_size=2048), (20, 200), True),
+        "yi-9b-2layer": (yi2, (20, 200), True),
+        # the same with 31 local pages and two global pools of 64 over 4 x 4
+        # slots: microbatches 0 and 2 share G0 and swap it every tick
+        "yi-9b-2layer-offload": (yi2, (20, 200), True),
         # exact prefill through the flash kernel (both layers; head_dim 64
         # so the kernels take it), a 32-slot ring, the paged kernel
         "gemma3-local-global": (dataclasses.replace(
@@ -791,18 +846,19 @@ def phase_parity(torch, np):
         if not chunked:   # past the window and not a multiple of 8
             lens[:3] = (33, 61, 100)
         prompts = [list(rng.randint(1, cfg.vocab_size, n)) for n in lens]
-        streams = {}
+        streams, swaps = {}, {}
         for dev in ("cpu", "cuda"):
             params = {"embed": {k: v.to(dev) for k, v in
                                 cpu_params["embed"].items()},
                       "final_norm": cpu_params["final_norm"].to(dev),
                       "layers": [{k: v.to(dev) for k, v in w.items()}
                                  for w in cpu_params["layers"]]}
-            econf = EngineConfig(mb_size=4, num_microbatches=2,
-                                 pool=PoolConfig(page_size=16,
-                                                 n_local_pages=8 * 16 + 1,
-                                                 max_pages_per_seq=16))
-            llm = LLM(cfg, config=econf, params=params, rt=rt, device=dev)
+            layout = local_pool if "offload" not in label else dict(
+                mb_size=4, num_microbatches=4, pool=PoolConfig(
+                    page_size=16, n_local_pages=32, n_global_pages=64,
+                    max_pages_per_seq=16))
+            llm = LLM(cfg, config=EngineConfig(**layout), params=params,
+                      rt=rt, device=dev)
             if llm.engine.chunked_prefill != chunked:
                 raise AssertionError(f"parity {label}: chunked prefill "
                                      f"{llm.engine.chunked_prefill}, want "
@@ -812,10 +868,15 @@ def phase_parity(torch, np):
                 raise AssertionError(f"parity {label} on {dev}: unfinished "
                                      "requests")
             streams[dev] = [o.token_ids for o in outs]
+            swaps[dev] = llm.engine.backend.swap_count
             log(f"[parity] {label} on {dev}: {len(outs)} greedy streams, "
                 f"prompts {int(lens.min())}-{int(lens.max())} tokens, "
                 f"{'chunked' if chunked else 'exact'} prefill, "
-                f"{llm.engine.backend.decode_ticks} decode ticks")
+                f"{llm.engine.backend.decode_ticks} decode ticks, "
+                f"{swaps[dev]} swaps")
+        if swaps["cpu"] != swaps["cuda"] or \
+                ("offload" in label) != (swaps["cpu"] > 0):
+            raise AssertionError(f"parity {label}: swaps {swaps}")
         if streams["cpu"] != streams["cuda"]:
             bad = [i for i, (a, b) in enumerate(zip(streams["cpu"],
                                                     streams["cuda"]))
@@ -826,9 +887,8 @@ def phase_parity(torch, np):
             "vs kernel path (card)")
 
 
-def phase_serve(torch, np, card: str):
+def phase_serve(torch, np, card: str, params):
     from repro_torch.config import get_arch
-    from repro_torch.models import model as model_lib
     from repro_torch.models.common import Runtime
     from repro_torch.serving.kv_cache import PoolConfig
     from repro_torch.serving.llm import LLM, EngineConfig
@@ -839,15 +899,6 @@ def phase_serve(torch, np, card: str):
     mb_size, n_mb, max_pages = SERVE_MB, SERVE_N_MB, SERVE_MAX_PAGES
     n_req, max_new = SERVE_REQUESTS, SERVE_NEW
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = model_lib.init_params(cfg, SEED, rt, "cuda")
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in
-                   [*params["embed"].values(), params["final_norm"]]
-                   + [w for layer in params["layers"] for w in layer.values()])
-    log(f"[serve] yi-9b full width and depth: {cfg.num_layers} layers, "
-        f"{n_params / 1e9:.3f}B params bf16 from seed {SEED} in "
-        f"{time.perf_counter() - t0:.1f}s")
     econf = EngineConfig(
         mb_size=mb_size, num_microbatches=n_mb,
         pool=PoolConfig(page_size=SERVE_PAGE, n_local_pages=SERVE_POOL_PAGES,
@@ -1123,6 +1174,526 @@ def phase_serve_recurrentgemma(torch, np, card: str):
     return counts
 
 
+def phase_group_sizes(torch, np):
+    """Both attention kernels at group sizes they are not built for: each
+    kv head's group padded with zero query rows (G = 3 -> 4, 6 -> 8) or,
+    for the paged kernel, cut into launches of 8 (G = 16), against the
+    plain version; then each timed beside the sizes the kernels are built
+    for (4, 8), at yi-9b's decode shape (paged, cold L2) and a 2,048-token
+    causal prefill (flash)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import groups
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 4)
+    torch.manual_seed(SEED + 4)
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    def check(label, kernel, plain, args, kw, g, sizes):
+        name = str(args[0].dtype).split(".")[-1]
+        atol, rtol = TOL[name]
+        n0 = kernel.launches
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        n_launch = kernel.launches - n0
+        want = plain(*args, **kw)
+        if n_launch != len(groups.group_plan(g, sizes)):
+            raise AssertionError(f"{label}: {n_launch} launches")
+        if got.shape != want.shape or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{label}: shape {tuple(got.shape)} or "
+                                 "non-finite output")
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol, msg=lambda m: f"{label}: {m}")
+        log(f"[groups] {label} {name}: {n_launch} launch(es), max |kernel - "
+            f"plain| = {err:.3e} (atol {atol:g}, rtol {rtol:g}) ok")
+        return err
+
+    out = {"paged": {}, "flash": {}}
+    B, HK, DH, PAGE, MAXP = 16, 4, 128, 16, 128
+    lens = rng.randint(1, MAXP * PAGE + 1, B)
+    lens[1] = MAXP * PAGE
+    for g in PAGED_GROUPS:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = paged_case(torch, np, rng, b=B, h=HK * g, hk=HK, dh=DH,
+                              page=PAGE, max_pages=MAXP, lens=lens,
+                              dtype=dtype, device=dev)
+            for win in (0, 500):
+                err = check(f"paged G={g} B={B} Hk={HK} Dh={DH} window={win}",
+                            pa.paged_decode_attention,
+                            ref.paged_decode_attention_ref, args,
+                            {"window": win}, g, pa.GROUP_SIZES)
+            if dtype == torch.bfloat16:
+                call = lambda: pa.paged_decode_attention(*args)  # noqa: E731
+                ms = time_ms(torch, call, 50, flush, spin=GROUP_SPIN_CYCLES)
+                wall_ms = time_ms(torch, call, 50, flush)
+                b_ms, b_by, _ = bound(args[4].tolist(), 0, HK * g, HK, DH, 2,
+                                      "bfloat16", B, MAXP)
+                out["paged"][g] = {"ms": ms, "with_host_gaps_ms": wall_ms,
+                                   "plain_ms": time_ms(
+                                       torch, lambda: ref.
+                                       paged_decode_attention_ref(*args),
+                                       20, flush),
+                                   "library_ms": time_ms(
+                                       torch, paged_sdpa(torch, *args), 50,
+                                       flush),
+                                   "bound_ms": b_ms,
+                                   "bound_by": b_by, "max_abs_err": err,
+                                   "launches_a_call": len(groups.group_plan(
+                                       g, pa.GROUP_SIZES))}
+    for s_len in (100, 2048):
+        for g in FLASH_GROUPS:
+            for dtype in (torch.bfloat16, torch.float32):
+                q = torch.randn((1, s_len, HK * g, DH), device=dev).to(dtype)
+                k = torch.randn((1, s_len, HK, DH), device=dev).to(dtype)
+                v = torch.randn((1, s_len, HK, DH), device=dev).to(dtype)
+                for causal, win in ((True, 0), (True, 1024), (False, 0)):
+                    err = check(f"flash G={g} S={s_len} Hk={HK} Dh={DH} "
+                                f"causal={causal} window={win}",
+                                fa.flash_attention, ref.flash_attention_ref,
+                                (q, k, v), {"causal": causal, "window": win},
+                                g, fa.GROUP_SIZES)
+                if dtype == torch.bfloat16 and s_len == 2048:
+                    call = lambda: fa.flash_attention(  # noqa: E731
+                        q, k, v, causal=True)
+                    ms = time_ms(torch, call, 20, spin=GROUP_SPIN_CYCLES)
+                    wall_ms = time_ms(torch, call, 20)
+                    b_ms, b_by, _ = flash_bound(s_len, s_len, True, 0, HK * g,
+                                                HK, DH, 2, "bfloat16")
+                    qt, kt, vt = (x.transpose(1, 2).contiguous()
+                                  for x in (q, k, v))
+                    sdpa = torch.nn.functional.scaled_dot_product_attention
+                    out["flash"][g] = {
+                        "ms": ms, "with_host_gaps_ms": wall_ms,
+                        "plain_ms": time_ms(torch, lambda: ref.
+                                            flash_attention_ref(
+                                                q, k, v, causal=True), 5),
+                        "library_ms": time_ms(torch, lambda: sdpa(
+                            qt, kt, vt, is_causal=True, enable_gqa=True), 20),
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "max_abs_err": err, "launches_a_call": 1}
+    for kind, shape in (("paged", f"B={B} Hk={HK} Dh={DH} page={PAGE} "
+                                  f"tokens={int(lens.sum())}, cold L2"),
+                        ("flash", f"B=1 S=2048 Hk={HK} Dh={DH} causal")):
+        log(f"[groups] {kind} times at {shape}, bf16, device only (the "
+            f"host ahead): " + "; ".join(
+                f"G={g} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, "
+                f"plain {t['plain_ms']:.4f}, sdpa {t['library_ms']:.4f}, "
+                f"{t['launches_a_call']} launch(es); "
+                f"{t['with_host_gaps_ms']:.4f} ms with the host's gaps)"
+                for g, t in out[kind].items()))
+    for kind, pairs in (("paged", ((3, 4), (6, 8), (16, 8))),
+                        ("flash", ((3, 4), (6, 8)))):
+        t = out[kind]
+        log(f"[groups] {kind} padding cost, device only: " + "; ".join(
+            f"G={a} / G={b} = {t[a]['ms'] / t[b]['ms']:.3f}" +
+            (" (two launches of 8 against one)" if a == 16 else
+             f" (the work of G={b} plus the regroup copies)")
+            for a, b in pairs))
+    return {kind: {str(g): t for g, t in v.items()} for kind, v in out.items()}
+
+
+def phase_swap_order(torch, np, card: str):
+    """The offloader's stream ordering at yi-9b's full-width pools, exact.
+
+    Each microbatch's global content is its own random data, kept as a
+    reference copy on the card; ``ensure_resident`` visits microbatches
+    0-3 round robin, ``SWAP_ROUNDS`` times.  After each swap the compute
+    stream reads the resident slice (an exact comparison with the
+    reference, and one paged-kernel launch over a table of the slice's
+    pages against the same launch over the reference), spins, and writes
+    a fresh signature into the slice and the reference.  Nothing is
+    synchronised until the end, so a compute read before the swap-in
+    lands, a snapshot taken before compute's writes, or a swap-in that
+    overwrites the slice before its swap-out would all show as a
+    mismatch."""
+    from repro_torch.config import get_arch
+    from repro_torch.core.offload import DoubleBufferOffloader
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.common import Runtime
+    from repro_torch.serving import kv_cache as kvc
+
+    cfg = get_arch("yi-9b")
+    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    dev = torch.device("cuda")
+    pool = kvc.PoolConfig(page_size=SWAP_PAGE, n_local_pages=SWAP_LOCAL,
+                          n_global_pages=SWAP_GLOBAL,
+                          max_pages_per_seq=SWAP_GLOBAL)
+    caches = kvc.build_paged_caches(cfg, 16, pool, rt, dev)
+    layers = [lay for lay in caches["layers"] if "k_pages" in lay]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    shape = (SWAP_GLOBAL, SWAP_PAGE, cfg.num_kv_heads, cfg.head_dim)
+    refs = {mb: [torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+                 for _ in range(2 * len(layers))] for mb in range(SWAP_MBS)}
+    off = DoubleBufferOffloader(pool, SWAP_MBS)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    rows = 4                                  # 4 rows x 32 pages = the slice
+    q = torch.randn((rows, cfg.num_heads, cfg.head_dim), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    seq_lens = torch.tensor([512, 300, 17, 511], dtype=torch.int32,
+                            device=dev)
+    own = torch.arange(SWAP_GLOBAL, dtype=torch.int32, device=dev).view(
+        rows, -1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = 0
+    for _ in range(SWAP_ROUNDS):
+        for mb in range(SWAP_MBS):
+            off.ensure_resident(caches, mb)
+            sl = kvc.global_slice(pool, mb % 2)
+            views = [lay[n][sl] for lay in layers
+                     for n in ("k_pages", "v_pages")]
+            for view, r in zip(views, refs[mb]):
+                bad += (view != r).sum()
+            li = step % len(layers)
+            got = pa.paged_decode_attention(
+                q, layers[li]["k_pages"], layers[li]["v_pages"],
+                own + sl.start, seq_lens)
+            want = pa.paged_decode_attention(q, refs[mb][2 * li],
+                                             refs[mb][2 * li + 1], own,
+                                             seq_lens)
+            bad += (got != want).sum()
+            torch.cuda._sleep(SWAP_SPIN_CYCLES)
+            for view, r in zip(views, refs[mb]):
+                r.normal_(generator=gen)
+                view.copy_(r)
+            step += 1
+    enqueue_s = time.perf_counter() - t0
+    off.settle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_bad = int(bad.item())
+    copy_ms, wait_ms = off.swap_timings()
+    slice_bytes = pool_slice_bytes(caches, pool)
+    moving = step - 2                 # the first visit of each parity moves
+    want_bytes = moving * 2 * slice_bytes          # nothing; the rest out+in
+    if n_bad or off.swap_count != step or off.bytes_swapped != want_bytes:
+        raise AssertionError(
+            f"swap order: {n_bad} mismatched elements, swap_count "
+            f"{off.swap_count} (want {step}), bytes_swapped "
+            f"{off.bytes_swapped} (want {want_bytes})")
+    if len(copy_ms) != moving:
+        raise AssertionError(f"swap order: {len(copy_ms)} timed swaps, "
+                             f"want {moving}")
+    log(f"[swap-order] yi-9b pools: {len(layers)} layers bf16, 2 global "
+        f"pools of {SWAP_GLOBAL} pages ({slice_bytes / 2 ** 20:.1f} MiB a "
+        f"slice), {SWAP_MBS} microbatches x {SWAP_ROUNDS} rounds: {step} "
+        f"swaps, {off.bytes_swapped / 2 ** 30:.3f} GiB moved, pinned host "
+        f"{off.host_bytes / 2 ** 30:.3f} GiB; every read and every paged "
+        f"launch equal to the reference exactly (0 mismatches)")
+    q25, q50, q75 = np.percentile(copy_ms, [25, 50, 75])
+    log(f"[swap-order] on {card}: copy stream {np.mean(copy_ms):.3f} ms a "
+        f"swap (median {q50:.3f}, quartiles {q25:.3f}-{q75:.3f}, min "
+        f"{min(copy_ms):.3f}, max {max(copy_ms):.3f}; "
+        f"{2 * slice_bytes / q50 / 1e6:.2f} GB/s out + in at the median), "
+        f"compute-stream wait {np.mean(wait_ms):.3f} ms a swap; host enqueue "
+        f"{enqueue_s:.3f} s, wall {wall:.3f} s")
+    return {"swaps": step, "copy_ms": float(np.mean(copy_ms)),
+            "copy_ms_median": float(q50), "wait_ms": float(np.mean(wait_ms))}
+
+
+def pool_slice_bytes(caches, pool) -> int:
+    """Bytes of one global pool's page rows across every paged layer's K
+    and V pools: what one direction of a swap moves."""
+    from repro_torch.serving.kv_cache import global_slice
+    sl = global_slice(pool, 0)
+    return sum(lay[n][sl].numel() * lay[n].element_size()
+               for lay in caches["layers"] if "k_pages" in lay
+               for n in ("k_pages", "v_pages"))
+
+
+def _offload_line(tag, off, ticks, card):
+    """The swap books and timings of an engine's offloader, printed."""
+    copy_ms, wait_ms = off.swap_timings()
+    if not copy_ms:
+        raise AssertionError(f"{tag}: no swap was timed")
+    copy, wait = sum(copy_ms) / len(copy_ms), sum(wait_ms) / len(wait_ms)
+    hidden = 1.0 - sum(wait_ms) / sum(copy_ms)
+    log(f"[{tag}] offload on {card}: {off.swap_count} swaps over {ticks} "
+        f"decode ticks, {off.bytes_swapped / 2 ** 30:.3f} GiB moved, pinned "
+        f"host {off.host_bytes / 2 ** 30:.3f} GiB; copy stream {copy:.3f} ms "
+        f"a swap, compute-stream wait {wait:.3f} ms a swap, hidden share "
+        f"1 - wait / copy = {hidden:.3f} ({len(copy_ms)} timed swaps)")
+    return {"swaps": off.swap_count, "bytes_swapped": off.bytes_swapped,
+            "host_bytes": off.host_bytes, "copy_ms": copy, "wait_ms": wait,
+            "timed_swaps": len(copy_ms), "hidden_share": hidden}
+
+
+def _count_refusals(engine):
+    """Count the allocator's MemoryErrors (a request that waits for
+    pages) by wrapping this engine's ``allocate``."""
+    orig = engine.alloc.allocate
+    refused = [0]
+
+    def allocate(*a, **k):
+        try:
+            return orig(*a, **k)
+        except MemoryError:
+            refused[0] += 1
+            raise
+    engine.alloc.allocate = allocate
+    return refused
+
+
+def _serve_yi(torch, np, llm, tag, card):
+    """Serve the yi-9b phase's 20 requests through ``llm``; check every
+    request finishes at full length with finite log-probs; return the
+    outputs, the report and the launch counts."""
+    from repro_torch.serving.request import SamplingParams
+    cfg = llm.cfg
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1,
+                       SERVE_REQUESTS)
+    prompts = [list(rng.randint(1, cfg.vocab_size, n)) for n in lens]
+    sps = [SamplingParams(temperature=0.0, max_new_tokens=SERVE_NEW,
+                          logprobs=True) if i % 2 == 0 else
+           SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                          max_new_tokens=SERVE_NEW, logprobs=True)
+           for i in range(SERVE_REQUESTS)]
+    reset_counts()
+    t1 = time.perf_counter()
+    outs = llm.generate(prompts, sps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = read_counts()
+    rep = llm.stats()
+    bad = [o.request_id for o in outs
+           if not o.finished or len(o.token_ids) != SERVE_NEW
+           or not all(math.isfinite(x) for x in o.logprobs)
+           or not all(0 <= t < cfg.vocab_size for t in o.token_ids)]
+    if bad:
+        raise AssertionError(f"{tag}: requests {bad} unfinished, short, or "
+                             "with non-finite log-probs")
+    ticks = rep["decode_ticks"]
+    if ticks == 0 or counts["paged_attention"] != ticks * YI_LAYERS:
+        raise AssertionError(f"{tag}: {counts['paged_attention']} paged "
+                             f"launches for {ticks} ticks x {YI_LAYERS}")
+    log(f"[{tag}] on {card}: decode_tok_per_s={rep['decode_tok_per_s']:.1f} "
+        f"prefill_tok_per_s={rep['prefill_tok_per_s']:.1f} (decode "
+        f"{rep['decode_time_s']:.3f}s over {ticks} ticks = "
+        f"{rep['decode_time_s'] / ticks * 1e3:.2f} ms a tick, prefill "
+        f"{rep['prefill_time_s']:.3f}s); wall {wall:.3f}s; steps "
+        f"{rep['steps']}; paged launches {counts['paged_attention']}")
+    return outs, rep, counts
+
+
+def phase_serve_offload(torch, np, card: str, params):
+    """Full-width yi-9b with global pools swapped through pinned host
+    memory, beside an engine of local pages only, on the same weights and
+    requests: every stream equal token for token."""
+    import gc
+
+    from repro_torch.config import get_arch
+    from repro_torch.models.common import Runtime
+    from repro_torch.serving.kv_cache import PoolConfig
+    from repro_torch.serving.llm import LLM, EngineConfig
+
+    cfg = get_arch("yi-9b")
+    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    runs = {}
+    for tag, n_local, n_global in (("offload", OFF_LOCAL, OFF_GLOBAL),
+                                   ("no-offload", OFF_BASE_LOCAL, 0)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        econf = EngineConfig(
+            mb_size=OFF_MB, num_microbatches=OFF_N_MB,
+            pool=PoolConfig(page_size=SERVE_PAGE, n_local_pages=n_local,
+                            n_global_pages=n_global,
+                            max_pages_per_seq=SERVE_MAX_PAGES),
+            seed=SEED, max_prefill_tokens_per_tick=256)
+        llm = LLM(cfg, config=econf, params=params, rt=rt, reduced=False,
+                  device="cuda")
+        refused = _count_refusals(llm.engine)
+        outs, rep, counts = _serve_yi(torch, np, llm, f"serve-{tag}", card)
+        holders = sum(s.global_parity is not None
+                      for s in llm.engine.finished)
+        if refused[0]:
+            raise AssertionError(f"serve-{tag}: {refused[0]} allocations "
+                                 "refused; the pools are sized so none is")
+        log(f"[serve-{tag}] pools: {n_local} local pages, 2 x {n_global} "
+            f"global; {holders} of {SERVE_REQUESTS} requests hold global "
+            f"pages; batch {OFF_MB}x{OFF_N_MB}")
+        off = llm.engine.backend.offloader
+        info = {"outs": outs, "rep": rep, "counts": counts,
+                "holders": holders}
+        if off is not None:
+            touched = sum(m is not None for m in off.resident.values())
+            want = (off.swap_count - touched) * 2 * pool_slice_bytes(
+                llm.engine.backend.caches, llm.engine.pool)
+            if off.bytes_swapped != want or off.swap_count < 2:
+                raise AssertionError(
+                    f"serve-offload: bytes_swapped {off.bytes_swapped}, "
+                    f"want {want} for {off.swap_count} swaps")
+            if 4 * holders < SERVE_REQUESTS:
+                raise AssertionError(f"serve-offload: only {holders} "
+                                     "requests hold global pages")
+            info["offload"] = _offload_line("serve-offload", off,
+                                            rep["decode_ticks"], card)
+        runs[tag] = info
+        del llm
+    a, b = runs["offload"]["outs"], runs["no-offload"]["outs"]
+    diff = [o.request_id for o, p in zip(a, b) if o.token_ids != p.token_ids]
+    if diff:
+        raise AssertionError(f"serve-offload: streams of requests {diff} "
+                             "differ from the no-offload engine's")
+    lp = max(abs(x - y) for o, p in zip(a, b)
+             for x, y in zip(o.logprobs, p.logprobs))
+    log(f"[serve-offload] all {len(a)} streams (greedy and sampled) equal "
+        f"the no-offload engine's token for token; max |log-prob "
+        f"difference| {lp:.3e}")
+    # end to end: how much longer an offloaded tick is, against the copy
+    # stream's time a tick
+    tick = {tag: r["rep"]["decode_time_s"] / r["rep"]["decode_ticks"] * 1e3
+            for tag, r in runs.items()}
+    info = runs["offload"]["offload"]
+    copy_a_tick = info["copy_ms"] * info["timed_swaps"] / \
+        runs["offload"]["rep"]["decode_ticks"]
+    extra = tick["offload"] - tick["no-offload"]
+    info.update(tick_ms=tick, copy_ms_a_tick=copy_a_tick,
+                shown_share=extra / copy_a_tick,
+                decode_tok_per_s={t: r["rep"]["decode_tok_per_s"]
+                                  for t, r in runs.items()},
+                prefill_tok_per_s={t: r["rep"]["prefill_tok_per_s"]
+                                   for t, r in runs.items()})
+    log(f"[serve-offload] end to end on {card}: a decode tick takes "
+        f"{tick['offload']:.2f} ms offloaded, {tick['no-offload']:.2f} ms "
+        f"without ({extra:+.2f} ms); the copy stream spends "
+        f"{copy_a_tick:.2f} ms a tick, of which {extra / copy_a_tick:.1%} "
+        f"shows in the tick (the rest overlaps the host issuing the step)")
+    return {tag: r["counts"] for tag, r in runs.items()}, info
+
+
+def allocator_capacity(pool, n_b: int):
+    """Pages each microbatch gets when all ``n_b`` of them fill a fresh
+    allocator a page at a time, round robin, microbatch ``m`` drawing its
+    overflow from parity ``m % 2``, until every one is refused."""
+    from repro_torch.serving.kv_cache import PageAllocator
+    al = PageAllocator(pool)
+    got = [0] * n_b
+    live = set(range(n_b))
+    while live:
+        for mb in sorted(live):
+            try:
+                al.allocate(mb, 1, global_pool=mb % 2)
+                got[mb] += 1
+            except MemoryError:
+                live.discard(mb)
+    return got
+
+
+def phase_plan(torch, np, card: str, params):
+    """The §4.3 planner at full width: the card's pinned copy rate and a
+    measured stage time feed ``EngineConfig.plan``; the planned engine
+    serves the yi-9b requests."""
+    import gc
+
+    from repro_torch.config import get_arch
+    from repro_torch.core.offload import OffloadPlan
+    from repro_torch.core.scheduler import plan_schedule
+    from repro_torch.launch.serve import measure_stage_time, pinned_copy_rate
+    from repro_torch.models.common import Runtime
+    from repro_torch.serving.kv_cache import PoolConfig, kv_bytes_per_page
+    from repro_torch.serving.llm import LLM, EngineConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch("yi-9b")
+    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    dev = torch.device("cuda")
+    h2d, d2h = pinned_copy_rate(dev, PLAN_COPY_BYTES)
+    bandwidth = min(h2d, d2h)
+    t_s = measure_stage_time(cfg, params, rt, PLAN_STAGES, dev)
+    page_bytes = kv_bytes_per_page(
+        cfg, PoolConfig(page_size=SERVE_PAGE),
+        dtype_bytes=torch.empty((), dtype=rt.compute_dtype).element_size())
+    kw = dict(n_stages=PLAN_STAGES, stage_time=t_s, latency=PLAN_LATENCY,
+              bandwidth=bandwidth, page_size=SERVE_PAGE,
+              max_pages_per_seq=SERVE_MAX_PAGES, mb_size_cap=4,
+              max_microbatches=16)
+    m_kv, note = PLAN_KV_BYTES, ""
+    while True:
+        choice = plan_schedule(
+            n_stages=PLAN_STAGES, stage_time=t_s, latency=PLAN_LATENCY,
+            m_kv_bytes=m_kv, kv_bytes_per_seq=page_bytes * SERVE_MAX_PAGES,
+            offload_bandwidth=bandwidth, max_microbatches=16)
+        plan = OffloadPlan.derive(
+            m_kv_bytes=m_kv, page_bytes=page_bytes, page_size=SERVE_PAGE,
+            max_pages_per_seq=SERVE_MAX_PAGES, bandwidth=bandwidth,
+            stage_time=t_s, n_microbatches=choice.n_microbatches)
+        host = choice.n_microbatches * plan.m_g_bytes
+        if host <= PLAN_MAX_HOST_BYTES:
+            break
+        note = (f"; m_kv_bytes lowered from {PLAN_KV_BYTES / 2 ** 30:.2f} "
+                f"GiB so that the pinned host store fits "
+                f"{PLAN_MAX_HOST_BYTES / 2 ** 30:.0f} GiB")
+        m_kv *= 0.75
+    log(f"[plan] on {card}: pinned copy rate H2D {h2d / 1e9:.2f} GB/s, D2H "
+        f"{d2h / 1e9:.2f} GB/s ({PLAN_COPY_BYTES >> 20} MiB a copy); "
+        f"measured stage_time {t_s * 1e3:.2f} ms (one single-sequence "
+        f"decode step / {PLAN_STAGES} stages); latency "
+        f"{PLAN_LATENCY * 1e3:.0f} ms; m_kv_bytes {m_kv / 2 ** 30:.3f} GiB"
+        f"{note}; implied pinned host store {host / 2 ** 30:.3f} GiB")
+    econf = EngineConfig.plan(m_kv_bytes=m_kv, seed=SEED,
+                              max_prefill_tokens_per_tick=256, **kw)
+    llm = LLM(cfg, config=econf, params=params, rt=rt, reduced=False,
+              device="cuda")
+    eng = llm.engine
+    if eng.schedule_choice != choice or eng.pool != plan.pool:
+        raise AssertionError(f"plan: engine {eng.schedule_choice} / "
+                             f"{eng.pool}, want {choice} / {plan.pool}")
+    n_b = eng.num_microbatches
+    formula1 = plan.capacity_with_offload()
+    actual = allocator_capacity(eng.pool, n_b)
+    log(f"[plan] {eng.schedule_choice}; mb_size {eng.mb_size} (cap 4) x N_B "
+        f"{n_b}; pool {eng.pool.n_local_pages} local + 2 x "
+        f"{eng.pool.n_global_pages} global pages of "
+        f"{page_bytes / 2 ** 20:.2f} MiB; prefill chunk "
+        f"{eng.prefill_chunk} x {eng.prefill_rows} rows")
+    log(f"[plan] per-microbatch KV capacity: Formula 1 "
+        f"{formula1 / 2 ** 30:.3f} GiB = {formula1 / page_bytes:.1f} pages; "
+        f"the allocator gives {min(actual)}-{max(actual)} pages a "
+        f"microbatch when all {n_b} fill (one free list a parity, shared "
+        f"by {n_b // 2}-{-(-n_b // 2)} microbatches: ROADMAP Queue 3), "
+        f"{min(actual) * page_bytes / formula1:.1%} of Formula 1")
+    refused = _count_refusals(eng)
+    outs, rep, counts = _serve_yi(torch, np, llm, "plan", card)
+    info = _offload_line("plan", eng.backend.offloader, rep["decode_ticks"],
+                         card) if eng.backend.offloader is not None else {}
+    log(f"[plan] {len(outs)}/{SERVE_REQUESTS} requests finished; "
+        f"{refused[0]} allocations refused (retried)")
+    info.update(formula1_pages=formula1 / page_bytes,
+                allocator_pages=[min(actual), max(actual)],
+                n_microbatches=n_b, stage_time_ms=t_s * 1e3,
+                h2d_gbps=h2d / 1e9, d2h_gbps=d2h / 1e9)
+    del llm
+    return counts, info
+
+
+def yi_params(torch):
+    """Full-width, full-depth yi-9b weights in bf16 from the seed, shared by
+    the yi-9b serve phases."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import Runtime
+    cfg = get_arch("yi-9b")
+    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, SEED, rt, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in
+                   [*params["embed"].values(), params["final_norm"]]
+                   + [w for layer in params["layers"] for w in layer.values()])
+    log(f"[serve] yi-9b full width and depth: {cfg.num_layers} layers, "
+        f"{n_params / 1e9:.3f}B params bf16 from seed {SEED} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return params
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1136,11 +1707,18 @@ def main() -> int:
     paged = phase_kernel_paged(torch, np)
     flash = phase_kernel_flash(torch, np)
     scan = phase_kernel_scan(torch, np)
+    group_sizes = phase_group_sizes(torch, np)
     phase_parity(torch, np)
-    paths = {"yi-9b": phase_serve(torch, np, smi_line),
-             "gemma3-12b": phase_serve_gemma(torch, np, smi_line),
-             "recurrentgemma-9b": phase_serve_recurrentgemma(torch, np,
-                                                             smi_line)}
+    swap_order = phase_swap_order(torch, np, smi_line)
+    params = yi_params(torch)
+    paths = {"yi-9b": phase_serve(torch, np, smi_line, params)}
+    off_counts, offload = phase_serve_offload(torch, np, smi_line, params)
+    paths.update({f"yi-9b {tag}": c for tag, c in off_counts.items()})
+    paths["yi-9b planned"], plan = phase_plan(torch, np, smi_line, params)
+    del params
+    paths["gemma3-12b"] = phase_serve_gemma(torch, np, smi_line)
+    paths["recurrentgemma-9b"] = phase_serve_recurrentgemma(torch, np,
+                                                            smi_line)
 
     def launches(kernel):
         by_path = {path: c[kernel] for path, c in paths.items()}
@@ -1152,11 +1730,13 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:206",
          "ok": True, **launches("paged_attention"), **paged,
+         "group_sizes": group_sizes["paged"],
          "sass": sass["paged_attention"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:136",
          "ok": True, **launches("flash_attention"), **flash,
+         "group_sizes": group_sizes["flash"],
          "sass": sass["flash_attention"]},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
@@ -1164,6 +1744,8 @@ def main() -> int:
          "ok": True, **launches("rglru_scan"), **scan,
          "sass": sass["rglru_scan"]},
     ]
+    print(json.dumps({"offload": {"swap_order": swap_order,
+                                  "serve": offload, "plan": plan}}))
     print(json.dumps({"kernels": entries}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

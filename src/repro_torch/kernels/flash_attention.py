@@ -17,7 +17,11 @@ masking only the tiles that cross the diagonal, a window edge or ``Skv``.
 float32 runs scalar FMAs (64 score rows x 32-key tiles).
 
 The wrapper takes CUDA tensors only: it checks them, allocates the output,
-launches on the current stream and counts the launch.  Anything the kernel
+launches on the current stream and counts the launch.  The kernel is
+instantiated for G in ``GROUP_SIZES``; any other G goes through
+``kernels.groups`` (zero query rows pad each group to a size the kernel
+takes, G above 16 is cut into launches of 16, and the pad rows are
+dropped), one counted launch each.  Anything the kernel
 does not take raises — there is no fallback to the plain version.  The TPU
 kernel's ``_TUNED_BLOCKS`` / ``tuned_flash_blocks`` / ``vmem_bytes`` size
 its blocks to TPU VMEM and have no counterpart here: the CUDA kernel's
@@ -31,7 +35,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, groups
 
 HEAD_DIMS = (64, 128, 256)
 GROUP_SIZES = (1, 2, 4, 8, 16)
@@ -80,9 +84,9 @@ def check_inputs(q, k, v, window: int) -> None:
     if dh_k != dh or dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {dh} (k/v {dh_k}) not "
                          f"in {HEAD_DIMS}")
-    if hk < 1 or h % hk or h // hk not in GROUP_SIZES:
-        raise ValueError(f"flash_attention: H={h} over Hk={hk} is not a "
-                         f"group size in {GROUP_SIZES}")
+    if hk < 1 or h % hk:
+        raise ValueError(f"flash_attention: H={h} is not a multiple of "
+                         f"Hk={hk}")
     if sq < MIN_SEQ or skv < MIN_SEQ:
         raise ValueError(f"flash_attention: Sq={sq}, Skv={skv}; the kernel "
                          f"takes sequences of at least {MIN_SEQ}")
@@ -98,6 +102,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash_attention.launches`` counts launches.
     """
     check_inputs(q, k, v, window)
+    hk = k.shape[2]
+    plan = groups.group_plan(q.shape[2] // hk, GROUP_SIZES)
+    if len(plan) == 1 and plan[0][1] == plan[0][2]:
+        return _launch(q, k, v, causal, window)
+    outs = [_launch(qi, k, v, causal, window)
+            for qi in groups.split_groups(q, hk, plan, 2)]
+    return groups.merge_groups(outs, hk, plan, 2)
+
+
+def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """One kernel launch, at a group size in ``GROUP_SIZES``."""
     lib = _library()
     b, sq, h, dh = q.shape
     skv, hk = k.shape[1], k.shape[2]

@@ -19,8 +19,11 @@ partials into the output, all in one launch.
 The wrapper takes CUDA tensors only: it checks them, allocates the output,
 owns the per-device workspace (partials and the ticket counters, which
 every launch leaves at zero), launches on the current stream and counts
-the launch.  Anything the kernel does not take raises — there is no
-fallback to the plain version.  ``_TUNED_PPB`` / ``tuned_pages_per_block``
+the launch.  The kernel is instantiated for G in ``GROUP_SIZES``; any
+other G goes through ``kernels.groups`` (zero query rows pad each group to
+a size the kernel takes, G above 8 is cut into launches of 8, and the pad
+rows are dropped), one counted launch each.  Anything the kernel does not
+take raises — there is no fallback to the plain version.  ``_TUNED_PPB`` / ``tuned_pages_per_block``
 of the TPU kernel are keyed to TPU VMEM and have no counterpart here.
 """
 
@@ -32,7 +35,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, groups
 
 HEAD_DIMS = (64, 128, 256)
 GROUP_SIZES = (1, 2, 4, 8)
@@ -148,9 +151,9 @@ def check_inputs(q, k_pages, v_pages, page_table, seq_lens, window: int):
     if dh_k != dh or dh not in HEAD_DIMS:
         raise ValueError(f"paged_decode_attention: head_dim {dh} (pool "
                          f"{dh_k}) not in {HEAD_DIMS}")
-    if hk < 1 or h % hk or h // hk not in GROUP_SIZES:
-        raise ValueError(f"paged_decode_attention: H={h} over Hk={hk} is not "
-                         f"a group size in {GROUP_SIZES}")
+    if hk < 1 or h % hk:
+        raise ValueError(f"paged_decode_attention: H={h} is not a multiple "
+                         f"of Hk={hk}")
     if page_size not in PAGE_SIZES:
         raise ValueError(f"paged_decode_attention: page size {page_size} "
                          f"not in {PAGE_SIZES}")
@@ -175,6 +178,18 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     ``paged_decode_attention.launches`` counts launches.
     """
     check_inputs(q, k_pages, v_pages, page_table, seq_lens, window)
+    hk = k_pages.shape[2]
+    plan = groups.group_plan(q.shape[1] // hk, GROUP_SIZES)
+    if len(plan) == 1 and plan[0][1] == plan[0][2]:
+        return _launch(q, k_pages, v_pages, page_table, seq_lens, window)
+    outs = [_launch(qi, k_pages, v_pages, page_table, seq_lens, window)
+            for qi in groups.split_groups(q, hk, plan, 1)]
+    return groups.merge_groups(outs, hk, plan, 1)
+
+
+def _launch(q, k_pages, v_pages, page_table, seq_lens, window: int
+            ) -> torch.Tensor:
+    """One kernel launch, at a group size in ``GROUP_SIZES``."""
     lib = _library()
     b, h, dh = q.shape
     n_pool, page_size, hk, _ = k_pages.shape

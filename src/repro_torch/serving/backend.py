@@ -16,6 +16,13 @@ table, positions); the backend owns the device caches and the compute:
         token and return its :class:`DecodeResult`;
   ``set_page_table`` — push the engine's host table to the device.
 
+With an offloader (DeServe §4.2) the backend makes a microbatch's global
+pool resident before every model call that may touch it: each residency
+microbatch of a prefill chunk, an exact prefill into a slot that holds
+global pages, and every decode tick.  Swap copies go on the offloader's
+copy stream; every model call, attention kernels included, stays on the
+compute stream.
+
 PyTorch runs eagerly, so ``_chunk_fn`` / ``_prefill_fn`` / ``_decode_fn``
 are plain methods where the JAX package jits.  The ``PipelinedBackend`` of
 §4.3 comes with the pipeline slice of the port.
@@ -58,6 +65,9 @@ class PrefillChunk:
                                         # final prompt token (-1: not final)
     tables: np.ndarray                  # (R, max_pages) int32 table rows
     seqs: list                          # engine-side SequenceState refs
+    residency_mbs: tuple = ()           # microbatch ids (at most one per
+                                        # global-pool parity) whose global
+                                        # pool the chunk's rows write
 
 
 @dataclass
@@ -77,7 +87,7 @@ class LocalBackend:
 
     def __init__(self, cfg: ModelConfig, params: dict, rt: Runtime, *,
                  mb_size: int, num_microbatches: int, pool: kvc.PoolConfig,
-                 device: torch.device):
+                 device: torch.device, offloader=None):
         self.cfg = cfg
         self.params = params
         self.rt = rt
@@ -87,6 +97,7 @@ class LocalBackend:
         self.pool = pool
         self.device = device
         self.caches = kvc.build_paged_caches(cfg, self.batch, pool, rt, device)
+        self.offloader = offloader
         self.noise_gen = torch.Generator(device=device)
         self.decode_ticks = 0           # model decode calls (kernel ticks)
 
@@ -101,15 +112,33 @@ class LocalBackend:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _residency(self, mb: int) -> None:
+        """Make ``mb``'s global-pool parity resident before the model
+        writes or reads it (without this a prefill could write prompt KV
+        into another microbatch's content, which the next swap would
+        clobber).  Callers copy their host inputs to the card first: a
+        blocking host-to-device copy synchronises the compute stream, which
+        after this call waits on the swap, so a copy made later would hold
+        the host for the whole swap instead of letting it issue the model's
+        launches meanwhile."""
+        if self.offloader is not None:
+            self.caches = self.offloader.ensure_resident(self.caches, mb)
+
+    @property
+    def swap_count(self) -> int:
+        return self.offloader.swap_count if self.offloader else 0
+
     # -- exact-length prefill ------------------------------------------------
 
-    def prefill(self, tokens: np.ndarray, slot: int,
-                last_index: int) -> torch.Tensor:
+    def prefill(self, tokens: np.ndarray, slot: int, last_index: int,
+                has_global_pages: bool = True) -> torch.Tensor:
         """Prefill one whole prompt, right-padded to ``len(tokens)``, into
         ``slot``; returns its logits (V,) at ``last_index``, on the
         device."""
-        logits = self._prefill_fn(self.params, self.caches,
-                                  self._tensor(tokens[None]), slot,
+        toks = self._tensor(tokens[None])
+        if has_global_pages:
+            self._residency(slot // self.mb_size)
+        logits = self._prefill_fn(self.params, self.caches, toks, slot,
                                   last_index, cfg=self.cfg, rt=self.rt)
         if self.device.type == "cuda":
             # as prefill_step: the prefill phase's clock measures the card
@@ -139,11 +168,13 @@ class LocalBackend:
                      ) -> List[PrefillResult]:
         if chunk is None:
             return []
-        logits = self._chunk_fn(
-            self.params, self.caches, self._tensor(chunk.tokens),
-            self._tensor(chunk.offsets), self._tensor(chunk.n_valid),
-            self._tensor(chunk.lasts), self._tensor(chunk.tables),
-            cfg=self.cfg, rt=self.rt)
+        inputs = [self._tensor(a) for a in (chunk.tokens, chunk.offsets,
+                                            chunk.n_valid, chunk.lasts,
+                                            chunk.tables)]
+        for mb in chunk.residency_mbs:
+            self._residency(mb)
+        logits = self._chunk_fn(self.params, self.caches, *inputs,
+                                cfg=self.cfg, rt=self.rt)
         if self.device.type == "cuda":
             # the chunk's work ends inside the engine's prefill phase, so
             # its prefill/decode time split measures the card, not the queue
@@ -171,11 +202,12 @@ class LocalBackend:
         sampled = samp.any_sampled
         noise = gumbel_noise(samp, self.cfg.vocab_size, dev, self.noise_gen) \
             if sampled else None
+        inputs = [self._tensor(a) for a in (tokens, cur_pos, samp.temp,
+                                            samp.top_k, samp.top_p)]
+        self._residency(mb)
         toks, lps = self._decode_fn(
-            self.params, self.caches, self._tensor(tokens),
-            self._tensor(cur_pos), mb * self.mb_size, noise,
-            self._tensor(samp.temp), self._tensor(samp.top_k),
-            self._tensor(samp.top_p), cfg=self.cfg, rt=self.rt,
+            self.params, self.caches, inputs[0], inputs[1],
+            mb * self.mb_size, noise, *inputs[2:], cfg=self.cfg, rt=self.rt,
             mb_size=self.mb_size, sampled=sampled)
         self.decode_ticks += 1
         # the tick's one device-to-host transfer: the engine books the

@@ -22,10 +22,17 @@ Sampling is per request: each slot carries its temperature / top-k /
 top-p and a base seed derived from ``(seed, request_id)``; token ``t``'s
 noise comes from ``token_seed(base, t)`` (``serving.sampler``).
 
+KV placement follows §4.2: microbatch ``m`` draws overflow pages from
+global pool ``G_{m % 2}``, and the backend's
+:class:`repro_torch.core.offload.DoubleBufferOffloader` keeps the pool of
+the microbatch that is not computing in host memory.  A prefill chunk
+carries rows of at most one microbatch per parity with global pages.
+:meth:`OfflineEngine.from_plan` derives (N_B, per-microbatch batch, pool
+split) from a measured stage time and link latency (§4.3).
+
 Not in this slice (each later slice of the port brings its part): the
-offloader and global pools, the pipelined backend, fault plans, reshard,
-the prefix cache, SLO admission, the tracing recorder, the strict
-auditor and ``from_plan``.
+pipelined backend, fault plans, reshard, the prefix cache, SLO
+admission, the tracing recorder and the strict auditor.
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core import offload as offload_lib
+from repro_torch.core.scheduler import ScheduleChoice, plan_schedule
 from repro_torch.models.common import Runtime, resolve_device
 from repro_torch.models.model import PAGED_KINDS, check_supported
 from repro_torch.serving import kv_cache as kvc
@@ -54,11 +63,27 @@ from repro_torch.serving.sampler import (RowSampling, gumbel_noise,
 log = logging.getLogger(__name__)
 
 
+def prefill_chunk_cap(cfg: ModelConfig, rt: Runtime, link, *,
+                      stage_time: float) -> int:
+    """Bandwidth cap on the prefill chunk length, in tokens: the largest C
+    whose wire time (C tokens of ``d_model`` activations over the link's
+    ``bandwidth_bps``) fits one stage tick.  Returns 0 when there is
+    nothing to cap (no link, or unlimited bandwidth); links come with the
+    pipeline slice, so the local engine always gets 0."""
+    bw = getattr(link, "bandwidth_bps", 0.0) if link is not None else 0.0
+    if not bw or stage_time <= 0:
+        return 0
+    token_bytes = cfg.d_model * torch.empty(
+        (), dtype=rt.compute_dtype).element_size()
+    return max(1, int(stage_time * bw // token_bytes))
+
+
 class OfflineEngine:
     def __init__(self, cfg: ModelConfig, params: dict, rt: Runtime, *,
                  mb_size: int = 4, num_microbatches: int = 1,
                  pool: Optional[kvc.PoolConfig] = None,
-                 sampling: Optional[SamplingParams] = None, seed: int = 0,
+                 sampling: Optional[SamplingParams] = None,
+                 offloader=None, seed: int = 0,
                  prefill_chunk: int = 0, max_prefill_tokens_per_tick: int = 0,
                  prefill_mode: str = "auto", device=None):
         check_supported(cfg)
@@ -74,7 +99,8 @@ class OfflineEngine:
         self.seed = seed
         self.backend = LocalBackend(cfg, params, rt, mb_size=mb_size,
                                     num_microbatches=num_microbatches,
-                                    pool=self.pool, device=self.device)
+                                    pool=self.pool, device=self.device,
+                                    offloader=offloader)
 
         self.alloc = kvc.PageAllocator(self.pool)
         self.table = np.zeros((self.batch, self.pool.max_pages_per_seq),
@@ -124,6 +150,91 @@ class OfflineEngine:
         self.queue: deque = deque()
         self.finished: List[SequenceState] = []
         self.stats = EngineStats()
+
+    # ------------------------------------------------------------------
+    # planned construction (DeServe §4.3: N_B, batch, pools from the link)
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def from_plan(cls, cfg: ModelConfig, params: dict, rt: Runtime, *,
+                  n_stages: int, stage_time: float, latency: float,
+                  m_kv_bytes: float, page_size: int = 16,
+                  max_pages_per_seq: int = 16, bandwidth: float = 0.0,
+                  use_offload: bool = True, max_microbatches: int = 64,
+                  choice: Optional[ScheduleChoice] = None,
+                  mb_size_cap: int = 0,
+                  sampling: Optional[SamplingParams] = None, seed: int = 0,
+                  prefill_chunk: int = 0,
+                  max_prefill_tokens_per_tick: int = 0,
+                  prefill_mode: str = "auto", worst_link=None,
+                  offload_async: bool = True,
+                  device=None) -> "OfflineEngine":
+        """An engine whose (N_B, per-microbatch batch, pool split) are
+        derived from a measured stage time and link latency by
+        :func:`repro_torch.core.scheduler.plan_schedule`, as
+        ``repro.serving.engine.OfflineEngine.from_plan`` derives them.
+
+        ``m_kv_bytes`` is the per-stage KV budget; ``bandwidth`` the swap
+        rate (0 = the paper's ``PCIE4_BW``); ``choice`` a precomputed
+        :class:`ScheduleChoice`, honoured as it is; ``mb_size_cap`` bounds
+        the per-microbatch batch; ``worst_link`` (a link with
+        ``bandwidth_bps``, from the pipeline slice) caps the prefill
+        chunk.  Prefer
+        :meth:`repro_torch.serving.llm.EngineConfig.plan`."""
+        if not bandwidth:
+            bandwidth = offload_lib.PCIE4_BW
+        page_bytes = kvc.kv_bytes_per_page(
+            cfg, kvc.PoolConfig(page_size=page_size),
+            dtype_bytes=torch.empty((), dtype=rt.compute_dtype
+                                    ).element_size())
+        if page_bytes == 0:
+            raise ValueError(
+                f"{cfg.name}: from_plan needs at least one paged-attention "
+                "layer (pure-recurrent archs have no KV pools to plan)")
+        kv_bytes_per_seq = page_bytes * max_pages_per_seq
+        if choice is None:
+            choice = plan_schedule(
+                n_stages=n_stages, stage_time=stage_time, latency=latency,
+                m_kv_bytes=m_kv_bytes,
+                kv_bytes_per_seq=kv_bytes_per_seq,
+                offload_bandwidth=bandwidth, use_offload=use_offload,
+                max_microbatches=max_microbatches)
+        if choice.offload:
+            pool = offload_lib.OffloadPlan.derive(
+                m_kv_bytes=m_kv_bytes, page_bytes=page_bytes,
+                page_size=page_size, max_pages_per_seq=max_pages_per_seq,
+                bandwidth=bandwidth, stage_time=stage_time,
+                n_microbatches=choice.n_microbatches).pool
+        else:
+            pool = kvc.PoolConfig(
+                page_size=page_size,
+                n_local_pages=max(2, int(m_kv_bytes // page_bytes)),
+                n_global_pages=0, max_pages_per_seq=max_pages_per_seq)
+        mb_size = max(1, choice.per_mb_batch)
+        if mb_size_cap:
+            mb_size = min(mb_size, mb_size_cap)
+        offloader = None
+        if choice.offload and pool.n_global_pages:
+            offloader = offload_lib.DoubleBufferOffloader(
+                pool, choice.n_microbatches, async_swap=offload_async)
+        if not prefill_chunk:
+            # a prefill token costs the model FLOPs of a decode token, so a
+            # chunk of about the per-microbatch batch costs at most one
+            # decode tick of stage time (floored at 8), shrunk further when
+            # a link's wire time would stretch the tick
+            prefill_chunk = max(8, mb_size)
+            cap = prefill_chunk_cap(cfg, rt, worst_link,
+                                    stage_time=stage_time)
+            if cap and cap < prefill_chunk:
+                prefill_chunk = cap
+        eng = cls(cfg, params, rt, mb_size=mb_size,
+                  num_microbatches=choice.n_microbatches, pool=pool,
+                  sampling=sampling, offloader=offloader, seed=seed,
+                  prefill_chunk=prefill_chunk,
+                  max_prefill_tokens_per_tick=max_prefill_tokens_per_tick,
+                  prefill_mode=prefill_mode, device=device)
+        eng.schedule_choice = choice
+        return eng
 
     # ------------------------------------------------------------------
     # public API
@@ -261,16 +372,26 @@ class OfflineEngine:
     # chunked prefill
     # ------------------------------------------------------------------
 
+    def _global_pool(self, slot: int) -> Optional[int]:
+        """The global-pool parity a slot's overflow pages come from (None
+        when the pools have no global pages)."""
+        return self._mb_of_slot(slot) % 2 if self.pool.n_global_pages \
+            else None
+
     def _allocate_slot(self, seq: SequenceState, slot: int) -> None:
-        """Allocate the slot's full page budget and bind the sequence to it
-        (MemoryError with nothing bound on exhaustion).  The caller decides
-        when to push the slot's real table row: the chunked path parks it
-        until activation, the exact path pushes it at once."""
+        """Allocate the slot's full page budget, local pages first and the
+        overflow from its microbatch's global pool, and bind the sequence
+        to it (MemoryError with nothing bound on exhaustion).  The caller
+        decides when to push the slot's real table row: the chunked path
+        parks it until activation, the exact path pushes it at once."""
         sp = seq.sampling
         plen = seq.prompt_len
         cap = self.pool.max_pages_per_seq * self.pool.page_size
         n_pages = -(-min(plen + sp.max_new_tokens, cap) // self.pool.page_size)
-        self.alloc.allocate(slot, n_pages)
+        gp = self._global_pool(slot)
+        pages = self.alloc.allocate(slot, n_pages, global_pool=gp)
+        has_global = any(p >= self.pool.n_local_pages for p in pages)
+        seq.global_parity = gp if has_global else None
         seq.slot = slot
         seq.prefill_pos = 0
         seq.status = Status.PREFILLING
@@ -281,26 +402,43 @@ class OfflineEngine:
         """This tick's prefill work: continue partially prefilled sequences
         first (FIFO), then admit queued prompts into free slots, up to
         ``prefill_rows`` rows of ``prefill_chunk`` tokens.  Head-of-line
-        blocking on page exhaustion: the queue front retries next tick."""
+        blocking on page exhaustion: the queue front retries next tick.
+        The offloader keeps one microbatch's copy of each global-pool
+        parity resident, so the rows that draw on one parity all belong to
+        one microbatch (one per parity rides along)."""
         rows_cap = self.prefill_rows
         rows: List[SequenceState] = []
+        # parity -> the one microbatch whose global pool this chunk writes
+        parity_mb: Dict[int, Optional[int]] = {0: None, 1: None}
         for seq in self.prefilling:
             if len(rows) == rows_cap:
                 break
-            if not seq.chunk_inflight:
-                rows.append(seq)
+            if seq.chunk_inflight:
+                continue
+            mb = self._mb_of_slot(seq.slot)
+            if seq.global_parity is not None:
+                if parity_mb[mb % 2] not in (None, mb):
+                    continue            # another mb owns this parity slice
+                parity_mb[mb % 2] = mb
+            rows.append(seq)
         if len(rows) < rows_cap and self.queue:
             for slot in range(self.batch):
                 if not self.queue or len(rows) == rows_cap:
                     break
                 if self.slots[slot] is not None:
                     continue
-                seq = self.queue[0]
+                mb = self._mb_of_slot(slot)
+                gp = self._global_pool(slot)
+                if gp is not None and parity_mb[gp] not in (None, mb):
+                    continue            # the slot would need the other mb's
+                seq = self.queue[0]     # copy of this parity
                 try:
                     self._allocate_slot(seq, slot)
                 except MemoryError:
                     break               # head-of-line retry next tick
                 self.queue.popleft()
+                if seq.global_parity is not None:
+                    parity_mb[gp] = mb
                 self.prefilling.append(seq)
                 rows.append(seq)
         if not rows:
@@ -324,7 +462,9 @@ class OfflineEngine:
             seq.chunk_inflight = True
         return PrefillChunk(tokens=tokens, offsets=offsets,
                             n_valid=n_valid, lasts=lasts, tables=tables,
-                            seqs=rows)
+                            seqs=rows,
+                            residency_mbs=tuple(m for m in parity_mb.values()
+                                                if m is not None))
 
     def _apply_prefill_result(self, res: PrefillResult) -> None:
         for i, seq in enumerate(res.chunk.seqs):
@@ -376,7 +516,9 @@ class OfflineEngine:
 
         toks = np.zeros((self._prefill_len(plen),), np.int32)
         toks[:plen] = prompt
-        logits = self.backend.prefill(toks, slot, plen - 1)
+        logits = self.backend.prefill(
+            toks, slot, plen - 1,
+            has_global_pages=seq.global_parity is not None)
         self._sample_first_token(seq, slot, logits)
         seq.status = Status.DECODING
         self.active[slot] = True
@@ -444,6 +586,7 @@ class OfflineEngine:
         live = self.active[lo:hi].copy()
         results = self.backend.decode(mb, tokens, self.cur_pos[lo:hi],
                                       self._row_sampling(lo, hi))
+        self.stats.swaps = self.backend.swap_count
         for res in results:
             self._apply_result(res, live)
 
@@ -463,7 +606,7 @@ class OfflineEngine:
             need = self.cur_pos[slot] + 1
             have = len(self.alloc.pages_of(slot)) * self.pool.page_size
             if need > have:
-                self.alloc.extend(slot)
+                self.alloc.extend(slot, global_pool=self._global_pool(slot))
                 self.table[slot] = self.alloc.table_row(slot)
                 self.backend.set_page_table(self.table)
 
@@ -485,6 +628,7 @@ class OfflineEngine:
             "finished": self.stats.finished_requests,
             "steps": self.stats.steps,
             "decode_ticks": self.backend.decode_ticks,
+            "swaps": self.stats.swaps,
             "wall_time_s": self.stats.wall_time_s,
             "prefill_time_s": self.stats.prefill_time_s,
             "decode_time_s": self.stats.decode_time_s,

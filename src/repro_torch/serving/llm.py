@@ -4,6 +4,11 @@
     llm = LLM("yi-9b", config=EngineConfig(mb_size=2, num_microbatches=2))
     outs = llm.generate(prompts, SamplingParams(temperature=0.8, top_p=0.95))
 
+``EngineConfig.plan(...)`` derives (N_B, per-microbatch batch, pool split)
+from a measured stage time and link latency through the §4.3 planner;
+global pools are double-buffered to host memory (§4.2) unless
+``offload=False``.
+
 Runs on ``cuda`` unless ``device="cpu"`` is passed; with no GPU and no
 explicit CPU request it raises.
 """
@@ -17,6 +22,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import torch
 
 from repro_torch.config import ModelConfig, get_arch, reduced_config
+from repro_torch.core.offload import DoubleBufferOffloader
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import Runtime, resolve_device
 from repro_torch.serving.engine import OfflineEngine
@@ -38,7 +44,6 @@ _LATER = {
     "slo": (None, "the online-serving slice (SLO admission)"),
     "trace": (None, "the tracing slice (flight recorder)"),
     "strict": (None, "the audit slice (strict invariant auditor)"),
-    "plan_args": (None, "the offload and planning slice (EngineConfig.plan)"),
 }
 
 
@@ -51,10 +56,16 @@ class EngineConfig:
     value other than the default raises ``NotImplementedError`` naming
     the slice that will bring it (``_LATER``).  ``prefill_mode`` is
     ``"auto"`` (chunked where every layer is paged, else exact-length),
-    ``"chunked"`` or ``"exact"``."""
+    ``"chunked"`` or ``"exact"``.  Either set the knobs directly, or build
+    the config with :meth:`plan`."""
     mb_size: int = 4                  # sequences per microbatch
     num_microbatches: int = 1         # N_B
     pool: Optional[PoolConfig] = None
+    offload: bool = True              # double-buffer the global pools
+                                      # (nothing to do when there are none)
+    # swap on the offloader's copy stream (True) or block on the compute
+    # stream after each swap-out (False: debugging and A/B runs)
+    offload_async: bool = True
     seed: int = 0
     prefill_chunk: int = 0            # tokens per chunk (0 = 32)
     max_prefill_tokens_per_tick: int = 0   # per-tick budget (0 = one chunk)
@@ -70,7 +81,8 @@ class EngineConfig:
     slo: Optional[object] = None
     trace: object = None
     strict: Optional[bool] = None
-    plan_args: Optional[dict] = None
+    plan_args: Optional[dict] = None  # set by .plan(); overrides mb_size /
+                                      # num_microbatches / pool
 
     def __post_init__(self) -> None:
         for name, (default, slice_) in _LATER.items():
@@ -79,10 +91,6 @@ class EngineConfig:
                 raise NotImplementedError(
                     f"EngineConfig({name}={value!r}) is not ported yet: it "
                     f"comes with {slice_}")
-        if self.pool is not None and self.pool.n_global_pages:
-            raise NotImplementedError(
-                "global page pools and their offloader come with the "
-                "offload slice")
         if self.mb_size < 1:
             raise ValueError(f"mb_size must be >= 1, got {self.mb_size}")
         if self.num_microbatches < 1:
@@ -98,12 +106,66 @@ class EngineConfig:
             raise ValueError("max_prefill_tokens_per_tick must be >= 0, "
                              f"got {self.max_prefill_tokens_per_tick}")
 
+    @classmethod
+    def plan(cls, *, n_stages: Optional[int] = None, stage_time: float,
+             latency: Optional[float] = None, m_kv_bytes: float,
+             page_size: int = 16, max_pages_per_seq: int = 16,
+             bandwidth: float = 0.0, use_offload: bool = True,
+             max_microbatches: int = 64, choice=None, mb_size_cap: int = 0,
+             seed: int = 0, prefill_chunk: int = 0,
+             max_prefill_tokens_per_tick: int = 0,
+             prefill_mode: str = "auto", offload_async: bool = True,
+             deployment: Optional[object] = None,
+             transport: Optional[object] = None) -> "EngineConfig":
+        """A config whose (N_B, per-microbatch batch, pool split) are
+        derived by :func:`repro_torch.core.scheduler.plan_schedule` at
+        build time (``OfflineEngine.from_plan``).  ``prefill_chunk=0``
+        derives the chunk from the plan: about the per-microbatch decode
+        batch, so one chunk costs at most one decode tick of stage time.
+        ``bandwidth=0`` is the paper's PCIe rate.  A ``deployment`` (a
+        multi-region ring plan) and a ``transport`` come with the pipeline
+        slice and raise here."""
+        for name, value in (("deployment", deployment),
+                            ("transport", transport)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"EngineConfig.plan({name}=...) is not ported yet: it "
+                    "comes with the pipeline slice (inter-stage links)")
+        if n_stages is None or latency is None:
+            raise ValueError("EngineConfig.plan needs n_stages= and "
+                             "latency=")
+        # n_stages is a planning input here: the backend stays local
+        return cls(seed=seed, prefill_chunk=prefill_chunk,
+                   max_prefill_tokens_per_tick=max_prefill_tokens_per_tick,
+                   prefill_mode=prefill_mode, offload_async=offload_async,
+                   plan_args=dict(
+                       n_stages=n_stages, stage_time=stage_time,
+                       latency=latency, m_kv_bytes=m_kv_bytes,
+                       page_size=page_size,
+                       max_pages_per_seq=max_pages_per_seq,
+                       bandwidth=bandwidth, use_offload=use_offload,
+                       max_microbatches=max_microbatches, choice=choice,
+                       mb_size_cap=mb_size_cap))
+
     def build(self, cfg: ModelConfig, params: dict, rt: Runtime,
               device=None) -> OfflineEngine:
+        if self.plan_args is not None:
+            return OfflineEngine.from_plan(
+                cfg, params, rt, seed=self.seed,
+                prefill_chunk=self.prefill_chunk,
+                max_prefill_tokens_per_tick=self.max_prefill_tokens_per_tick,
+                prefill_mode=self.prefill_mode,
+                offload_async=self.offload_async, device=device,
+                **self.plan_args)
+        pool = self.pool or PoolConfig()
+        offloader = None
+        if self.offload and pool.n_global_pages:
+            offloader = DoubleBufferOffloader(pool, self.num_microbatches,
+                                              async_swap=self.offload_async)
         return OfflineEngine(
             cfg, params, rt, mb_size=self.mb_size,
-            num_microbatches=self.num_microbatches,
-            pool=self.pool or PoolConfig(), seed=self.seed,
+            num_microbatches=self.num_microbatches, pool=pool,
+            offloader=offloader, seed=self.seed,
             prefill_chunk=self.prefill_chunk,
             max_prefill_tokens_per_tick=self.max_prefill_tokens_per_tick,
             prefill_mode=self.prefill_mode, device=device)

@@ -64,6 +64,8 @@ class SequenceState:
     # whether a chunk for this sequence is currently in flight
     prefill_pos: int = 0
     chunk_inflight: bool = False
+    global_parity: Optional[int] = None       # global-pool parity of the
+                                              # slot's pages (None=all-local)
     submit_step: int = -1
     finish_step: int = -1
     submit_time: float = 0.0
@@ -127,6 +129,7 @@ class EngineStats:
     decode_tokens: int = 0
     finished_requests: int = 0
     steps: int = 0
+    swaps: int = 0                    # global-pool swaps (offloader)
     wall_time_s: float = 0.0          # accumulated inside step()
     # wall_time_s split by phase: prefill covers admission + chunk work,
     # decode covers the microbatch tick (+ reap)

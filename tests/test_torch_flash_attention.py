@@ -172,6 +172,29 @@ def test_kernel_matches_plain_on_card(case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g", [3, 6, 24])
+def test_kernel_takes_any_group_size_on_card(g, dtype):
+    """A G the kernel is not built for: zero-padded groups (G = 3, 6) and
+    launches of 16 (G = 24), one counted launch each, pad rows dropped."""
+    _card()
+    q, k, v = make_inputs(g, 128, 70, 70, seed=6, b=1)
+    tdt = getattr(torch, dtype)
+    qd, kd, vd = (t[0].cuda().to(tdt) for t in (_torch(q), _torch(k),
+                                                _torch(v)))
+    before = cuda_flash.flash_attention.launches
+    got = cuda_flash.flash_attention(qd, kd, vd, causal=True, window=33)
+    torch.cuda.synchronize()
+    assert cuda_flash.flash_attention.launches == before + \
+        len(cuda_flash.groups.group_plan(g, cuda_flash.GROUP_SIZES))
+    want = ref.flash_attention_ref(qd, kd, vd, causal=True, window=33)
+    atol, rtol = (TOL, TOL) if dtype == "float32" else BF16_TOL
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take_on_card():
     """A CUDA tensor the kernel does not take raises; nothing falls back
     to the plain version."""

@@ -245,11 +245,21 @@ def test_sampled_stream_does_not_depend_on_batch_layout():
 @pytest.mark.parametrize("knob", [
     dict(backend="pipelined"), dict(prefix_cache=True), dict(strict=True),
     dict(wire_dtype="int8"), dict(trace=True),
-    dict(pool=PoolConfig(n_global_pages=4)),
+    dict(fault_plan="drop@decode:1:0"),
 ])
 def test_later_slice_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="slice"):
         llm.EngineConfig(**knob)
+
+
+@pytest.mark.parametrize("knob", [dict(deployment=object()),
+                                  dict(transport=object())])
+def test_later_slice_plan_knobs_raise(knob):
+    """A multi-region deployment plan or a transport needs the pipeline
+    slice's links: ``EngineConfig.plan`` refuses them by name."""
+    with pytest.raises(NotImplementedError, match="pipeline slice"):
+        llm.EngineConfig.plan(n_stages=2, stage_time=0.1, latency=0.02,
+                              m_kv_bytes=1e6, **knob)
 
 
 def test_entry_points_never_fall_back_to_cpu():

@@ -199,6 +199,31 @@ def test_kernel_matches_plain_on_card(case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g", [3, 6, 12, 16])
+def test_kernel_takes_any_group_size_on_card(g, dtype):
+    """A G the kernel is not built for: zero-padded groups (G = 3, 6) and
+    launches of 8 (G = 12, 16), one counted launch each, pad rows
+    dropped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, kp, vp, pt, seq, kp_bad, vp_bad = make_inputs(g, 128, 16, seed=7)
+    kp_bad, vp_bad = poison_tails(kp_bad, vp_bad, pt, seq)
+    tdt = getattr(torch, dtype)
+    args = [t.cuda() for t in _torch(q, kp_bad, vp_bad, pt, seq)]
+    args[:3] = [t.to(tdt) for t in args[:3]]
+    before = cuda_paged.paged_decode_attention.launches
+    got = cuda_paged.paged_decode_attention(*args, window=0)
+    torch.cuda.synchronize()
+    assert cuda_paged.paged_decode_attention.launches == before + \
+        len(cuda_paged.groups.group_plan(g, cuda_paged.GROUP_SIZES))
+    want = ref.paged_decode_attention_ref(*args, window=0)
+    atol, rtol = (TOL, TOL) if dtype == "float32" else BF16_TOL
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_clamps_page_ids_on_card(dtype):
     """Out-of-pool page ids in a row's live slots clamp to [0, P-1] in the
     kernel exactly as in the plain version."""
