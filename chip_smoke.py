@@ -58,7 +58,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    prefill through the flash kernel, rings, paged kernel), and a 4-layer
    ``(rglru, rglru, local)`` model at head_dim 64 (16 heads over one kv
    head) with a 32-token window (the scan and flash kernels, recurrent
-   states, rings); prompts past the window, more requests than slots;
+   states, rings); prompts past the window, more requests than slots; and
+   the yi-shaped model (with and without its offloaded N_B = 4 pools) and
+   the ``(local, global)`` model through the pipelined backend at N_S = 2;
 7. the yi-9b serve phase: ``repro_torch.serving.llm.LLM`` on full-width,
    full-depth yi-9b in bf16 with random weights from the seed, 20 requests
    of 64-768 prompt tokens and 32 new tokens, greedy and sampled mixed;
@@ -93,12 +95,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launch over it, exactly against a reference copy, then writes a fresh
    signature, with no synchronisation until the end.
 
+10. the pipeline phase: §4.3's circular pipeline (``backend="pipelined"``)
+   on full-width, full-depth yi-9b, the yi-9b phase's weights and 20
+   requests: (1) 2 stages, N_B = 4, mb_size 4, fp32 wire, in-process
+   links, the no-offload engine's pool: every stream equal to that local
+   engine's token for token, the paged kernel launched 24 times a stage
+   run, decode and prefill tok/s, and the host and device ms of one
+   decode tick beside a local tick's; (2) the same with the offloaded
+   pools, one offloader a stage: streams equal run 1's, swap books a
+   stage; (3) 4 stages, int8 wire, 64 ms simulated links: every request
+   at full length with finite log-probs, the transport's wire bytes equal
+   to the packed payloads that crossed (``int8_wire_bytes``) plus the
+   return trips, the share of greedy tokens equal to run 1's; (4) the
+   latency curve at 64 ms with measured stage times: circular at the
+   planner's N_B for run 1's stage time (at most 12) against round_flush
+   at N_B = 2, N_B x 4 short greedy requests, each beside the simulator's
+   round-time prediction; equal streams, and circular at least 3x
+   round_flush's virtual decode tok/s (the JAX latency curve's floor).
+
 Each serve phase sets every kernel's launch count to 0 just before it
 drives its path and reads them just after; the kernels line reports those
 counts by path.
 
 It prints an ``{"offload": ...}`` line (swap books, copy and wait times,
-the planner's inputs), a ``{"kernels": [...]}`` line, the card's
+the planner's inputs), a ``{"pipeline": ...}`` line (the pipeline phase's
+numbers and wall times), a ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  It exits non-zero without a
 result when no CUDA device is visible.
 """
@@ -185,6 +206,17 @@ PLAN_STAGES, PLAN_LATENCY, PLAN_KV_BYTES = 2, 0.064, 4 * 2 ** 30
 PLAN_MAX_HOST_BYTES = 8 * 2 ** 30
 PLAN_COPY_BYTES = 256 << 20
 
+# the pipelined yi-9b phase: two stages over the offloaded phase's 4 x 4
+# slots and pools; four stages on an int8 wire over 64 ms simulated links;
+# and the latency curve (circular at the planner's N_B, at most 12, against
+# round_flush at N_B = N_S; short prompts and 64 new tokens, one admission
+# wave, so the steady state dominates the virtual clock), whose
+# ratio must reach the JAX latency curve's floor
+PIPE_STAGES, PIPE_MB, PIPE_N_MB, PIPE_INT8_STAGES = 2, 4, 4, 4
+PIPE_LINK = 0.064
+PIPE_PROFILE_TICKS, PIPE_PROFILE_CTX = 10, 700
+CURVE_MAX_NB, CURVE_PROMPTS, CURVE_NEW, CURVE_PAGES = 12, (16, 64), 64, 9
+CURVE_FLOOR = 3.0
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -798,7 +830,9 @@ def phase_parity(torch, np):
     (the kernels), float32, on identical weights: the chunked path of a
     yi-9b-shaped model (also with global pools swapped by the offloader,
     N_B = 4, equal swap counts on both devices), the exact path of a
-    (local, global) model and of an (rglru, rglru, local) model."""
+    (local, global) model and of an (rglru, rglru, local) model; and the
+    yi-shaped model (with and without its offloaded pools) and the
+    (local, global) model through the pipelined backend at N_S = 2."""
     import dataclasses
 
     from repro_torch.config import get_arch
@@ -816,19 +850,24 @@ def phase_parity(torch, np):
                               vocab_size=2048)
     local_pool = dict(mb_size=4, num_microbatches=2, pool=PoolConfig(
         page_size=16, n_local_pages=8 * 16 + 1, max_pages_per_seq=16))
+    # 31 local pages and two global pools of 64 over 4 x 4 slots:
+    # microbatches 0 and 2 share G0 and swap it every tick
+    offload_pool = dict(mb_size=4, num_microbatches=4, pool=PoolConfig(
+        page_size=16, n_local_pages=32, n_global_pages=64,
+        max_pages_per_seq=16))
+    pipe = dict(backend="pipelined", n_stages=2)
+    gemma_lg = dataclasses.replace(
+        get_arch("gemma3-12b"), name="gemma3-local-global",
+        num_layers=4, block_pattern=("local", "global"), d_model=512,
+        num_heads=8, num_kv_heads=4, head_dim=64, d_ff=1024,
+        vocab_size=2048, window_size=32)
     models = {
         # chunked prefill, the paged kernel
-        "yi-9b-2layer": (yi2, (20, 200), True),
-        # the same with 31 local pages and two global pools of 64 over 4 x 4
-        # slots: microbatches 0 and 2 share G0 and swap it every tick
-        "yi-9b-2layer-offload": (yi2, (20, 200), True),
+        "yi-9b-2layer": (yi2, (20, 200), True, local_pool),
+        "yi-9b-2layer-offload": (yi2, (20, 200), True, offload_pool),
         # exact prefill through the flash kernel (both layers; head_dim 64
         # so the kernels take it), a 32-slot ring, the paged kernel
-        "gemma3-local-global": (dataclasses.replace(
-            get_arch("gemma3-12b"), name="gemma3-local-global",
-            num_layers=4, block_pattern=("local", "global"), d_model=512,
-            num_heads=8, num_kv_heads=4, head_dim=64, d_ff=1024,
-            vocab_size=2048, window_size=32), (20, 101), False),
+        "gemma3-local-global": (gemma_lg, (20, 101), False, local_pool),
         # exact prefill through the scan kernel (3 rglru layers) and the
         # flash kernel at G = 16 (the local layer), recurrent states reset
         # as 10 requests pass through 8 slots, a 32-slot ring
@@ -836,10 +875,20 @@ def phase_parity(torch, np):
             get_arch("recurrentgemma-9b"), name="recurrentgemma-rglru-local",
             num_layers=4, d_model=512, d_rnn=512, num_heads=16,
             num_kv_heads=1, head_dim=64, d_ff=1024, vocab_size=2048,
-            window_size=32), (20, 101), False),
+            window_size=32), (20, 101), False, local_pool),
+        # the pipelined backend, N_S = 2: one layer a stage (chunked
+        # prefill and the paged kernel through both prefill and decode
+        # pipes; with per-stage offloaders at N_B = 4), and one period of
+        # (local, global) a stage with exact prefill outside the pipe
+        "yi-9b-2layer-pipelined": (yi2, (20, 200), True,
+                                   {**local_pool, **pipe}),
+        "yi-9b-2layer-offload-pipelined": (yi2, (20, 200), True,
+                                           {**offload_pool, **pipe}),
+        "gemma3-local-global-pipelined": (gemma_lg, (20, 101), False,
+                                          {**local_pool, **pipe}),
     }
     sp = SamplingParams(temperature=0.0, max_new_tokens=16)
-    for label, (cfg, (lo, hi), chunked) in models.items():
+    for label, (cfg, (lo, hi), chunked, layout) in models.items():
         cpu_params = model_lib.init_params(cfg, SEED, rt, "cpu")
         rng = np.random.RandomState(SEED + 1)
         lens = rng.randint(lo, hi, 10)
@@ -853,10 +902,6 @@ def phase_parity(torch, np):
                       "final_norm": cpu_params["final_norm"].to(dev),
                       "layers": [{k: v.to(dev) for k, v in w.items()}
                                  for w in cpu_params["layers"]]}
-            layout = local_pool if "offload" not in label else dict(
-                mb_size=4, num_microbatches=4, pool=PoolConfig(
-                    page_size=16, n_local_pages=32, n_global_pages=64,
-                    max_pages_per_seq=16))
             llm = LLM(cfg, config=EngineConfig(**layout), params=params,
                       rt=rt, device=dev)
             if llm.engine.chunked_prefill != chunked:
@@ -1470,7 +1515,10 @@ def _serve_yi(torch, np, llm, tag, card):
         raise AssertionError(f"{tag}: requests {bad} unfinished, short, or "
                              "with non-finite log-probs")
     ticks = rep["decode_ticks"]
-    if ticks == 0 or counts["paged_attention"] != ticks * YI_LAYERS:
+    # a pipelined tick runs only its occupied stages' layers: the pipeline
+    # phase checks those launches itself
+    if llm.engine.backend.name == "local" and (
+            ticks == 0 or counts["paged_attention"] != ticks * YI_LAYERS):
         raise AssertionError(f"{tag}: {counts['paged_attention']} paged "
                              f"launches for {ticks} ticks x {YI_LAYERS}")
     log(f"[{tag}] on {card}: decode_tok_per_s={rep['decode_tok_per_s']:.1f} "
@@ -1565,7 +1613,8 @@ def phase_serve_offload(torch, np, card: str, params):
         f"without ({extra:+.2f} ms); the copy stream spends "
         f"{copy_a_tick:.2f} ms a tick, of which {extra / copy_a_tick:.1%} "
         f"shows in the tick (the rest overlaps the host issuing the step)")
-    return {tag: r["counts"] for tag, r in runs.items()}, info
+    return ({tag: r["counts"] for tag, r in runs.items()}, info,
+            runs["no-offload"])
 
 
 def allocator_capacity(pool, n_b: int):
@@ -1674,6 +1723,360 @@ def phase_plan(torch, np, card: str, params):
     return counts, info
 
 
+def _watch_transport(backend):
+    """Log every transport tick of ``backend``: (plane, occupied stages,
+    raw payload bytes, per-stage compute seconds)."""
+    ticks = []
+    orig = backend.transport.tick
+
+    def tick(occupied, nbytes, compute_s, inject_t=0.0, plane="decode"):
+        ticks.append((plane, list(occupied), nbytes, list(compute_s)))
+        return orig(occupied, nbytes, compute_s, inject_t, plane)
+    backend.transport.tick = tick
+    return ticks
+
+
+def info_tick(rep) -> float:
+    """Ms of an engine's decode tick: its decode phase over its ticks."""
+    return rep["decode_time_s"] / rep["decode_ticks"] * 1e3
+
+
+def _decode_stage_time(ticks) -> float:
+    """Mean per-stage compute seconds of the decode ticks with every stage
+    occupied (the steady state the planner's T_S stands for)."""
+    full = [c[0] for plane, occ, _, c in ticks
+            if plane == "decode" and all(occ)]
+    if not full:
+        raise AssertionError("pipeline: no decode tick had every stage "
+                             "occupied")
+    return sum(full) / len(full)
+
+
+def _tick_split_local_vs_pipe(torch, np, cfg, rt, params, backend):
+    """Host and device ms of one decode tick of ``mb_size`` rows at a
+    700-token context on ``backend``'s full-width caches: the local
+    backend's model call, and the pipelined tick with every stage
+    occupied (microbatch 1 entering, microbatch 0 draining), each ending
+    in its one device-to-host transfer."""
+    from repro_torch.core import pipeline as PL
+    from repro_torch.serving import kv_cache as kvc
+    from repro_torch.serving.backend import LocalBackend
+    dev = torch.device("cuda")
+    mb, n_s = backend.mb_size, backend.n_stages
+    per_row = backend.pool.max_pages_per_seq
+    table = 1 + np.arange(backend.batch * per_row,
+                          dtype=np.int32).reshape(backend.batch, per_row)
+    kvc.set_page_table(backend.caches, table)
+    tokens = torch.randint(1, cfg.vocab_size, (mb,), dtype=torch.int32,
+                           device=dev)
+    pos = torch.full((n_s, mb), PIPE_PROFILE_CTX, dtype=torch.int32,
+                     device=dev)
+    act = [None] + [torch.zeros((mb, 1, cfg.d_model), dtype=rt.compute_dtype,
+                                device=dev) for _ in range(n_s - 1)]
+    zeros = torch.zeros((mb,), device=dev)
+    ints = torch.zeros((mb,), dtype=torch.int32, device=dev)
+
+    # as the engine's step runs them
+    @torch.inference_mode()
+    def local():
+        toks, lps = LocalBackend._decode_fn(
+            params, backend.caches, tokens, pos[0], 0, None, zeros, ints,
+            zeros + 1, cfg=cfg, rt=rt, mb_size=mb, sampled=False)
+        torch.stack([toks.float(), lps]).cpu()
+
+    @torch.inference_mode()
+    def piped():
+        toks, lps, _ = PL.pipeline_decode_tick(
+            params, backend.caches, act, tokens, pos,
+            mb_assign=list(range(n_s - 1, -1, -1)), noise=None, temp=zeros,
+            top_k=ints, top_p=zeros + 1, sampled=False, cfg=cfg, rt=rt,
+            n_stages=n_s, mb_size=mb)
+        torch.stack([toks.float(), lps]).cpu()
+    # host clock: synchronised calls in turns (local, pipe, pipe, local,
+    # ...), the median of each; device time: the profiler's kernel rows
+    from repro_torch.launch.profile_decode import profile
+    fns = {"local": local, "pipelined": piped}
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    host = {k: [] for k in fns}
+    for i in range(PIPE_PROFILE_TICKS):
+        for k in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+            t0 = time.perf_counter()
+            fns[k]()
+            host[k].append(time.perf_counter() - t0)
+    split = {}
+    for k, fn in fns.items():
+        _, _, rows = profile(torch, fn, PIPE_PROFILE_TICKS)
+        split[k] = (sorted(host[k])[len(host[k]) // 2] * 1e3,
+                    sum(r[0] for r in rows))
+    return split
+
+
+def phase_pipeline(torch, np, card: str, params, local_run):
+    """§4.3's circular pipeline at full width and depth on yi-9b (bf16, the
+    weights of the serve phases):
+
+    1. N_S = 2, N_B = 4, mb_size 4, fp32 wire, in-process links, the local
+       no-offload engine's pool: every stream equals that engine's
+       (``local_outs``), and the paged kernel runs (stage layers) times a
+       stage run;
+    2. the same with the offloaded pools, one offloader a stage: streams
+       equal run 1's, swap books a stage;
+    3. N_S = 4, int8 wire, 64 ms simulated links: every request at full
+       length with finite log-probs, the transport's wire bytes those of
+       the packed payloads that crossed;
+    4. the latency curve: circular at the planner's N_B for run 1's stage
+       time against round_flush at N_B = N_S, 64 ms links, measured stage
+       times: equal streams, circular at least 3x the virtual decode
+       tok/s.
+    """
+    import gc
+
+    from repro_torch.config import get_arch
+    from repro_torch.core import pipeline as PL
+    from repro_torch.core.scheduler import optimal_microbatches
+    from repro_torch.core.simulator import PipelineSimulator, SimConfig
+    from repro_torch.distributed.compression import int8_wire_bytes
+    from repro_torch.distributed.transport import SimulatedLinkTransport
+    from repro_torch.models.common import Runtime
+    from repro_torch.serving.kv_cache import PoolConfig
+    from repro_torch.serving.llm import LLM, EngineConfig
+    from repro_torch.serving.request import SamplingParams
+
+    cfg = get_arch("yi-9b")
+    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    info, counts, walls = {}, {}, {}
+
+    def engine(n_local, n_global, **kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = dict(mb_size=PIPE_MB, num_microbatches=PIPE_N_MB,
+                    pool=PoolConfig(page_size=SERVE_PAGE,
+                                    n_local_pages=n_local,
+                                    n_global_pages=n_global,
+                                    max_pages_per_seq=SERVE_MAX_PAGES),
+                    seed=SEED, max_prefill_tokens_per_tick=256,
+                    backend="pipelined", n_stages=PIPE_STAGES)
+        base.update(kw)
+        return LLM(cfg, config=EngineConfig(**base), params=params, rt=rt,
+                   reduced=False, device="cuda")
+
+    def check_launches(tag, llm, c):
+        be = llm.engine.backend
+        per_stage = YI_LAYERS // be.n_stages
+        epi = be.ranges[-1][1] - be.ranges[-1][0]
+        want = be.decode_stage_runs * per_stage + be.epilogue_runs * epi
+        if c["paged_attention"] != want or want == 0:
+            raise AssertionError(
+                f"{tag}: {c['paged_attention']} paged launches, want "
+                f"{be.decode_stage_runs} stage runs x {per_stage} layers + "
+                f"{be.epilogue_runs} drains x {epi}")
+        log(f"[{tag}] paged launches {c['paged_attention']} = "
+            f"{be.decode_stage_runs} stage runs x {per_stage} layers over "
+            f"{be.decode_ticks} decode ticks")
+
+    # -- run 1: two stages, fp32, in process --------------------------------
+    t0 = time.perf_counter()
+    local_outs, local_rep = local_run["outs"], local_run["rep"]
+    local_tick = info_tick(local_rep)
+    llm = engine(OFF_BASE_LOCAL, 0)
+    ticks = _watch_transport(llm.engine.backend)
+    outs1, rep1, counts["yi-9b pipelined"] = _serve_yi(
+        torch, np, llm, "pipe", card)
+    check_launches("pipe", llm, counts["yi-9b pipelined"])
+    diff = [o.request_id for o, p in zip(outs1, local_outs)
+            if o.token_ids != p.token_ids]
+    if diff:
+        raise AssertionError(f"pipe: streams of requests {diff} differ from "
+                             "the local engine's")
+    lp = max(abs(x - y) for o, p in zip(outs1, local_outs)
+             for x, y in zip(o.logprobs, p.logprobs))
+    t_s = _decode_stage_time(ticks)
+    split = _tick_split_local_vs_pipe(torch, np, cfg, rt, params,
+                                      llm.engine.backend)
+    log(f"[pipe] all {len(outs1)} streams (greedy and sampled) equal the "
+        f"local engine's (N_B {PIPE_N_MB}, mb_size {PIPE_MB}, "
+        f"{OFF_BASE_LOCAL} local pages) token for token; max |log-prob "
+        f"difference| {lp:.3e}; stage time T_S {t_s * 1e3:.2f} ms (a full "
+        f"decode tick / {PIPE_STAGES}, mean over the ticks with every "
+        "stage occupied)")
+    log(f"[pipe] decode {rep1['decode_tok_per_s']:.1f} tok/s, prefill "
+        f"{rep1['prefill_tok_per_s']:.1f} tok/s, {info_tick(rep1):.2f} ms a "
+        f"decode tick over {rep1['decode_ticks']} ticks; the local engine: "
+        f"decode {local_rep['decode_tok_per_s']:.1f}, prefill "
+        f"{local_rep['prefill_tok_per_s']:.1f} tok/s, {local_tick:.2f} ms "
+        f"a tick over {local_rep['decode_ticks']} ticks")
+    log(f"[pipe] one decode tick of {PIPE_MB} rows at {PIPE_PROFILE_CTX} "
+        f"tokens on {card}: local host {split['local'][0]:.2f} ms, device "
+        f"{split['local'][1]:.2f} ms; pipelined (both stages) host "
+        f"{split['pipelined'][0]:.2f} ms, device "
+        f"{split['pipelined'][1]:.2f} ms")
+    info["run1"] = {"decode_tok_per_s": rep1["decode_tok_per_s"],
+                    "prefill_tok_per_s": rep1["prefill_tok_per_s"],
+                    "tick_ms": info_tick(rep1),
+                    "decode_ticks": rep1["decode_ticks"],
+                    "stage_time_ms": t_s * 1e3,
+                    "tick_host_device_ms": split,
+                    "local": {"decode_tok_per_s":
+                              local_rep["decode_tok_per_s"],
+                              "prefill_tok_per_s":
+                              local_rep["prefill_tok_per_s"],
+                              "tick_ms": local_tick,
+                              "decode_ticks": local_rep["decode_ticks"]}}
+    del llm
+    walls["run1"] = time.perf_counter() - t0
+
+    # -- run 2: the same with one offloader a stage ---------------------------
+    t0 = time.perf_counter()
+    llm = engine(OFF_LOCAL, OFF_GLOBAL)
+    outs2, rep2, counts["yi-9b pipelined offload"] = _serve_yi(
+        torch, np, llm, "pipe-offload", card)
+    check_launches("pipe-offload", llm, counts["yi-9b pipelined offload"])
+    diff = [o.request_id for o, p in zip(outs2, outs1)
+            if o.token_ids != p.token_ids]
+    if diff:
+        raise AssertionError(f"pipe-offload: streams of requests {diff} "
+                             "differ from run 1's")
+    be = llm.engine.backend
+    if len(be.stage_offloaders) != PIPE_STAGES or be.swap_count < 2:
+        raise AssertionError(f"pipe-offload: {len(be.stage_offloaders)} "
+                             f"stage offloaders, {be.swap_count} swaps")
+    info["run2"] = {"decode_tok_per_s": rep2["decode_tok_per_s"],
+                    "prefill_tok_per_s": rep2["prefill_tok_per_s"],
+                    "tick_ms": info_tick(rep2), "stages": [
+                        _offload_line(f"pipe-offload stage {s}", off,
+                                      rep2["decode_ticks"], card)
+                        for s, off in enumerate(be.stage_offloaders)]}
+    log(f"[pipe-offload] all {len(outs2)} streams equal run 1's token for "
+        f"token; {be.swap_count} swaps over {len(be.stage_offloaders)} "
+        "stage offloaders")
+    del llm, be
+    walls["run2"] = time.perf_counter() - t0
+
+    # -- run 3: four stages, int8 wire, 64 ms links -------------------------
+    t0 = time.perf_counter()
+    packed = [0, 0]                     # bytes, crossings
+
+    def compress(x, _orig=PL.int8_compress_rows):
+        q, scale = _orig(x)
+        packed[0] += int8_wire_bytes(q.numel(), scale.numel())
+        packed[1] += 1
+        return q, scale
+    PL.int8_compress_rows = compress
+    try:
+        llm = engine(OFF_BASE_LOCAL, 0, n_stages=PIPE_INT8_STAGES,
+                     num_microbatches=PIPE_INT8_STAGES, wire_dtype="int8",
+                     transport=SimulatedLinkTransport.uniform(
+                         PIPE_INT8_STAGES, PIPE_LINK))
+        outs3, rep3, counts["yi-9b pipelined int8"] = _serve_yi(
+            torch, np, llm, "pipe-int8", card)
+    finally:
+        PL.int8_compress_rows = compress.__defaults__[0]
+    check_launches("pipe-int8", llm, counts["yi-9b pipelined int8"])
+    tr = rep3["transport"]
+    returns = tr["link_sends"] - packed[1]
+    want = packed[0] + returns * llm.engine.backend.transport.inner.return_bytes
+    if tr["wire_bytes"] != want:
+        raise AssertionError(f"pipe-int8: the transport booked "
+                             f"{tr['wire_bytes']} wire bytes, the packed "
+                             f"payloads and returns were {want}")
+    greedy = [(o.token_ids, p.token_ids) for i, (o, p) in
+              enumerate(zip(outs3, outs1)) if i % 2 == 0]
+    same = sum(a == b for x, y in greedy for a, b in zip(x, y))
+    share = same / sum(len(x) for x, _ in greedy)
+    log(f"[pipe-int8] {PIPE_INT8_STAGES} stages, int8 wire, "
+        f"{PIPE_LINK * 1e3:.0f} ms links: {tr['wire_bytes']} wire bytes = "
+        f"{packed[1]} packed crossings ({packed[0]} B) + {returns} returns; "
+        f"{tr.get('compression_ratio', 0):.3f}x under the raw payload; "
+        f"{share:.1%} of the greedy tokens equal run 1's (not gated); "
+        f"virtual decode tok/s {rep3['virtual_decode_tok_per_s']:.1f}")
+    info["run3"] = {"decode_tok_per_s": rep3["decode_tok_per_s"],
+                    "transport": tr, "greedy_share_equal": share,
+                    "virtual_decode_tok_per_s":
+                        rep3["virtual_decode_tok_per_s"]}
+    del llm
+    walls["run3"] = time.perf_counter() - t0
+
+    # -- run 4: the latency curve at 64 ms ------------------------------------
+    t0 = time.perf_counter()
+    n_b_star = min(CURVE_MAX_NB, optimal_microbatches(PIPE_STAGES, t_s,
+                                                      PIPE_LINK))
+    curve, streams = {}, {}
+    rng = np.random.RandomState(SEED + 2)
+    lens = rng.randint(CURVE_PROMPTS[0], CURVE_PROMPTS[1] + 1,
+                       n_b_star * PIPE_MB)
+    curve_prompts = [list(rng.randint(1, cfg.vocab_size, n)) for n in lens]
+    for schedule, n_b in (("circular", n_b_star),
+                          ("round_flush", PIPE_STAGES)):
+        n_req = n_b * PIPE_MB
+        prompts = curve_prompts[:n_req]
+        llm = engine(n_req * CURVE_PAGES + 1, 0, num_microbatches=n_b,
+                     schedule=schedule, pool=PoolConfig(
+                         page_size=SERVE_PAGE,
+                         n_local_pages=n_req * CURVE_PAGES + 1,
+                         max_pages_per_seq=CURVE_PAGES),
+                     transport=SimulatedLinkTransport.uniform(PIPE_STAGES,
+                                                              PIPE_LINK))
+        ticks = _watch_transport(llm.engine.backend)
+        reset_counts()
+        outs = llm.generate(prompts, SamplingParams(
+            temperature=0.0, max_new_tokens=CURVE_NEW, logprobs=True))
+        torch.cuda.synchronize()
+        rep = llm.stats()
+        if not all(o.finished and len(o.token_ids) == CURVE_NEW
+                   and all(math.isfinite(x) for x in o.logprobs)
+                   for o in outs):
+            raise AssertionError(f"curve {schedule}: unfinished requests")
+        counts[f"yi-9b curve {schedule}"] = read_counts()
+        check_launches(f"curve-{schedule}", llm,
+                       counts[f"yi-9b curve {schedule}"])
+        streams[schedule] = [o.token_ids for o in outs]
+        ts = _decode_stage_time(ticks)
+        sim = PipelineSimulator(SimConfig(
+            policy="vllm_pp" if schedule == "round_flush" else "deserve_pp",
+            n_stages=PIPE_STAGES, latency=PIPE_LINK))
+        sim_tps = n_b * PIPE_MB / sim._round_time(ts, n_b)
+        vtps = rep["virtual_decode_tok_per_s"]
+        curve[schedule] = {"n_b": n_b, "requests": n_req,
+                           "virtual_decode_tok_per_s": vtps,
+                           "sim_tok_per_s": sim_tps,
+                           "stage_time_ms": ts * 1e3,
+                           "decode_ticks": rep["decode_ticks"],
+                           "virtual_time_s":
+                               rep["transport"]["virtual_time_s"],
+                           "link_stall_s": rep["transport"]["link_stall_s"],
+                           "decode_tok_per_s": rep["decode_tok_per_s"]}
+        log(f"[curve] {schedule:11s} N_B {n_b:2d} x {PIPE_MB} rows, "
+            f"{n_req} requests of {CURVE_PROMPTS[0]}-{CURVE_PROMPTS[1]} + "
+            f"{CURVE_NEW} tokens, {PIPE_LINK * 1e3:.0f} ms links: "
+            f"{vtps:.1f} virtual decode tok/s (the simulator's round time "
+            f"predicts {sim_tps:.1f} at the measured T_S {ts * 1e3:.2f} ms); "
+            f"{rep['decode_ticks']} decode ticks, wall decode "
+            f"{rep['decode_tok_per_s']:.1f} tok/s")
+        del llm
+    # the round_flush run serves the first N_S x mb_size of the requests
+    if streams["circular"][:len(streams["round_flush"])] != \
+            streams["round_flush"]:
+        raise AssertionError("curve: round_flush streams differ from "
+                             "circular's")
+    ratio = curve["circular"]["virtual_decode_tok_per_s"] / \
+        curve["round_flush"]["virtual_decode_tok_per_s"]
+    log(f"[curve] circular / round_flush at {PIPE_LINK * 1e3:.0f} ms on "
+        f"{card}: {ratio:.2f}x (floor {CURVE_FLOOR}x, the JAX latency "
+        "curve's)")
+    if ratio < CURVE_FLOOR:
+        raise AssertionError(f"curve: circular is {ratio:.2f}x round_flush, "
+                             f"under the {CURVE_FLOOR}x floor")
+    curve["ratio"] = ratio
+    info["curve"] = curve
+    walls["run4"] = time.perf_counter() - t0
+    info["wall_s"] = walls
+    log(f"[pipe] phase wall times: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()))
+    return counts, info
+
+
 def yi_params(torch):
     """Full-width, full-depth yi-9b weights in bf16 from the seed, shared by
     the yi-9b serve phases."""
@@ -1712,9 +2115,13 @@ def main() -> int:
     swap_order = phase_swap_order(torch, np, smi_line)
     params = yi_params(torch)
     paths = {"yi-9b": phase_serve(torch, np, smi_line, params)}
-    off_counts, offload = phase_serve_offload(torch, np, smi_line, params)
+    off_counts, offload, local_run = phase_serve_offload(torch, np,
+                                                         smi_line, params)
     paths.update({f"yi-9b {tag}": c for tag, c in off_counts.items()})
     paths["yi-9b planned"], plan = phase_plan(torch, np, smi_line, params)
+    pipe_counts, pipeline = phase_pipeline(torch, np, smi_line, params,
+                                           local_run)
+    paths.update(pipe_counts)
     del params
     paths["gemma3-12b"] = phase_serve_gemma(torch, np, smi_line)
     paths["recurrentgemma-9b"] = phase_serve_recurrentgemma(torch, np,
@@ -1746,6 +2153,7 @@ def main() -> int:
     ]
     print(json.dumps({"offload": {"swap_order": swap_order,
                                   "serve": offload, "plan": plan}}))
+    print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"kernels": entries}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

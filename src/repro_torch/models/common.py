@@ -125,6 +125,17 @@ def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return out.to(x.dtype)
 
 
+def rotate_qk(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+              sin: torch.Tensor):
+    """``rotate`` of q (..., S, H, Dh) and k (..., S, Hk, Dh) in one pass
+    over their heads side by side: the same elementwise arithmetic as two
+    calls, with one set of launches instead of two (an eager decode step
+    is bound by the host's launches).  Both come back contiguous."""
+    h = q.shape[-2]
+    qk = rotate(torch.cat([q, k], dim=-2), cos, sin)
+    return qk[..., :h, :].contiguous(), qk[..., h:, :].contiguous()
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                scaling: float = 1.0) -> torch.Tensor:
     """Rotary embedding.  x (..., S, H, Dh); positions (..., S) integers."""

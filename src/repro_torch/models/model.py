@@ -39,10 +39,13 @@ paged).  Pools, rings and recurrent states are updated **in place**
 gigabytes, and a functional copy per layer per step would double it; and
 the serving backend hands the model a row *view* of its caches
 (``serving.kv_cache.slot_view``), through which only in-place writes
-reach the batch-wide tensors.  ``run_layers`` is a loop over layers.
+reach the batch-wide tensors.  ``run_layers`` is a loop over layers, or
+over one contiguous range of them (a pipeline stage, ``core.pipeline``).
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +57,7 @@ from repro_torch.models import embedding as embed_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models.common import (DEFAULT_RUNTIME, Runtime, dense_init,
                                        resolve_device, rms_norm, rope_tables,
-                                       rotate, swiglu)
+                                       rotate_qk, swiglu)
 
 PAGED_KINDS = ("attn", "global")
 SERVED_KINDS = ATTN_KINDS + ("rglru",)
@@ -231,8 +234,9 @@ def _step_index(mode: str, positions: torch.Tensor, page_table: torch.Tensor,
                 page_size: int) -> dict:
     """Where each token's K/V goes in the pools, and what attention reads.
 
-    Decode: ``page``/``off`` of the current token and ``seq_lens`` for the
-    kernel.  Chunk and prefill: ``page``/``off``/``keep`` for
+    Decode: ``slot``, the current token's row in a pool viewed as
+    ``(P * page, Hk, Dh)`` (``page * page_size + off``), and ``seq_lens``
+    for the kernel.  Chunk and prefill: ``page``/``off``/``keep`` for
     ``_write_prefill_paged`` and the row's table ``pt`` for the gather.
     Positions marked ``-1`` (padding) must not touch a live page.  JAX drops
     their scatter as out of bounds; torch indexing would raise instead, and
@@ -243,8 +247,8 @@ def _step_index(mode: str, positions: torch.Tensor, page_table: torch.Tensor,
     pt = page_table.long()
     if mode == "decode":
         cur = pos[:, 0]
-        return {"page": pt.gather(1, (cur // page_size)[:, None])[:, 0],
-                "off": cur % page_size,
+        page = pt.gather(1, (cur // page_size)[:, None])[:, 0]
+        return {"slot": page * page_size + cur % page_size,
                 "seq_lens": (cur + 1).to(torch.int32)}
     valid = pos >= 0
     p0 = pos.clamp(min=0)
@@ -322,11 +326,13 @@ def _attn_layer(kind: str, w: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.use_qk_norm:
         q = rms_norm(q, w["q_norm"], cfg.norm_eps)
         k = rms_norm(k, w["k_norm"], cfg.norm_eps)
-    q, k = rotate(q, *rope), rotate(k, *rope)
+    q, k = rotate_qk(q, k, *rope)
 
     if mode == "decode" and "k_pages" in cache:
-        cache["k_pages"].index_put_((idx["page"], idx["off"]), k[:, 0])
-        cache["v_pages"].index_put_((idx["page"], idx["off"]), v[:, 0])
+        # one row a token in the flattened pool: index_copy_ costs the host
+        # a fraction of an advanced-indexing index_put_, once a layer
+        for name, t in (("k_pages", k), ("v_pages", v)):
+            cache[name].view(-1, Hk, Dh).index_copy_(0, idx["slot"], t[:, 0])
         out = kops.paged_decode_attention(
             q[:, 0], cache["k_pages"], cache["v_pages"], page_table,
             idx["seq_lens"], window=window)[:, None]        # (B, 1, H, Dh)
@@ -404,25 +410,29 @@ def _recurrent_valid(positions: torch.Tensor, mode: str):
 
 
 def run_layers(params: dict, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
-               *, mode: str, caches: dict,
-               positions: torch.Tensor) -> torch.Tensor:
-    """Apply every layer in order; the caches change in place.  The RoPE
-    tables (one per base the attention layers use) and the pool addressing
-    depend on the positions only, so they are computed once here for all
-    layers."""
+               *, mode: str, caches: dict, positions: torch.Tensor,
+               layers: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Apply the layers in order, every one or only ``layers = (lo, hi)``
+    (a pipeline stage: layers ``lo .. hi-1``, whose weights and caches are
+    ``params["layers"][lo:hi]`` and ``caches["layers"][lo:hi]``); the caches
+    change in place.  The RoPE tables (one per base the attention layers
+    use) and the pool addressing depend on the positions only, so they are
+    computed once here for all the layers of the call."""
     if mode not in ("decode", "chunk", "prefill"):
         raise ValueError("mode must be 'decode', 'chunk' or 'prefill', "
                          f"got {mode!r}")
-    kinds = cfg.layer_kinds()
+    lo, hi = (0, cfg.num_layers) if layers is None else layers
+    kinds = cfg.layer_kinds()[lo:hi]
+    ws, cs = params["layers"][lo:hi], caches["layers"][lo:hi]
     ropes = {theta: rope_tables(positions, cfg.head_dim, theta,
                                 cfg.rope_scaling)
              for theta in {layer_theta(k, cfg) for k in kinds
                            if k in ATTN_KINDS}}
     page_table = caches.get("page_table")
-    paged = next((c for c in caches["layers"] if "k_pages" in c), None)
+    paged = next((c for c in cs if "k_pages" in c), None)
     idx = None if paged is None else _step_index(
         mode, positions, page_table, paged["k_pages"].shape[1])
-    for kind, w, cache in zip(kinds, params["layers"], caches["layers"]):
+    for kind, w, cache in zip(kinds, ws, cs):
         if kind == "rglru":
             x = _rglru_layer(w, x, cfg, positions=positions, mode=mode,
                              cache=cache)
@@ -482,16 +492,38 @@ def prefill_chunk(params: dict, tokens: torch.Tensor, caches: dict,
 
     ``caches["page_table"]`` holds the rows being prefilled.  Returns
     (logits (B, V) float32 at ``last_in_chunk``, caches)."""
-    B, C = tokens.shape
-    iota = torch.arange(C, device=tokens.device)[None]
-    pos = torch.where(iota < n_valid[:, None], offsets[:, None] + iota, -1)
+    pos = chunk_positions(offsets, n_valid, tokens.shape[1])
     x = embed_lib.embed_tokens(params["embed"], tokens, cfg, rt.compute_dtype)
     x = run_layers(params, x, cfg, rt, mode="chunk", caches=caches,
                    positions=pos)
+    return chunk_logits(params, x, last_in_chunk, cfg), caches
+
+
+def chunk_positions(offsets: torch.Tensor, n_valid: torch.Tensor,
+                    C: int) -> torch.Tensor:
+    """(B, C) absolute positions of a chunk's tokens; the tokens past a
+    row's ``n_valid`` are marked -1 (no cache write)."""
+    iota = torch.arange(C, device=offsets.device)[None]
+    return torch.where(iota < n_valid[:, None], offsets[:, None] + iota, -1)
+
+
+def chunk_logits(params: dict, x: torch.Tensor, last_in_chunk: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """The final norm over a chunk's last-layer output (B, C, D), then the
+    logits (B, V) float32 at each row's ``last_in_chunk``."""
+    B, C = x.shape[:2]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     idx = last_in_chunk.long().clamp(0, C - 1)
     x_last = x[torch.arange(B, device=x.device), idx]
-    return embed_lib.unembed(params["embed"], x_last, cfg), caches
+    return embed_lib.unembed(params["embed"], x_last, cfg)
+
+
+def decode_logits(params: dict, x: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """The final norm over a decode step's last-layer output (B, 1, D),
+    then the logits (B, V) float32."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return embed_lib.unembed(params["embed"], x[:, 0], cfg)
 
 
 def decode_step(params: dict, tokens: torch.Tensor, caches: dict,
@@ -503,5 +535,4 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict,
                                rt.compute_dtype)
     x = run_layers(params, x, cfg, rt, mode="decode", caches=caches,
                    positions=cur_pos[:, None])
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return embed_lib.unembed(params["embed"], x[:, 0], cfg), caches
+    return decode_logits(params, x, cfg), caches

@@ -1,11 +1,20 @@
 """Offline serving engine with continuous batching, chunked and
-exact-length prefill (counterpart of ``repro.serving.engine.OfflineEngine``,
-local backend).
+exact-length prefill (counterpart of ``repro.serving.engine.OfflineEngine``).
 
 The engine owns ``N_B`` microbatches of ``mb_size`` decode slots.  Each
 step reaps finished sequences, runs the prefill phase, and ticks one
 microbatch of decode, round-robin.  Idle rows decode greedily on page 0
 and their results are discarded.
+
+The compute runs behind a backend (``serving.backend``): ``"local"`` (one
+model call a tick) or ``"pipelined"`` (DeServe's §4.3 circular pipeline of
+``n_stages`` stages, with a transport on each stage boundary, the
+``"circular"`` or ``"round_flush"`` schedule and an ``"fp32"`` or
+``"int8"`` wire).  A pipelined result drains ``N_S − 1`` ticks after its
+injection, so the engine books it against the rows and sequences it
+snapshotted at injection (``_inject_snap``), holds admission and
+activation back from microbatches with a tick in flight, and keeps
+stepping until both planes have drained.
 
 The prefill phase is chunked when every layer is paged (``"attn"`` /
 ``"global"``) and ``prefill_mode`` is not ``"exact"``: one budgeted chunk
@@ -30,9 +39,9 @@ carries rows of at most one microbatch per parity with global pages.
 :meth:`OfflineEngine.from_plan` derives (N_B, per-microbatch batch, pool
 split) from a measured stage time and link latency (§4.3).
 
-Not in this slice (each later slice of the port brings its part): the
-pipelined backend, fault plans, reshard, the prefix cache, SLO
-admission, the tracing recorder and the strict auditor.
+Not in this slice (each later slice of the port brings its part): fault
+plans, reshard, the prefix cache, SLO admission, the tracing recorder and
+the strict auditor.
 """
 
 from __future__ import annotations
@@ -52,8 +61,8 @@ from repro_torch.core.scheduler import ScheduleChoice, plan_schedule
 from repro_torch.models.common import Runtime, resolve_device
 from repro_torch.models.model import PAGED_KINDS, check_supported
 from repro_torch.serving import kv_cache as kvc
-from repro_torch.serving.backend import (DecodeResult, LocalBackend,
-                                         PrefillChunk, PrefillResult)
+from repro_torch.serving.backend import (DecodeResult, PrefillChunk,
+                                         PrefillResult, make_backend)
 from repro_torch.serving.request import (EngineStats, Request, SamplingParams,
                                          SequenceState, Status)
 from repro_torch.serving.sampler import (RowSampling, gumbel_noise,
@@ -64,17 +73,22 @@ log = logging.getLogger(__name__)
 
 
 def prefill_chunk_cap(cfg: ModelConfig, rt: Runtime, link, *,
-                      stage_time: float) -> int:
+                      stage_time: float, wire_dtype: str = "fp32") -> int:
     """Bandwidth cap on the prefill chunk length, in tokens: the largest C
-    whose wire time (C tokens of ``d_model`` activations over the link's
-    ``bandwidth_bps``) fits one stage tick.  Returns 0 when there is
-    nothing to cap (no link, or unlimited bandwidth); links come with the
-    pipeline slice, so the local engine always gets 0."""
+    whose wire time (C tokens of activations over the link's
+    ``bandwidth_bps``) fits one stage tick, so a prefill chunk never
+    stretches the cadence the §4.3 planner sized ``N_B`` for.  A token is
+    ``d_model`` elements of the compute dtype on the wire, or ``d_model +
+    4`` bytes packed int8 (one float32 row scale).  Returns 0 when there
+    is nothing to cap (no link, or unlimited bandwidth)."""
     bw = getattr(link, "bandwidth_bps", 0.0) if link is not None else 0.0
     if not bw or stage_time <= 0:
         return 0
-    token_bytes = cfg.d_model * torch.empty(
-        (), dtype=rt.compute_dtype).element_size()
+    if wire_dtype == "int8":
+        token_bytes = cfg.d_model + 4
+    else:
+        token_bytes = cfg.d_model * torch.empty(
+            (), dtype=rt.compute_dtype).element_size()
     return max(1, int(stage_time * bw // token_bytes))
 
 
@@ -83,9 +97,12 @@ class OfflineEngine:
                  mb_size: int = 4, num_microbatches: int = 1,
                  pool: Optional[kvc.PoolConfig] = None,
                  sampling: Optional[SamplingParams] = None,
-                 offloader=None, seed: int = 0,
+                 offloader=None, seed: int = 0, backend="local",
+                 n_stages: int = 2, mesh=None,
                  prefill_chunk: int = 0, max_prefill_tokens_per_tick: int = 0,
-                 prefill_mode: str = "auto", device=None):
+                 prefill_mode: str = "auto", transport=None,
+                 schedule: str = "circular", wire_dtype: str = "fp32",
+                 device=None):
         check_supported(cfg)
         self.cfg = cfg
         self.params = params
@@ -97,10 +114,13 @@ class OfflineEngine:
         self.pool = pool or kvc.PoolConfig()
         self.default_sampling = sampling or SamplingParams()
         self.seed = seed
-        self.backend = LocalBackend(cfg, params, rt, mb_size=mb_size,
-                                    num_microbatches=num_microbatches,
-                                    pool=self.pool, device=self.device,
-                                    offloader=offloader)
+        self.n_stages = n_stages
+        self.backend = make_backend(
+            backend, cfg, params, rt, mb_size=mb_size,
+            num_microbatches=num_microbatches, pool=self.pool,
+            device=self.device, offloader=offloader, n_stages=n_stages,
+            mesh=mesh, transport=transport, schedule=schedule,
+            wire_dtype=wire_dtype)
 
         self.alloc = kvc.PageAllocator(self.pool)
         self.table = np.zeros((self.batch, self.pool.max_pages_per_seq),
@@ -146,6 +166,8 @@ class OfflineEngine:
         self.prefill_rows = max(1, budget // self.prefill_chunk)
         self.prefilling: List[SequenceState] = []   # own a slot, not done
         self._pending_activation: List[SequenceState] = []
+        self._inject_snap: Dict[int, tuple] = {}    # mb -> (active, seqs)
+                                                    # at decode injection
 
         self.queue: deque = deque()
         self.finished: List[SequenceState] = []
@@ -167,7 +189,9 @@ class OfflineEngine:
                   prefill_chunk: int = 0,
                   max_prefill_tokens_per_tick: int = 0,
                   prefill_mode: str = "auto", worst_link=None,
-                  offload_async: bool = True,
+                  link_latencies=None, offload_async: bool = True,
+                  backend="local", mesh=None, transport=None,
+                  schedule: str = "circular", wire_dtype: str = "fp32",
                   device=None) -> "OfflineEngine":
         """An engine whose (N_B, per-microbatch batch, pool split) are
         derived from a measured stage time and link latency by
@@ -177,9 +201,11 @@ class OfflineEngine:
         ``m_kv_bytes`` is the per-stage KV budget; ``bandwidth`` the swap
         rate (0 = the paper's ``PCIE4_BW``); ``choice`` a precomputed
         :class:`ScheduleChoice`, honoured as it is; ``mb_size_cap`` bounds
-        the per-microbatch batch; ``worst_link`` (a link with
-        ``bandwidth_bps``, from the pipeline slice) caps the prefill
-        chunk.  Prefer
+        the per-microbatch batch; ``link_latencies`` (one a ring link)
+        replace the scalar ``latency`` in the planner; ``worst_link`` (a
+        :class:`repro_torch.distributed.transport.LinkSpec`) caps the
+        prefill chunk.  ``backend`` and the pipe's knobs go to the engine
+        as they are.  Prefer
         :meth:`repro_torch.serving.llm.EngineConfig.plan`."""
         if not bandwidth:
             bandwidth = offload_lib.PCIE4_BW
@@ -195,7 +221,7 @@ class OfflineEngine:
         if choice is None:
             choice = plan_schedule(
                 n_stages=n_stages, stage_time=stage_time, latency=latency,
-                m_kv_bytes=m_kv_bytes,
+                link_latencies=link_latencies, m_kv_bytes=m_kv_bytes,
                 kv_bytes_per_seq=kv_bytes_per_seq,
                 offload_bandwidth=bandwidth, use_offload=use_offload,
                 max_microbatches=max_microbatches)
@@ -224,15 +250,18 @@ class OfflineEngine:
             # a link's wire time would stretch the tick
             prefill_chunk = max(8, mb_size)
             cap = prefill_chunk_cap(cfg, rt, worst_link,
-                                    stage_time=stage_time)
+                                    stage_time=stage_time,
+                                    wire_dtype=wire_dtype)
             if cap and cap < prefill_chunk:
                 prefill_chunk = cap
         eng = cls(cfg, params, rt, mb_size=mb_size,
                   num_microbatches=choice.n_microbatches, pool=pool,
                   sampling=sampling, offloader=offloader, seed=seed,
+                  backend=backend, n_stages=n_stages, mesh=mesh,
                   prefill_chunk=prefill_chunk,
                   max_prefill_tokens_per_tick=max_prefill_tokens_per_tick,
-                  prefill_mode=prefill_mode, device=device)
+                  prefill_mode=prefill_mode, transport=transport,
+                  schedule=schedule, wire_dtype=wire_dtype, device=device)
         eng.schedule_choice = choice
         return eng
 
@@ -293,10 +322,14 @@ class OfflineEngine:
         self.stats.status_counts = counts
         return counts
 
+    @torch.inference_mode()
     def step(self) -> bool:
         """One engine tick: reap finished, run the prefill phase (one
         budgeted chunk, or the exact-length admission), tick one
-        microbatch.  Returns False when fully drained."""
+        microbatch.  Returns False when fully drained.  It runs under
+        ``torch.inference_mode``: serving records nothing for autograd,
+        and each operation costs the host less there (an eager decode
+        tick is bound by the host's launches)."""
         t0 = time.perf_counter()
         self._reap()
         tp = time.perf_counter()
@@ -310,7 +343,11 @@ class OfflineEngine:
         tp2 = time.perf_counter()
         self.stats.queue_depth = len(self.queue)
         self.stats.prefill_time_s += tp2 - tp
-        if not any(s is not None for s in self.slots) and not self.queue:
+        # drained iff no slot is occupied, nothing is queued, and neither
+        # plane of the backend has a tick in flight
+        if not any(s is not None for s in self.slots) and not self.queue \
+                and not self.backend.pending() \
+                and not self.backend.prefill_pending():
             self.stats.decode_time_s += tp - t0
             self.stats.wall_time_s += time.perf_counter() - t0
             return False
@@ -353,11 +390,15 @@ class OfflineEngine:
 
     def _admit(self) -> None:
         """Exact-length admission: prefill queued requests into every free
-        slot, in queue order.  On page exhaustion the request goes back to
-        the queue front and retries next step.  (The local backend has no
-        tick in flight, so no microbatch is held back as busy.)"""
+        slot, in queue order, except the slots of microbatches with a
+        decode tick in flight (their cache rows must not be rewritten under
+        it).  On page exhaustion the request goes back to the queue front
+        and retries next step."""
+        busy = self.backend.busy_microbatches()
         for slot in range(self.batch):
             if self.slots[slot] is not None or not self.queue:
+                continue
+            if self._mb_of_slot(slot) in busy:
                 continue
             seq = self.queue.popleft()
             seq.status = Status.PREFILLING
@@ -405,7 +446,10 @@ class OfflineEngine:
         blocking on page exhaustion: the queue front retries next tick.
         The offloader keeps one microbatch's copy of each global-pool
         parity resident, so the rows that draw on one parity all belong to
-        one microbatch (one per parity rides along)."""
+        one microbatch (one per parity rides along).  Nothing is built while
+        the prefill pipe's first stage is occupied."""
+        if not self.backend.prefill_can_accept():
+            return None
         rows_cap = self.prefill_rows
         rows: List[SequenceState] = []
         # parity -> the one microbatch whose global pool this chunk writes
@@ -479,16 +523,25 @@ class OfflineEngine:
                     self._pending_activation.append(seq)  # without decoding
 
     def _activate_ready(self) -> None:
-        """Push real page-table rows and activate completed prefills (the
-        local backend has no tick in flight, so none is held back)."""
+        """Push real page-table rows and activate completed prefills whose
+        microbatch has no decode tick in flight (an in-flight tick still
+        writes its idle rows through the parked table row; swapping the
+        row under it would clobber the fresh prompt KV at position 0)."""
         if not self._pending_activation:
             return
+        busy = self.backend.busy_microbatches()
+        held, changed = [], False
         for seq in self._pending_activation:
+            if self._mb_of_slot(seq.slot) in busy:
+                held.append(seq)
+                continue
             self.table[seq.slot] = self.alloc.table_row(seq.slot)
             seq.status = Status.DECODING
             self.active[seq.slot] = True
-        self._pending_activation = []
-        self.backend.set_page_table(self.table)
+            changed = True
+        self._pending_activation = held
+        if changed:
+            self.backend.set_page_table(self.table)
 
     # ------------------------------------------------------------------
     # exact-length prefill (sliding-window archs, or prefill_mode="exact")
@@ -563,6 +616,8 @@ class OfflineEngine:
     # ------------------------------------------------------------------
 
     def _row_sampling(self, lo: int, hi: int) -> RowSampling:
+        """The per-row sampling state of slots [lo, hi), copied: a
+        pipelined backend holds it until the tick drains."""
         steps = np.zeros((hi - lo,), np.int32)
         for i, slot in enumerate(range(lo, hi)):
             seq = self.slots[slot]
@@ -574,30 +629,46 @@ class OfflineEngine:
                            top_p=self.samp_top_p[lo:hi].copy())
 
     def _decode_microbatch(self, mb: int) -> None:
+        """Inject microbatch ``mb`` when it has live rows; tick a pipe that
+        still holds entries even when it has none (a tick that only
+        drains)."""
         lo = mb * self.mb_size
         hi = lo + self.mb_size
-        if not self.active[lo:hi].any():
+        mb_active = bool(self.active[lo:hi].any())
+        if not mb_active and not self.backend.pending():
             return
         tokens = np.zeros((self.mb_size,), np.int32)
         for i, slot in enumerate(range(lo, hi)):
             seq = self.slots[slot]
             if seq is not None and seq.generated:
                 tokens[i] = seq.generated[-1]
-        live = self.active[lo:hi].copy()
+        if mb_active:
+            # which rows (and which sequences) this injection is for: a
+            # slot can be reassigned, or become active, while its tick is
+            # still in flight, and the drained result must never be booked
+            # against the new occupant
+            self._inject_snap[mb] = (self.active[lo:hi].copy(),
+                                     list(self.slots[lo:hi]))
         results = self.backend.decode(mb, tokens, self.cur_pos[lo:hi],
-                                      self._row_sampling(lo, hi))
+                                      self._row_sampling(lo, hi),
+                                      active=mb_active)
         self.stats.swaps = self.backend.swap_count
         for res in results:
-            self._apply_result(res, live)
+            self._apply_result(res)
 
-    def _apply_result(self, res: DecodeResult, live: np.ndarray) -> None:
-        """Book one microbatch tick for the rows that were live at its
-        injection."""
+    def _apply_result(self, res: DecodeResult) -> None:
+        """Book one drained microbatch tick (possibly for an earlier
+        microbatch than the one just injected: a pipe drains ``N_S − 1``
+        ticks after injection) for the rows live at its injection."""
         lo = res.mb * self.mb_size
+        snap = self._inject_snap.pop(res.mb, None)
         for i, slot in enumerate(range(lo, lo + self.mb_size)):
             seq = self.slots[slot]
-            if seq is None or not live[i] or seq.is_done():
-                continue
+            if seq is None or seq.is_done():
+                continue            # finished at prefill: reap next tick
+            if snap is not None and (not snap[0][i] or snap[1][i] is not seq):
+                continue            # not live at injection (still
+                                    # prefilling, or the slot reassigned)
             seq.generated.append(int(res.tokens[i]))
             if seq.logprobs is not None:
                 seq.logprobs.append(float(res.logprobs[i]))
@@ -613,13 +684,16 @@ class OfflineEngine:
     # ------------------------------------------------------------------
 
     def throughput_report(self) -> dict:
+        """The run's books; a pipelined engine whose transport keeps books
+        adds them under ``"transport"`` and, on a virtual clock, the decode
+        tok/s on that clock (``"virtual_decode_tok_per_s"``)."""
         lat_steps = [s.latency_steps for s in self.finished
                      if s.latency_steps is not None]
         lat_s = [s.latency_s for s in self.finished
                  if s.latency_s is not None]
         ttft = [s.ttft_s for s in self.finished if s.ttft_s is not None]
         self.status_counts()
-        return {
+        rep = {
             "backend": self.backend.name,
             "device": str(self.device),
             "prefill_tokens": self.stats.prefill_tokens,
@@ -642,3 +716,13 @@ class OfflineEngine:
             "mean_latency_s": float(np.mean(lat_s)) if lat_s else 0.0,
             "mean_ttft_s": float(np.mean(ttft)) if ttft else 0.0,
         }
+        tstats = self.backend.transport_stats()
+        if tstats:
+            rep["transport"] = tstats
+            vt = tstats.get("virtual_time_s", 0.0)
+            if vt > 0:
+                # decode tok/s on the simulated network's clock: what the
+                # latency curve compares across schedules
+                rep["virtual_decode_tok_per_s"] = \
+                    self.stats.decode_tokens / vt
+        return rep

@@ -5,9 +5,14 @@
     outs = llm.generate(prompts, SamplingParams(temperature=0.8, top_p=0.95))
 
 ``EngineConfig.plan(...)`` derives (N_B, per-microbatch batch, pool split)
-from a measured stage time and link latency through the §4.3 planner;
-global pools are double-buffered to host memory (§4.2) unless
-``offload=False``.
+from a measured stage time and link latency (or a multi-region
+``deployment``) through the §4.3 planner; global pools are double-buffered
+to host memory (§4.2) unless ``offload=False``.  ``backend="pipelined"``
+serves through §4.3's circular pipeline of ``n_stages`` stages:
+
+    llm = LLM("yi-9b", config=EngineConfig(
+        backend="pipelined", n_stages=2, num_microbatches=4,
+        transport=0.064, wire_dtype="int8"))
 
 Runs on ``cuda`` unless ``device="cpu"`` is passed; with no GPU and no
 explicit CPU request it raises.
@@ -25,6 +30,7 @@ from repro_torch.config import ModelConfig, get_arch, reduced_config
 from repro_torch.core.offload import DoubleBufferOffloader
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import Runtime, resolve_device
+from repro_torch.serving.backend import stage_devices
 from repro_torch.serving.engine import OfflineEngine
 from repro_torch.serving.kv_cache import PoolConfig
 from repro_torch.serving.request import (Request, SamplingParams,
@@ -33,12 +39,6 @@ from repro_torch.serving.request import (Request, SamplingParams,
 # Knobs of repro.serving.llm.EngineConfig whose machinery a later slice of
 # the port brings: field -> (value that asks for nothing, the slice).
 _LATER = {
-    "backend": ("local", "the pipeline slice (PipelinedBackend)"),
-    "n_stages": (2, "the pipeline slice (PipelinedBackend)"),
-    "mesh": (None, "the pipeline slice (PipelinedBackend)"),
-    "transport": (None, "the pipeline slice (inter-stage links)"),
-    "schedule": ("circular", "the pipeline slice (round_flush schedule)"),
-    "wire_dtype": ("fp32", "the pipeline slice (int8 wire codec)"),
     "fault_plan": (None, "the resilience slice (fault plans and reshard)"),
     "prefix_cache": (False, "the online-serving slice (prefix cache)"),
     "slo": (None, "the online-serving slice (SLO admission)"),
@@ -56,8 +56,14 @@ class EngineConfig:
     value other than the default raises ``NotImplementedError`` naming
     the slice that will bring it (``_LATER``).  ``prefill_mode`` is
     ``"auto"`` (chunked where every layer is paged, else exact-length),
-    ``"chunked"`` or ``"exact"``.  Either set the knobs directly, or build
-    the config with :meth:`plan`."""
+    ``"chunked"`` or ``"exact"``.  ``backend`` is ``"local"`` or
+    ``"pipelined"``; the pipe's knobs are ``n_stages``, ``transport`` (a
+    :class:`repro_torch.distributed.transport.Transport`, a latency in
+    seconds for uniform simulated links, or a ``DeploymentPlan``),
+    ``schedule`` (``"circular"`` or ``"round_flush"``), ``wire_dtype``
+    (``"fp32"`` or ``"int8"``) and ``mesh`` (one torch device a stage, all
+    the engine's own device: stages on several GPUs are not ported).
+    Either set the knobs directly, or build the config with :meth:`plan`."""
     mb_size: int = 4                  # sequences per microbatch
     num_microbatches: int = 1         # N_B
     pool: Optional[PoolConfig] = None
@@ -105,6 +111,33 @@ class EngineConfig:
         if self.max_prefill_tokens_per_tick < 0:
             raise ValueError("max_prefill_tokens_per_tick must be >= 0, "
                              f"got {self.max_prefill_tokens_per_tick}")
+        if self.backend not in ("local", "pipelined"):
+            raise ValueError("backend must be 'local'|'pipelined', got "
+                             f"{self.backend!r}")
+        if self.plan_args is None and self.backend == "pipelined" \
+                and self.num_microbatches < self.n_stages:
+            raise ValueError(
+                f"pipelined backend needs num_microbatches >= n_stages "
+                f"(N_B >= N_S), got N_B={self.num_microbatches} < "
+                f"N_S={self.n_stages}")
+        if self.schedule not in ("circular", "round_flush"):
+            raise ValueError("schedule must be 'circular'|'round_flush', "
+                             f"got {self.schedule!r}")
+        if self.wire_dtype not in ("fp32", "int8"):
+            raise ValueError("wire_dtype must be 'fp32'|'int8', got "
+                             f"{self.wire_dtype!r} (top-k stays wire-byte "
+                             "accounting only)")
+        if self.backend != "pipelined" and (self.transport is not None or
+                                            self.schedule != "circular" or
+                                            self.wire_dtype != "fp32" or
+                                            self.mesh is not None):
+            raise ValueError(
+                "transport / schedule / wire_dtype / mesh require "
+                "backend='pipelined' — the local backend has no stage "
+                "boundaries for a link to cross")
+        if self.mesh is not None:
+            # stages on several devices raise NotImplementedError here
+            stage_devices(self.mesh, self.n_stages, self.mesh[0])
 
     @classmethod
     def plan(cls, *, n_stages: Optional[int] = None, stage_time: float,
@@ -115,32 +148,53 @@ class EngineConfig:
              seed: int = 0, prefill_chunk: int = 0,
              max_prefill_tokens_per_tick: int = 0,
              prefill_mode: str = "auto", offload_async: bool = True,
+             backend: str = "local", mesh=None,
              deployment: Optional[object] = None,
-             transport: Optional[object] = None) -> "EngineConfig":
+             transport: Optional[object] = None,
+             schedule: str = "circular",
+             wire_dtype: str = "fp32") -> "EngineConfig":
         """A config whose (N_B, per-microbatch batch, pool split) are
         derived by :func:`repro_torch.core.scheduler.plan_schedule` at
         build time (``OfflineEngine.from_plan``).  ``prefill_chunk=0``
         derives the chunk from the plan: about the per-microbatch decode
-        batch, so one chunk costs at most one decode tick of stage time.
-        ``bandwidth=0`` is the paper's PCIe rate.  A ``deployment`` (a
-        multi-region ring plan) and a ``transport`` come with the pipeline
-        slice and raise here."""
-        for name, value in (("deployment", deployment),
-                            ("transport", transport)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"EngineConfig.plan({name}=...) is not ported yet: it "
-                    "comes with the pipeline slice (inter-stage links)")
+        batch, so one chunk costs at most one decode tick of stage time,
+        shrunk further on a bandwidth-capped deployment so that one
+        chunk's wire time also fits a stage tick
+        (``serving.engine.prefill_chunk_cap``).  ``bandwidth=0`` is the
+        paper's PCIe rate.
+
+        ``deployment`` — a :class:`repro_torch.distributed.transport
+        .DeploymentPlan` (e.g. from ``framework.registry.match``):
+        supplies ``n_stages`` (its stage count), ``latency`` (its **max
+        ring-link latency** — the slowest link sets the §4.3 bubble
+        budget) plus the per-link ``link_latencies`` the planner consumes,
+        the worst ``LinkSpec`` that caps the prefill chunk, and, on the
+        pipelined backend, a per-link ``SimulatedLinkTransport`` unless an
+        explicit ``transport`` is given."""
+        link_latencies = worst_link = None
+        if deployment is not None:
+            if n_stages is None:
+                n_stages = deployment.n_stages
+            if latency is None:
+                latency = deployment.max_link_latency
+            if transport is None and backend == "pipelined":
+                transport = deployment.transport()
+            link_latencies = list(deployment.link_latencies)
+            worst_link = deployment.worst_link
         if n_stages is None or latency is None:
             raise ValueError("EngineConfig.plan needs n_stages= and "
-                             "latency=")
-        # n_stages is a planning input here: the backend stays local
-        return cls(seed=seed, prefill_chunk=prefill_chunk,
+                             "latency= (or a deployment= plan supplying "
+                             "both)")
+        return cls(backend=backend, n_stages=n_stages, mesh=mesh, seed=seed,
+                   prefill_chunk=prefill_chunk,
                    max_prefill_tokens_per_tick=max_prefill_tokens_per_tick,
                    prefill_mode=prefill_mode, offload_async=offload_async,
+                   transport=transport, schedule=schedule,
+                   wire_dtype=wire_dtype,
                    plan_args=dict(
                        n_stages=n_stages, stage_time=stage_time,
-                       latency=latency, m_kv_bytes=m_kv_bytes,
+                       latency=latency, link_latencies=link_latencies,
+                       worst_link=worst_link, m_kv_bytes=m_kv_bytes,
                        page_size=page_size,
                        max_pages_per_seq=max_pages_per_seq,
                        bandwidth=bandwidth, use_offload=use_offload,
@@ -155,8 +209,10 @@ class EngineConfig:
                 prefill_chunk=self.prefill_chunk,
                 max_prefill_tokens_per_tick=self.max_prefill_tokens_per_tick,
                 prefill_mode=self.prefill_mode,
-                offload_async=self.offload_async, device=device,
-                **self.plan_args)
+                offload_async=self.offload_async, backend=self.backend,
+                mesh=self.mesh, transport=self.transport,
+                schedule=self.schedule, wire_dtype=self.wire_dtype,
+                device=device, **self.plan_args)
         pool = self.pool or PoolConfig()
         offloader = None
         if self.offload and pool.n_global_pages:
@@ -165,10 +221,13 @@ class EngineConfig:
         return OfflineEngine(
             cfg, params, rt, mb_size=self.mb_size,
             num_microbatches=self.num_microbatches, pool=pool,
-            offloader=offloader, seed=self.seed,
+            offloader=offloader, seed=self.seed, backend=self.backend,
+            n_stages=self.n_stages, mesh=self.mesh,
             prefill_chunk=self.prefill_chunk,
             max_prefill_tokens_per_tick=self.max_prefill_tokens_per_tick,
-            prefill_mode=self.prefill_mode, device=device)
+            prefill_mode=self.prefill_mode, transport=self.transport,
+            schedule=self.schedule, wire_dtype=self.wire_dtype,
+            device=device)
 
 
 @dataclass

@@ -243,23 +243,44 @@ def test_sampled_stream_does_not_depend_on_batch_layout():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(backend="pipelined"), dict(prefix_cache=True), dict(strict=True),
-    dict(wire_dtype="int8"), dict(trace=True),
-    dict(fault_plan="drop@decode:1:0"),
+    dict(prefix_cache=True), dict(strict=True), dict(trace=True),
+    dict(fault_plan="drop@decode:1:0"), dict(slo=object()),
 ])
 def test_later_slice_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="slice"):
         llm.EngineConfig(**knob)
 
 
-@pytest.mark.parametrize("knob", [dict(deployment=object()),
-                                  dict(transport=object())])
-def test_later_slice_plan_knobs_raise(knob):
-    """A multi-region deployment plan or a transport needs the pipeline
-    slice's links: ``EngineConfig.plan`` refuses them by name."""
-    with pytest.raises(NotImplementedError, match="pipeline slice"):
-        llm.EngineConfig.plan(n_stages=2, stage_time=0.1, latency=0.02,
-                              m_kv_bytes=1e6, **knob)
+@pytest.mark.parametrize("knob", [dict(backend="pipelined"),
+                                  dict(backend="pipelined",
+                                       wire_dtype="int8")],
+                         ids=["backend", "wire_dtype"])
+def test_pipeline_slice_knobs_build(knob):
+    """The pipeline slice's knobs build a config (they raised until the
+    pipeline was ported)."""
+    conf = llm.EngineConfig(num_microbatches=2, **knob)
+    for name, value in knob.items():
+        assert getattr(conf, name) == value
+
+
+@pytest.mark.parametrize("plan_kw", ["deployment", "transport"])
+def test_pipeline_slice_plan_knobs_build(plan_kw):
+    """A multi-region deployment plan (or an explicit transport) yields a
+    pipelined config with the plan's stage count and per-link transport,
+    as ``repro.serving.llm.EngineConfig.plan`` does."""
+    from repro_torch.distributed.transport import (DeploymentPlan,
+                                                   SimulatedLinkTransport)
+    dep = DeploymentPlan.from_regions(["us-west", "us-east", "eu"])
+    kw = dict(deployment=dep) if plan_kw == "deployment" else dict(
+        transport=SimulatedLinkTransport(dep.link_specs).bind(3),
+        n_stages=3, latency=dep.max_link_latency)
+    conf = llm.EngineConfig.plan(stage_time=0.1, m_kv_bytes=1e6,
+                                 backend="pipelined", **kw)
+    assert conf.backend == "pipelined" and conf.n_stages == 3
+    assert conf.plan_args["n_stages"] == 3
+    assert conf.plan_args["latency"] == dep.max_link_latency
+    assert [l.latency_s for l in conf.transport.links] == \
+        dep.link_latencies
 
 
 def test_entry_points_never_fall_back_to_cpu():
