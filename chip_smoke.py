@@ -106,12 +106,40 @@ Phases, each of which raises on failure (the script then exits non-zero):
    stage; (3) 4 stages, int8 wire, 64 ms simulated links: every request
    at full length with finite log-probs, the transport's wire bytes equal
    to the packed payloads that crossed (``int8_wire_bytes``) plus the
-   return trips, the share of greedy tokens equal to run 1's; (4) the
+   return trips, the share of greedy tokens equal to run 1's, and the
+   admissions the straggler mitigation narrowed; (4) the
    latency curve at 64 ms with measured stage times: circular at the
    planner's N_B for run 1's stage time (at most 12) against round_flush
    at N_B = 2, N_B x 4 short greedy requests, each beside the simulator's
    round-time prediction; equal streams, and circular at least 3x
    round_flush's virtual decode tok/s (the JAX latency curve's floor).
+
+6c. resilience parity, float32: phase 6's yi-shaped 2-layer model through
+   a fault storm (2 stages, offloaded pools), a reshard 2 -> 1 mid-run and
+   a prefix-cached online run; greedy streams identical on the CPU and the
+   card, and each equal to its undisturbed run.
+
+11. the resilience and online phase on full-width, full-depth yi-9b (the
+   yi-9b phase's weights and 20 requests; reference: the local
+   no-offload engine of the offload phase): (1) a fault storm, 2 stages,
+   N_B = 4, mb_size 4, the offloaded pools: a fixed plan drops two
+   prefill ticks, a decode tick at stage 0 and at stage 1 and the final
+   drain, and delays stage 1 50 ms on 8 decode ticks; every stream equal,
+   3 decode ticks and 2 chunks lost, the plan spent, extra ticks and wall
+   against the pipeline phase's offloaded run; (2) a reshard 2 -> 4 -> 1
+   mid-run, offloaded: streams equal, no token generated twice, the
+   drain / export / rebuild / import seconds and GiB migrated; (3) a
+   detector drill at 4 stages: the delayed stage 1 flagged and the
+   prefill admission narrowed, device 3 silenced, a reshard to the
+   planner's 2 stages, streams equal; (4) OnlineLLM over the local
+   backend with a 512-token shared system prompt and the prefix cache,
+   Poisson arrivals at 0.5x and 1.5x the yi-9b phase's offline request
+   rate: streams equal an offline run without the cache, TTFT (from each
+   request's scheduled arrival) and ITL p50 / p99 / max, prefix hit rate,
+   prefill tokens skipped; (5) the same with
+   the threaded pump and SLO admission: the budget fraction's minimum,
+   close() in time.  Paged launches equal the stage runs x 48 / N_S at
+   the stage count in force, or decode ticks x 48 on the local backend.
 
 Each serve phase sets every kernel's launch count to 0 just before it
 drives its path and reads them just after; the kernels line reports those
@@ -119,7 +147,8 @@ counts by path.
 
 It prints an ``{"offload": ...}`` line (swap books, copy and wait times,
 the planner's inputs), a ``{"pipeline": ...}`` line (the pipeline phase's
-numbers and wall times), a ``{"kernels": [...]}`` line, the card's
+numbers and wall times), a ``{"resilience": ...}`` line (phase 11's), a
+``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  It exits non-zero without a
 result when no CUDA device is visible.
 """
@@ -217,6 +246,23 @@ PIPE_LINK = 0.064
 PIPE_PROFILE_TICKS, PIPE_PROFILE_CTX = 10, 700
 CURVE_MAX_NB, CURVE_PROMPTS, CURVE_NEW, CURVE_PAGES = 12, (16, 64), 64, 9
 CURVE_FLOOR = 3.0
+# phase 11 (resilience and online serving): the fault storm's pipe, its
+# delayed ticks and its drops, the reshard steps (2 -> 4, then -> 1), the
+# detector drill's silenced step and timeout (in steps), the online runs'
+# shared system prompt, pages a sequence and TTFT target.  The pipe's
+# schedule follows from the host bookkeeping alone (prompt lengths, slots,
+# pools, chunk budget; two stages never flag a straggler), so the drops
+# are fixed tick indices where the stage holds an entry: prefill ticks 3
+# and 5 and decode ticks 40 and 70 run both stages, and decode tick 294 is
+# the run's final drain, which only stage 1 holds.  The run fails unless
+# all five come back lost.
+RES_STAGES = 2
+RES_DELAY_S, RES_DELAY_FROM, RES_DELAY_TICKS = 0.050, 4, 8
+RES_DROPS = ("drop@prefill:3:0", "drop@prefill:5:1", "drop@decode:40:0",
+             "drop@decode:70:1", "drop@decode:294:1")
+RES_RESHARD_STEPS = (60, 150)
+RES_KILL_STEP, RES_TIMEOUT = 60, 3
+RES_SYSTEM, RES_ONLINE_MAX_PAGES, RES_SLO_TTFT = 512, 96, 2.0
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1002,7 +1048,7 @@ def phase_serve(torch, np, card: str, params):
         f"peak_mem_gib={peak:.2f}; engine steps {rep['steps']}, decode "
         f"ticks {ticks}, paged-kernel launches {launches} "
         f"(= {ticks} x {YI_LAYERS})")
-    return counts
+    return counts, wall
 
 
 def phase_serve_gemma(torch, np, card: str):
@@ -1507,6 +1553,7 @@ def _serve_yi(torch, np, llm, tag, card):
     wall = time.perf_counter() - t1
     counts = read_counts()
     rep = llm.stats()
+    rep["generate_wall_s"] = wall
     bad = [o.request_id for o in outs
            if not o.finished or len(o.token_ids) != SERVE_NEW
            or not all(math.isfinite(x) for x in o.logprobs)
@@ -1944,7 +1991,10 @@ def phase_pipeline(torch, np, card: str, params, local_run):
                              f"stage offloaders, {be.swap_count} swaps")
     info["run2"] = {"decode_tok_per_s": rep2["decode_tok_per_s"],
                     "prefill_tok_per_s": rep2["prefill_tok_per_s"],
-                    "tick_ms": info_tick(rep2), "stages": [
+                    "tick_ms": info_tick(rep2),
+                    "decode_ticks": rep2["decode_ticks"],
+                    "prefill_ticks": be.prefill_ticks,
+                    "wall_s": rep2["generate_wall_s"], "stages": [
                         _offload_line(f"pipe-offload stage {s}", off,
                                       rep2["decode_ticks"], card)
                         for s, off in enumerate(be.stage_offloaders)]}
@@ -1969,10 +2019,20 @@ def phase_pipeline(torch, np, card: str, params, local_run):
                      num_microbatches=PIPE_INT8_STAGES, wire_dtype="int8",
                      transport=SimulatedLinkTransport.uniform(
                          PIPE_INT8_STAGES, PIPE_LINK))
+        # each admission's width and the stages flagged then: the simulated
+        # links' stalls are part of each stage's observed seconds
+        eng, admissions = llm.engine, []
+
+        def rows(_orig=eng._tick_prefill_rows):
+            w = _orig()
+            admissions.append((w, tuple(eng.straggler.stragglers())))
+            return w
+        eng._tick_prefill_rows = rows
         outs3, rep3, counts["yi-9b pipelined int8"] = _serve_yi(
             torch, np, llm, "pipe-int8", card)
     finally:
         PL.int8_compress_rows = compress.__defaults__[0]
+    flagged = [(w, st) for w, st in admissions if st]
     check_launches("pipe-int8", llm, counts["yi-9b pipelined int8"])
     tr = rep3["transport"]
     returns = tr["link_sends"] - packed[1]
@@ -1990,12 +2050,19 @@ def phase_pipeline(torch, np, card: str, params, local_run):
         f"{packed[1]} packed crossings ({packed[0]} B) + {returns} returns; "
         f"{tr.get('compression_ratio', 0):.3f}x under the raw payload; "
         f"{share:.1%} of the greedy tokens equal run 1's (not gated); "
-        f"virtual decode tok/s {rep3['virtual_decode_tok_per_s']:.1f}")
+        f"virtual decode tok/s {rep3['virtual_decode_tok_per_s']:.1f}; "
+        f"{len(flagged)} of {len(admissions)} admissions with a stage "
+        f"flagged (stages {sorted({s for _, st in flagged for s in st})}, "
+        f"rows down to {min((w for w, _ in flagged), default=None)} of "
+        f"{eng.prefill_rows})")
     info["run3"] = {"decode_tok_per_s": rep3["decode_tok_per_s"],
                     "transport": tr, "greedy_share_equal": share,
+                    "admissions": len(admissions),
+                    "admissions_flagged": len(flagged),
+                    "decode_stage_runs": eng.backend.decode_stage_runs,
                     "virtual_decode_tok_per_s":
                         rep3["virtual_decode_tok_per_s"]}
-    del llm
+    del llm, eng
     walls["run3"] = time.perf_counter() - t0
 
     # -- run 4: the latency curve at 64 ms ------------------------------------
@@ -2077,6 +2144,519 @@ def phase_pipeline(torch, np, card: str, params, local_run):
     return counts, info
 
 
+# ---------------------------------------------------------------------------
+# phase 11: resilience and online serving
+# ---------------------------------------------------------------------------
+
+
+def _yi_requests(np, vocab: int, n: int, prompts_range, new: int,
+                 head=()):
+    """The yi-9b phase's requests (the same seed), each behind ``head``:
+    even ones greedy, odd ones sampled, with log-probs."""
+    from repro_torch.serving.request import SamplingParams
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(prompts_range[0], prompts_range[1] + 1, n)
+    prompts = [list(head) + [int(t) for t in rng.randint(1, vocab, k)]
+               for k in lens]
+    sps = [SamplingParams(temperature=0.0, max_new_tokens=new,
+                          logprobs=True) if i % 2 == 0 else
+           SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                          max_new_tokens=new, logprobs=True)
+           for i in range(n)]
+    return prompts, sps
+
+
+def _check_outs(tag, outs, new: int, vocab: int, ref=None):
+    """Every request at full length with finite log-probs; with ``ref``,
+    every stream equal to its token for token."""
+    bad = [o.request_id for o in outs
+           if not o.finished or len(o.token_ids) != new
+           or not all(math.isfinite(x) for x in o.logprobs)
+           or not all(0 <= t < vocab for t in o.token_ids)]
+    if bad:
+        raise AssertionError(f"{tag}: requests {bad} unfinished, short, or "
+                             "with non-finite log-probs")
+    if ref is not None:
+        diff = [o.request_id for o, r in zip(outs, ref)
+                if o.token_ids != r.token_ids]
+        if diff:
+            raise AssertionError(f"{tag}: streams of requests {diff} differ "
+                                 "from the reference's")
+
+
+class _StageRuns:
+    """Paged launches a pipelined run must make: each backend's decode
+    stage runs times its layers a stage, plus its drains times the
+    epilogue's layers, summed over the backends a reshard replaced."""
+
+    def __init__(self):
+        self.want = 0
+        self.parts = []
+
+    def add(self, be) -> None:
+        per = be.ranges[0][1] - be.ranges[0][0]
+        epi = be.ranges[-1][1] - be.ranges[-1][0]
+        self.want += be.decode_stage_runs * per + be.epilogue_runs * epi
+        self.parts.append(f"{be.decode_stage_runs} stage runs x {per}"
+                          + (f" + {be.epilogue_runs} x {epi}" if epi else ""))
+
+    def check(self, tag: str, launches: int) -> str:
+        if launches != self.want or self.want == 0:
+            raise AssertionError(f"{tag}: {launches} paged launches, want "
+                                 f"{' + '.join(self.parts)} = {self.want}")
+        return " + ".join(self.parts)
+
+
+def phase_parity_resilience(torch, np, devices=("cpu", "cuda")):
+    """Phase 6's yi-shaped 2-layer model, float32, on the CPU (plain path)
+    and on the card (kernels): a fault storm through the 2-stage pipe with
+    its offloaded pools, a reshard 2 -> 1 mid-run, and a prefix-cached
+    online run over the local backend; each run's greedy streams equal
+    across the two devices and equal the undisturbed run's."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.distributed.elastic import FaultPlan
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import Runtime
+    from repro_torch.serving.kv_cache import PoolConfig
+    from repro_torch.serving.llm import LLM, EngineConfig, RequestOutput
+    from repro_torch.serving.online import OnlineLLM
+    from repro_torch.serving.request import SamplingParams
+
+    rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
+    cfg = dataclasses.replace(get_arch("yi-9b"), name="yi-9b-2layer",
+                              num_layers=2, d_model=512, d_ff=1024,
+                              vocab_size=2048)
+    cpu_params = model_lib.init_params(cfg, SEED, rt, "cpu")
+    rng = np.random.RandomState(SEED + 1)
+    head = [int(t) for t in rng.randint(1, cfg.vocab_size, 64)]
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab_size, n)]
+               for n in rng.randint(20, 200, 10)]
+    sp = SamplingParams(temperature=0.0, max_new_tokens=16)
+    pipe = dict(backend="pipelined", n_stages=2, mb_size=4,
+                num_microbatches=4, pool=PoolConfig(
+                    page_size=16, n_local_pages=32, n_global_pages=64,
+                    max_pages_per_seq=16))
+    storm = ["drop@decode:10:0", "drop@decode:21:1", "drop@prefill:2:0",
+             "drop@prefill:5:1", "delay@decode:6:1:0.05"]
+    runs = {}
+    for dev in devices:
+        params = {"embed": {k: v.to(dev) for k, v in
+                            cpu_params["embed"].items()},
+                  "final_norm": cpu_params["final_norm"].to(dev),
+                  "layers": [{k: v.to(dev) for k, v in w.items()}
+                             for w in cpu_params["layers"]]}
+
+        def make(**kw):
+            conf = dict(pipe)
+            conf.update(kw)
+            return LLM(cfg, config=EngineConfig(**conf), params=params,
+                       rt=rt, device=dev)
+        out = {"plain": [o.token_ids for o in make().generate(prompts, sp)]}
+        plan = FaultPlan.parse(storm)
+        llm = make(fault_plan=plan)
+        out["storm"] = [o.token_ids for o in llm.generate(prompts, sp)]
+        out["lost"] = (llm.engine.stats.decode_ticks_lost,
+                       llm.engine.stats.prefill_chunks_lost, plan.pending())
+        llm = make()
+        seqs = llm.engine.submit(llm._make_requests(prompts, sp))
+        step = 0
+        while llm.engine.step():
+            step += 1
+            if step == 30:
+                llm.engine.reshard(n_stages=1)
+        out["reshard"] = [RequestOutput.from_seq(s).token_ids for s in seqs]
+        heads = [head + p for p in prompts]
+        llm = make(backend="local", n_stages=2, prefix_cache=True,
+                   pool=PoolConfig(page_size=16, n_local_pages=129,
+                                   max_pages_per_seq=24))
+        online = OnlineLLM(llm=llm)
+        streams = [online.submit(p, sp) for p in heads]
+        out["online"] = [s.result().token_ids for s in streams]
+        out["hits"] = llm.engine.stats.prefix_hits
+        out["online_plain"] = [o.token_ids for o in make(
+            backend="local", n_stages=2, pool=PoolConfig(
+                page_size=16, n_local_pages=129,
+                max_pages_per_seq=24)).generate(heads, sp)]
+        runs[len(runs)] = out
+        log(f"[parity] resilience on {dev}: fault storm lost "
+            f"{out['lost'][0]} decode ticks and {out['lost'][1]} prefill "
+            f"chunks ({out['lost'][2]} events pending); reshard 2 -> 1 at "
+            f"step 30; online with a 64-token shared head, {out['hits']} "
+            "prefix hits")
+    cpu, card = runs[0], runs[1]
+    for key in ("plain", "storm", "reshard", "online", "online_plain",
+                "lost", "hits"):
+        if cpu[key] != card[key]:
+            raise AssertionError(f"parity resilience: {key} differs CPU vs "
+                                 f"card")
+    for run in runs.values():
+        if run["storm"] != run["plain"] or run["reshard"] != run["plain"] \
+                or run["online"] != run["online_plain"]:
+            raise AssertionError("parity resilience: a disturbed run's "
+                                 "streams differ from the undisturbed run's")
+    if cpu["lost"] != (2, 2, 0) or cpu["hits"] == 0:
+        raise AssertionError(f"parity resilience: lost {cpu['lost']}, "
+                             f"{cpu['hits']} prefix hits")
+    log("[parity] resilience: greedy streams identical, plain path (CPU) vs "
+        "kernel path (card), each equal to its undisturbed run")
+
+
+def phase_resilience(torch, np, card: str, params, local_run, serve_wall,
+                     pipe_run2):
+    """Phase 11 at full width and depth on yi-9b (bf16, the serve phases'
+    weights and 20 requests; the reference streams are the local
+    no-offload engine's, ``local_run``):
+
+    1. fault storm: 2 stages, N_B 4, mb_size 4, the offloaded pools with
+       an offloader a stage; a fixed plan drops a decode tick at stage 0
+       and at stage 1, the final drain, and two prefill ticks, and delays
+       stage 1 on 8 consecutive decode ticks.  Streams equal the
+       reference, the lost counts equal the drops, the plan is spent;
+    2. reshard 2 -> 4 -> 1 mid-run, offloaded: streams equal, no token
+       generated twice;
+    3. detector drill: 4 stages, stage 1 delayed (the mitigator flags it
+       and the admission narrows), device 3 silenced, reshard to the
+       planner's target for 3 live devices;
+    4. online, local backend, a 512-token shared system prompt, Poisson
+       arrivals at 0.5x and 1.5x the yi-9b phase's offline request rate,
+       the prefix cache on: streams equal an offline run without it;
+    5. the threaded pump with SLO admission.
+
+    TTFT is taken from each request's scheduled Poisson arrival to its
+    first token's delivery, so a submission that waits for a running step
+    counts that wait."""
+    import gc
+
+    from repro_torch.config import get_arch
+    from repro_torch.distributed.elastic import FailureDetector, FaultPlan
+    from repro_torch.models.common import Runtime
+    from repro_torch.serving.engine import SLOConfig
+    from repro_torch.serving.kv_cache import PoolConfig
+    from repro_torch.serving.llm import LLM, EngineConfig, RequestOutput
+    from repro_torch.serving.online import OnlineLLM
+
+    cfg = get_arch("yi-9b")
+    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    vocab, n_req, new = cfg.vocab_size, SERVE_REQUESTS, SERVE_NEW
+    ref = local_run["outs"]
+    prompts, sps = _yi_requests(np, vocab, n_req, SERVE_PROMPTS, new)
+    info, counts = {}, {}
+
+    def engine(**kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = dict(mb_size=PIPE_MB, num_microbatches=PIPE_N_MB,
+                    pool=PoolConfig(page_size=SERVE_PAGE,
+                                    n_local_pages=OFF_LOCAL,
+                                    n_global_pages=OFF_GLOBAL,
+                                    max_pages_per_seq=SERVE_MAX_PAGES),
+                    seed=SEED, max_prefill_tokens_per_tick=256,
+                    backend="pipelined", n_stages=RES_STAGES)
+        base.update(kw)
+        return LLM(cfg, config=EngineConfig(**base), params=params, rt=rt,
+                   reduced=False, device="cuda")
+
+    def drive(llm, hook):
+        """Submit the requests, step until drained calling ``hook(step)``
+        after each step; the outputs and the generate wall seconds."""
+        eng = llm.engine
+        seqs = eng.submit(llm._make_requests(prompts, sps))
+        reset_counts()
+        t0 = time.perf_counter()
+        step = 0
+        while eng.step():
+            step += 1
+            hook(step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return [RequestOutput.from_seq(s) for s in seqs], wall
+
+    # -- run 1: the fault storm ---------------------------------------------
+    delays = [f"delay@decode:{t}:1:{RES_DELAY_S}"
+              for t in range(RES_DELAY_FROM,
+                             RES_DELAY_FROM + RES_DELAY_TICKS)]
+    plan = FaultPlan.parse(list(RES_DROPS) + delays)
+    llm = engine(fault_plan=plan)
+    eng = llm.engine
+    ratio = [0.0]
+
+    def storm_hook(step):
+        st = eng.straggler
+        if st.ewma[0] > 0:
+            ratio[0] = max(ratio[0], st.ewma[1] / st.ewma[0])
+    outs, wall = drive(llm, storm_hook)
+    c = counts["yi-9b fault storm"] = read_counts()
+    rep = llm.stats()
+    be = eng.backend
+    runs = _StageRuns()
+    runs.add(be)
+    split = runs.check("storm", c["paged_attention"])
+    _check_outs("storm", outs, new, vocab, ref)
+    lost = (rep["decode_ticks_lost"], rep["prefill_chunks_lost"])
+    if lost != (3, 2) or plan.pending():
+        raise AssertionError(f"storm: lost {lost}, want (3, 2); "
+                             f"{plan.pending()} events pending")
+    extra = (rep["decode_ticks"] - pipe_run2["decode_ticks"],
+             be.prefill_ticks - pipe_run2["prefill_ticks"])
+    stages = rep["stages"]
+    info["storm"] = dict(
+        decode_ticks_lost=lost[0], prefill_chunks_lost=lost[1],
+        drops=list(RES_DROPS), decode_ticks=rep["decode_ticks"],
+        prefill_ticks=be.prefill_ticks, extra_ticks=extra, wall_s=wall,
+        undisturbed_wall_s=pipe_run2["wall_s"],
+        ewma_ratio_max=ratio[0], stragglers=stages["stragglers"],
+        paged_launches=c["paged_attention"])
+    log(f"[res-storm] 2 stages, N_B {PIPE_N_MB} x {PIPE_MB}, offloaded "
+        f"pools: drops {', '.join(RES_DROPS)}; stage 1 delayed {RES_DELAY_S * 1e3:.0f} ms "
+        f"on decode ticks {RES_DELAY_FROM}-"
+        f"{RES_DELAY_FROM + RES_DELAY_TICKS - 1}; all {len(outs)} streams "
+        f"equal the local engine's; lost {lost[0]} decode ticks and "
+        f"{lost[1]} prefill chunks, plan spent")
+    log(f"[res-storm] on {card}: {rep['decode_ticks']} decode + "
+        f"{be.prefill_ticks} prefill ticks against the undisturbed "
+        f"pipeline run's {pipe_run2['decode_ticks']} + "
+        f"{pipe_run2['prefill_ticks']} ({extra[0]:+d} / {extra[1]:+d}); "
+        f"wall {wall:.3f} s against {pipe_run2['wall_s']:.3f} s; stage 1's "
+        f"EWMA peaked at {ratio[0]:.2f}x stage 0's (two stages: the upper "
+        f"median is the slower stage, so none is flagged: "
+        f"{stages['stragglers']}); paged launches {c['paged_attention']} "
+        f"= {split}")
+    del llm, eng, be
+
+    # -- run 2: reshard 2 -> 4 -> 1 -------------------------------------------
+    llm = engine()
+    eng = llm.engine
+    runs = _StageRuns()
+    resh = []
+
+    def reshard_hook(step):
+        if step not in RES_RESHARD_STEPS:
+            return
+        if eng.backend.swap_count == 0:
+            raise AssertionError("reshard: the offloaders never swapped")
+        old = eng.backend
+        kw = dict(n_stages=4) if step == RES_RESHARD_STEPS[0] \
+            else dict(live_devices=1)
+        r = eng.reshard(**kw)
+        runs.add(old)
+        resh.append(dict(step=step, stages=(old.n_stages,
+                                            eng.backend.n_stages),
+                         seconds=r["seconds"],
+                         gib=r["bytes_migrated"] / 2 ** 30))
+    outs, wall = drive(llm, reshard_hook)
+    c = counts["yi-9b reshard"] = read_counts()
+    runs.add(eng.backend)
+    split = runs.check("reshard", c["paged_attention"])
+    _check_outs("reshard", outs, new, vocab, ref)
+    rep = llm.stats()
+    want_tokens = sum(len(o.token_ids) for o in ref)
+    if rep["reshards"] != 2 or rep["decode_tokens"] != want_tokens:
+        raise AssertionError(f"reshard: {rep['reshards']} reshards, "
+                             f"{rep['decode_tokens']} tokens generated, "
+                             f"want 2 and {want_tokens}")
+    info["reshard"] = dict(reshards=resh, wall_s=wall,
+                           decode_tokens=rep["decode_tokens"],
+                           paged_launches=c["paged_attention"])
+    for r in resh:
+        s = r["seconds"]
+        log(f"[res-reshard] step {r['step']}: {r['stages'][0]} -> "
+            f"{r['stages'][1]} stages on {card}: drain "
+            f"{s['drain'] * 1e3:.1f} ms, export {s['export'] * 1e3:.1f} ms, "
+            f"rebuild {s['rebuild'] * 1e3:.1f} ms, import "
+            f"{s['import'] * 1e3:.1f} ms; {r['gib']:.3f} GiB of host "
+            "stores migrated")
+    log(f"[res-reshard] all {len(outs)} streams equal the local engine's; "
+        f"{rep['decode_tokens']} tokens generated (the reference's "
+        f"{want_tokens}: none twice); wall {wall:.3f} s; paged launches "
+        f"{c['paged_attention']} = {split}")
+    del llm, eng
+
+    # -- run 3: the detector drill, 4 stages ----------------------------------
+    plan = FaultPlan.parse(delays)
+    llm = engine(n_stages=4, fault_plan=plan)
+    eng = llm.engine
+    runs = _StageRuns()
+    fd = FailureDetector(timeout=RES_TIMEOUT)
+    for dev in range(4):
+        fd.beat(dev, 0.0)
+    widths, drill = [], {}
+    orig_rows = eng._tick_prefill_rows
+
+    def rows():
+        w = orig_rows()
+        if eng.straggler is not None and eng.backend.n_stages == 4:
+            widths.append((w, tuple(eng.straggler.stragglers())))
+        return w
+    eng._tick_prefill_rows = rows
+
+    def drill_hook(step):
+        for dev in range(4):
+            if dev != 3 or step <= RES_KILL_STEP:
+                fd.beat(dev, float(step))
+        if fd.dead(float(step)) and not drill:
+            old = eng.backend
+            r = eng.reshard(detector=fd, now=float(step))
+            runs.add(old)
+            drill.update(step=step, dead=fd.dead(float(step)),
+                         stages=(old.n_stages, eng.backend.n_stages),
+                         seconds=r["seconds"],
+                         gib=r["bytes_migrated"] / 2 ** 30)
+    outs, wall = drive(llm, drill_hook)
+    c = counts["yi-9b detector drill"] = read_counts()
+    runs.add(eng.backend)
+    split = runs.check("drill", c["paged_attention"])
+    _check_outs("drill", outs, new, vocab, ref)
+    flagged = [w for w, st in widths if 1 in st]
+    if drill.get("stages") != (4, 2) or not flagged or \
+            min(flagged) >= eng.prefill_rows:
+        raise AssertionError(f"drill: {drill}; widths while stage 1 was "
+                             f"flagged {flagged} of {eng.prefill_rows}")
+    info["drill"] = dict(drill, wall_s=wall, prefill_rows=eng.prefill_rows,
+                         min_rows_flagged=min(flagged),
+                         ticks_flagged=len(flagged),
+                         paged_launches=c["paged_attention"])
+    log(f"[res-drill] 4 stages, stage 1 delayed "
+        f"{RES_DELAY_S * 1e3:.0f} ms on {RES_DELAY_TICKS} decode ticks: "
+        f"flagged at {len(flagged)} admissions, prefill rows down to "
+        f"{min(flagged)} of {eng.prefill_rows}; device 3 silent after step "
+        f"{RES_KILL_STEP}, declared dead at step {drill['step']} (timeout "
+        f"{RES_TIMEOUT} steps), resharded {drill['stages'][0]} -> "
+        f"{drill['stages'][1]} in "
+        f"{sum(drill['seconds'].values()) * 1e3:.1f} ms; all streams equal "
+        f"the local engine's; paged launches {c['paged_attention']} = "
+        f"{split}")
+    del llm, eng
+
+    # -- runs 4 and 5: online, prefix cache, threaded pump + SLO ------------
+    rng = np.random.RandomState(SEED + 3)
+    system = [int(t) for t in rng.randint(1, vocab, RES_SYSTEM)]
+    oprompts, osps = _yi_requests(np, vocab, n_req, SERVE_PROMPTS, new,
+                                  head=system)
+
+    def online_llm(**kw):
+        return engine(backend="local", n_stages=2, mb_size=SERVE_MB,
+                      num_microbatches=1, pool=PoolConfig(
+                          page_size=SERVE_PAGE,
+                          n_local_pages=SERVE_MB * RES_ONLINE_MAX_PAGES + 1,
+                          max_pages_per_seq=RES_ONLINE_MAX_PAGES), **kw)
+    llm = online_llm()
+    reset_counts()
+    t0 = time.perf_counter()
+    oref = llm.generate(oprompts, osps)
+    torch.cuda.synchronize()
+    offline_wall = time.perf_counter() - t0
+    c = counts["yi-9b online offline"] = read_counts()
+    _check_outs("online offline", oref, new, vocab)
+    ticks = llm.stats()["decode_ticks"]
+    tick_s = llm.stats()["decode_time_s"] / ticks
+    if c["paged_attention"] != ticks * cfg.num_layers:
+        raise AssertionError(f"online offline: {c['paged_attention']} paged "
+                             f"launches for {ticks} ticks")
+    del llm
+    base_rate = n_req / serve_wall
+    online = {}
+    for label, mult, threaded in (("0.5x", 0.5, False),
+                                  ("1.5x", 1.5, False),
+                                  ("threaded slo", 1.5, True)):
+        kw = dict(prefix_cache=True)
+        if threaded:
+            kw["slo"] = SLOConfig(ttft_target_s=RES_SLO_TTFT,
+                                  itl_target_s=0.75 * tick_s)
+        llm = online_llm(**kw)
+        eng = llm.engine
+        fracs = []
+        if threaded:
+            orig_frac = eng.slo.budget_frac
+
+            def frac(wait, _orig=orig_frac):
+                f = _orig(wait)
+                fracs.append(f)
+                return f
+            eng.slo.budget_frac = frac
+        front = OnlineLLM(llm=llm)
+        arrivals = np.cumsum(np.random.RandomState(SEED + 4).exponential(
+            1.0 / (mult * base_rate), n_req))
+        reset_counts()
+        if threaded:
+            front.start()
+        streams, nxt = [], 0
+        t0 = time.perf_counter()
+        while True:
+            now = time.perf_counter() - t0
+            while nxt < n_req and arrivals[nxt] <= now:
+                streams.append(front.submit(oprompts[nxt], osps[nxt]))
+                nxt += 1
+            if threaded or not front.step():
+                if nxt >= n_req:
+                    break
+                time.sleep(min(0.005, max(0.0, arrivals[nxt] -
+                                          (time.perf_counter() - t0))))
+        outs = [s.result() for s in streams]
+        closed = front.close(timeout=30.0) if threaded else True
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts[f"yi-9b online {label}"] = read_counts()
+        rep = llm.stats()
+        _check_outs(f"online {label}", outs, new, vocab, oref)
+        if not closed or rep["prefix_hit_rate"] <= 0 or \
+                c["paged_attention"] != rep["decode_ticks"] * cfg.num_layers:
+            raise AssertionError(
+                f"online {label}: close() {'ended' if closed else 'hung'}, "
+                f"prefix hit rate {rep['prefix_hit_rate']}, "
+                f"{c['paged_attention']} paged launches for "
+                f"{rep['decode_ticks']} ticks")
+        # from the scheduled arrival, not the submission: a request that
+        # arrives during a step is submitted when the step returns
+        ttft = [s.first_token_time - (t0 + a)
+                for s, a in zip(streams, arrivals)]
+        lag = [s.submit_time - (t0 + a) for s, a in zip(streams, arrivals)]
+        itl = [x for s in streams for x in s.inter_token_s()]
+        q = {f"{name}_p{p}_s": float(np.percentile(v, p))
+             for name, v in (("ttft", ttft), ("itl", itl)) for p in (50, 99)}
+        q.update(ttft_max_s=max(ttft), itl_max_s=max(itl),
+                 submit_lag_max_s=max(lag))
+        online[label] = dict(
+            rate_req_s=mult * base_rate, wall_s=wall, **q,
+            prefix_hit_rate=rep["prefix_hit_rate"],
+            prefix_hits=rep["prefix_hits"],
+            prefill_tokens_skipped=rep["prefix_hit_tokens"],
+            prefill_tokens=rep["prefill_tokens"],
+            evictions=eng.prefix_cache.evictions,
+            decode_ticks=rep["decode_ticks"],
+            paged_launches=c["paged_attention"])
+        line = (f"[res-online] {label}: {n_req} requests, "
+                f"{RES_SYSTEM}-token shared system prompt, Poisson "
+                f"{mult * base_rate:.3f} req/s ({mult}x the yi-9b phase's "
+                f"offline {base_rate:.3f}) on {card}: TTFT p50 "
+                f"{q['ttft_p50_s']:.3f} s p99 {q['ttft_p99_s']:.3f} s max "
+                f"{q['ttft_max_s']:.3f} s (from the scheduled arrival; "
+                f"submissions up to {q['submit_lag_max_s'] * 1e3:.1f} ms "
+                "late), ITL "
+                f"p50 {q['itl_p50_s'] * 1e3:.1f} ms p99 "
+                f"{q['itl_p99_s'] * 1e3:.1f} ms; prefix hit rate "
+                f"{rep['prefix_hit_rate']:.3f}, {rep['prefix_hit_tokens']} "
+                f"prefill tokens skipped ({rep['prefill_tokens']} computed), "
+                f"{eng.prefix_cache.evictions} evictions; streams equal the "
+                f"offline run's without the cache")
+        if threaded:
+            online[label].update(slo_itl_target_s=0.75 * tick_s,
+                                 slo_ttft_target_s=RES_SLO_TTFT,
+                                 budget_frac_min=min(fracs),
+                                 budget_frac_calls=len(fracs),
+                                 closed=closed)
+            line += (f"; threaded pump, SLO itl {0.75 * tick_s * 1e3:.1f} "
+                     f"ms / ttft {RES_SLO_TTFT:.1f} s: budget fraction min "
+                     f"{min(fracs):.3f} over {len(fracs)} admissions, "
+                     "close() returned in time")
+        log(line)
+        del llm, eng, front
+    info["online"] = dict(online, offline_wall_s=offline_wall,
+                          base_rate_req_s=base_rate)
+    return counts, info
+
+
 def yi_params(torch):
     """Full-width, full-depth yi-9b weights in bf16 from the seed, shared by
     the yi-9b serve phases."""
@@ -2112,9 +2692,11 @@ def main() -> int:
     scan = phase_kernel_scan(torch, np)
     group_sizes = phase_group_sizes(torch, np)
     phase_parity(torch, np)
+    phase_parity_resilience(torch, np)
     swap_order = phase_swap_order(torch, np, smi_line)
     params = yi_params(torch)
-    paths = {"yi-9b": phase_serve(torch, np, smi_line, params)}
+    paths = {}
+    paths["yi-9b"], serve_wall = phase_serve(torch, np, smi_line, params)
     off_counts, offload, local_run = phase_serve_offload(torch, np,
                                                          smi_line, params)
     paths.update({f"yi-9b {tag}": c for tag, c in off_counts.items()})
@@ -2122,6 +2704,10 @@ def main() -> int:
     pipe_counts, pipeline = phase_pipeline(torch, np, smi_line, params,
                                            local_run)
     paths.update(pipe_counts)
+    res_counts, resilience = phase_resilience(
+        torch, np, smi_line, params, local_run, serve_wall,
+        pipeline["run2"])
+    paths.update(res_counts)
     del params
     paths["gemma3-12b"] = phase_serve_gemma(torch, np, smi_line)
     paths["recurrentgemma-9b"] = phase_serve_recurrentgemma(torch, np,
@@ -2154,6 +2740,7 @@ def main() -> int:
     print(json.dumps({"offload": {"swap_order": swap_order,
                                   "serve": offload, "plan": plan}}))
     print(json.dumps({"pipeline": pipeline}))
+    print(json.dumps({"resilience": resilience}))
     print(json.dumps({"kernels": entries}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

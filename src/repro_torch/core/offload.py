@@ -19,7 +19,7 @@ from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -171,11 +171,43 @@ class DoubleBufferOffloader:
                                    "a D2H copy into pageable memory would "
                                    "be synchronous")
             self._buffers[mb] = buf
+        return self._cut(buf, slices)
+
+    @staticmethod
+    def _cut(buf: torch.Tensor, like: List[torch.Tensor]
+             ) -> List[torch.Tensor]:
+        """``buf`` (flat) cut into one view per tensor of ``like``, in
+        order, each of that tensor's shape."""
         views, at = [], 0
-        for s in slices:
+        for s in like:
             views.append(buf[at:at + s.numel()].view(s.shape))
             at += s.numel()
         return views
+
+    def export_stores(self, caches: dict,
+                      dst_of: Callable[[int], torch.Tensor]) -> None:
+        """Copy every microbatch this offloader holds into ``dst_of(mb)``, a
+        flat host tensor laid out as its own buffer: a resident one from
+        the pools (device to host, on the current stream), a swapped-out
+        one from its host store.  Call after :meth:`settle`."""
+        for parity, mb in self.resident.items():
+            if mb is None:
+                continue
+            slices = self._slices(caches, global_slice(self.pool, parity))
+            for dst, src in zip(self._cut(dst_of(mb), slices), slices):
+                dst.copy_(src, non_blocking=True)
+        for mb, store in self._host.items():
+            for dst, src in zip(self._cut(dst_of(mb), store), store):
+                dst.copy_(src)
+
+    def import_store(self, caches: dict, mb: int, buf: torch.Tensor) -> None:
+        """Take ``buf`` (flat, laid out as this offloader's buffer over
+        ``caches``' paged layers, pinned on the card) as ``mb``'s host
+        buffer and swapped-out store, without a copy: its next
+        ``ensure_resident`` swaps it in, and later swap-outs reuse it."""
+        slices = self._slices(caches, global_slice(self.pool, 0))
+        self._buffers[mb] = buf
+        self._host[mb] = self._cut(buf, slices)
 
     def ensure_resident(self, caches: dict, mb: int) -> dict:
         parity = mb % 2

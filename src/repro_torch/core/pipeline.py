@@ -29,8 +29,9 @@ device's current stream, with the pools and states written in place:
 
 The host decides which stages are occupied (``mb_assign`` / ``occupied``,
 host integers), so a tick needs no device-to-host transfer of its own.
-The fault seam of the JAX ticks (``drop_stage``) comes with the resilience
-slice of the port.  The fixed-batch passes (``pipeline_decode_step``,
+The JAX ticks' fault seam (``drop_stage``, which masks a dropped stage's
+writes) has no counterpart: the backend drops a stage by emptying its
+entry, and a bubble writes nothing.  The fixed-batch passes (``pipeline_decode_step``,
 ``pipeline_prefill``, ``pipeline_decode_rounds``, used only by the dry run)
 are not ported.
 """

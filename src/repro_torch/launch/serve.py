@@ -1,7 +1,6 @@
-"""Offline serving entry point of the PyTorch port: the ``LLM`` front end over
-the local or the pipelined backend (counterpart of ``repro.launch.serve``;
-its fault, reshard, online, tracing and audit options come with later
-slices).
+"""Serving entry point of the PyTorch port: the ``LLM`` front end over the
+local or the pipelined backend (counterpart of ``repro.launch.serve``; its
+tracing and audit options come with later slices).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \\
       --requests 16 --max-new 24 [--mixed] [--full] [--device cpu|cuda] \\
@@ -44,6 +43,32 @@ ends with the §3 break-even lines of the cost model.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --plan \
       --latency 0.064 --stages 2 --kv-budget-mb 4
+
+Resilience drills (pipelined backend): ``--inject-fault
+kind@plane:tick:stage[:delay_s]`` (repeatable) drops or delays a stage
+tick; the engine injects the lost work again and the streams do not
+change.  ``--reshard-at STEP:STAGES`` rebuilds the pipe with STAGES stages
+after engine step STEP, carrying every request's progress.
+``--detect-failures TIMEOUT`` drives ``OfflineEngine.reshard`` from a
+:class:`~repro_torch.distributed.elastic.FailureDetector` instead: one
+heartbeat a stage a step, ``--kill-device STEP:DEVICE`` silences a device,
+and the loop reshards when the detector declares it dead
+(``--heartbeat-clock steps`` counts TIMEOUT in steps, the default in
+wall seconds).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --backend pipelined --inject-fault drop@decode:5:1 --reshard-at 20:1
+
+Online serving: ``--online`` submits seeded Poisson arrivals
+(``--arrival-rate`` requests a second) into the running engine through
+:class:`~repro_torch.serving.online.OnlineLLM` and reports the p50 / p99
+time to first token and inter-token latency; ``--prefix-cache`` shares
+prompt blocks between requests (``--system-prompt N`` gives every request
+the same N-token head); ``--slo-ttft`` / ``--slo-itl`` turn on the SLO
+admission policy.  The streams are the offline path's in every mode.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --online --prefix-cache --system-prompt 32
 """
 
 from __future__ import annotations
@@ -158,6 +183,50 @@ def main(argv=None) -> None:
                          "boundary (wire_dtype='int8'; the books equal "
                          "the packed payload); topk: wire-byte accounting "
                          "only (simulated links)")
+    ap.add_argument("--inject-fault", action="append", default=[],
+                    metavar="kind@plane:tick:stage[:delay_s]",
+                    help="drop/delay a pipeline stage tick (repeatable; "
+                         "pipelined backend), e.g. drop@decode:12:1 or "
+                         "delay@prefill:3:0:0.25 — lost work is "
+                         "injected again, the streams do not change")
+    ap.add_argument("--reshard-at", default="", metavar="STEP:STAGES",
+                    help="rebuild the pipelined backend with STAGES stages "
+                         "after engine step STEP (no token recomputed)")
+    ap.add_argument("--detect-failures", type=float, default=0.0,
+                    metavar="TIMEOUT",
+                    help="drive OfflineEngine.reshard from a "
+                         "FailureDetector: one heartbeat a stage a step, "
+                         "reshard when a device misses TIMEOUT (pipelined "
+                         "backend)")
+    ap.add_argument("--kill-device", action="append", default=[],
+                    metavar="STEP:DEVICE",
+                    help="stop heartbeating DEVICE after engine step STEP "
+                         "(repeatable; the --detect-failures signal)")
+    ap.add_argument("--heartbeat-clock", default="monotonic",
+                    choices=["monotonic", "steps"],
+                    help="clock of the --detect-failures heartbeats: wall "
+                         "seconds (TIMEOUT in seconds) or the engine step "
+                         "index (TIMEOUT in steps; deterministic drills)")
+    ap.add_argument("--online", action="store_true",
+                    help="Poisson arrivals submitted into the live engine "
+                         "(OnlineLLM), tokens streamed per tick; reports "
+                         "p50/p99 TTFT and inter-token latency")
+    ap.add_argument("--arrival-rate", type=float, default=8.0,
+                    help="mean Poisson arrival rate for --online, requests "
+                         "a second (seeded)")
+    ap.add_argument("--system-prompt", type=int, default=0,
+                    metavar="TOKENS",
+                    help="prepend a shared TOKENS-long system prompt to "
+                         "every request (the prefix-cache workload)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share fully prefilled prompt blocks between "
+                         "requests (refcounted pages; chunked prefill)")
+    ap.add_argument("--slo-ttft", type=float, default=0.0,
+                    help="TTFT target (s) of the SLO admission policy "
+                         "(0 = off)")
+    ap.add_argument("--slo-itl", type=float, default=0.0,
+                    help="inter-token (per-tick) target (s) of the SLO "
+                         "admission policy (0 = off)")
     args = ap.parse_args(argv)
 
     deployment = None
@@ -178,6 +247,46 @@ def main(argv=None) -> None:
         raise SystemExit("--transport-compress topk is accounting only — "
                          "it needs a simulated link (--link-latency or "
                          "--deployment) to account on")
+    detect = args.detect_failures > 0
+    if detect and args.backend != "pipelined":
+        raise SystemExit("--detect-failures requires --backend pipelined")
+    kills = {}
+    for spec in args.kill_device:
+        try:
+            step_s, dev_s = spec.split(":")
+            kills[int(dev_s)] = int(step_s)
+        except ValueError:
+            raise SystemExit(f"--kill-device wants STEP:DEVICE, got {spec!r}")
+    if kills and not detect:
+        raise SystemExit("--kill-device only matters under "
+                         "--detect-failures (nobody is listening for "
+                         "missed heartbeats)")
+    reshard_at, reshard_stages = 0, 0
+    if args.reshard_at:
+        try:
+            step_s, stages_s = args.reshard_at.split(":")
+            reshard_at, reshard_stages = int(step_s), int(stages_s)
+        except ValueError:
+            raise SystemExit(f"--reshard-at wants STEP:STAGES, "
+                             f"got {args.reshard_at!r}")
+        if reshard_at < 1 or reshard_stages < 1:
+            raise SystemExit("--reshard-at wants STEP >= 1 and "
+                             f"STAGES >= 1, got {args.reshard_at!r}")
+        if args.backend != "pipelined":
+            raise SystemExit("--reshard-at requires --backend pipelined")
+    if args.inject_fault and args.backend != "pipelined":
+        raise SystemExit("--inject-fault requires --backend pipelined")
+    if args.online and (reshard_at or detect):
+        raise SystemExit("--online runs its own live loop — it composes "
+                         "with faults, SLO and prefix caching but not with "
+                         "the --reshard-at / --detect-failures drill loops")
+    if args.arrival_rate <= 0:
+        raise SystemExit(f"--arrival-rate must be > 0, "
+                         f"got {args.arrival_rate}")
+    if args.prefix_cache and args.prefill_mode == "exact":
+        raise SystemExit("--prefix-cache needs chunked prefill (prefix "
+                         "hits resume mid-prompt); drop "
+                         "--prefill-mode exact")
 
     import dataclasses
 
@@ -188,10 +297,13 @@ def main(argv=None) -> None:
     from repro_torch.core.cost_model import (PLATFORMS, min_throughput,
                                              profit_per_hour)
     from repro_torch.core.scheduler import optimal_microbatches
+    from repro_torch.distributed.elastic import FailureDetector, FaultPlan
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import Runtime, resolve_device
+    from repro_torch.serving.engine import SLOConfig
     from repro_torch.serving.kv_cache import PoolConfig
-    from repro_torch.serving.llm import LLM, EngineConfig
+    from repro_torch.serving.llm import LLM, EngineConfig, RequestOutput
+    from repro_torch.serving.online import OnlineLLM
     from repro_torch.serving.request import SamplingParams
 
     cfg = get_arch(args.arch)
@@ -226,8 +338,18 @@ def main(argv=None) -> None:
     if wire_dtype == "int8":
         print("wire codec: int8 per row on every stage boundary (one "
               "float32 scale a row)")
+    fault_plan = FaultPlan.parse(args.inject_fault) if args.inject_fault \
+        else None
+    slo = None
+    if args.slo_ttft > 0 or args.slo_itl > 0:
+        slo = SLOConfig(ttft_target_s=args.slo_ttft,
+                        itl_target_s=args.slo_itl)
+        print(f"SLO admission: ttft_target={args.slo_ttft:.3f}s "
+              f"itl_target={args.slo_itl:.3f}s")
     pipe = dict(backend=args.backend, transport=transport,
-                schedule=args.schedule, wire_dtype=wire_dtype)
+                schedule=args.schedule, wire_dtype=wire_dtype,
+                fault_plan=fault_plan, prefix_cache=args.prefix_cache,
+                slo=slo)
     if args.plan:
         t_s = measure_stage_time(cfg, params, rt, args.stages, device)
         if device.type == "cuda":
@@ -263,9 +385,10 @@ def main(argv=None) -> None:
             prefill_mode=args.prefill_mode)
     else:
         batch = args.mb_size * args.microbatches
+        max_pages = args.max_pages + -(-args.system_prompt // args.page_size)
         pool = PoolConfig(page_size=args.page_size,
-                          n_local_pages=batch * args.max_pages + 1,
-                          max_pages_per_seq=args.max_pages)
+                          n_local_pages=batch * max_pages + 1,
+                          max_pages_per_seq=max_pages)
         econfig = EngineConfig(
             mb_size=args.mb_size, num_microbatches=args.microbatches,
             pool=pool, seed=args.seed, prefill_chunk=args.prefill_chunk,
@@ -304,6 +427,11 @@ def main(argv=None) -> None:
     rng = np.random.RandomState(args.seed)
     prompts = [list(rng.randint(1, cfg.vocab_size, rng.randint(4, 24)))
                for _ in range(args.requests)]
+    if args.system_prompt:
+        system = list(rng.randint(1, cfg.vocab_size, args.system_prompt))
+        prompts = [system + p for p in prompts]
+        print(f"system prompt: {args.system_prompt} tokens shared by every "
+              "request")
     if args.mixed:
         policies = [SamplingParams(temperature=0.0),
                     SamplingParams(temperature=0.8),
@@ -315,8 +443,25 @@ def main(argv=None) -> None:
     else:
         sps = SamplingParams(temperature=args.temperature,
                              max_new_tokens=args.max_new)
-    outs = llm.generate(prompts, sps)
+    if args.online:
+        outs = _serve_online(llm, OnlineLLM, prompts, sps, args, rng)
+    elif reshard_at or detect:
+        outs = _serve_drill(engine, llm, RequestOutput, FailureDetector,
+                            prompts, sps, args, reshard_at, reshard_stages,
+                            detect, kills)
+    else:
+        outs = llm.generate(prompts, sps)
     rep = llm.stats()
+    if fault_plan is not None:
+        print(f"faults: {len(fault_plan.triggered)} triggered, "
+              f"{fault_plan.pending()} never reached (decode ticks lost "
+              f"{rep['decode_ticks_lost']}, prefill chunks lost "
+              f"{rep['prefill_chunks_lost']}, all injected again)")
+    if "prefix_hits" in rep:
+        print(f"prefix cache: {rep['prefix_hits']} hits, "
+              f"{rep['prefix_hit_tokens']} prompt tokens not prefilled, "
+              f"hit rate {rep['prefix_hit_rate']:.2f}, "
+              f"{rep['prefix_cache_pages']} pages cached")
     done = [o for o in outs if o.finished]
     print(f"finished {len(done)}/{args.requests} requests in "
           f"{rep['wall_time_s']:.2f}s ({rep['decode_tok_per_s']:.1f} decode "
@@ -349,6 +494,91 @@ def main(argv=None) -> None:
         print(f"  {name:8s} break-even {min_throughput(p.cost_per_hour):8.1f}"
               f" tok/s; at 450 tok/s profit/h = "
               f"${profit_per_hour(450, p.cost_per_hour):+.2f}")
+
+
+def _serve_online(llm, online_cls, prompts, sps, args, rng):
+    """Submit the requests into the live engine at seeded Poisson arrival
+    times (cooperative pump); print TTFT and ITL percentiles."""
+    import numpy as np
+
+    online = online_cls(llm=llm)
+    arrivals = np.cumsum(rng.exponential(1.0 / args.arrival_rate,
+                                         size=args.requests))
+    sps_list = sps if isinstance(sps, list) else [sps] * args.requests
+    streams, nxt = [], 0
+    t0 = time.perf_counter()
+    while True:
+        now = time.perf_counter() - t0
+        while nxt < args.requests and arrivals[nxt] <= now:
+            streams.append(online.submit(prompts[nxt], sps_list[nxt]))
+            nxt += 1
+        if not online.step():
+            if nxt >= args.requests:
+                break
+            # idle before the next arrival: sleep up to it
+            time.sleep(min(0.005, max(
+                0.0, arrivals[nxt] - (time.perf_counter() - t0))))
+    outs = [s.result() for s in streams]
+
+    def pct(vals, q):
+        return float(np.percentile(vals, q)) if vals else 0.0
+    ttfts = [s.ttft_s for s in streams if s.ttft_s is not None]
+    itls = [d for s in streams for d in s.inter_token_s()]
+    print(f"online: {args.requests} requests over "
+          f"{time.perf_counter() - t0:.2f}s (Poisson {args.arrival_rate:.1f} "
+          f"req/s); TTFT p50={pct(ttfts, 50) * 1e3:.1f}ms "
+          f"p99={pct(ttfts, 99) * 1e3:.1f}ms; ITL "
+          f"p50={pct(itls, 50) * 1e3:.1f}ms p99={pct(itls, 99) * 1e3:.1f}ms")
+    return outs
+
+
+def _serve_drill(engine, llm, output_cls, detector_cls, prompts, sps, args,
+                 reshard_at, reshard_stages, detect, kills):
+    """Step the engine by hand: reshard at ``reshard_at``, or when the
+    failure detector declares a silenced device dead."""
+    seqs = engine.submit(llm._make_requests(prompts, sps))
+    step, resharded = 0, False
+    detector = None
+    hb_t0 = time.monotonic()
+    if detect:
+        detector = detector_cls(timeout=args.detect_failures)
+        for d in range(args.stages):            # one device a stage
+            detector.beat(d, 0.0)
+    while engine.step():
+        step += 1
+        if reshard_at and step == reshard_at:
+            old = engine.n_stages
+            rplan = engine.reshard(n_stages=reshard_stages)
+            resharded = True
+            print(f"resharded at step {step}: {old} -> {reshard_stages} "
+                  f"stages (batch_reshard={rplan['batch_reshard']}; "
+                  + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                              for k, v in rplan["seconds"].items()) + ")")
+        if detect:
+            now = (float(step) if args.heartbeat_clock == "steps"
+                   else time.monotonic() - hb_t0)
+            for d in range(args.stages):
+                if d not in kills or step <= kills[d]:
+                    detector.beat(d, now)
+            dead = detector.dead(now)
+            if dead and not resharded:
+                old = engine.n_stages
+                engine.reshard(detector=detector, now=now)
+                resharded = True
+                print(f"failure detected at step {step} (dead devices "
+                      f"{dead}): resharded {old} -> {engine.n_stages} "
+                      "stage(s)")
+    if reshard_at and not resharded:
+        raise SystemExit(
+            f"--reshard-at {args.reshard_at}: the workload finished after "
+            f"{step} step(s), before step {reshard_at} — the drill never "
+            "resharded; lower STEP or grow the workload")
+    if detect and kills and not resharded:
+        raise SystemExit(
+            f"--detect-failures: the workload finished after {step} step(s) "
+            "before any killed device missed its timeout — kill earlier, "
+            "shorten the timeout, or grow the workload")
+    return [output_cls.from_seq(s) for s in seqs]
 
 
 if __name__ == "__main__":

@@ -23,6 +23,9 @@ table, positions); a backend owns the device caches and the compute:
         ``busy_microbatches`` / ``pending`` say which are in flight;
   ``set_page_table`` — push the engine's host table to the device.
 
+A result whose work a stage fault dropped comes back with ``lost=True``:
+nothing of it may be booked, and the engine injects the same work again.
+
 Two implementations:
 
 ``LocalBackend``
@@ -40,6 +43,17 @@ Two implementations:
     simulated link on a virtual clock.  The stages run in turn, in one
     process, on the device's current stream.
 
+The pipelined backend also takes a
+:class:`repro_torch.distributed.elastic.FaultPlan`: a ``drop`` at stage
+``s`` empties the stage's shift-register entry before the tick, so the
+stage is a bubble (it computes nothing and writes nothing) and the payload
+comes back lost; a ``delay`` inflates the stage's observed seconds.  Each
+tick's stage times (the tick's seconds over ``N_S``, plus the stage's
+injected delay and link stall, for each stage that ran or was delayed)
+wait in ``drain_stage_times`` for the engine's straggler mitigation, and
+``export_offload_state`` / ``import_offload_state`` carry the offloaders'
+host stores across a reshard to another stage count.
+
 With offload (DeServe §4.2) a backend makes a microbatch's global pool
 resident before every model call that may touch it: each residency
 microbatch of a prefill chunk, an exact prefill into a slot that holds
@@ -53,9 +67,7 @@ PyTorch runs eagerly, so ``_chunk_fn`` / ``_prefill_fn`` / ``_decode_fn``
 are plain methods where the JAX package jits, and the JAX pipelined
 backend's sharding-layout machinery (``_commit``, ``_probe_layout``,
 ``_cache_shardings``), which keeps its jit caches steady, has nothing to
-do here.  Fault plans, the offload-state export for reshard, the stage
-times for straggler mitigation and the flight recorder come with the
-resilience and tracing slices.
+do here.  The flight recorder comes with the tracing slice.
 """
 
 from __future__ import annotations
@@ -87,6 +99,8 @@ class DecodeResult:
     mb: int
     tokens: np.ndarray                  # (mb_size,) int32
     logprobs: np.ndarray                # (mb_size,) f32, raw-logits logprob
+    lost: bool = False                  # a stage fault dropped the tick:
+                                        # book nothing, inject it again
 
 
 @dataclass
@@ -110,9 +124,11 @@ class PrefillChunk:
 class PrefillResult:
     """A finished prefill chunk: ``logits[i]`` are row ``i``'s
     last-position logits, meaningful only where ``chunk.lasts[i] >= 0``.
-    They stay on the device (the engine samples first tokens there)."""
+    They stay on the device (the engine samples first tokens there).  A
+    lost chunk (a stage fault dropped it) has no logits."""
     chunk: PrefillChunk
-    logits: torch.Tensor                # (R, V) float32, on the device
+    logits: Optional[torch.Tensor]      # (R, V) float32, on the device
+    lost: bool = False
 
 
 def stage_devices(mesh, n_stages: int, device) -> List[torch.device]:
@@ -151,7 +167,7 @@ class _SlotCacheBackend:
 
     def __init__(self, cfg: ModelConfig, params: dict, rt: Runtime, *,
                  mb_size: int, num_microbatches: int, pool: kvc.PoolConfig,
-                 device: torch.device):
+                 device: torch.device, caches: Optional[dict] = None):
         self.cfg = cfg
         self.params = params
         self.rt = rt
@@ -160,9 +176,11 @@ class _SlotCacheBackend:
         self.batch = mb_size * num_microbatches
         self.pool = pool
         self.device = device
-        self.caches = kvc.build_paged_caches(cfg, self.batch, pool, rt, device)
+        # a reshard hands the old backend's caches over as they are
+        self.caches = caches if caches is not None else \
+            kvc.build_paged_caches(cfg, self.batch, pool, rt, device)
         self.noise_gen = torch.Generator(device=device)
-        self.decode_ticks = 0           # decode-plane ticks that ran
+        self.decode_ticks = 0           # decode-plane ticks
 
     def set_page_table(self, table: np.ndarray) -> None:
         self.caches = kvc.set_page_table(self.caches, table)
@@ -250,10 +268,11 @@ class LocalBackend(_SlotCacheBackend):
 
     def __init__(self, cfg: ModelConfig, params: dict, rt: Runtime, *,
                  mb_size: int, num_microbatches: int, pool: kvc.PoolConfig,
-                 device: torch.device, offloader=None):
+                 device: torch.device, offloader=None,
+                 caches: Optional[dict] = None):
         super().__init__(cfg, params, rt, mb_size=mb_size,
                          num_microbatches=num_microbatches, pool=pool,
-                         device=device)
+                         device=device, caches=caches)
         self.offloader = offloader
 
     def _residency(self, mb: int) -> None:
@@ -367,7 +386,8 @@ class PipelinedBackend(_SlotCacheBackend):
                  device: torch.device, n_stages: int = 2,
                  offload: bool = False, offload_async: bool = True,
                  mesh=None, transport=None, schedule: str = "circular",
-                 wire_dtype: str = "fp32"):
+                 wire_dtype: str = "fp32", fault_plan=None,
+                 caches: Optional[dict] = None):
         if wire_dtype not in PL.WIRE_DTYPES:
             raise ValueError(f"wire_dtype must be 'fp32'|'int8', got "
                              f"{wire_dtype!r} (top-k has no codec in the "
@@ -380,10 +400,25 @@ class PipelinedBackend(_SlotCacheBackend):
         if schedule not in ("circular", "round_flush"):
             raise ValueError(f"schedule must be 'circular'|'round_flush', "
                              f"got {schedule!r}")
+        if fault_plan is not None:
+            bad = sorted({e.stage for e in fault_plan.events
+                          if e.stage >= n_stages})
+            if bad:
+                raise ValueError(
+                    f"fault plan targets stage(s) {bad} but the pipe has "
+                    f"only {n_stages} stage(s) — fix the "
+                    "kind@plane:tick:stage spec")
         self.stage_devices = stage_devices(mesh, n_stages, device)
         super().__init__(cfg, params, rt, mb_size=mb_size,
                          num_microbatches=num_microbatches, pool=pool,
-                         device=device)
+                         device=device, caches=caches)
+        self.fault_plan = fault_plan
+        # plane ticks in which something was in flight, a tick whose only
+        # entry a fault dropped included: the FaultPlan's tick indices
+        # (decode_ticks counts the decode plane's)
+        self.prefill_ticks = 0
+        self._stage_times: List[tuple] = []     # (stage, seconds) since the
+                                                # last drain_stage_times()
         self.n_stages = n_stages
         self.wire_dtype = wire_dtype
         self.schedule = schedule
@@ -487,6 +522,14 @@ class PipelinedBackend(_SlotCacheBackend):
             entries[0] = chunk
         if not any(e is not None for e in entries):
             return []
+        tick = self.prefill_ticks
+        self.prefill_ticks += 1
+        delays, lost = self._take_faults("prefill", tick, entries)
+        results = [PrefillResult(chunk=c, logits=None, lost=True)
+                   for c in lost]
+        if not any(e is not None for e in entries):
+            self._pf_entries = [None] * self.n_stages
+            return results
         ref = next(e for e in entries if e is not None)
         rows, clen = ref.tokens.shape
         n_pages_row = ref.tables.shape[1]
@@ -520,13 +563,14 @@ class PipelinedBackend(_SlotCacheBackend):
         self._sync()
         dt = time.perf_counter() - t0
         # the chunk activation (R, C, D) crosses each occupied boundary
-        self.transport.tick(
+        obs = self.transport.tick(
             occupied, rows * clen * self.cfg.d_model * self._dtype_bytes,
             _stage_seconds(dt, occupied), plane="prefill")
+        self._observe_stages(dt, occupied, delays, obs.stalls)
         self._pf_entries = [None] + entries[:-1]
         if drained is None:
-            return []
-        return [PrefillResult(chunk=drained, logits=logits)]
+            return results
+        return results + [PrefillResult(chunk=drained, logits=logits)]
 
     # -- the decode stepper ----------------------------------------------------
 
@@ -561,7 +605,17 @@ class PipelinedBackend(_SlotCacheBackend):
             if active else None
         if not any(e is not None for e in entries):
             return []
+        tick = self.decode_ticks
         self.decode_ticks += 1
+        delays, lost = self._take_faults("decode", tick, entries)
+        results = [DecodeResult(mb=e[0],
+                                tokens=np.zeros((self.mb_size,), np.int32),
+                                logprobs=np.zeros((self.mb_size,),
+                                                  np.float32), lost=True)
+                   for e in lost]
+        if not any(e is not None for e in entries):
+            self._entries = [None] * self.n_stages
+            return results
         mb_assign = [e[0] if e is not None else -1 for e in entries]
         pos_stage = np.zeros((self.n_stages, self.mb_size), np.int32)
         for s, e in enumerate(entries):
@@ -612,16 +666,150 @@ class PipelinedBackend(_SlotCacheBackend):
             _stage_seconds(dt, occupied),
             inject_t=self._ret_ready.get(mb, 0.0)
             if entries[0] is not None else 0.0, plane="decode")
+        self._observe_stages(dt, occupied, delays, obs.stalls)
         self._entries = [None] + entries[:-1]
         if drained is None:
-            return []
+            return results
         self.epilogue_runs += 1
         self._ret_ready[drained[0]] = obs.return_ready
-        return [DecodeResult(mb=drained[0], tokens=out[0].astype(np.int32),
-                             logprobs=out[1])]
+        return results + [DecodeResult(mb=drained[0],
+                                       tokens=out[0].astype(np.int32),
+                                       logprobs=out[1])]
 
     def transport_stats(self) -> Dict:
         return self.transport.stats()
+
+    # -- fault injection and stage times ----------------------------------
+
+    def _take_faults(self, plane: str, tick: int, entries: list):
+        """Consume this tick's fault events.  A drop empties the stage's
+        entry in ``entries`` (the tick then runs the stage as a bubble:
+        no compute, no writes) and returns the lost payload, which the
+        engine injects again; a delay is returned as the stage's synthetic
+        seconds for the straggler mitigation."""
+        delays: Dict[int, float] = {}
+        lost: list = []
+        if self.fault_plan is not None:
+            for ev in self.fault_plan.take(plane, tick):
+                if ev.kind == "drop":
+                    if entries[ev.stage] is not None:
+                        lost.append(entries[ev.stage])
+                        entries[ev.stage] = None
+                else:
+                    delays[ev.stage] = delays.get(ev.stage, 0.0) + ev.delay_s
+        return delays, lost
+
+    def _observe_stages(self, dt: float, occupied: Sequence[bool],
+                        delays: Dict[int, float], stalls) -> None:
+        """Book one observation for each stage that ran or was delayed:
+        the JAX backend's uniform share ``dt / N_S`` of the tick's seconds,
+        plus the stage's injected delay, plus its link stall from the
+        transport (a stage behind a slow link looks like a straggler to the
+        mitigation, as the JAX backend books it).  The JAX tick runs every
+        stage and books every stage; here a bubble does no work and is not
+        observed, since a 0 would pull its EWMA down until the *other*
+        stages read as stragglers during fill and drain.  The share stays
+        ``dt / N_S`` when fewer stages ran, so a tick that runs one stage
+        alone (fill, drain) reads lighter than a full one, never heavier."""
+        share = dt / self.n_stages
+        for s in range(self.n_stages):
+            if occupied[s] or s in delays:
+                self._stage_times.append(
+                    (s, share + delays.get(s, 0.0) + float(stalls[s])))
+
+    def drain_stage_times(self) -> List[tuple]:
+        """``(stage, seconds)`` observations since the last call, for
+        ``StragglerMitigator.observe``."""
+        out, self._stage_times = self._stage_times, []
+        return out
+
+    # -- host-store migration (reshard) ------------------------------------
+
+    def _offload_units(self) -> List[tuple]:
+        """``(offloader, lo, hi)``: each stage offloader and the epilogue's
+        with the layer range it swaps."""
+        units = [(o, *self.ranges[s])
+                 for s, o in enumerate(self.stage_offloaders)]
+        if self.epilogue_offloader is not None:
+            units.append((self.epilogue_offloader,
+                          *self.ranges[self.n_stages]))
+        return units
+
+    def _store_layout(self):
+        """``(elements, dtype, unit_range)`` of a whole-model host store
+        (every paged layer in layer order, its K global slice then its V
+        one): its size, and ``unit_range(lo, hi)``, the element range
+        ``[a, b)`` that the paged layers among layers ``[lo, hi)`` take."""
+        layers = self.caches["layers"]
+        paged = [i for i, layer in enumerate(layers) if "k_pages" in layer]
+        k = layers[paged[0]]["k_pages"]
+        slab = self.pool.n_global_pages * k[0].numel()
+
+        def unit_range(lo: int, hi: int):
+            a = sum(1 for i in paged if i < lo)
+            b = sum(1 for i in paged if i < hi)
+            return 2 * a * slab, 2 * b * slab
+        return 2 * len(paged) * slab, k.dtype, unit_range
+
+    def export_offload_state(self) -> Dict[int, torch.Tensor]:
+        """The offloaders' host stores as whole-model host tensors, one per
+        microbatch, independent of the stage split: every paged layer of
+        the model in layer order, its ``(n_global, page, Hk, Dh)`` K slice
+        then its V slice, flat (pinned when the pools are on the card).
+        ``import_offload_state`` cuts them up for another stage count.
+
+        Each offloader is settled first.  A microbatch resident in a
+        unit's pools is copied from the pools (the rebuilt backend's
+        offloaders start with nothing resident, so their first
+        ``ensure_resident`` must find every microbatch in the host store);
+        a unit that never held a microbatch leaves zeros, what its
+        offloader would have swapped in.  Only one host copy of the stores
+        is made here; call with both planes drained."""
+        units = [u for u in self._offload_units() if u[1] < u[2]]
+        if not units:
+            return {}
+        for o, _, _ in units:
+            o.settle()
+        n, dtype, unit_range = self._store_layout()
+        state: Dict[int, torch.Tensor] = {}
+        filled: Dict[int, set] = {}         # mb -> unit ranges written
+
+        def dst_of(mb: int, a: int, b: int) -> torch.Tensor:
+            if mb not in state:
+                state[mb] = torch.empty(
+                    n, dtype=dtype, pin_memory=self.device.type == "cuda")
+                filled[mb] = set()
+            filled[mb].add((a, b))
+            return state[mb][a:b]
+
+        ranges = [unit_range(lo, hi) for _, lo, hi in units]
+        for (o, lo, hi), (a, b) in zip(units, ranges):
+            o.export_stores({"layers": self.caches["layers"][lo:hi]},
+                            lambda mb, a=a, b=b: dst_of(mb, a, b))
+        for mb, buf in state.items():
+            for a, b in ranges:
+                if (a, b) not in filled[mb]:
+                    buf[a:b].zero_()
+        self._sync()            # the resident slices' device-to-host copies
+        return state
+
+    def import_offload_state(self, state: Dict[int, torch.Tensor]) -> None:
+        """Hand ``export_offload_state``'s tensors (of a backend with any
+        stage count) to this backend's offloaders: each takes its layers'
+        range of every microbatch's tensor as that microbatch's host store
+        and buffer, without a copy.  Nothing is resident in the fresh
+        offloaders, so the first ``ensure_resident`` of each microbatch
+        swaps its store in, on the offloader's copy stream."""
+        if not state:
+            return
+        _, _, unit_range = self._store_layout()
+        for o, lo, hi in self._offload_units():
+            a, b = unit_range(lo, hi)
+            if a == b:
+                continue
+            view = {"layers": self.caches["layers"][lo:hi]}
+            for mb, buf in state.items():
+                o.import_store(view, mb, buf[a:b])
 
 
 def _stage_seconds(dt: float, occupied: Sequence[bool]) -> List[float]:
@@ -639,14 +827,19 @@ def make_backend(kind, cfg: ModelConfig, params: dict, rt: Runtime, *,
                  mb_size: int, num_microbatches: int, pool: kvc.PoolConfig,
                  device: torch.device, offloader=None, n_stages: int = 2,
                  mesh=None, transport=None, schedule: str = "circular",
-                 wire_dtype: str = "fp32"):
+                 wire_dtype: str = "fp32", fault_plan=None,
+                 caches: Optional[dict] = None):
     """Engine-side factory: ``kind`` is ``"local"``, ``"pipelined"``, or an
     already constructed backend (passed through).  Given an ``offloader``,
     the pipelined backend builds its own, one a stage, in the same swap
-    mode."""
+    mode.  ``caches`` carries an earlier backend's caches over (reshard)."""
     if isinstance(kind, _SlotCacheBackend):
         return kind
     if kind == "local":
+        if fault_plan is not None:
+            raise ValueError(
+                "fault injection (FaultPlan) requires the pipelined "
+                "backend — the local backend has no stages to drop")
         if transport is not None or schedule != "circular" \
                 or wire_dtype != "fp32":
             raise ValueError(
@@ -655,7 +848,8 @@ def make_backend(kind, cfg: ModelConfig, params: dict, rt: Runtime, *,
                 "boundaries for a link to cross")
         return LocalBackend(cfg, params, rt, mb_size=mb_size,
                             num_microbatches=num_microbatches, pool=pool,
-                            device=device, offloader=offloader)
+                            device=device, offloader=offloader,
+                            caches=caches)
     if kind == "pipelined":
         return PipelinedBackend(
             cfg, params, rt, mb_size=mb_size,
@@ -663,5 +857,5 @@ def make_backend(kind, cfg: ModelConfig, params: dict, rt: Runtime, *,
             n_stages=n_stages, offload=offloader is not None,
             offload_async=offloader is None or offloader.async_swap,
             mesh=mesh, transport=transport, schedule=schedule,
-            wire_dtype=wire_dtype)
+            wire_dtype=wire_dtype, fault_plan=fault_plan, caches=caches)
     raise ValueError(f"unknown backend {kind!r} (want 'local'|'pipelined')")

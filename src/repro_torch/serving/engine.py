@@ -39,9 +39,24 @@ carries rows of at most one microbatch per parity with global pages.
 :meth:`OfflineEngine.from_plan` derives (N_B, per-microbatch batch, pool
 split) from a measured stage time and link latency (§4.3).
 
-Not in this slice (each later slice of the port brings its part): fault
-plans, reshard, the prefix cache, SLO admission, the tracing recorder and
-the strict auditor.
+Resilience (DeServe's decentralised fleet, where GPUs drop out, straggle
+or join mid-job): a ``fault_plan`` (pipelined backend, archs without
+recurrent layers) drops or delays stage ticks, and the engine injects lost
+work again with the same tokens at the same positions, so every stream
+stays what it would have been; stage times feed a
+:class:`repro_torch.distributed.elastic.StragglerMitigator`, whose
+lightest weight narrows the per-tick prefill admission while a stage
+straggles; :meth:`OfflineEngine.reshard` rebuilds the pipe with another
+stage count mid-run.
+
+Online serving (``serving.online.OnlineLLM`` on top): ``prefix_cache``
+shares fully prefilled prompt blocks between requests (refcounted pages,
+chunked prefill only), and ``slo`` (:class:`SLOConfig`) sheds prefill
+admission while the smoothed tick time exceeds the inter-token target,
+unless the oldest waiting request risks its time-to-first-token target.
+
+Not in this slice (each later slice of the port brings its part): the
+tracing recorder and the strict auditor.
 """
 
 from __future__ import annotations
@@ -58,11 +73,15 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core import offload as offload_lib
 from repro_torch.core.scheduler import ScheduleChoice, plan_schedule
-from repro_torch.models.common import Runtime, resolve_device
+from repro_torch.distributed.elastic import (ElasticPlanner, MeshPlan,
+                                             StragglerMitigator)
+from repro_torch.models.common import Runtime, make_layer_plan, \
+    resolve_device
 from repro_torch.models.model import PAGED_KINDS, check_supported
 from repro_torch.serving import kv_cache as kvc
-from repro_torch.serving.backend import (DecodeResult, PrefillChunk,
-                                         PrefillResult, make_backend)
+from repro_torch.serving.backend import (DecodeResult, PipelinedBackend,
+                                         PrefillChunk, PrefillResult,
+                                         make_backend)
 from repro_torch.serving.request import (EngineStats, Request, SamplingParams,
                                          SequenceState, Status)
 from repro_torch.serving.sampler import (RowSampling, gumbel_noise,
@@ -70,6 +89,58 @@ from repro_torch.serving.sampler import (RowSampling, gumbel_noise,
                                          token_logprobs)
 
 log = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class SLOConfig:
+    """Latency-SLO targets for online serving admission.
+
+    The controller shapes the per-tick prefill token budget (the lever of
+    ``max_prefill_tokens_per_tick``): while the engine's smoothed tick
+    time exceeds ``itl_target_s`` (a decoding request's inter-token latency
+    is one tick per microbatch round) admission sheds prefill down to
+    ``floor_frac`` of the budget; once the oldest waiting request has been
+    queued for half its ``ttft_target_s`` the whole budget comes back (a
+    TTFT at risk needs prefill).  A zero target turns its half off."""
+    ttft_target_s: float = 0.0
+    itl_target_s: float = 0.0
+    floor_frac: float = 0.25
+    ewma_alpha: float = 0.2
+
+    def validate(self) -> None:
+        if self.ttft_target_s < 0 or self.itl_target_s < 0:
+            raise ValueError("SLO targets must be >= 0")
+        if not (0.0 < self.floor_frac <= 1.0):
+            raise ValueError(
+                f"floor_frac must be in (0, 1], got {self.floor_frac}")
+        if not (0.0 < self.ewma_alpha <= 1.0):
+            raise ValueError(
+                f"ewma_alpha must be in (0, 1], got {self.ewma_alpha}")
+
+
+class SLOController:
+    """The budget shaper of :class:`SLOConfig` (host side, no device
+    state)."""
+
+    def __init__(self, cfg: SLOConfig):
+        cfg.validate()
+        self.cfg = cfg
+        self.itl_ewma = 0.0
+
+    def observe_tick(self, dt: float) -> None:
+        """Feed one engine tick's wall seconds into the ITL estimate."""
+        a = self.cfg.ewma_alpha
+        self.itl_ewma = dt if self.itl_ewma == 0.0 else \
+            (1.0 - a) * self.itl_ewma + a * dt
+
+    def budget_frac(self, oldest_wait_s: float) -> float:
+        """The fraction of the per-tick prefill token budget to admit."""
+        c = self.cfg
+        if c.ttft_target_s and oldest_wait_s >= 0.5 * c.ttft_target_s:
+            return 1.0          # TTFT at risk: prefill must not starve
+        if c.itl_target_s and self.itl_ewma > c.itl_target_s:
+            return max(c.floor_frac, c.itl_target_s / self.itl_ewma)
+        return 1.0
 
 
 def prefill_chunk_cap(cfg: ModelConfig, rt: Runtime, link, *,
@@ -102,8 +173,18 @@ class OfflineEngine:
                  prefill_chunk: int = 0, max_prefill_tokens_per_tick: int = 0,
                  prefill_mode: str = "auto", transport=None,
                  schedule: str = "circular", wire_dtype: str = "fp32",
-                 device=None):
+                 fault_plan=None, prefix_cache: bool = False,
+                 slo: Optional[SLOConfig] = None, device=None):
         check_supported(cfg)
+        # a lost tick is injected again with the same tokens at the same
+        # positions, which is transparent only when every cache write is
+        # keyed by position (paged KV, ring slots); a recurrent update
+        # accumulates, and applying it twice would step the state twice
+        if fault_plan is not None and cfg.recurrent_layer_count() > 0:
+            raise ValueError(
+                f"{cfg.name}: fault injection needs position-idempotent "
+                "cache writes; recurrent layers accumulate state and "
+                "cannot replay a lost tick without a state snapshot")
         self.cfg = cfg
         self.params = params
         self.rt = rt
@@ -115,12 +196,32 @@ class OfflineEngine:
         self.default_sampling = sampling or SamplingParams()
         self.seed = seed
         self.n_stages = n_stages
+        self._offloader = offloader     # reshard builds the new pipe's own
+        # the stream the engine's work goes to: the caller's current one at
+        # build time (an online pump thread enters it before stepping)
+        self.stream = torch.cuda.current_stream(self.device) \
+            if self.device.type == "cuda" else None
         self.backend = make_backend(
             backend, cfg, params, rt, mb_size=mb_size,
             num_microbatches=num_microbatches, pool=self.pool,
             device=self.device, offloader=offloader, n_stages=n_stages,
             mesh=mesh, transport=transport, schedule=schedule,
-            wire_dtype=wire_dtype)
+            wire_dtype=wire_dtype, fault_plan=fault_plan)
+
+        # the elastic control plane: per-stage EWMA tick times (they narrow
+        # the admission budget) and the planner bookkeeping that reshard()
+        # updates; only a pipelined backend reports stage times
+        stages = getattr(self.backend, "n_stages", None)
+        self.straggler = StragglerMitigator(stages) if stages else None
+        # lifetime per-stage observation totals (beside the EWMAs in the
+        # report); reset with the mitigator on reshard
+        self._stage_time_total = [0.0] * (stages or 0)
+        self._stage_time_count = [0] * (stages or 0)
+        self._elastic = ElasticPlanner(model_parallel=1, pod_size=1 << 30)
+        self._mesh_plan = MeshPlan(shape=(stages or 1, 1),
+                                   axes=("data", "model"),
+                                   devices_used=stages or 1,
+                                   devices_spare=0)
 
         self.alloc = kvc.PageAllocator(self.pool)
         self.table = np.zeros((self.batch, self.pool.max_pages_per_seq),
@@ -169,6 +270,18 @@ class OfflineEngine:
         self._inject_snap: Dict[int, tuple] = {}    # mb -> (active, seqs)
                                                     # at decode injection
 
+        # a prefix hit starts the chunk cursor mid-prompt, which the
+        # exact-length path cannot do
+        if prefix_cache and not self.chunked_prefill:
+            raise ValueError(
+                f"{cfg.name}: prefix_cache=True needs chunked prefill "
+                "(fully-paged archs, prefill_mode != 'exact') — a prefix "
+                "hit resumes prefill mid-prompt via the chunk cursor")
+        self.prefix_cache: Optional[kvc.PrefixCache] = \
+            kvc.PrefixCache(self.alloc) if prefix_cache else None
+        self.slo: Optional[SLOController] = \
+            SLOController(slo) if slo is not None else None
+
         self.queue: deque = deque()
         self.finished: List[SequenceState] = []
         self.stats = EngineStats()
@@ -192,6 +305,8 @@ class OfflineEngine:
                   link_latencies=None, offload_async: bool = True,
                   backend="local", mesh=None, transport=None,
                   schedule: str = "circular", wire_dtype: str = "fp32",
+                  fault_plan=None, prefix_cache: bool = False,
+                  slo: Optional[SLOConfig] = None,
                   device=None) -> "OfflineEngine":
         """An engine whose (N_B, per-microbatch batch, pool split) are
         derived from a measured stage time and link latency by
@@ -261,7 +376,9 @@ class OfflineEngine:
                   prefill_chunk=prefill_chunk,
                   max_prefill_tokens_per_tick=max_prefill_tokens_per_tick,
                   prefill_mode=prefill_mode, transport=transport,
-                  schedule=schedule, wire_dtype=wire_dtype, device=device)
+                  schedule=schedule, wire_dtype=wire_dtype,
+                  fault_plan=fault_plan, prefix_cache=prefix_cache, slo=slo,
+                  device=device)
         eng.schedule_choice = choice
         return eng
 
@@ -322,6 +439,138 @@ class OfflineEngine:
         self.stats.status_counts = counts
         return counts
 
+    # ------------------------------------------------------------------
+    # elastic re-sharding (the pipe's stage count changes mid-run)
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def reshard(self, live_devices: Optional[int] = None, *,
+                n_stages: Optional[int] = None, detector=None,
+                now: Optional[float] = None) -> dict:
+        """Rebuild the pipelined backend with another stage count mid-run,
+        keeping every request's progress.
+
+        The target is ``n_stages``, or the stage count that
+        :class:`repro_torch.distributed.elastic.ElasticPlanner` derives
+        from the live-device count (given, or read from a
+        :class:`~repro_torch.distributed.elastic.FailureDetector` at
+        ``now``): the largest power of two that the live devices, ``N_B``
+        (N_B >= N_S) and the layer plan's periods admit.  The JAX engine
+        also bounds it by its local device count; here every stage runs on
+        the engine's one device (stages on several GPUs are ROADMAP item
+        9), so there is no device term.
+
+        Four steps: (1) drain both planes, so every tick in flight books
+        as usual and nothing is computed twice; (2) export the
+        offloaders' host stores (``export_offload_state``) into
+        whole-model host tensors; (3) build the new ``PipelinedBackend``
+        through ``make_backend``, on the same caches (one tensor per layer
+        on the engine's device: they carry over as they are), with the
+        transport retargeted by ``for_stages``, the same schedule and wire
+        dtype, the plane tick counters carried (a FaultPlan tick keeps its
+        meaning) and pending fault events for stages that no longer exist
+        dropped; (4) import the stores into the new offloaders, push the
+        page table, and start a fresh :class:`StragglerMitigator`.  The
+        sequences' cursors are engine state, so no token is generated
+        twice.
+
+        Returns the planner's resharding plan, with the time of each step
+        under ``"seconds"`` and the host-store bytes carried under
+        ``"bytes_migrated"``; raises on the local backend."""
+        if not isinstance(self.backend, PipelinedBackend):
+            raise ValueError(
+                "reshard: only the pipelined backend has stages to rebuild "
+                f"(backend is {self.backend.name!r})")
+        if detector is not None:
+            if now is None:
+                now = time.monotonic()
+            live_devices = len(detector.live(now))
+        if n_stages is None:
+            if live_devices is None:
+                raise ValueError(
+                    "reshard: pass live_devices=, detector=, or n_stages=")
+            plan = self._elastic.plan(live_devices)
+            n_periods = make_layer_plan(self.cfg.num_layers,
+                                        self.cfg.block_pattern).n_periods
+            n_stages = max(1, min(plan.data, self.num_microbatches,
+                                  n_periods))
+        if n_stages > self.num_microbatches:
+            raise ValueError(
+                f"reshard: N_B >= N_S requires n_stages <= "
+                f"{self.num_microbatches}, got {n_stages}")
+        new_plan = MeshPlan(shape=(n_stages, 1), axes=("data", "model"),
+                            devices_used=n_stages,
+                            devices_spare=max(0, (live_devices or n_stages)
+                                              - n_stages))
+        reshard_plan = self._elastic.resharding_plan(self._mesh_plan,
+                                                     new_plan)
+        old = self.backend
+
+        # (1) drain both planes
+        t0 = time.perf_counter()
+        tokens0 = np.zeros((self.mb_size,), np.int32)
+        while old.pending():
+            for res in old.decode(0, tokens0, tokens0,
+                                  self._row_sampling(0, self.mb_size),
+                                  active=False):
+                self._apply_result(res)
+        while old.prefill_pending():
+            for res in old.prefill_step(None):
+                self._apply_prefill_result(res)
+        self._activate_ready()          # the pipe is empty: nothing busy
+        t1 = time.perf_counter()
+        # (2) the host stores, whole-model, while the caches are stable
+        state = old.export_offload_state()
+        t2 = time.perf_counter()
+        # (3) the new pipe over the same caches
+        fault_plan = old.fault_plan
+        if fault_plan is not None:
+            gone = [e for e in fault_plan.events if e.stage >= n_stages]
+            if gone:
+                log.warning("reshard: dropping %d pending fault event(s) "
+                            "for stages >= %d: %s", len(gone), n_stages, gone)
+                fault_plan.events = [e for e in fault_plan.events
+                                     if e.stage < n_stages]
+        log.info("reshard: %d -> %d stages (%s)", old.n_stages, n_stages,
+                 {k: v for k, v in reshard_plan.items()
+                  if k not in ("old", "new")})
+        self.backend = make_backend(
+            "pipelined", self.cfg, self.params, self.rt,
+            mb_size=self.mb_size, num_microbatches=self.num_microbatches,
+            pool=self.pool, device=self.device, offloader=self._offloader,
+            n_stages=n_stages, transport=old.transport.for_stages(n_stages),
+            schedule=old.schedule, wire_dtype=old.wire_dtype,
+            fault_plan=fault_plan, caches=old.caches)
+        self.backend.decode_ticks = old.decode_ticks
+        self.backend.prefill_ticks = old.prefill_ticks
+        del old
+        t3 = time.perf_counter()
+        # (4) the stores into the new offloaders, the table, the mitigator
+        self.backend.import_offload_state(state)
+        reshard_plan["bytes_migrated"] = sum(
+            t.numel() * t.element_size() for t in state.values())
+        del state
+        self.backend.set_page_table(self.table)
+        self.straggler = StragglerMitigator(n_stages)
+        self._stage_time_total = [0.0] * n_stages
+        self._stage_time_count = [0] * n_stages
+        self.n_stages = n_stages
+        self._mesh_plan = new_plan
+        self.stats.reshards += 1
+        t4 = time.perf_counter()
+        reshard_plan["seconds"] = {"drain": t1 - t0, "export": t2 - t1,
+                                   "rebuild": t3 - t2, "import": t4 - t3}
+        return reshard_plan
+
+    def _drain_stage_times(self) -> None:
+        """Feed the backend's stage-time observations to the mitigator."""
+        if self.straggler is None:
+            return
+        for s, dt in self.backend.drain_stage_times():
+            self.straggler.observe(s, dt)
+            self._stage_time_total[s] += dt
+            self._stage_time_count[s] += 1
+
     @torch.inference_mode()
     def step(self) -> bool:
         """One engine tick: reap finished, run the prefill phase (one
@@ -352,10 +601,13 @@ class OfflineEngine:
             self.stats.wall_time_s += time.perf_counter() - t0
             return False
         self._decode_microbatch(self.stats.steps % self.num_microbatches)
+        self._drain_stage_times()
         self.stats.steps += 1
         t1 = time.perf_counter()
         self.stats.decode_time_s += (tp - t0) + (t1 - tp2)
         self.stats.wall_time_s += t1 - t0
+        if self.slo is not None:
+            self.slo.observe_tick(t1 - t0)
         return True
 
     # ------------------------------------------------------------------
@@ -430,14 +682,62 @@ class OfflineEngine:
         cap = self.pool.max_pages_per_seq * self.pool.page_size
         n_pages = -(-min(plen + sp.max_new_tokens, cap) // self.pool.page_size)
         gp = self._global_pool(slot)
-        pages = self.alloc.allocate(slot, n_pages, global_pool=gp)
+        shared: List[int] = []
+        if self.prefix_cache is not None:
+            # adopt the longest cached full-page prefix of the prompt: the
+            # refcounts go up, and the chunk cursor starts past it
+            shared = self.prefix_cache.match(seq.request.prompt)
+            if shared:
+                self.alloc.adopt(slot, shared)
+        try:
+            try:
+                pages = self.alloc.allocate(slot, n_pages - len(shared),
+                                            global_pool=gp)
+            except MemoryError:
+                # pool pressure: evict cold cached prefixes and retry once
+                # before the caller's head-of-line retry
+                if self.prefix_cache is None or \
+                        not self.prefix_cache.evict(n_pages - len(shared)):
+                    raise
+                pages = self.alloc.allocate(slot, n_pages - len(shared),
+                                            global_pool=gp)
+        except MemoryError:
+            if shared:
+                self.alloc.release(slot)
+            raise
         has_global = any(p >= self.pool.n_local_pages for p in pages)
         seq.global_parity = gp if has_global else None
         seq.slot = slot
-        seq.prefill_pos = 0
+        seq.prefill_pos = len(shared) * self.pool.page_size
+        if shared:
+            self.stats.prefix_hits += 1
+            self.stats.prefix_hit_tokens += seq.prefill_pos
         seq.status = Status.PREFILLING
         seq.budget = min(sp.max_new_tokens, cap - plen)
         self.slots[slot] = seq
+
+    def _tick_prefill_rows(self) -> int:
+        """This tick's admission width: ``prefill_rows``, narrowed while a
+        pipeline stage straggles (the §4.3 ring tick is set by the slowest
+        stage, so admission work must shrink with it: the mitigator's
+        weights are mean-1 inverse EWMAs, and the lightest one scales the
+        per-tick token budget, floored at one chunk), and by the SLO
+        controller's fraction when one is configured; the stricter of the
+        two wins.  The chunk's shape stays (``prefill_rows``,
+        ``prefill_chunk``); only fewer rows fill."""
+        w = 1.0
+        if self.straggler is not None and self.straggler.stragglers():
+            w = min(w, min(self.straggler.microbatch_weights()))
+        if self.slo is not None:
+            now = time.perf_counter()
+            waits = [now - s.submit_time for s in self.queue]
+            waits += [now - s.submit_time for s in self.prefilling
+                      if not s.generated]
+            w = min(w, self.slo.budget_frac(max(waits, default=0.0)))
+        if w >= 1.0:
+            return self.prefill_rows
+        budget = int(self.max_prefill_tokens_per_tick * min(1.0, w))
+        return max(1, min(self.prefill_rows, budget // self.prefill_chunk))
 
     def _build_chunk(self) -> Optional[PrefillChunk]:
         """This tick's prefill work: continue partially prefilled sequences
@@ -450,7 +750,7 @@ class OfflineEngine:
         the prefill pipe's first stage is occupied."""
         if not self.backend.prefill_can_accept():
             return None
-        rows_cap = self.prefill_rows
+        rows_cap = self._tick_prefill_rows()
         rows: List[SequenceState] = []
         # parity -> the one microbatch whose global pool this chunk writes
         parity_mb: Dict[int, Optional[int]] = {0: None, 1: None}
@@ -511,6 +811,16 @@ class OfflineEngine:
                                                 if m is not None))
 
     def _apply_prefill_result(self, res: PrefillResult) -> None:
+        if res.lost:
+            # a stage fault dropped the chunk in the pipe: the cursors did
+            # not move, so clearing the in-flight flag makes _build_chunk
+            # emit the same chunk again; prompt-KV writes are keyed by
+            # offset, so the retry rewrites the same pages with the same
+            # values
+            for seq in res.chunk.seqs:
+                seq.chunk_inflight = False
+            self.stats.prefill_chunks_lost += 1
+            return
         for i, seq in enumerate(res.chunk.seqs):
             seq.chunk_inflight = False
             take = int(res.chunk.n_valid[i])
@@ -518,6 +828,11 @@ class OfflineEngine:
             self.stats.prefill_tokens += take
             if seq.prefill_pos >= seq.prompt_len:
                 self._sample_first_token(seq, seq.slot, res.logits[i])
+                if self.prefix_cache is not None:
+                    # register the prompt's written blocks for later
+                    # sharers (an existing entry wins)
+                    self.prefix_cache.insert(seq.request.prompt,
+                                             self.alloc.pages_of(seq.slot))
                 self.prefilling.remove(seq)
                 if not seq.is_done():       # finished at prefill: reap
                     self._pending_activation.append(seq)  # without decoding
@@ -659,7 +974,16 @@ class OfflineEngine:
     def _apply_result(self, res: DecodeResult) -> None:
         """Book one drained microbatch tick (possibly for an earlier
         microbatch than the one just injected: a pipe drains ``N_S − 1``
-        ticks after injection) for the rows live at its injection."""
+        ticks after injection) for the rows live at its injection.  A lost
+        tick books nothing: the cursors only move on a drained result, so
+        dropping the injection snapshot lets the round robin inject the
+        microbatch again on its next turn, with the same tokens at the same
+        positions, and the retry rewrites the same position-keyed KV and
+        samples under the same ``(seed, request_id, token_idx)`` seeds."""
+        if res.lost:
+            self._inject_snap.pop(res.mb, None)
+            self.stats.decode_ticks_lost += 1
+            return
         lo = res.mb * self.mb_size
         snap = self._inject_snap.pop(res.mb, None)
         for i, slot in enumerate(range(lo, lo + self.mb_size)):
@@ -711,11 +1035,30 @@ class OfflineEngine:
             "queue_depth": self.stats.queue_depth,
             "status_counts": self.stats.status_counts,
             "aborted": self.stats.aborted,
+            "decode_ticks_lost": self.stats.decode_ticks_lost,
+            "prefill_chunks_lost": self.stats.prefill_chunks_lost,
+            "reshards": self.stats.reshards,
             "mean_latency_steps":
                 float(np.mean(lat_steps)) if lat_steps else 0.0,
             "mean_latency_s": float(np.mean(lat_s)) if lat_s else 0.0,
             "mean_ttft_s": float(np.mean(ttft)) if ttft else 0.0,
         }
+        if self.prefix_cache is not None:
+            rep["prefix_hits"] = self.stats.prefix_hits
+            rep["prefix_hit_tokens"] = self.stats.prefix_hit_tokens
+            rep["prefix_hit_rate"] = self.prefix_cache.hit_rate
+            rep["prefix_cache_pages"] = len(self.prefix_cache)
+        if self.straggler is not None:
+            # the observations behind the admission weighting: per-stage
+            # EWMAs, lifetime totals and counts, the mean-1 inverse weights
+            # and the stages flagged now
+            rep["stages"] = {
+                "ewma_s": list(self.straggler.ewma),
+                "total_s": list(self._stage_time_total),
+                "counts": list(self._stage_time_count),
+                "microbatch_weights": self.straggler.microbatch_weights(),
+                "stragglers": self.straggler.stragglers(),
+            }
         tstats = self.backend.transport_stats()
         if tstats:
             rep["transport"] = tstats

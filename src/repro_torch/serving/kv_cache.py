@@ -9,7 +9,8 @@ int32 page table shared by every paged layer, one ring of
 and one recurrent state per row for each ``"rglru"`` layer (``h`` and the
 conv's trailing inputs).  An arch with no paged layer (recurrentgemma)
 still has the table, which the allocator's bookkeeping fills, and no
-pool.  Bookkeeping (free lists, per-slot page lists) is host Python.
+pool.  Bookkeeping (free lists, per-slot page lists, page refcounts and
+the prefix-block index of :class:`PrefixCache`) is host Python.
 
 The page id space of each pool is partitioned as DeServe §4.2 lays it out:
 
@@ -58,7 +59,14 @@ class PageAllocator:
     Page 0 is reserved as a *scratch* page: released and parked slots'
     table rows point at it, so the (discarded) decode writes of inactive
     rows can never corrupt a page that belongs to a live sequence.
-    Releasing a slot twice, or a page that is already free, raises.
+
+    Pages are **refcounted**: a page may be owned by several slots at once
+    (the prefix cache shares fully-prefilled prompt blocks) and retained
+    by the :class:`PrefixCache` on top, so ``release`` *decrements* and a
+    page returns to its free list only when its last owner lets go.
+    Releasing a slot that owns nothing, or returning a page that is
+    already free, raises: a silent double free would sooner or later
+    grant one page to two live sequences.
 
     There is one free list per global-pool parity, as in
     ``repro.serving.kv_cache.PageAllocator``: microbatches ``m`` and
@@ -66,8 +74,7 @@ class PageAllocator:
     whole parity slice between them, so a microbatch's global capacity is
     ``n_global / (N_B / 2)`` pages, not Formula 1's ``M_G``.  The port
     keeps the reference's behaviour (ROADMAP Queue 3) so that the two stay
-    comparable; refcounts and the prefix cache come with the
-    online-serving slice."""
+    comparable."""
 
     def __init__(self, pool: PoolConfig):
         if pool.n_local_pages < 2:
@@ -77,6 +84,9 @@ class PageAllocator:
         self._free_global: Dict[int, List[int]] = {
             0: list(pool.global_range(0)), 1: list(pool.global_range(1))}
         self._seq_pages: Dict[int, List[int]] = {}
+        # page -> owners (slots listing it + one per cache retain); a page
+        # is in _refs iff it is on no free list
+        self._refs: Dict[int, int] = {}
 
     def free_local(self) -> int:
         return len(self._free_local)
@@ -86,6 +96,9 @@ class PageAllocator:
 
     def pages_of(self, slot: int) -> List[int]:
         return list(self._seq_pages.get(slot, ()))
+
+    def refcount(self, p: int) -> int:
+        return self._refs.get(p, 0)
 
     def allocate(self, slot: int, n_pages: int, *,
                  global_pool: Optional[int] = None) -> List[int]:
@@ -99,24 +112,73 @@ class PageAllocator:
                 self._free_global[global_pool]:
             got.append(self._free_global[global_pool].pop())
         if len(got) < n_pages:
-            for p in got:                   # roll back
+            for p in got:                   # roll back (never granted)
                 self._give_back(p)
             raise MemoryError(
                 f"page pool exhausted: need {n_pages}, got {len(got)} "
                 f"(local free={self.free_local()}, "
                 f"global={ {i: self.free_global(i) for i in (0, 1)} })")
+        for p in got:
+            self._refs[p] = 1
         self._seq_pages.setdefault(slot, []).extend(got)
         return got
 
     def extend(self, slot: int, *, global_pool: Optional[int] = None) -> int:
         return self.allocate(slot, 1, global_pool=global_pool)[0]
 
+    def adopt(self, slot: int, pages: List[int]) -> None:
+        """Bind already-owned ``pages`` to ``slot`` as a shared prefix: each
+        page's refcount goes up, nothing is taken from a free list.  It must
+        come before ``allocate`` for the slot, so that the shared pages head
+        its table row (page ``i`` holds positions ``[i * page_size,
+        (i + 1) * page_size)``)."""
+        if self._seq_pages.get(slot):
+            raise ValueError(
+                f"adopt: slot {slot} already owns pages "
+                f"{self._seq_pages[slot]} — shared prefix pages must come "
+                "first in the table row")
+        for p in pages:
+            if p not in self._refs:
+                raise ValueError(
+                    f"adopt: page {p} is not currently owned — a free page "
+                    "cannot be shared (stale prefix-cache entry?)")
+        for p in pages:
+            self._refs[p] += 1
+        self._seq_pages[slot] = list(pages)
+
+    def retain(self, p: int) -> None:
+        """Add a non-slot owner (the prefix cache) to an owned page."""
+        if p not in self._refs:
+            raise ValueError(f"retain: page {p} is not currently owned")
+        self._refs[p] += 1
+
+    def drop(self, p: int) -> bool:
+        """Release a ``retain`` reference; True when the page went back to
+        its free list (it was the last owner)."""
+        return self._decref(p)
+
     def release(self, slot: int) -> None:
+        """Release every page ``slot`` owns (shared pages stay live for
+        their other owners).  A slot that owns nothing raises: the engine
+        frees once per occupied slot, so a second release is a bookkeeping
+        fault, not a no-op."""
         if slot not in self._seq_pages:
             raise KeyError(f"release: slot {slot} owns no pages (double "
                            "release, or a slot that was never allocated)")
         for p in self._seq_pages.pop(slot):
-            self._give_back(p)
+            self._decref(p)
+
+    def _decref(self, p: int) -> bool:
+        n = self._refs.get(p)
+        if n is None:
+            raise ValueError(f"page {p} released but not owned (double "
+                             "free)")
+        if n > 1:
+            self._refs[p] = n - 1
+            return False
+        del self._refs[p]
+        self._give_back(p)
+        return True
 
     def _give_back(self, p: int) -> None:
         if p < self.pool.n_local_pages:
@@ -126,7 +188,9 @@ class PageAllocator:
         else:
             target = self._free_global[1]
         if p in target:
-            raise ValueError(f"page {p} returned to the free list twice")
+            raise ValueError(f"page {p} returned to the free list twice — a "
+                             "later allocate would grant one page to two "
+                             "sequences")
         target.append(p)
 
     def table_row(self, slot: int) -> np.ndarray:
@@ -134,6 +198,124 @@ class PageAllocator:
         pages = self._seq_pages.get(slot, ())
         row[: len(pages)] = pages
         return row
+
+
+@dataclass
+class _PrefixEntry:
+    page: int
+    children: int = 0                 # longer cached prefixes extending it
+    last_use: int = 0                 # LRU clock (lookups and inserts)
+
+
+class PrefixCache:
+    """Prefix-block index over the paged KV pools (host side).
+
+    Requests that share a system prompt hit the same pages instead of
+    prefilling them again: the index maps each *full-page* token prefix
+    (the exact token tuple, a chain of ``page_size`` blocks) to the page
+    that holds its KV.  Paged attention's KV at position ``t`` is a
+    function of ``tokens[:t + 1]`` alone, so blocks written by different
+    slots for the same prefix are interchangeable.
+
+    Only **local** pages are registered: a global page's content is swapped
+    per microbatch by the §4.2 offloader, so a share across microbatches
+    would be overwritten by the next swap.  A match is capped at
+    ``(len(prompt) - 1) // page_size`` pages: the last prompt position is
+    always prefilled, for the first token's logits.  Each cached page
+    holds one ``PageAllocator.retain`` reference; LRU leaf eviction
+    (``evict``) drops them when the pool runs dry."""
+
+    def __init__(self, alloc: PageAllocator):
+        self.alloc = alloc
+        self.page_size = alloc.pool.page_size
+        self.n_local_pages = alloc.pool.n_local_pages
+        self._entries: Dict[tuple, _PrefixEntry] = {}
+        self._clock = 0
+        self.hit_requests = 0
+        self.miss_requests = 0
+        self.hit_tokens = 0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def pages_retained(self) -> List[int]:
+        """Pages the cache holds a retain reference on (one an entry)."""
+        return [e.page for e in self._entries.values()]
+
+    def match(self, prompt: List[int]) -> List[int]:
+        """Pages covering the longest cached full-page prefix of
+        ``prompt`` (possibly none), in table-row order."""
+        self._clock += 1
+        pages: List[int] = []
+        for i in range((len(prompt) - 1) // self.page_size):
+            e = self._entries.get(tuple(prompt[: (i + 1) * self.page_size]))
+            if e is None:
+                break
+            e.last_use = self._clock
+            pages.append(e.page)
+        if pages:
+            self.hit_requests += 1
+            self.hit_tokens += len(pages) * self.page_size
+        else:
+            self.miss_requests += 1
+        return pages
+
+    def insert(self, prompt: List[int], pages: List[int]) -> int:
+        """Register a fully prefilled sequence's prompt blocks (``pages`` in
+        table-row order).  An existing entry wins: two requests that
+        prefilled the same prefix side by side keep the first one's page.
+        Stops at the first global page.  Returns the pages newly
+        retained."""
+        self._clock += 1
+        added = 0
+        parent: Optional[_PrefixEntry] = None
+        for i in range(min((len(prompt) - 1) // self.page_size, len(pages))):
+            key = tuple(prompt[: (i + 1) * self.page_size])
+            e = self._entries.get(key)
+            if e is None:
+                p = pages[i]
+                if p >= self.n_local_pages:
+                    break       # a global page is swapped per microbatch
+                self.alloc.retain(p)
+                e = _PrefixEntry(page=p, last_use=self._clock)
+                self._entries[key] = e
+                if parent is not None:
+                    parent.children += 1
+                added += 1
+            else:
+                e.last_use = self._clock
+            parent = e
+        return added
+
+    def evict(self, n_pages: int) -> int:
+        """Drop least recently used *leaf* entries until ``n_pages`` pages
+        went back to the free lists (an entry whose page a live slot still
+        shares frees nothing) or the cache is empty.  Returns the pages
+        freed."""
+        freed = 0
+        while freed < n_pages and self._entries:
+            key = min((k for k, e in self._entries.items()
+                       if e.children == 0),
+                      key=lambda k: self._entries[k].last_use)
+            e = self._entries.pop(key)
+            if len(key) > self.page_size:
+                parent = self._entries.get(key[:-self.page_size])
+                if parent is not None:
+                    parent.children -= 1
+            if self.alloc.drop(e.page):
+                freed += 1
+            self.evictions += 1
+        return freed
+
+    def clear(self) -> int:
+        """Drop every entry; returns the pages freed."""
+        return self.evict(len(self._entries) + 1) if self._entries else 0
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.hit_requests + self.miss_requests
+        return self.hit_requests / total if total else 0.0
 
 
 def build_paged_caches(cfg: ModelConfig, batch: int, pool: PoolConfig,

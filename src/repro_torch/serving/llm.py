@@ -14,6 +14,14 @@ serves through §4.3's circular pipeline of ``n_stages`` stages:
         backend="pipelined", n_stages=2, num_microbatches=4,
         transport=0.064, wire_dtype="int8"))
 
+Resilience and online serving: ``fault_plan`` (a
+:class:`repro_torch.distributed.elastic.FaultPlan`, pipelined backend)
+drops or delays stage ticks and the engine recovers the lost work;
+``prefix_cache=True`` shares prompt blocks between requests (chunked
+prefill); ``slo=SLOConfig(...)`` shapes prefill admission for latency
+targets; :class:`repro_torch.serving.online.OnlineLLM` submits while the
+engine runs and streams tokens per tick.
+
 Runs on ``cuda`` unless ``device="cpu"`` is passed; with no GPU and no
 explicit CPU request it raises.
 """
@@ -31,7 +39,7 @@ from repro_torch.core.offload import DoubleBufferOffloader
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import Runtime, resolve_device
 from repro_torch.serving.backend import stage_devices
-from repro_torch.serving.engine import OfflineEngine
+from repro_torch.serving.engine import OfflineEngine, SLOConfig
 from repro_torch.serving.kv_cache import PoolConfig
 from repro_torch.serving.request import (Request, SamplingParams,
                                          SequenceState, Status)
@@ -39,9 +47,6 @@ from repro_torch.serving.request import (Request, SamplingParams,
 # Knobs of repro.serving.llm.EngineConfig whose machinery a later slice of
 # the port brings: field -> (value that asks for nothing, the slice).
 _LATER = {
-    "fault_plan": (None, "the resilience slice (fault plans and reshard)"),
-    "prefix_cache": (False, "the online-serving slice (prefix cache)"),
-    "slo": (None, "the online-serving slice (SLO admission)"),
     "trace": (None, "the tracing slice (flight recorder)"),
     "strict": (None, "the audit slice (strict invariant auditor)"),
 }
@@ -63,7 +68,9 @@ class EngineConfig:
     ``schedule`` (``"circular"`` or ``"round_flush"``), ``wire_dtype``
     (``"fp32"`` or ``"int8"``) and ``mesh`` (one torch device a stage, all
     the engine's own device: stages on several GPUs are not ported).
-    Either set the knobs directly, or build the config with :meth:`plan`."""
+    ``fault_plan`` needs the pipelined backend, ``prefix_cache`` chunked
+    prefill, and ``slo`` is an :class:`SLOConfig`.  Either set the knobs
+    directly, or build the config with :meth:`plan`."""
     mb_size: int = 4                  # sequences per microbatch
     num_microbatches: int = 1         # N_B
     pool: Optional[PoolConfig] = None
@@ -138,6 +145,20 @@ class EngineConfig:
         if self.mesh is not None:
             # stages on several devices raise NotImplementedError here
             stage_devices(self.mesh, self.n_stages, self.mesh[0])
+        if self.fault_plan is not None and self.backend != "pipelined":
+            raise ValueError(
+                "fault_plan requires backend='pipelined' — the local "
+                "backend has no stages to drop")
+        if self.prefix_cache and self.prefill_mode == "exact":
+            raise ValueError(
+                "prefix_cache=True needs chunked prefill (a prefix hit "
+                "resumes prefill mid-prompt via the chunk cursor) — "
+                "prefill_mode='exact' cannot share prompt blocks")
+        if self.slo is not None:
+            if not isinstance(self.slo, SLOConfig):
+                raise ValueError(f"slo must be an SLOConfig, got "
+                                 f"{self.slo!r}")
+            self.slo.validate()
 
     @classmethod
     def plan(cls, *, n_stages: Optional[int] = None, stage_time: float,
@@ -152,7 +173,9 @@ class EngineConfig:
              deployment: Optional[object] = None,
              transport: Optional[object] = None,
              schedule: str = "circular",
-             wire_dtype: str = "fp32") -> "EngineConfig":
+             wire_dtype: str = "fp32", fault_plan=None,
+             prefix_cache: bool = False,
+             slo: Optional[SLOConfig] = None) -> "EngineConfig":
         """A config whose (N_B, per-microbatch batch, pool split) are
         derived by :func:`repro_torch.core.scheduler.plan_schedule` at
         build time (``OfflineEngine.from_plan``).  ``prefill_chunk=0``
@@ -190,7 +213,8 @@ class EngineConfig:
                    max_prefill_tokens_per_tick=max_prefill_tokens_per_tick,
                    prefill_mode=prefill_mode, offload_async=offload_async,
                    transport=transport, schedule=schedule,
-                   wire_dtype=wire_dtype,
+                   wire_dtype=wire_dtype, fault_plan=fault_plan,
+                   prefix_cache=prefix_cache, slo=slo,
                    plan_args=dict(
                        n_stages=n_stages, stage_time=stage_time,
                        latency=latency, link_latencies=link_latencies,
@@ -212,7 +236,8 @@ class EngineConfig:
                 offload_async=self.offload_async, backend=self.backend,
                 mesh=self.mesh, transport=self.transport,
                 schedule=self.schedule, wire_dtype=self.wire_dtype,
-                device=device, **self.plan_args)
+                fault_plan=self.fault_plan, prefix_cache=self.prefix_cache,
+                slo=self.slo, device=device, **self.plan_args)
         pool = self.pool or PoolConfig()
         offloader = None
         if self.offload and pool.n_global_pages:
@@ -227,7 +252,8 @@ class EngineConfig:
             max_prefill_tokens_per_tick=self.max_prefill_tokens_per_tick,
             prefill_mode=self.prefill_mode, transport=self.transport,
             schedule=self.schedule, wire_dtype=self.wire_dtype,
-            device=device)
+            fault_plan=self.fault_plan, prefix_cache=self.prefix_cache,
+            slo=self.slo, device=device)
 
 
 @dataclass

@@ -139,6 +139,16 @@ class EngineStats:
     status_counts: Dict[str, int] = field(default_factory=dict)
     aborted: bool = False             # run() exhausted max_steps with
                                       # work still pending
+    # fault tolerance and elasticity (engine._apply_result,
+    # _apply_prefill_result, reshard)
+    decode_ticks_lost: int = 0        # dropped decode ticks (re-injected)
+    prefill_chunks_lost: int = 0      # dropped prefill chunks (re-emitted)
+    reshards: int = 0                 # mid-run backend rebuilds
+    # prefix caching: admissions that adopted shared prompt blocks, and the
+    # prompt tokens those blocks covered (never prefilled again:
+    # prefill_tokens counts only the tokens computed)
+    prefix_hits: int = 0
+    prefix_hit_tokens: int = 0
 
     @property
     def total_tokens(self) -> int:

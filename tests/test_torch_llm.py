@@ -242,13 +242,36 @@ def test_sampled_stream_does_not_depend_on_batch_layout():
     assert a[1].token_ids != a[0].token_ids     # sampling did something
 
 
-@pytest.mark.parametrize("knob", [
-    dict(prefix_cache=True), dict(strict=True), dict(trace=True),
-    dict(fault_plan="drop@decode:1:0"), dict(slo=object()),
-])
+@pytest.mark.parametrize("knob", [dict(strict=True), dict(trace=True)])
 def test_later_slice_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="slice"):
         llm.EngineConfig(**knob)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(kw=dict(backend="local"), fault_plan=True, match="pipelined"),
+    dict(kw=dict(prefix_cache=True, prefill_mode="exact"), match="chunked"),
+    dict(kw=dict(), slo=dict(ttft_target_s=-1.0), match=">= 0"),
+], ids=["fault_plan", "prefix_cache", "slo"])
+def test_resilience_slice_knobs_are_validated(knob):
+    """The resilience slice's knobs build a config (they raised until it
+    was ported) and are validated as ``repro.serving.llm.EngineConfig``
+    validates them: a fault plan needs the pipelined backend, the prefix
+    cache chunked prefill, and an SLO target is >= 0."""
+    from repro_torch.distributed.elastic import FaultPlan
+    from repro_torch.serving.engine import SLOConfig
+    kw = dict(knob["kw"])
+    if knob.get("fault_plan"):
+        kw["fault_plan"] = FaultPlan.parse(["drop@decode:1:0"])
+        llm.EngineConfig(backend="pipelined", num_microbatches=2,
+                         fault_plan=kw["fault_plan"])
+    if "slo" in knob:
+        kw["slo"] = SLOConfig(**knob["slo"])
+        llm.EngineConfig(slo=SLOConfig(ttft_target_s=1.0))
+    if kw.get("prefix_cache"):
+        llm.EngineConfig(prefix_cache=True)
+    with pytest.raises(ValueError, match=knob["match"]):
+        llm.EngineConfig(**kw)
 
 
 @pytest.mark.parametrize("knob", [dict(backend="pipelined"),
