@@ -141,6 +141,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    close() in time.  Paged launches equal the stage runs x 48 / N_S at
    the stage count in force, or decode ticks x 48 on the local backend.
 
+12. the trace phase: the flight recorder (``EngineConfig(trace=True)``)
+   and the strict invariant auditor (``strict=True``) on full-width paths,
+   each held against the untraced run of an earlier phase: (1)
+   ``[trace-local]``, the yi-9b phase's engine and 20 requests six times
+   in turns (off, on, strict, strict, on, off; "strict" is trace and
+   strict): streams and paged launches equal the yi-9b phase's, decode and
+   prefill tok/s, the recorder's events, drops and host µs a step, the
+   auditor's checks and host ms a check; (2) ``[trace-pipe]``, 4 stages,
+   int8 wire, 64 ms links, the offloaded pools: streams equal the
+   pipeline phase's untraced int8 run, the recorded link ledger equal to
+   the transport's books bitwise, the Chrome trace written to
+   ``build/trace/`` (git-ignored), read back and valid, one swap window a
+   swap, paged launches the stage runs x 12; (3) ``[trace-res]``, phase
+   11's fault storm and 2 -> 4 -> 1 reshard traced and audited: streams
+   equal, the recorded drops equal the lost ticks and chunks (3 + 2), one
+   drain and one rebuild span a reshard, ``after_reshard`` passed each
+   time; and, after the gemma3 phase, (4) ``[trace-gemma]``, the gemma3
+   phase's engine traced and audited: streams, flash (960) and paged
+   launches equal the gemma3 phase's.  The host costs are measured by
+   wrapping each recording call and audit hook of the engine's instances
+   with two ``perf_counter`` reads (the wrapper's own reads included).
+
 Each serve phase sets every kernel's launch count to 0 just before it
 drives its path and reads them just after; the kernels line reports those
 counts by path.
@@ -148,6 +170,7 @@ counts by path.
 It prints an ``{"offload": ...}`` line (swap books, copy and wait times,
 the planner's inputs), a ``{"pipeline": ...}`` line (the pipeline phase's
 numbers and wall times), a ``{"resilience": ...}`` line (phase 11's), a
+``{"trace": ...}`` line (phase 12's), a
 ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  It exits non-zero without a
 result when no CUDA device is visible.
@@ -263,6 +286,10 @@ RES_DROPS = ("drop@prefill:3:0", "drop@prefill:5:1", "drop@decode:40:0",
 RES_RESHARD_STEPS = (60, 150)
 RES_KILL_STEP, RES_TIMEOUT = 60, 3
 RES_SYSTEM, RES_ONLINE_MAX_PAGES, RES_SLO_TTFT = 512, 96, 2.0
+# phase 12 (the flight recorder and the strict auditor): the local runs'
+# turns, and where the traced pipeline's Chrome trace is written
+TRACE_TURNS = ("off", "on", "strict", "strict", "on", "off")
+TRACE_DIR = ROOT / "build" / "trace"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1048,7 +1075,7 @@ def phase_serve(torch, np, card: str, params):
         f"peak_mem_gib={peak:.2f}; engine steps {rep['steps']}, decode "
         f"ticks {ticks}, paged-kernel launches {launches} "
         f"(= {ticks} x {YI_LAYERS})")
-    return counts, wall
+    return counts, wall, outs
 
 
 def phase_serve_gemma(torch, np, card: str):
@@ -1143,7 +1170,7 @@ def phase_serve_gemma(torch, np, card: str):
         f"ticks {ticks}, flash launches {flash} (= {GEMMA_REQUESTS} x "
         f"{cfg.num_layers}), paged launches {paged} (= {ticks} x "
         f"{n_global})")
-    return counts
+    return counts, outs, params
 
 
 def ring_loss(lengths, bucket, window: int):
@@ -2141,7 +2168,7 @@ def phase_pipeline(torch, np, card: str, params, local_run):
     info["wall_s"] = walls
     log(f"[pipe] phase wall times: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in walls.items()))
-    return counts, info
+    return counts, info, outs3
 
 
 # ---------------------------------------------------------------------------
@@ -2657,6 +2684,433 @@ def phase_resilience(torch, np, card: str, params, local_run, serve_wall,
     return counts, info
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the flight recorder and the strict auditor
+# ---------------------------------------------------------------------------
+
+# the recorder's recording methods (its readers, link_ledger, summary and
+# request_trace, are not timed)
+RECORDING = ("span", "instant", "step_phase", "pipe_tick", "link_send",
+             "tick_stall", "stage_busy", "offload_swap_out", "offload_swap_in",
+             "prefix_event", "slo_budget", "fault", "reshard_span",
+             "request_submit", "request_admit", "request_first_token",
+             "request_tokens", "request_chunk", "request_pages",
+             "request_prefix_hit", "request_finish", "request_stream_submit",
+             "request_delivery")
+AUDIT_HOOKS = ("after_submit", "after_step", "after_reshard")
+
+
+class _HookClock:
+    """Host seconds an engine spends inside its flight recorder's recording
+    calls and its auditor's hooks: each is wrapped, on the instances the
+    engine, backend, transport and offloaders share, with two
+    ``perf_counter`` reads (counted in the figure, so it bounds the cost
+    from above).  ``calls[name]`` counts each hook's calls."""
+
+    def __init__(self, engine):
+        self.seconds = {"recorder": 0.0, "auditor": 0.0}
+        self.calls = {}
+        if engine.recorder is not None:
+            for name in RECORDING:
+                self._wrap(engine.recorder, name, "recorder")
+        if engine.auditor is not None:
+            for name in AUDIT_HOOKS:
+                self._wrap(engine.auditor, name, "auditor")
+
+    def _wrap(self, obj, name, kind):
+        fn = getattr(obj, name)
+        self.calls[name] = 0
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds[kind] += time.perf_counter() - t0
+                self.calls[name] += 1
+        setattr(obj, name, timed)
+
+    def report(self, engine, steps: int) -> dict:
+        """The run's recorder and auditor figures (None where off)."""
+        out = {"recorder": None, "auditor": None}
+        rec, aud = engine.recorder, engine.auditor
+        if rec is not None:
+            out["recorder"] = {
+                "events": len(rec.events), "dropped": rec.dropped,
+                "requests": len(rec.requests),
+                "calls": sum(self.calls[n] for n in RECORDING),
+                "host_us_a_step": self.seconds["recorder"] / steps * 1e6}
+        if aud is not None:
+            out["auditor"] = {
+                "checks": aud.checks,
+                "host_ms_a_check": self.seconds["auditor"] / aud.checks
+                * 1e3,
+                "host_ms_a_step": self.seconds["auditor"] / steps * 1e3}
+        return out
+
+
+def _cost_text(costs) -> str:
+    parts = []
+    r, a = costs["recorder"], costs["auditor"]
+    if r is not None:
+        parts.append(f"recorder {r['events']} events, {r['dropped']} "
+                     f"dropped, {r['calls']} calls, "
+                     f"{r['host_us_a_step']:.1f} us a step")
+    if a is not None:
+        parts.append(f"auditor {a['checks']} checks, "
+                     f"{a['host_ms_a_check']:.3f} ms a check")
+    return "; ".join(parts) or "recorder and auditor off"
+
+
+def _event_counts(rec) -> dict:
+    out = {}
+    for e in rec.events:
+        out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+def phase_trace(torch, np, card: str, params, serve_run, int8_outs,
+                local_run, res_counts):
+    """Phase 12 on full-width yi-9b (bf16, the serve phases' weights and 20
+    requests), each run held against an earlier phase's untraced one:
+
+    1. ``[trace-local]``: the yi-9b phase's local engine six times in turns
+       (off, on, strict, strict, on, off): streams and paged launches equal
+       the yi-9b phase's; tok/s and the recorder's and auditor's host cost;
+    2. ``[trace-pipe]``: 4 stages, int8 wire, 64 ms links, the offloaded
+       pools, traced and audited: streams equal the pipeline phase's
+       untraced int8 run; the recorded ledger equals the transport's books
+       bitwise; the Chrome trace, written under ``build/trace/`` and read
+       back, is valid; one swap window a swap; paged launches the stage
+       runs x 12;
+    3. ``[trace-res]``: phase 11's fault storm and reshard 2 -> 4 -> 1,
+       traced and audited: streams equal the local engine's, the recorded
+       drops equal the lost work (3 + 2), one drain and one rebuild span a
+       reshard, ``after_reshard`` passed each time."""
+    import gc
+
+    from repro_torch.config import get_arch
+    from repro_torch.distributed.elastic import FaultPlan
+    from repro_torch.distributed.transport import SimulatedLinkTransport
+    from repro_torch.models.common import Runtime
+    from repro_torch.obs import (chrome_trace_events, validate_chrome_trace,
+                                 write_chrome_trace)
+    from repro_torch.serving.kv_cache import PoolConfig
+    from repro_torch.serving.llm import LLM, EngineConfig, RequestOutput
+
+    cfg = get_arch("yi-9b")
+    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    vocab, new = cfg.vocab_size, SERVE_NEW
+    info, counts = {}, {}
+
+    def llm_of(**kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        return LLM(cfg, config=EngineConfig(seed=SEED,
+                                            max_prefill_tokens_per_tick=256,
+                                            **kw),
+                   params=params, rt=rt, reduced=False, device="cuda")
+
+    def traced(outs, tag):
+        missing = [o.request_id for o in outs if not o.trace
+                   or len(o.trace["token_times"]) != new]
+        if missing:
+            raise AssertionError(f"{tag}: requests {missing} have no full "
+                                 "request trace")
+
+    # -- run 1: the local engine, in turns ----------------------------------
+    t0 = time.perf_counter()
+    runs = []
+    want_paged = serve_run["counts"]["paged_attention"]
+    for i, turn in enumerate(TRACE_TURNS):
+        llm = llm_of(mb_size=SERVE_MB, num_microbatches=SERVE_N_MB,
+                     pool=PoolConfig(page_size=SERVE_PAGE,
+                                     n_local_pages=SERVE_POOL_PAGES,
+                                     max_pages_per_seq=SERVE_MAX_PAGES),
+                     trace=turn != "off", strict=turn == "strict")
+        clock = _HookClock(llm.engine)
+        tag = f"trace-local {i + 1} {turn}"
+        outs, rep, c = _serve_yi(torch, np, llm, tag, card)
+        _check_outs(tag, outs, new, vocab, serve_run["outs"])
+        if c["paged_attention"] != want_paged or c["flash_attention"]:
+            raise AssertionError(f"{tag}: {c} launches, the yi-9b phase's "
+                                 f"{want_paged} paged and no flash")
+        if turn != "off":
+            traced(outs, tag)
+            errs = validate_chrome_trace(
+                chrome_trace_events(llm.engine.recorder))
+            if errs:
+                raise AssertionError(f"{tag}: invalid trace: {errs[:3]}")
+        costs = clock.report(llm.engine, rep["steps"])
+        runs.append(dict(turn=turn, decode_tok_per_s=rep["decode_tok_per_s"],
+                         prefill_tok_per_s=rep["prefill_tok_per_s"],
+                         wall_s=rep["generate_wall_s"], steps=rep["steps"],
+                         paged_launches=c["paged_attention"], **costs))
+        counts[f"yi-9b traced {i + 1} {turn}"] = c
+        log(f"[trace-local] run {i + 1} ({turn}) on {card}: decode "
+            f"{rep['decode_tok_per_s']:.1f} tok/s, prefill "
+            f"{rep['prefill_tok_per_s']:.1f} tok/s, wall "
+            f"{rep['generate_wall_s']:.3f} s, {rep['steps']} steps; "
+            f"{_cost_text(costs)}; streams and {c['paged_attention']} paged "
+            "launches equal the yi-9b phase's")
+        del llm
+    by = {}
+    for r in runs:
+        by.setdefault(r["turn"], []).append(r)
+    summary = {turn: {k: [r[k] for r in rs] for k in
+                      ("decode_tok_per_s", "prefill_tok_per_s", "wall_s")}
+               for turn, rs in by.items()}
+    log("[trace-local] decode tok/s by mode on " + card + ": " + "; ".join(
+        f"{turn} " + " / ".join(f"{v:.1f}" for v in s["decode_tok_per_s"])
+        for turn, s in summary.items()) + "; prefill tok/s: " + "; ".join(
+        f"{turn} " + " / ".join(f"{v:.1f}" for v in s["prefill_tok_per_s"])
+        for turn, s in summary.items()))
+    info["local"] = {"runs": runs, "by_mode": summary,
+                     "wall_s": time.perf_counter() - t0}
+
+    # -- run 2: 4 stages, int8 wire, 64 ms links, offloaded pools -----------
+    t0 = time.perf_counter()
+    llm = llm_of(mb_size=PIPE_MB, num_microbatches=PIPE_INT8_STAGES,
+                 pool=PoolConfig(page_size=SERVE_PAGE, n_local_pages=OFF_LOCAL,
+                                 n_global_pages=OFF_GLOBAL,
+                                 max_pages_per_seq=SERVE_MAX_PAGES),
+                 backend="pipelined", n_stages=PIPE_INT8_STAGES,
+                 wire_dtype="int8", transport=SimulatedLinkTransport.uniform(
+                     PIPE_INT8_STAGES, PIPE_LINK), trace=True, strict=True)
+    eng = llm.engine
+    clock = _HookClock(eng)
+    outs, rep, c = _serve_yi(torch, np, llm, "trace-pipe", card)
+    _check_outs("trace-pipe", outs, new, vocab, int8_outs)
+    traced(outs, "trace-pipe")
+    be, rec = eng.backend, eng.recorder
+    stage_runs = _StageRuns()
+    stage_runs.add(be)
+    split = stage_runs.check("trace-pipe", c["paged_attention"])
+    books = rep["transport"]
+    ledger = rec.link_ledger()
+    if rec.dropped or ledger["wire_bytes"] != books["wire_bytes"] or \
+            ledger["sends"] != books["link_sends"] or \
+            ledger["stall_s"] != books["link_stall_s"]:
+        raise AssertionError(f"trace-pipe: ledger {ledger} ({rec.dropped} "
+                             f"dropped) against the books {books}")
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / "yi9b_pipe_int8.json"
+    write_chrome_trace(rec, str(path))
+    back = json.loads(path.read_text())
+    errs = validate_chrome_trace(back)
+    sent = sum(e["args"]["nbytes"] for e in back["traceEvents"]
+               if e.get("ph") == "b")
+    if errs or sent != books["wire_bytes"]:
+        raise AssertionError(f"trace-pipe: {path} has {len(errs)} problems "
+                             f"({errs[:3]}); its transfers sum to {sent} "
+                             f"bytes against {books['wire_bytes']}")
+    ev = _event_counts(rec)
+    swaps = be.swap_count
+    if ev.get("swap_in", 0) != swaps or swaps == 0:
+        raise AssertionError(f"trace-pipe: {ev.get('swap_in', 0)} swap "
+                             f"windows recorded for {swaps} swaps")
+    costs = clock.report(eng, rep["steps"])
+    info["pipe"] = dict(
+        decode_tok_per_s=rep["decode_tok_per_s"],
+        prefill_tok_per_s=rep["prefill_tok_per_s"],
+        virtual_decode_tok_per_s=rep["virtual_decode_tok_per_s"],
+        wall_s=rep["generate_wall_s"], steps=rep["steps"],
+        decode_ticks=rep["decode_ticks"], prefill_ticks=be.prefill_ticks,
+        ledger=ledger, books=books, swaps=swaps,
+        swap_outs=ev.get("swap_out", 0), trace_file=str(path.relative_to(
+            ROOT)), trace_events=len(back["traceEvents"]),
+        trace_bytes=path.stat().st_size, paged_launches=c["paged_attention"],
+        events_by_name=ev, **costs)
+    counts["yi-9b traced pipelined int8"] = c
+    log(f"[trace-pipe] {PIPE_INT8_STAGES} stages, int8 wire, "
+        f"{PIPE_LINK * 1e3:.0f} ms links, offloaded pools, trace and strict "
+        f"on {card}: all {len(outs)} streams equal the pipeline phase's "
+        f"untraced int8 run; decode {rep['decode_tok_per_s']:.1f} tok/s, "
+        f"prefill {rep['prefill_tok_per_s']:.1f} tok/s, virtual decode "
+        f"{rep['virtual_decode_tok_per_s']:.1f} tok/s, wall "
+        f"{rep['generate_wall_s']:.3f} s; {_cost_text(costs)}")
+    log(f"[trace-pipe] ledger == books bitwise: {ledger['wire_bytes']} wire "
+        f"bytes, {ledger['sends']} sends, stall {ledger['stall_s']!r} s; "
+        f"{path.relative_to(ROOT)}: {len(back['traceEvents'])} events "
+        f"({path.stat().st_size} bytes), valid, its transfers sum to the "
+        f"wire bytes; {swaps} swaps = {ev.get('swap_in', 0)} swap windows "
+        f"({ev.get('swap_out', 0)} swap-outs); paged launches "
+        f"{c['paged_attention']} = {split}")
+    del llm, eng, be, rec
+    info["pipe"]["phase_wall_s"] = time.perf_counter() - t0
+
+    # -- run 3: phase 11's fault storm and reshard, traced and audited ------
+    t0 = time.perf_counter()
+    ref = local_run["outs"]
+    prompts, sps = _yi_requests(np, vocab, SERVE_REQUESTS, SERVE_PROMPTS,
+                                new)
+
+    def res_llm(**kw):
+        return llm_of(mb_size=PIPE_MB, num_microbatches=PIPE_N_MB,
+                      pool=PoolConfig(page_size=SERVE_PAGE,
+                                      n_local_pages=OFF_LOCAL,
+                                      n_global_pages=OFF_GLOBAL,
+                                      max_pages_per_seq=SERVE_MAX_PAGES),
+                      backend="pipelined", n_stages=RES_STAGES, trace=True,
+                      strict=True, **kw)
+
+    def drive(llm, hook):
+        eng = llm.engine
+        seqs = eng.submit(llm._make_requests(prompts, sps))
+        reset_counts()
+        t1 = time.perf_counter()
+        step = 0
+        while eng.step():
+            step += 1
+            hook(step)
+        torch.cuda.synchronize()
+        outs = [RequestOutput.from_seq(
+            s, trace=eng.request_trace(s.request.request_id)) for s in seqs]
+        return outs, time.perf_counter() - t1, step
+
+    delays = [f"delay@decode:{t}:1:{RES_DELAY_S}"
+              for t in range(RES_DELAY_FROM,
+                             RES_DELAY_FROM + RES_DELAY_TICKS)]
+    plan = FaultPlan.parse(list(RES_DROPS) + delays)
+    llm = res_llm(fault_plan=plan)
+    eng = llm.engine
+    clock = _HookClock(eng)
+    outs, wall, steps = drive(llm, lambda step: None)
+    c = counts["yi-9b traced fault storm"] = read_counts()
+    rep = llm.stats()
+    _check_outs("trace-storm", outs, new, vocab, ref)
+    traced(outs, "trace-storm")
+    stage_runs = _StageRuns()
+    stage_runs.add(eng.backend)
+    stage_runs.check("trace-storm", c["paged_attention"])
+    lost = (rep["decode_ticks_lost"], rep["prefill_chunks_lost"])
+    ev = _event_counts(eng.recorder)
+    untraced = res_counts["yi-9b fault storm"]["paged_attention"]
+    if lost != (3, 2) or ev.get("fault_drop", 0) != sum(lost) or \
+            ev.get("fault_recover", 0) != sum(lost) or \
+            ev.get("fault_delay", 0) != RES_DELAY_TICKS or \
+            c["paged_attention"] != untraced:
+        raise AssertionError(
+            f"trace-storm: lost {lost}, recorded {ev.get('fault_drop', 0)} "
+            f"drops, {ev.get('fault_recover', 0)} recoveries, "
+            f"{ev.get('fault_delay', 0)} delays; paged launches "
+            f"{c['paged_attention']} against phase 11's {untraced}")
+    costs = clock.report(eng, steps)
+    info["storm"] = dict(lost=lost, fault_events={
+        k: ev.get(k, 0) for k in ("fault_drop", "fault_recover",
+                                  "fault_delay")}, wall_s=wall, steps=steps,
+        paged_launches=c["paged_attention"], **costs)
+    log(f"[trace-res] storm, trace and strict on {card}: streams equal the "
+        f"local engine's; lost {lost[0]} decode ticks + {lost[1]} prefill "
+        f"chunks = {ev.get('fault_drop', 0)} recorded drops, "
+        f"{ev.get('fault_recover', 0)} recoveries, "
+        f"{ev.get('fault_delay', 0)} delays; paged launches "
+        f"{c['paged_attention']} (phase 11: {untraced}); wall {wall:.3f} s; "
+        f"{_cost_text(costs)}")
+    del llm, eng
+
+    llm = res_llm()
+    eng = llm.engine
+    clock = _HookClock(eng)
+    stage_runs = _StageRuns()
+
+    def reshard_hook(step):
+        if step not in RES_RESHARD_STEPS:
+            return
+        old = eng.backend
+        kw = dict(n_stages=4) if step == RES_RESHARD_STEPS[0] \
+            else dict(live_devices=1)
+        eng.reshard(**kw)
+        stage_runs.add(old)
+        holders = [eng.backend.transport.recorder,
+                   *(o.recorder for o in eng.backend.stage_offloaders)]
+        if any(r is not eng.recorder for r in holders):
+            raise AssertionError(f"trace-reshard: the rebuilt pipe at step "
+                                 f"{step} lost the engine's recorder")
+    outs, wall, steps = drive(llm, reshard_hook)
+    c = counts["yi-9b traced reshard"] = read_counts()
+    stage_runs.add(eng.backend)
+    split = stage_runs.check("trace-reshard", c["paged_attention"])
+    _check_outs("trace-reshard", outs, new, vocab, ref)
+    traced(outs, "trace-reshard")
+    rep = llm.stats()
+    ev = _event_counts(eng.recorder)
+    spans = [(e.name, dict(e.data)) for e in eng.recorder.events
+             if e.track == "reshard"]
+    passed = clock.calls["after_reshard"]
+    if rep["reshards"] != 2 or ev.get("reshard_drain", 0) != 2 or \
+            ev.get("reshard_rebuild", 0) != 2 or passed != 2:
+        raise AssertionError(f"trace-reshard: {rep['reshards']} reshards, "
+                             f"spans {spans}, after_reshard passed {passed} "
+                             "times")
+    costs = clock.report(eng, steps)
+    info["reshard"] = dict(spans=[[n, d] for n, d in spans],
+                           after_reshard=passed, wall_s=wall, steps=steps,
+                           paged_launches=c["paged_attention"],
+                           untraced_paged_launches=res_counts[
+                               "yi-9b reshard"]["paged_attention"], **costs)
+    log(f"[trace-res] reshard 2 -> 4 -> 1, trace and strict on {card}: "
+        f"streams equal the local engine's; spans "
+        + ", ".join(f"{n}{d}" for n, d in spans)
+        + f"; after_reshard passed {passed} times; paged launches "
+        f"{c['paged_attention']} = {split} (phase 11: "
+        f"{info['reshard']['untraced_paged_launches']}); wall {wall:.3f} s; "
+        f"{_cost_text(costs)}")
+    del llm, eng
+    info["res_phase_wall_s"] = time.perf_counter() - t0
+    return counts, info
+
+
+def phase_trace_gemma(torch, np, card: str, params, gemma_outs,
+                      gemma_counts):
+    """``[trace-gemma]``: the gemma3 phase's engine and requests on its
+    weights, traced and audited (the exact-prefill branch of the engine's
+    step): streams, flash and paged launches equal the gemma3 phase's."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.common import Runtime
+    from repro_torch.serving.kv_cache import PoolConfig
+    from repro_torch.serving.llm import LLM, EngineConfig
+
+    cfg = get_arch("gemma3-12b")
+    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    llm = LLM(cfg, config=EngineConfig(
+        mb_size=GEMMA_MB, num_microbatches=1,
+        pool=PoolConfig(page_size=GEMMA_PAGE, n_local_pages=GEMMA_POOL_PAGES,
+                        max_pages_per_seq=GEMMA_MAX_PAGES),
+        seed=SEED, prefill_mode="auto", trace=True, strict=True),
+        params=params, rt=rt, reduced=False, device="cuda")
+    prompts, sps = _yi_requests(np, cfg.vocab_size, GEMMA_REQUESTS,
+                                GEMMA_PROMPTS, GEMMA_NEW)
+    clock = _HookClock(llm.engine)
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts, sps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = read_counts()
+    rep = llm.stats()
+    _check_outs("trace-gemma", outs, GEMMA_NEW, cfg.vocab_size, gemma_outs)
+    if any(not o.trace or len(o.trace["token_times"]) != GEMMA_NEW
+           for o in outs):
+        raise AssertionError("trace-gemma: a request has no full trace")
+    if c != gemma_counts or c["flash_attention"] != \
+            GEMMA_REQUESTS * cfg.num_layers:
+        raise AssertionError(f"trace-gemma: launches {c}, the gemma3 "
+                             f"phase's {gemma_counts}")
+    costs = clock.report(llm.engine, rep["steps"])
+    log(f"[trace-gemma] gemma3-12b, exact prefill, trace and strict on "
+        f"{card}: all {len(outs)} streams equal the gemma3 phase's; decode "
+        f"{rep['decode_tok_per_s']:.1f} tok/s, prefill "
+        f"{rep['prefill_tok_per_s']:.1f} tok/s, wall {wall:.3f} s, "
+        f"{rep['steps']} steps; flash launches {c['flash_attention']}, paged "
+        f"{c['paged_attention']} (the gemma3 phase's {gemma_counts}); "
+        f"{_cost_text(costs)}")
+    info = dict(decode_tok_per_s=rep["decode_tok_per_s"],
+                prefill_tok_per_s=rep["prefill_tok_per_s"], wall_s=wall,
+                steps=rep["steps"], launches=c, **costs)
+    return c, info
+
+
 def yi_params(torch):
     """Full-width, full-depth yi-9b weights in bf16 from the seed, shared by
     the yi-9b serve phases."""
@@ -2696,20 +3150,30 @@ def main() -> int:
     swap_order = phase_swap_order(torch, np, smi_line)
     params = yi_params(torch)
     paths = {}
-    paths["yi-9b"], serve_wall = phase_serve(torch, np, smi_line, params)
+    paths["yi-9b"], serve_wall, serve_outs = phase_serve(torch, np,
+                                                         smi_line, params)
     off_counts, offload, local_run = phase_serve_offload(torch, np,
                                                          smi_line, params)
     paths.update({f"yi-9b {tag}": c for tag, c in off_counts.items()})
     paths["yi-9b planned"], plan = phase_plan(torch, np, smi_line, params)
-    pipe_counts, pipeline = phase_pipeline(torch, np, smi_line, params,
-                                           local_run)
+    pipe_counts, pipeline, int8_outs = phase_pipeline(
+        torch, np, smi_line, params, local_run)
     paths.update(pipe_counts)
     res_counts, resilience = phase_resilience(
         torch, np, smi_line, params, local_run, serve_wall,
         pipeline["run2"])
     paths.update(res_counts)
+    trace_counts, trace = phase_trace(
+        torch, np, smi_line, params,
+        dict(outs=serve_outs, counts=paths["yi-9b"]), int8_outs,
+        local_run, res_counts)
+    paths.update(trace_counts)
     del params
-    paths["gemma3-12b"] = phase_serve_gemma(torch, np, smi_line)
+    paths["gemma3-12b"], gemma_outs, gemma_params = phase_serve_gemma(
+        torch, np, smi_line)
+    paths["gemma3-12b traced"], trace["gemma"] = phase_trace_gemma(
+        torch, np, smi_line, gemma_params, gemma_outs, paths["gemma3-12b"])
+    del gemma_params
     paths["recurrentgemma-9b"] = phase_serve_recurrentgemma(torch, np,
                                                             smi_line)
 
@@ -2741,6 +3205,7 @@ def main() -> int:
                                   "serve": offload, "plan": plan}}))
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"resilience": resilience}))
+    print(json.dumps({"trace": trace}))
     print(json.dumps({"kernels": entries}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

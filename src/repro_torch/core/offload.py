@@ -17,6 +17,7 @@ host buffers and events; see its docstring.
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
@@ -123,7 +124,17 @@ class DoubleBufferOffloader:
     ``async_swap=False`` does the copies on the compute stream and blocks
     after the swap-out, as the JAX offloader's blocking mode does.  On a
     CPU pool (the caller's choice of device) the copies are plain
-    ``copy_``."""
+    ``copy_``.
+
+    With a flight recorder attached (``recorder``, set by the backend when
+    tracing is on) every counted swap records a ``swap_out`` instant when
+    a microbatch departs and one ``swap_in`` span: host ``perf_counter``
+    stamps around the swap in :meth:`ensure_resident`.  On the card they
+    time the *issuing* of the copy-stream swap (events, waits and copies
+    enqueued), not the copy, which runs later on the copy stream; the
+    copy's own milliseconds are the event pairs :meth:`swap_timings`
+    reads, outside the swap window.  Nothing here waits on an event to
+    record."""
 
     def __init__(self, pool: PoolConfig, num_microbatches: int,
                  async_swap: bool = True):
@@ -141,6 +152,7 @@ class DoubleBufferOffloader:
         self._timings: deque = deque(maxlen=MAX_TIMED_SWAPS)
         self.swap_count = 0
         self.bytes_swapped = 0
+        self.recorder = None            # repro_torch.obs TraceRecorder
 
     @property
     def host_bytes(self) -> int:
@@ -213,6 +225,8 @@ class DoubleBufferOffloader:
         parity = mb % 2
         if self.resident[parity] == mb or self.pool.n_global_pages == 0:
             return caches
+        rec = self.recorder
+        t0 = time.perf_counter() if rec is not None else 0.0
         out_mb = self.resident[parity]
         incoming = self._host.pop(mb, None)
         slices = self._slices(caches, global_slice(self.pool, parity))
@@ -226,6 +240,11 @@ class DoubleBufferOffloader:
                 self._stage_in(slices, incoming)
         self.resident[parity] = mb
         self.swap_count += 1
+        if rec is not None:
+            # host stamps of issuing the swap (see the class docstring)
+            if out_mb is not None:
+                rec.offload_swap_out(out_mb, t0, self.async_swap)
+            rec.offload_swap_in(mb, t0, time.perf_counter())
         return caches
 
     def _swap_on_copy_stream(self, slices, out_mb, incoming) -> None:
@@ -255,6 +274,7 @@ class DoubleBufferOffloader:
             dst.copy_(src, non_blocking=True)
             self.bytes_swapped += src.numel() * src.element_size()
         if self._device.type == "cuda" and not self.async_swap:
+            # repro-torch-audit: allow(offload-sync) — async_swap=False opt-out: the blocking swap-out kept for debugging and A/B runs
             # repro-audit: allow(host-sync, offload-sync) — async_swap=False opt-out: the blocking swap-out kept for debugging and A/B runs
             self.block_until_ready()
         return store
@@ -274,9 +294,11 @@ class DoubleBufferOffloader:
         """Wait for every copy this offloader has enqueued: the copy
         stream's in async mode, the compute stream's in blocking mode."""
         if self._stream is not None:
+            # repro-torch-audit: allow(host-sync) — the offloader's barrier: the hot path reaches it only through the async_swap=False fallback
             self._stream.synchronize()
         if not self.async_swap and self._device is not None and \
                 self._device.type == "cuda":
+            # repro-torch-audit: allow(host-sync) — the async_swap=False fallback's blocking swap-out
             torch.cuda.current_stream(self._device).synchronize()
 
     def settle(self) -> "DoubleBufferOffloader":

@@ -49,9 +49,9 @@ dependency that makes the round-flush schedule pay ``(N_S+N_B−1)(T_S+L)``
 per token round while the circular schedule hides the latency entirely
 once ``N_B ≥ N_S·(T_S+L)/T_S``.
 
-The flight recorder (``set_recorder``) comes with the tracing slice of
-the port; the calls into it stay where the JAX package books them, gated
-on ``recorder is not None``, and attaching one raises until then.
+A flight recorder (``set_recorder``, :mod:`repro_torch.obs`) is booked
+at the exact sites where the books accumulate, gated on ``recorder is
+not None``, so its ledger reconciles with ``stats()`` bitwise.
 """
 
 from __future__ import annotations
@@ -129,17 +129,14 @@ class Transport(abc.ABC):
     stages' occupancy and the payload size crossing each boundary."""
 
     name: str = "abstract"
-    recorder = None         # a flight recorder (tracing slice), or None
+    recorder = None         # repro_torch.obs.trace.TraceRecorder, or None
 
     def set_recorder(self, recorder) -> "Transport":
-        """Attach a flight recorder.  Recording transports log link sends
-        and per-tick stalls at the exact sites where their books
-        accumulate.  The recorder comes with the tracing slice of the
-        port: ``None`` is accepted, anything else raises."""
-        if recorder is not None:
-            raise NotImplementedError(
-                "transport flight recording is not ported yet: it comes "
-                "with the tracing slice (flight recorder)")
+        """Attach a flight recorder (``repro_torch.obs.trace.TraceRecorder``).
+        Recording transports log link sends and per-tick stalls at the
+        exact sites where their books accumulate, so the recorded ledger
+        reconciles bitwise with ``stats()``.  The no-op paths keep the
+        reference but record nothing (no books, no clock)."""
         self.recorder = recorder
         return self
 

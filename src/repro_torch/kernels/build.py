@@ -104,6 +104,12 @@ def build(name: str) -> BuildInfo:
     return build_many([name])[name]
 
 
+def loaded() -> Dict[str, ctypes.CDLL]:
+    """The libraries :func:`load` has loaded in this process, by name (a
+    copy; the strict auditor pins each one's path and handle)."""
+    return dict(_LOADED)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _LOADED.get(name)

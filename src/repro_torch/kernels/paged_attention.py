@@ -58,6 +58,7 @@ _workspace: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor,
 def _library():
     global _lib
     if _lib is None:
+        # repro-torch-audit: allow(retrace-jit) — memoised in _lib: one load a process (the strict auditor pins the library mid-serve)
         lib = build.load("paged_attention")
         fn = lib.paged_decode_attention
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + \

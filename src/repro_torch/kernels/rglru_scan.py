@@ -33,6 +33,7 @@ _lib = None
 def _library():
     global _lib
     if _lib is None:
+        # repro-torch-audit: allow(retrace-jit) — memoised in _lib: one load a process (the strict auditor pins the library mid-serve)
         lib = build.load("rglru_scan")
         fn = lib.rglru_scan
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \

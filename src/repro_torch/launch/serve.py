@@ -1,6 +1,5 @@
 """Serving entry point of the PyTorch port: the ``LLM`` front end over the
-local or the pipelined backend (counterpart of ``repro.launch.serve``; its
-tracing and audit options come with later slices).
+local or the pipelined backend (counterpart of ``repro.launch.serve``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \\
       --requests 16 --max-new 24 [--mixed] [--full] [--device cpu|cuda] \\
@@ -69,6 +68,18 @@ admission policy.  The streams are the offline path's in every mode.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --online --prefix-cache --system-prompt 32
+
+Observability and audit: ``--trace OUT.json`` turns on the flight
+recorder (``EngineConfig(trace=True)``) and writes a Perfetto-loadable
+Chrome-trace timeline at exit — engine step phases, per-microbatch stage
+occupancy, per-link transfers on the virtual clock, offload swaps,
+prefix-cache, SLO, fault and reshard events (check it with ``python -m
+repro_torch.obs.timeline --check OUT.json``); ``--strict`` turns on the
+runtime invariant auditor (``EngineConfig(strict=True)``), which checks
+the engine's books after every submit, step and reshard.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --trace out.json --strict
 """
 
 from __future__ import annotations
@@ -227,6 +238,16 @@ def main(argv=None) -> None:
     ap.add_argument("--slo-itl", type=float, default=0.0,
                     help="inter-token (per-tick) target (s) of the SLO "
                          "admission policy (0 = off)")
+    ap.add_argument("--trace", default="", metavar="OUT.json",
+                    help="flight recorder: record engine/transport/request "
+                         "spans and write a Chrome-trace (Perfetto) "
+                         "timeline to OUT.json at exit")
+    ap.add_argument("--strict", action="store_true",
+                    help="enable the runtime invariant auditor "
+                         "(repro_torch.analysis.invariants): page / FSM / "
+                         "transport / offload / kernel-library audits "
+                         "after every step, failing at the tick that "
+                         "corrupted state")
     args = ap.parse_args(argv)
 
     deployment = None
@@ -349,7 +370,8 @@ def main(argv=None) -> None:
     pipe = dict(backend=args.backend, transport=transport,
                 schedule=args.schedule, wire_dtype=wire_dtype,
                 fault_plan=fault_plan, prefix_cache=args.prefix_cache,
-                slo=slo)
+                slo=slo, trace=bool(args.trace) or None,
+                strict=args.strict or None)
     if args.plan:
         t_s = measure_stage_time(cfg, params, rt, args.stages, device)
         if device.type == "cuda":
@@ -485,6 +507,16 @@ def main(argv=None) -> None:
                      f"{t['compression_ratio']:.1f}x on the wire)")
         print(line)
     print(f"report: {rep}")
+    if args.trace:
+        from repro_torch.obs.timeline import write_chrome_trace
+        trace = write_chrome_trace(engine.recorder, args.trace)
+        od = trace["otherData"]
+        print(f"trace: wrote {len(trace['traceEvents'])} timeline events "
+              f"({od['recorder_events']} recorded, "
+              f"{od['recorder_dropped']} dropped) to {args.trace} — open "
+              "in https://ui.perfetto.dev")
+    if engine.auditor is not None:
+        print(f"strict: {engine.auditor.checks} invariant audits passed")
 
     n_b = optimal_microbatches(8, 0.08, args.latency)
     print(f"\nschedule report (8-stage pipeline, T_S=80ms, "

@@ -67,7 +67,15 @@ PyTorch runs eagerly, so ``_chunk_fn`` / ``_prefill_fn`` / ``_decode_fn``
 are plain methods where the JAX package jits, and the JAX pipelined
 backend's sharding-layout machinery (``_commit``, ``_probe_layout``,
 ``_cache_shardings``), which keeps its jit caches steady, has nothing to
-do here.  The flight recorder comes with the tracing slice.
+do here.  The JAX backends' ``jit_entries`` seam (the strict auditor's
+jit cache probes) becomes ``kernel_libraries``: the loaded kernel
+libraries, which must not be built or loaded again mid-serve.
+
+A flight recorder (``recorder=``, :mod:`repro_torch.obs`) rides on the
+backend's offloaders and, on the pipelined backend, on the outer
+transport; the pipelined backend records each plane tick's wall window
+and stage occupancy (``pipe_tick``) and each injected fault, from host
+values only.
 """
 
 from __future__ import annotations
@@ -85,6 +93,7 @@ from repro_torch.core.offload import DoubleBufferOffloader
 from repro_torch.distributed.transport import (CompressedTransport,
                                                InProcessTransport,
                                                make_transport)
+from repro_torch.kernels import build as kernel_build
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import Runtime
 from repro_torch.serving import kv_cache as kvc
@@ -195,6 +204,7 @@ class _SlotCacheBackend:
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
+            # repro-torch-audit: allow(host-sync) — once a prefill phase (chunk or exact prefill) and a pipe tick that drains nothing, so the phase clocks and stage times measure the card
             torch.cuda.synchronize(self.device)
 
     # -- the pipe's state (a local backend has nothing in flight) ----------
@@ -221,6 +231,13 @@ class _SlotCacheBackend:
         """The inter-stage transport's books (virtual clock, wire bytes,
         link stalls); empty where there are no stages or no books."""
         return {}
+
+    def kernel_libraries(self) -> Dict[str, object]:
+        """The kernel libraries loaded so far, by name, for the strict
+        auditor: each must stay the one library of its name for the whole
+        serve (a second build or load mid-serve is the eager counterpart
+        of a jit retrace).  Empty off the card."""
+        return kernel_build.loaded()
 
     # -- exact-length prefill ------------------------------------------------
 
@@ -269,11 +286,14 @@ class LocalBackend(_SlotCacheBackend):
     def __init__(self, cfg: ModelConfig, params: dict, rt: Runtime, *,
                  mb_size: int, num_microbatches: int, pool: kvc.PoolConfig,
                  device: torch.device, offloader=None,
-                 caches: Optional[dict] = None):
+                 caches: Optional[dict] = None, recorder=None):
         super().__init__(cfg, params, rt, mb_size=mb_size,
                          num_microbatches=num_microbatches, pool=pool,
                          device=device, caches=caches)
         self.offloader = offloader
+        self.recorder = recorder
+        if offloader is not None:
+            offloader.recorder = recorder
 
     def _residency(self, mb: int) -> None:
         """Make ``mb``'s global-pool parity resident before the model
@@ -342,6 +362,7 @@ class LocalBackend(_SlotCacheBackend):
         self.decode_ticks += 1
         # the tick's one device-to-host transfer: the engine books the
         # microbatch's tokens on the host
+        # repro-torch-audit: allow(host-sync) — the tick's one device-to-host transfer (tokens and log-probs in one copy)
         out = torch.stack([toks.float(), lps]).cpu().numpy()
         return [DecodeResult(mb=mb, tokens=out[0].astype(np.int32),
                              logprobs=out[1])]
@@ -387,7 +408,7 @@ class PipelinedBackend(_SlotCacheBackend):
                  offload: bool = False, offload_async: bool = True,
                  mesh=None, transport=None, schedule: str = "circular",
                  wire_dtype: str = "fp32", fault_plan=None,
-                 caches: Optional[dict] = None):
+                 caches: Optional[dict] = None, recorder=None):
         if wire_dtype not in PL.WIRE_DTYPES:
             raise ValueError(f"wire_dtype must be 'fp32'|'int8', got "
                              f"{wire_dtype!r} (top-k has no codec in the "
@@ -459,6 +480,11 @@ class PipelinedBackend(_SlotCacheBackend):
                     self.transport, method="int8",
                     elem_bytes=self._dtype_bytes,
                     row_elems=cfg.d_model).bind(n_stages)
+        # the flight recorder rides on the OUTER transport (a compressed
+        # wrap forwards to its inner, which accumulates the books, so the
+        # recorded ledger carries the re-priced wire bytes)
+        self.recorder = recorder
+        self.transport.set_recorder(recorder)
 
         # §4.2 offloading, per stage: stage s double-buffers its own layers'
         # slice of the global pools; the epilogue is one more unit, keyed
@@ -473,6 +499,8 @@ class PipelinedBackend(_SlotCacheBackend):
             if any("k_pages" in c for c in self._epi_view()["layers"]):
                 self.epilogue_offloader = DoubleBufferOffloader(
                     pool, num_microbatches, async_swap=offload_async)
+            for off in self._offload_units():
+                off[0].recorder = recorder
 
     # -- per-stage offload residency ---------------------------------------
 
@@ -525,6 +553,8 @@ class PipelinedBackend(_SlotCacheBackend):
         tick = self.prefill_ticks
         self.prefill_ticks += 1
         delays, lost = self._take_faults("prefill", tick, entries)
+        if self.recorder is not None and (lost or delays):
+            self._record_faults("prefill", [-1] * len(lost), delays)
         results = [PrefillResult(chunk=c, logits=None, lost=True)
                    for c in lost]
         if not any(e is not None for e in entries):
@@ -561,12 +591,20 @@ class PipelinedBackend(_SlotCacheBackend):
         # the tick's device work ends inside the engine's prefill phase,
         # and the stage time the transport books is the card's
         self._sync()
-        dt = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        dt = t1 - t0
         # the chunk activation (R, C, D) crosses each occupied boundary
         obs = self.transport.tick(
             occupied, rows * clen * self.cfg.d_model * self._dtype_bytes,
             _stage_seconds(dt, occupied), plane="prefill")
         self._observe_stages(dt, occupied, delays, obs.stalls)
+        if self.recorder is not None:
+            # per-stage occupancy: prompt rows in flight at each stage
+            # (host ints the stepper already holds)
+            self.recorder.pipe_tick(
+                "prefill", t0, t1,
+                tuple(len(e.seqs) if e is not None else 0
+                      for e in entries))
         self._pf_entries = [None] + entries[:-1]
         if drained is None:
             return results
@@ -608,6 +646,8 @@ class PipelinedBackend(_SlotCacheBackend):
         tick = self.decode_ticks
         self.decode_ticks += 1
         delays, lost = self._take_faults("decode", tick, entries)
+        if self.recorder is not None and (lost or delays):
+            self._record_faults("decode", [e[0] for e in lost], delays)
         results = [DecodeResult(mb=e[0],
                                 tokens=np.zeros((self.mb_size,), np.int32),
                                 logprobs=np.zeros((self.mb_size,),
@@ -652,10 +692,12 @@ class PipelinedBackend(_SlotCacheBackend):
             # §4.3 return link: the drained microbatch's token ids ride
             # back to the host injector — the tick's one device-to-host
             # transfer, which also ends its device work
+            # repro-torch-audit: allow(host-sync) — §4.3 return link: one batched copy a drained tick
             out = torch.stack([toks.float(), lps]).cpu().numpy()
         else:
             self._sync()            # the stage times below are the card's
-        dt = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        dt = t1 - t0
         occupied = [e is not None for e in entries]
         self.decode_stage_runs += sum(occupied)
         # the (mb_size, 1, D) activation crosses each occupied boundary;
@@ -667,6 +709,10 @@ class PipelinedBackend(_SlotCacheBackend):
             inject_t=self._ret_ready.get(mb, 0.0)
             if entries[0] is not None else 0.0, plane="decode")
         self._observe_stages(dt, occupied, delays, obs.stalls)
+        if self.recorder is not None:
+            # per-stage occupancy: which microbatch sat in each stage slot
+            # this tick (-1 = bubble), host ints from mb_assign
+            self.recorder.pipe_tick("decode", t0, t1, tuple(mb_assign))
         self._entries = [None] + entries[:-1]
         if drained is None:
             return results
@@ -698,6 +744,18 @@ class PipelinedBackend(_SlotCacheBackend):
                 else:
                     delays[ev.stage] = delays.get(ev.stage, 0.0) + ev.delay_s
         return delays, lost
+
+    def _record_faults(self, plane: str, lost_mbs: list,
+                       delays: dict) -> None:
+        """Flight-record this tick's injected faults (host-side stamps;
+        callers gate on ``self.recorder is not None``)."""
+        rec = self.recorder
+        now = time.perf_counter()
+        for m in lost_mbs:
+            rec.fault("drop", now, (("plane", plane), ("mb", int(m))))
+        for s, d in sorted(delays.items()):
+            rec.fault("delay", now, (("plane", plane), ("stage", int(s)),
+                                     ("delay_s", float(d))))
 
     def _observe_stages(self, dt: float, occupied: Sequence[bool],
                         delays: Dict[int, float], stalls) -> None:
@@ -828,11 +886,12 @@ def make_backend(kind, cfg: ModelConfig, params: dict, rt: Runtime, *,
                  device: torch.device, offloader=None, n_stages: int = 2,
                  mesh=None, transport=None, schedule: str = "circular",
                  wire_dtype: str = "fp32", fault_plan=None,
-                 caches: Optional[dict] = None):
+                 caches: Optional[dict] = None, recorder=None):
     """Engine-side factory: ``kind`` is ``"local"``, ``"pipelined"``, or an
     already constructed backend (passed through).  Given an ``offloader``,
     the pipelined backend builds its own, one a stage, in the same swap
-    mode.  ``caches`` carries an earlier backend's caches over (reshard)."""
+    mode.  ``caches`` carries an earlier backend's caches over (reshard);
+    ``recorder`` is the engine's flight recorder, or None."""
     if isinstance(kind, _SlotCacheBackend):
         return kind
     if kind == "local":
@@ -849,7 +908,7 @@ def make_backend(kind, cfg: ModelConfig, params: dict, rt: Runtime, *,
         return LocalBackend(cfg, params, rt, mb_size=mb_size,
                             num_microbatches=num_microbatches, pool=pool,
                             device=device, offloader=offloader,
-                            caches=caches)
+                            caches=caches, recorder=recorder)
     if kind == "pipelined":
         return PipelinedBackend(
             cfg, params, rt, mb_size=mb_size,
@@ -857,5 +916,6 @@ def make_backend(kind, cfg: ModelConfig, params: dict, rt: Runtime, *,
             n_stages=n_stages, offload=offloader is not None,
             offload_async=offloader is None or offloader.async_swap,
             mesh=mesh, transport=transport, schedule=schedule,
-            wire_dtype=wire_dtype, fault_plan=fault_plan, caches=caches)
+            wire_dtype=wire_dtype, fault_plan=fault_plan, caches=caches,
+            recorder=recorder)
     raise ValueError(f"unknown backend {kind!r} (want 'local'|'pipelined')")

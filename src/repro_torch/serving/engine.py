@@ -55,14 +55,22 @@ chunked prefill only), and ``slo`` (:class:`SLOConfig`) sheds prefill
 admission while the smoothed tick time exceeds the inter-token target,
 unless the oldest waiting request risks its time-to-first-token target.
 
-Not in this slice (each later slice of the port brings its part): the
-tracing recorder and the strict auditor.
+Observability and audit: ``trace=`` attaches a
+:class:`repro_torch.obs.trace.TraceRecorder` (step phases, request
+traces, prefix / SLO / fault / reshard events; threaded through the
+backend, its offloaders and its transport), and ``strict=`` (default: the
+``REPRO_STRICT`` environment variable) a
+:class:`repro_torch.analysis.invariants.EngineAuditor` that re-checks the
+engine's host-side books after every submit, step and reshard.  Both read
+host values only, and every call is gated on the recorder or auditor
+being there, so neither adds a device sync or costs anything when off.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from collections import deque
 from typing import Dict, List, Optional
@@ -89,6 +97,35 @@ from repro_torch.serving.sampler import (RowSampling, gumbel_noise,
                                          token_logprobs)
 
 log = logging.getLogger(__name__)
+
+
+def _strict_default(strict: Optional[bool]) -> bool:
+    """``strict=None`` defers to the ``REPRO_STRICT`` env var (the test
+    suite sets it to 1), so the invariant auditor guards every test run
+    without every construction site opting in."""
+    if strict is not None:
+        return bool(strict)
+    return os.environ.get("REPRO_STRICT", "") not in ("", "0")
+
+
+def _resolve_trace(trace):
+    """``trace=`` accepts: None/False (off — the hot path carries no
+    recorder and pays nothing), True (a default-capacity
+    :class:`~repro_torch.obs.trace.TraceRecorder`), an int (ring
+    capacity), or an existing recorder instance (shared across engines /
+    front ends)."""
+    if trace is None or trace is False:
+        return None
+    from repro_torch.obs.trace import TraceRecorder
+    if trace is True:
+        return TraceRecorder()
+    if isinstance(trace, TraceRecorder):
+        return trace
+    if isinstance(trace, int):
+        return TraceRecorder(capacity=trace)
+    raise ValueError(
+        f"trace must be None/False/True, an int capacity, or a "
+        f"TraceRecorder, got {trace!r}")
 
 
 @dataclasses.dataclass
@@ -174,7 +211,8 @@ class OfflineEngine:
                  prefill_mode: str = "auto", transport=None,
                  schedule: str = "circular", wire_dtype: str = "fp32",
                  fault_plan=None, prefix_cache: bool = False,
-                 slo: Optional[SLOConfig] = None, device=None):
+                 slo: Optional[SLOConfig] = None, device=None, trace=None,
+                 strict: Optional[bool] = None):
         check_supported(cfg)
         # a lost tick is injected again with the same tokens at the same
         # positions, which is transparent only when every cache write is
@@ -188,6 +226,7 @@ class OfflineEngine:
         self.cfg = cfg
         self.params = params
         self.rt = rt
+        self.recorder = _resolve_trace(trace)
         self.device = resolve_device(device)
         self.mb_size = mb_size
         self.num_microbatches = num_microbatches
@@ -206,7 +245,8 @@ class OfflineEngine:
             num_microbatches=num_microbatches, pool=self.pool,
             device=self.device, offloader=offloader, n_stages=n_stages,
             mesh=mesh, transport=transport, schedule=schedule,
-            wire_dtype=wire_dtype, fault_plan=fault_plan)
+            wire_dtype=wire_dtype, fault_plan=fault_plan,
+            recorder=self.recorder)
 
         # the elastic control plane: per-stage EWMA tick times (they narrow
         # the admission budget) and the planner bookkeeping that reshard()
@@ -286,6 +326,17 @@ class OfflineEngine:
         self.finished: List[SequenceState] = []
         self.stats = EngineStats()
 
+        # strict mode: re-audit page accounting, the Status FSM, transport
+        # books, offload parity and kernel libraries after every submit /
+        # step / reshard — host bookkeeping only, no device syncs (see
+        # repro_torch.analysis.invariants)
+        self.strict = _strict_default(strict)
+        if self.strict:
+            from repro_torch.analysis.invariants import EngineAuditor
+            self.auditor: Optional[EngineAuditor] = EngineAuditor(self)
+        else:
+            self.auditor = None
+
     # ------------------------------------------------------------------
     # planned construction (DeServe §4.3: N_B, batch, pools from the link)
     # ------------------------------------------------------------------
@@ -307,7 +358,8 @@ class OfflineEngine:
                   schedule: str = "circular", wire_dtype: str = "fp32",
                   fault_plan=None, prefix_cache: bool = False,
                   slo: Optional[SLOConfig] = None,
-                  device=None) -> "OfflineEngine":
+                  device=None, trace=None,
+                  strict: Optional[bool] = None) -> "OfflineEngine":
         """An engine whose (N_B, per-microbatch batch, pool split) are
         derived from a measured stage time and link latency by
         :func:`repro_torch.core.scheduler.plan_schedule`, as
@@ -378,7 +430,7 @@ class OfflineEngine:
                   prefill_mode=prefill_mode, transport=transport,
                   schedule=schedule, wire_dtype=wire_dtype,
                   fault_plan=fault_plan, prefix_cache=prefix_cache, slo=slo,
-                  device=device)
+                  device=device, trace=trace, strict=strict)
         eng.schedule_choice = choice
         return eng
 
@@ -409,7 +461,14 @@ class OfflineEngine:
                                 submit_step=self.stats.steps, submit_time=now)
             self.queue.append(seq)
             seqs.append(seq)
+            if self.recorder is not None:
+                # the same float as seq.submit_time, so the trace's
+                # queue-wait / TTFT math matches the engine's
+                self.recorder.request_submit(r.request_id, now,
+                                             len(r.prompt))
         self.stats.queue_depth = len(self.queue)
+        if self.auditor is not None:
+            self.auditor.after_submit()
         return seqs
 
     def run(self, max_steps: int = 10_000) -> List[SequenceState]:
@@ -508,6 +567,7 @@ class OfflineEngine:
 
         # (1) drain both planes
         t0 = time.perf_counter()
+        old_stages = old.n_stages
         tokens0 = np.zeros((self.mb_size,), np.int32)
         while old.pending():
             for res in old.decode(0, tokens0, tokens0,
@@ -522,6 +582,9 @@ class OfflineEngine:
         # (2) the host stores, whole-model, while the caches are stable
         state = old.export_offload_state()
         t2 = time.perf_counter()
+        if self.recorder is not None:
+            self.recorder.reshard_span("drain", t0, t2,
+                                       (("old_stages", old_stages),))
         # (3) the new pipe over the same caches
         fault_plan = old.fault_plan
         if fault_plan is not None:
@@ -540,7 +603,8 @@ class OfflineEngine:
             pool=self.pool, device=self.device, offloader=self._offloader,
             n_stages=n_stages, transport=old.transport.for_stages(n_stages),
             schedule=old.schedule, wire_dtype=old.wire_dtype,
-            fault_plan=fault_plan, caches=old.caches)
+            fault_plan=fault_plan, caches=old.caches,
+            recorder=self.recorder)
         self.backend.decode_ticks = old.decode_ticks
         self.backend.prefill_ticks = old.prefill_ticks
         del old
@@ -560,6 +624,11 @@ class OfflineEngine:
         t4 = time.perf_counter()
         reshard_plan["seconds"] = {"drain": t1 - t0, "export": t2 - t1,
                                    "rebuild": t3 - t2, "import": t4 - t3}
+        if self.recorder is not None:
+            self.recorder.reshard_span("rebuild", t2, t4,
+                                       (("n_stages", n_stages),))
+        if self.auditor is not None:
+            self.auditor.after_reshard()
         return reshard_plan
 
     def _drain_stage_times(self) -> None:
@@ -599,6 +668,12 @@ class OfflineEngine:
                 and not self.backend.prefill_pending():
             self.stats.decode_time_s += tp - t0
             self.stats.wall_time_s += time.perf_counter() - t0
+            if self.recorder is not None:
+                self.recorder.step_phase("reap", t0, tp, self.stats.steps)
+                self.recorder.step_phase("prefill", tp, tp2,
+                                         self.stats.steps)
+            if self.auditor is not None:
+                self.auditor.after_step()
             return False
         self._decode_microbatch(self.stats.steps % self.num_microbatches)
         self._drain_stage_times()
@@ -608,6 +683,14 @@ class OfflineEngine:
         self.stats.wall_time_s += t1 - t0
         if self.slo is not None:
             self.slo.observe_tick(t1 - t0)
+        if self.recorder is not None:
+            # the stamps EngineStats takes anyway
+            step = self.stats.steps - 1
+            self.recorder.step_phase("reap", t0, tp, step)
+            self.recorder.step_phase("prefill", tp, tp2, step)
+            self.recorder.step_phase("decode", tp2, t1, step)
+        if self.auditor is not None:
+            self.auditor.after_step()
         return True
 
     # ------------------------------------------------------------------
@@ -627,6 +710,11 @@ class OfflineEngine:
                 seq.finish_time = now
                 self.finished.append(seq)
                 self.stats.finished_requests += 1
+                if self.recorder is not None:
+                    reason = seq.finish_reason()
+                    self.recorder.request_finish(
+                        seq.request.request_id, now,
+                        reason.value if reason is not None else None)
                 self.alloc.release(slot)
                 self.slots[slot] = None
                 self.active[slot] = False
@@ -699,6 +787,11 @@ class OfflineEngine:
                 if self.prefix_cache is None or \
                         not self.prefix_cache.evict(n_pages - len(shared)):
                     raise
+                if self.recorder is not None:
+                    self.recorder.prefix_event(
+                        "evict", seq.request.request_id,
+                        (n_pages - len(shared)) * self.pool.page_size,
+                        time.perf_counter())
                 pages = self.alloc.allocate(slot, n_pages - len(shared),
                                             global_pool=gp)
         except MemoryError:
@@ -712,6 +805,14 @@ class OfflineEngine:
         if shared:
             self.stats.prefix_hits += 1
             self.stats.prefix_hit_tokens += seq.prefill_pos
+        if self.recorder is not None:
+            rid = seq.request.request_id
+            now = time.perf_counter()
+            self.recorder.request_admit(rid, now)
+            self.recorder.request_pages(rid, n_pages)
+            if shared:
+                self.recorder.prefix_event("hit", rid, seq.prefill_pos, now)
+                self.recorder.request_prefix_hit(rid, seq.prefill_pos)
         seq.status = Status.PREFILLING
         seq.budget = min(sp.max_new_tokens, cap - plen)
         self.slots[slot] = seq
@@ -733,7 +834,13 @@ class OfflineEngine:
             waits = [now - s.submit_time for s in self.queue]
             waits += [now - s.submit_time for s in self.prefilling
                       if not s.generated]
-            w = min(w, self.slo.budget_frac(max(waits, default=0.0)))
+            frac = self.slo.budget_frac(max(waits, default=0.0))
+            w = min(w, frac)
+            if self.recorder is not None:
+                self.recorder.slo_budget(
+                    frac,
+                    int(self.max_prefill_tokens_per_tick * min(1.0, w)),
+                    now)
         if w >= 1.0:
             return self.prefill_rows
         budget = int(self.max_prefill_tokens_per_tick * min(1.0, w))
@@ -804,6 +911,8 @@ class OfflineEngine:
                 lasts[i] = take - 1
             tables[i] = self.alloc.table_row(seq.slot)
             seq.chunk_inflight = True
+            if self.recorder is not None:
+                self.recorder.request_chunk(seq.request.request_id, take)
         return PrefillChunk(tokens=tokens, offsets=offsets,
                             n_valid=n_valid, lasts=lasts, tables=tables,
                             seqs=rows,
@@ -820,6 +929,10 @@ class OfflineEngine:
             for seq in res.chunk.seqs:
                 seq.chunk_inflight = False
             self.stats.prefill_chunks_lost += 1
+            if self.recorder is not None:
+                self.recorder.fault("recover", time.perf_counter(),
+                                    (("plane", "prefill"),
+                                     ("rows", len(res.chunk.seqs))))
             return
         for i, seq in enumerate(res.chunk.seqs):
             seq.chunk_inflight = False
@@ -833,6 +946,10 @@ class OfflineEngine:
                     # sharers (an existing entry wins)
                     self.prefix_cache.insert(seq.request.prompt,
                                              self.alloc.pages_of(seq.slot))
+                    if self.recorder is not None:
+                        self.recorder.prefix_event(
+                            "insert", seq.request.request_id,
+                            seq.prompt_len, time.perf_counter())
                 self.prefilling.remove(seq)
                 if not seq.is_done():       # finished at prefill: reap
                     self._pending_activation.append(seq)  # without decoding
@@ -917,12 +1034,19 @@ class OfflineEngine:
             torch.from_numpy(samp.top_k).to(dev),
             torch.from_numpy(samp.top_p).to(dev))
         first_lp = token_logprobs(logits, first)
+        # repro-torch-audit: allow(host-sync) — first-token host booking, once per request at prefill completion
         # repro-audit: allow(host-sync) — first-token host booking, once per request at prefill completion
         tok, lp = first[0].item(), first_lp[0].item()
         if sp.logprobs:
             seq.logprobs = [lp]
         seq.generated.append(tok)
         seq.first_token_time = time.perf_counter()   # engine-side TTFT mark
+        if self.recorder is not None:
+            # the same float as seq.first_token_time: trace TTFT ==
+            # seq.ttft_s
+            rid = seq.request.request_id
+            self.recorder.request_first_token(rid, seq.first_token_time)
+            self.recorder.request_tokens(rid, 1, seq.first_token_time)
         self.cur_pos[slot] = seq.prompt_len     # position of the first token
         self.stats.decode_tokens += 1
 
@@ -983,9 +1107,14 @@ class OfflineEngine:
         if res.lost:
             self._inject_snap.pop(res.mb, None)
             self.stats.decode_ticks_lost += 1
+            if self.recorder is not None:
+                self.recorder.fault("recover", time.perf_counter(),
+                                    (("plane", "decode"), ("mb", res.mb)))
             return
         lo = res.mb * self.mb_size
         snap = self._inject_snap.pop(res.mb, None)
+        rec = self.recorder
+        tnow = time.perf_counter() if rec is not None else 0.0
         for i, slot in enumerate(range(lo, lo + self.mb_size)):
             seq = self.slots[slot]
             if seq is None or seq.is_done():
@@ -998,14 +1127,27 @@ class OfflineEngine:
                 seq.logprobs.append(float(res.logprobs[i]))
             self.cur_pos[slot] += 1
             self.stats.decode_tokens += 1
+            if rec is not None:
+                rec.request_tokens(seq.request.request_id, 1, tnow)
             need = self.cur_pos[slot] + 1
             have = len(self.alloc.pages_of(slot)) * self.pool.page_size
             if need > have:
                 self.alloc.extend(slot, global_pool=self._global_pool(slot))
                 self.table[slot] = self.alloc.table_row(slot)
                 self.backend.set_page_table(self.table)
+                if rec is not None:
+                    rec.request_pages(seq.request.request_id, 1)
 
     # ------------------------------------------------------------------
+
+    def request_trace(self, request_id: int) -> Optional[dict]:
+        """Per-request flight-recorder snapshot (queue wait, TTFT,
+        per-token inter-token latencies, chunk / page / prefix-hit
+        counts).  ``None`` when tracing is off or the request has been
+        evicted from the recorder's bounded table."""
+        if self.recorder is None:
+            return None
+        return self.recorder.request_trace(request_id)
 
     def throughput_report(self) -> dict:
         """The run's books; a pipelined engine whose transport keeps books

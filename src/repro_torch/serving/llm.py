@@ -22,6 +22,13 @@ prefill); ``slo=SLOConfig(...)`` shapes prefill admission for latency
 targets; :class:`repro_torch.serving.online.OnlineLLM` submits while the
 engine runs and streams tokens per tick.
 
+Observability and audit: ``trace=True`` attaches a flight recorder
+(``engine.recorder``; export it with
+``repro_torch.obs.write_chrome_trace``) and fills
+``RequestOutput.trace``; ``strict=True`` (default: the ``REPRO_STRICT``
+environment variable) audits the engine's books after every submit, step
+and reshard.
+
 Runs on ``cuda`` unless ``device="cpu"`` is passed; with no GPU and no
 explicit CPU request it raises.
 """
@@ -44,22 +51,11 @@ from repro_torch.serving.kv_cache import PoolConfig
 from repro_torch.serving.request import (Request, SamplingParams,
                                          SequenceState, Status)
 
-# Knobs of repro.serving.llm.EngineConfig whose machinery a later slice of
-# the port brings: field -> (value that asks for nothing, the slice).
-_LATER = {
-    "trace": (None, "the tracing slice (flight recorder)"),
-    "strict": (None, "the audit slice (strict invariant auditor)"),
-}
-
-
 @dataclass
 class EngineConfig:
     """Everything needed to build an :class:`OfflineEngine`, validated.
 
-    The fields of ``repro.serving.llm.EngineConfig`` that this slice does
-    not serve are kept so that a config asking for one fails loudly: any
-    value other than the default raises ``NotImplementedError`` naming
-    the slice that will bring it (``_LATER``).  ``prefill_mode`` is
+    ``prefill_mode`` is
     ``"auto"`` (chunked where every layer is paged, else exact-length),
     ``"chunked"`` or ``"exact"``.  ``backend`` is ``"local"`` or
     ``"pipelined"``; the pipe's knobs are ``n_stages``, ``transport`` (a
@@ -69,7 +65,11 @@ class EngineConfig:
     (``"fp32"`` or ``"int8"``) and ``mesh`` (one torch device a stage, all
     the engine's own device: stages on several GPUs are not ported).
     ``fault_plan`` needs the pipelined backend, ``prefix_cache`` chunked
-    prefill, and ``slo`` is an :class:`SLOConfig`.  Either set the knobs
+    prefill, and ``slo`` is an :class:`SLOConfig`.  ``trace`` is the
+    flight recorder (None/False off, True a default-capacity
+    :class:`repro_torch.obs.trace.TraceRecorder`, an int its ring
+    capacity, or a recorder to share), ``strict`` the runtime invariant
+    auditor (None follows ``REPRO_STRICT``).  Either set the knobs
     directly, or build the config with :meth:`plan`."""
     mb_size: int = 4                  # sequences per microbatch
     num_microbatches: int = 1         # N_B
@@ -98,12 +98,6 @@ class EngineConfig:
                                       # num_microbatches / pool
 
     def __post_init__(self) -> None:
-        for name, (default, slice_) in _LATER.items():
-            value = getattr(self, name)
-            if value != default:
-                raise NotImplementedError(
-                    f"EngineConfig({name}={value!r}) is not ported yet: it "
-                    f"comes with {slice_}")
         if self.mb_size < 1:
             raise ValueError(f"mb_size must be >= 1, got {self.mb_size}")
         if self.num_microbatches < 1:
@@ -175,7 +169,8 @@ class EngineConfig:
              schedule: str = "circular",
              wire_dtype: str = "fp32", fault_plan=None,
              prefix_cache: bool = False,
-             slo: Optional[SLOConfig] = None) -> "EngineConfig":
+             slo: Optional[SLOConfig] = None, trace: object = None,
+             strict: Optional[bool] = None) -> "EngineConfig":
         """A config whose (N_B, per-microbatch batch, pool split) are
         derived by :func:`repro_torch.core.scheduler.plan_schedule` at
         build time (``OfflineEngine.from_plan``).  ``prefill_chunk=0``
@@ -214,7 +209,8 @@ class EngineConfig:
                    prefill_mode=prefill_mode, offload_async=offload_async,
                    transport=transport, schedule=schedule,
                    wire_dtype=wire_dtype, fault_plan=fault_plan,
-                   prefix_cache=prefix_cache, slo=slo,
+                   prefix_cache=prefix_cache, slo=slo, trace=trace,
+                   strict=strict,
                    plan_args=dict(
                        n_stages=n_stages, stage_time=stage_time,
                        latency=latency, link_latencies=link_latencies,
@@ -237,7 +233,8 @@ class EngineConfig:
                 mesh=self.mesh, transport=self.transport,
                 schedule=self.schedule, wire_dtype=self.wire_dtype,
                 fault_plan=self.fault_plan, prefix_cache=self.prefix_cache,
-                slo=self.slo, device=device, **self.plan_args)
+                slo=self.slo, device=device, trace=self.trace,
+                strict=self.strict, **self.plan_args)
         pool = self.pool or PoolConfig()
         offloader = None
         if self.offload and pool.n_global_pages:
@@ -253,7 +250,8 @@ class EngineConfig:
             prefill_mode=self.prefill_mode, transport=self.transport,
             schedule=self.schedule, wire_dtype=self.wire_dtype,
             fault_plan=self.fault_plan, prefix_cache=self.prefix_cache,
-            slo=self.slo, device=device)
+            slo=self.slo, device=device, trace=self.trace,
+            strict=self.strict)
 
 
 @dataclass
@@ -269,9 +267,14 @@ class RequestOutput:
     latency_steps: Optional[int] = None
     latency_s: Optional[float] = None
     ttft_s: Optional[float] = None
+    # per-request flight-recorder snapshot (EngineConfig(trace=...) on):
+    # queue_wait_s / ttft_s / inter_token_s, chunks, pages,
+    # prefix_hit_tokens — None when tracing is off
+    trace: Optional[dict] = None
 
     @classmethod
-    def from_seq(cls, seq: SequenceState) -> "RequestOutput":
+    def from_seq(cls, seq: SequenceState,
+                 trace: Optional[dict] = None) -> "RequestOutput":
         reason = seq.finish_reason()
         done = seq.status is Status.FINISHED
         return cls(
@@ -285,7 +288,8 @@ class RequestOutput:
             logprobs=list(seq.logprobs) if seq.logprobs is not None else None,
             latency_steps=seq.latency_steps,
             latency_s=seq.latency_s,
-            ttft_s=seq.ttft_s)
+            ttft_s=seq.ttft_s,
+            trace=trace)
 
 
 class LLM:
@@ -341,7 +345,9 @@ class LLM:
         seqs = self.engine.submit(self._make_requests(prompts,
                                                       sampling_params))
         self.engine.run(max_steps=max_steps)
-        return [RequestOutput.from_seq(s) for s in seqs]
+        return [RequestOutput.from_seq(
+            s, trace=self.engine.request_trace(s.request.request_id))
+            for s in seqs]
 
     def stats(self) -> Dict:
         return self.engine.throughput_report()

@@ -179,7 +179,9 @@ class RequestStream:
         # token (freeing the slot, stamping finish time and status)
         while self.seq.status is not Status.FINISHED and self._online.step():
             pass
-        return RequestOutput.from_seq(self.seq)
+        return RequestOutput.from_seq(
+            self.seq,
+            trace=self._online.engine.request_trace(self.request_id))
 
     @property
     def ttft_s(self) -> Optional[float]:
@@ -282,11 +284,19 @@ class OnlineLLM:
         with self._lock:
             items = list(self._inbox)
             self._inbox.clear()
+        rec = self.engine.recorder
         for req, stream in items:
             stream.seq = self.engine.submit([req])[0]
+            if rec is not None:
+                # the stream's own submit stamp, the float its ttft_s
+                # subtracts, so the trace's TTFT equals the stream's
+                # bitwise
+                rec.request_stream_submit(req.request_id,
+                                          stream.submit_time)
 
     def _dispatch(self) -> None:
         now = time.perf_counter()
+        rec = self.engine.recorder
         with self._lock:
             live = list(self._streams.items())
         done: List[int] = []
@@ -298,6 +308,11 @@ class OnlineLLM:
             d = self._delivered[rid]
             if d >= n:
                 continue
+            if rec is not None:
+                # every event pushed this tick carries the same ``now``
+                # stamp, so recording it once a request keeps the trace's
+                # delivery times bitwise equal to the stream's
+                rec.request_delivery(rid, now, n - d)
             fin = seq.is_done()
             reason = seq.finish_reason()
             while d < n:

@@ -25,6 +25,10 @@ of ``repro.models.model.init_params`` (``PRNGKey(0)``), carried across with
   into reassigned slots, ROADMAP Queue 3).
 - The port against itself: pipelined streams (sampled ones too) equal the
   local backend's, ``round_flush`` equals ``circular``, and the refusals.
+- The flight recorder's virtual clock: the traced yi-9b engine on 64 ms
+  simulated links with a fixed stage time records the JAX engine's
+  virtual-clock events (stage busy windows, link sends, stall counters)
+  event for event, bitwise.
 """
 
 import json
@@ -73,6 +77,9 @@ ENGINE_ARCHS = {"yi-9b": 10, "gemma3-12b": 10, "recurrentgemma-9b": 6}
 ENGINE_POOL = dict(page_size=4, n_local_pages=32, n_global_pages=12,
                    max_pages_per_seq=6)
 ENGINE_NEW = 6
+# the yi-9b engine case also runs traced on simulated links whose stage
+# time is fixed, so its virtual clock is a function of the schedule alone
+TRACED_LINKS = dict(n_stages=2, latency_s=0.064, stage_time_s=0.01)
 
 JAX_SIDE = r"""
 import json, os, sys
@@ -198,6 +205,7 @@ for wire in spec["wires"]:
         save_pools(f"{key}/out", new)
 
 # ---- engines ----
+from repro.distributed.transport import SimulatedLinkTransport
 for arch, n_req in spec["engines"].items():
     cfg0 = get_arch(arch)
     period = len(cfg0.block_pattern)
@@ -207,9 +215,15 @@ for arch, n_req in spec["engines"].items():
     prng = np.random.RandomState(7)
     prompts = [list(prng.randint(1, ecfg.vocab_size, prng.randint(3, 10)))
                for _ in range(n_req)]
+    # yi-9b's engine is also traced, on simulated links of a fixed stage
+    # time: neither changes a stream or a swap
+    L = spec["links"]
+    traced = dict(trace=True, transport=SimulatedLinkTransport.uniform(
+        L["n_stages"], L["latency_s"], stage_time_s=L["stage_time_s"])) \
+        if arch == "yi-9b" else {}
     llm = LLM(ecfg, params=eparams, rt=rt, config=EngineConfig(
         backend="pipelined", n_stages=2, mb_size=2, num_microbatches=3,
-        pool=kvc.PoolConfig(**spec["pool"]), offload=True))
+        pool=kvc.PoolConfig(**spec["pool"]), offload=True, **traced))
     outs = llm.generate(prompts, SamplingParams(
         temperature=0.0, max_new_tokens=spec["new"]), max_steps=800)
     assert all(o.finished for o in outs)
@@ -220,6 +234,12 @@ for arch, n_req in spec["engines"].items():
         [p + [0] * (16 - len(p)) for p in prompts], np.int64)
     out[f"engine/{arch}/prompt_lens"] = np.asarray([len(p) for p in prompts])
     out[f"engine/{arch}/swaps"] = np.asarray(llm.engine.backend.swap_count)
+    if traced:
+        virtual = [list(e) for e in llm.engine.recorder.events
+                   if e.clock == "virtual"]
+        out["traced/yi-9b/virtual"] = np.asarray(json.dumps(virtual))
+        out["traced/yi-9b/books"] = np.asarray(json.dumps(
+            llm.engine.backend.transport_stats()))
 np.savez(out_path, **out)
 print("OK")
 """
@@ -232,7 +252,7 @@ def jax_side(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("jax_pipeline") / "jax.npz")
     spec = dict(setup=SETUP, wires=list(WIRES), decode=DECODE_CASES,
                 prefill=PREFILL_CASES, engines=ENGINE_ARCHS,
-                pool=ENGINE_POOL, new=ENGINE_NEW)
+                pool=ENGINE_POOL, new=ENGINE_NEW, links=TRACED_LINKS)
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env = dict(os.environ, PYTHONPATH=src, JAX_PLATFORMS="cpu")
     r = subprocess.run([sys.executable, "-c", JAX_SIDE, path,
@@ -453,3 +473,31 @@ def test_a_one_device_mesh_serves():
     outs = tl.generate([[1, 2, 3], [4, 5]],
                        SamplingParams(temperature=0.0, max_new_tokens=3))
     assert all(o.finished and len(o.token_ids) == 3 for o in outs)
+
+
+def test_traced_virtual_clock_matches_jax(jax_side):
+    """Both packages book each tick on the virtual clock from the same
+    occupancy, payload sizes and return-link dependencies, so with a
+    fixed stage time the recorded virtual timelines are the same floats,
+    in the same order (JSON round-trips a float exactly)."""
+    from repro_torch.distributed.transport import SimulatedLinkTransport
+    tcfg, tparams, prompts = _engine_case(jax_side, "yi-9b")
+    L = TRACED_LINKS
+    tl = llm.LLM(tcfg, config=_pipe_config(
+        offload=True, trace=True, strict=True,
+        transport=SimulatedLinkTransport.uniform(
+            L["n_stages"], L["latency_s"], stage_time_s=L["stage_time_s"])),
+        params=tparams, rt=TRT, device="cpu")
+    tl.generate(prompts, SamplingParams(temperature=0.0,
+                                        max_new_tokens=ENGINE_NEW))
+    rec = tl.engine.recorder
+    got = json.loads(json.dumps([list(e) for e in rec.events
+                                 if e.clock == "virtual"]))
+    want = json.loads(str(jax_side["traced/yi-9b/virtual"]))
+    assert rec.dropped == 0 and len(want) > 100
+    assert got == want
+    books = json.loads(str(jax_side["traced/yi-9b/books"]))
+    mine = tl.engine.backend.transport_stats()
+    for key in ("virtual_time_s", "wire_bytes", "link_sends",
+                "link_stall_s"):
+        assert mine[key] == books[key], key
