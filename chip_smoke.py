@@ -163,6 +163,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    wrapping each recording call and audit hook of the engine's instances
    with two ``perf_counter`` reads (the wrapper's own reads included).
 
+13. the other architectures, bf16 unless stated: ``[arch-parity]``, a
+   2-layer full-width phi3.5-moe (chunked prefill, paged decode) and an
+   8-layer full-width xlstm-1.3b (exact prefill) in float32 on the card
+   and on the CPU, 8 decode steps of the CPU's greedy tokens: routing ids
+   equal, logits within ``ARCH_PARITY_TOL``, xlstm's first layer's states
+   within ``XLSTM_STATE_TOL``, and the chunkwise mLSTM against the
+   sequential one on the card at full width; ``[minitron]``, full
+   minitron-4b (the paged kernel at G = 3); ``[xlstm]``, full xlstm-1.3b,
+   20 requests over 8 slots (exact prefill in power-of-two buckets, every
+   slot reset on reuse, no kernel launch); ``[moe-phi]``, phi3.5-moe at
+   24 of 32 layers (62.9 GB) with the yi-9b phase's 20 requests, then
+   through 2 stages; ``[moe-qwen3]``, qwen3-moe at 8 layers (128 experts,
+   top 8, G = 16).  Each serve prints decode and prefill tok/s, a decode
+   tick's host and device ms and busy share, and paged launches (ticks x
+   layers, x 2 at G = 16; stage runs x 12 on the pipe); each MoE phase
+   the dropped (token, choice) pairs and one tick's MoE split into
+   router, dispatch, expert products and combine beside the weight-bytes
+   bound; an ``{"archs": ...}`` JSON line.
+
 Each serve phase sets every kernel's launch count to 0 just before it
 drives its path and reads them just after; the kernels line reports those
 counts by path.
@@ -170,7 +189,8 @@ counts by path.
 It prints an ``{"offload": ...}`` line (swap books, copy and wait times,
 the planner's inputs), a ``{"pipeline": ...}`` line (the pipeline phase's
 numbers and wall times), a ``{"resilience": ...}`` line (phase 11's), a
-``{"trace": ...}`` line (phase 12's), a
+``{"trace": ...}`` line (phase 12's), an ``{"archs": ...}`` line
+(phase 13's), a
 ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  It exits non-zero without a
 result when no CUDA device is visible.
@@ -290,6 +310,32 @@ RES_SYSTEM, RES_ONLINE_MAX_PAGES, RES_SLO_TTFT = 512, 96, 2.0
 # turns, and where the traced pipeline's Chrome trace is written
 TRACE_TURNS = ("off", "on", "strict", "strict", "on", "off")
 TRACE_DIR = ROOT / "build" / "trace"
+# phase 13 (the other architectures).  phi3.5-moe at 24 of its 32 layers
+# (full depth is 83.7 GB of bf16 weights, more than the card holds; 24
+# layers are 62.9 GB) and qwen3-moe at 8 of 94 (42.3 GB), served with the
+# yi-9b phase's 20 requests over its 16 slots (phi also through 2 stages
+# of 8 x 2 slots); xlstm-1.3b and minitron-4b at full depth; each path's
+# decode tick profiled at a 512-token context, and each MoE tick's split
+# timed over MOE_SPLIT_REPS ticks after a spin that lets the host issue a
+# whole tick first.  The parity models: a 2-layer phi and an 8-layer
+# xlstm (one pattern period), float32, card vs CPU.
+PHI_LAYERS, QWEN_LAYERS = 24, 8
+MOE_MB, MOE_PAGE, MOE_MAX_PAGES = 16, 16, 64
+MOE_PIPE_MB, MOE_PIPE_N_MB = 8, 2
+MOE_SPLIT_REPS, MOE_SPLIT_SPIN_CYCLES = 5, 100_000_000
+XL_MB, XL_REQUESTS, XL_PROMPTS, XL_NEW = 8, 20, (32, 256), 32
+MT_MB, MT_REQUESTS, MT_PROMPTS, MT_NEW = 8, 8, (64, 512), 16
+ARCH_TICK_CTX, ARCH_TICK_STEPS = 512, 10
+PARITY_ROWS, PARITY_PROMPT, PARITY_STEPS = 2, 48, 8
+# logits, card vs CPU, float32.  xlstm's is looser: h = num / den
+# magnifies a rounding difference where den is small, and each layer of
+# the random-init model multiplies it again (chip run 3 of PR 20: 2.1e-2
+# of logits up to 5 after 8 layers, argmax all equal; the layers' state
+# errors grow from 1.9e-6 to 1.0e-2), so its first mLSTM layer's states
+# are also held at XLSTM_STATE_TOL relative
+ARCH_PARITY_TOL = {"phi3.5-moe-42b-a6.6b": 1e-3, "xlstm-1.3b": 5e-2}
+XLSTM_STATE_TOL = 1e-4
+MLSTM_CARD_S, MLSTM_CARD_TOL = 200, 1e-4   # relative to max |h|, max |C|
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -3111,6 +3157,616 @@ def phase_trace_gemma(torch, np, card: str, params, gemma_outs,
     return c, info
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the other architectures (MoE, xLSTM, the dense configs)
+# ---------------------------------------------------------------------------
+
+
+def _arch_rt(torch, dtype):
+    from repro_torch.models.common import Runtime
+    return Runtime(param_dtype=dtype, compute_dtype=dtype)
+
+
+def _free_card(torch):
+    """Drop what earlier phases left (their weights, pools and rings) before
+    a phase makes tens of GB of weights."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _param_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_param_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_param_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+class _DropCounter:
+    """The (token, choice) pairs the MoE capacity drops over one run,
+    counted on the card (no host sync) by wrapping ``moe.dispatch``, which
+    ``moe_ffn`` looks up at each call."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe as moe_lib
+        self.lib, self.orig = moe_lib, moe_lib.dispatch
+        self.dropped = torch.zeros((), dtype=torch.int64, device="cuda")
+        self.pairs = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def __enter__(self):
+        def counted(x, topi, moe, expert_shard=None):
+            out = self.orig(x, topi, moe, expert_shard)
+            self.dropped += (~out[1]).sum()
+            self.pairs += out[1].numel()
+            return out
+        self.lib.dispatch = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.dispatch = self.orig
+
+    def read(self):
+        return int(self.dropped), int(self.pairs)
+
+
+def _arch_serve(torch, np, tag, cfg, params, rt, econf, n_req, prompt_range,
+                max_new):
+    """``LLM.generate`` over ``n_req`` requests of ``prompt_range`` tokens,
+    greedy and sampled in turn; every request must finish at full length
+    with finite log-probs.  Returns (llm, outs, counts, report, wall)."""
+    from repro_torch.serving.llm import LLM
+    from repro_torch.serving.request import SamplingParams
+    llm = LLM(cfg, config=econf, params=params, rt=rt, reduced=False,
+              device="cuda")
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(prompt_range[0], prompt_range[1] + 1, n_req)
+    prompts = [list(rng.randint(1, cfg.vocab_size, n)) for n in lens]
+    sps = [SamplingParams(temperature=0.0, max_new_tokens=max_new,
+                          logprobs=True) if i % 2 == 0 else
+           SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                          max_new_tokens=max_new, logprobs=True)
+           for i in range(n_req)]
+    reset_counts()
+    t1 = time.perf_counter()
+    outs = llm.generate(prompts, sps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = read_counts()
+    rep = llm.stats()
+    bad = [o.request_id for o in outs
+           if not o.finished or len(o.token_ids) != max_new
+           or not all(math.isfinite(x) for x in o.logprobs)
+           or not all(0 <= t < cfg.vocab_size for t in o.token_ids)]
+    if bad:
+        raise AssertionError(f"{tag}: requests {bad} unfinished, short, or "
+                             "with non-finite log-probs")
+    log(f"[{tag}] {len(outs)}/{n_req} requests finished, {max_new} tokens "
+        f"each; prompts {int(lens.min())}-{int(lens.max())} tokens "
+        f"({int(lens.sum())} total); batch {llm.engine.mb_size}x"
+        f"{llm.engine.num_microbatches}; "
+        + (f"chunked prefill ({llm.engine.prefill_chunk} x "
+           f"{llm.engine.prefill_rows} rows)" if llm.engine.chunked_prefill
+           else "exact-length prefill"))
+    log(f"[{tag}] decode_tok_per_s={rep['decode_tok_per_s']:.1f} "
+        f"prefill_tok_per_s={rep['prefill_tok_per_s']:.1f} (engine phase "
+        f"clocks; decode {rep['decode_time_s']:.3f}s, prefill "
+        f"{rep['prefill_time_s']:.3f}s); wall {wall:.3f}s; decode ticks "
+        f"{rep['decode_ticks']}; launches {counts}")
+    return llm, outs, counts, rep, wall
+
+
+def _arch_tick(torch, np, cfg, rt, params, backend):
+    """Host ms (untraced, the mean of synchronised calls), device ms (the
+    profiler's kernel rows) and the device's busy share of one local
+    decode tick of ``mb_size`` rows at an ``ARCH_TICK_CTX``-token context
+    on ``backend``'s full-width caches, ending in its one device-to-host
+    transfer, as the engine's step runs it."""
+    from repro_torch.launch.profile_decode import profile
+    from repro_torch.serving import kv_cache as kvc
+    from repro_torch.serving.backend import LocalBackend
+    dev = torch.device("cuda")
+    mb = backend.mb_size
+    per_row = backend.pool.max_pages_per_seq
+    table = 1 + np.arange(backend.batch * per_row,
+                          dtype=np.int32).reshape(backend.batch, per_row)
+    kvc.set_page_table(backend.caches, table)
+    tokens = torch.randint(1, cfg.vocab_size, (mb,), dtype=torch.int32,
+                           device=dev)
+    pos = torch.full((mb,), ARCH_TICK_CTX, dtype=torch.int32, device=dev)
+    zeros = torch.zeros((mb,), device=dev)
+    ints = torch.zeros((mb,), dtype=torch.int32, device=dev)
+
+    @torch.inference_mode()
+    def tick():
+        toks, lps = LocalBackend._decode_fn(
+            params, backend.caches, tokens, pos, 0, None, zeros, ints,
+            zeros + 1, cfg=cfg, rt=rt, mb_size=mb, sampled=False)
+        torch.stack([toks.float(), lps]).cpu()
+
+    host_ms, _, rows = profile(torch, tick, ARCH_TICK_STEPS)
+    dev_ms = sum(r[0] for r in rows)
+    return {"tick_host_ms": host_ms, "tick_device_ms": dev_ms,
+            "device_busy": dev_ms / host_ms}
+
+
+def _moe_tick_split(torch, cfg, params, rt, rows: int) -> dict:
+    """One decode tick's MoE FFNs (``rows`` tokens through every layer)
+    split into router, dispatch, expert products and combine, by CUDA
+    events between the four calls; the card first spins long enough for
+    the host to issue the whole tick, so each span is device time alone.
+    The median of ``MOE_SPLIT_REPS`` ticks, beside the bytes of the
+    weights the tick reads."""
+    from repro_torch.models import moe as moe_lib
+    dev = torch.device("cuda")
+    x = torch.randn((rows, cfg.d_model), device=dev).to(rt.compute_dtype)
+
+    @torch.inference_mode()
+    def once():
+        evs = []
+        torch.cuda._sleep(MOE_SPLIT_SPIN_CYCLES)
+        for layer in params["layers"]:
+            w = layer["moe"]
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            e[0].record()
+            topv, topi, _ = moe_lib.router_probs(x, w["router"], cfg.moe)
+            e[1].record()
+            buf, keep, le, sl = moe_lib.dispatch(x, topi, cfg.moe)
+            e[2].record()
+            out = moe_lib._expert_ffn(buf, w["wg"], w["wu"], w["wd"])
+            e[3].record()
+            moe_lib.combine(out, topv, keep, le, sl, x.dtype)
+            e[4].record()
+            evs.append(e)
+        torch.cuda.synchronize()
+        return [sum(e[i].elapsed_time(e[i + 1]) for e in evs)
+                for i in range(4)]
+
+    once()
+    runs = [once() for _ in range(MOE_SPLIT_REPS)]
+    parts = ("router", "dispatch", "experts", "combine")
+    split = {p: sorted(r[i] for r in runs)[len(runs) // 2]
+             for i, p in enumerate(parts)}
+    moe_bytes = sum(_param_bytes(layer["moe"]) for layer in params["layers"])
+    # a decode tick reads every weight once, but only its rows of the
+    # token embedding
+    tick_bytes = _param_bytes(params) - _param_bytes(params["embed"]["tok"])
+    split.update(moe_bytes=moe_bytes, tick_weight_bytes=tick_bytes,
+                 moe_bound_ms=moe_bytes / HBM_BYTES_PER_S * 1e3,
+                 tick_bound_ms=tick_bytes / HBM_BYTES_PER_S * 1e3,
+                 rows=rows)
+    return split
+
+
+def _log_tick(tag, card, tick, counts, rep, kernel_per_tick):
+    log(f"[{tag}] on {card}: decode tick of {tick['rows']} rows at "
+        f"{ARCH_TICK_CTX} tokens: host {tick['tick_host_ms']:.3f} ms, "
+        f"device {tick['tick_device_ms']:.3f} ms, device busy "
+        f"{tick['device_busy']:.1%}; paged launches "
+        f"{counts['paged_attention']} (= {rep['decode_ticks']} ticks x "
+        f"{kernel_per_tick})")
+
+
+def _log_moe_split(tag, card, split):
+    total = sum(split[p] for p in ("router", "dispatch", "experts",
+                                   "combine"))
+    log(f"[{tag}] MoE of one decode tick ({split['rows']} rows, every "
+        f"layer) on {card}: router {split['router']:.3f} ms, dispatch "
+        f"{split['dispatch']:.3f} ms, expert products "
+        f"{split['experts']:.3f} ms, combine {split['combine']:.3f} ms "
+        f"(sum {total:.3f} ms); expert and router weights "
+        f"{split['moe_bytes'] / 1e9:.2f} GB -> at least "
+        f"{split['moe_bound_ms']:.2f} ms at {HBM_BYTES_PER_S / 1e12:.2f} "
+        f"TB/s; the whole tick's weights "
+        f"{split['tick_weight_bytes'] / 1e9:.2f} GB -> at least "
+        f"{split['tick_bound_ms']:.2f} ms")
+
+
+def _moe_params(torch, cfg, rt, tag):
+    from repro_torch.models import model as model_lib
+    _free_card(torch)
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, SEED, rt, "cuda")
+    torch.cuda.synchronize()
+    log(f"[{tag}] {cfg.name} full width at {cfg.num_layers} layers: "
+        f"{cfg.moe.num_experts} experts of {cfg.moe.d_expert}, top "
+        f"{cfg.moe.experts_per_token}, capacity factor "
+        f"{cfg.moe.capacity_factor}, renormalised "
+        f"{cfg.moe.normalize_router_weights}, qk-norm {cfg.use_qk_norm}, "
+        f"G = {cfg.num_heads // cfg.num_kv_heads}; "
+        f"{_param_bytes(params) / 1e9:.2f} GB of bf16 weights (float32 "
+        f"router) from seed {SEED} in {time.perf_counter() - t0:.1f}s")
+    return params
+
+
+def _moe_pool(mb, n_mb):
+    from repro_torch.serving.kv_cache import PoolConfig
+    return PoolConfig(page_size=MOE_PAGE, n_local_pages=mb * n_mb *
+                      MOE_MAX_PAGES + 1, max_pages_per_seq=MOE_MAX_PAGES)
+
+
+def phase_moe_phi(torch, np, card: str):
+    """phi3.5-moe at full width and ``PHI_LAYERS`` layers: the yi-9b
+    phase's 20 requests locally (chunked prefill, the paged kernel at
+    G = 4), then the same engine pipelined through 2 stages."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.serving.llm import EngineConfig
+
+    cfg = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b"),
+                              num_layers=PHI_LAYERS)
+    rt = _arch_rt(torch, torch.bfloat16)
+    params = _moe_params(torch, cfg, rt, "moe-phi")
+    econf = EngineConfig(mb_size=MOE_MB, num_microbatches=1,
+                         pool=_moe_pool(MOE_MB, 1), seed=SEED,
+                         max_prefill_tokens_per_tick=256)
+    with _DropCounter(torch) as drops:
+        llm, outs, counts, rep, _ = _arch_serve(
+            torch, np, "moe-phi", cfg, params, rt, econf, SERVE_REQUESTS,
+            SERVE_PROMPTS, SERVE_NEW)
+    local_drops = drops.read()
+    if counts != {"paged_attention": rep["decode_ticks"] * PHI_LAYERS,
+                  "flash_attention": 0, "rglru_scan": 0}:
+        raise AssertionError(f"moe-phi: launches {counts} for "
+                             f"{rep['decode_ticks']} ticks x {PHI_LAYERS}")
+    tick = dict(_arch_tick(torch, np, cfg, rt, params, llm.engine.backend),
+                rows=MOE_MB)
+    _log_tick("moe-phi", card, tick, counts, rep, PHI_LAYERS)
+    split = _moe_tick_split(torch, cfg, params, rt, MOE_MB)
+    _log_moe_split("moe-phi", card, split)
+    del llm
+    pconf = EngineConfig(mb_size=MOE_PIPE_MB, num_microbatches=MOE_PIPE_N_MB,
+                         pool=_moe_pool(MOE_PIPE_MB, MOE_PIPE_N_MB),
+                         seed=SEED, max_prefill_tokens_per_tick=256,
+                         backend="pipelined", n_stages=2)
+    with _DropCounter(torch) as drops:
+        pl, pouts, pcounts, prep, _ = _arch_serve(
+            torch, np, "moe-phi-pipe", cfg, params, rt, pconf,
+            SERVE_REQUESTS, SERVE_PROMPTS, SERVE_NEW)
+    pipe_drops = drops.read()
+    be = pl.engine.backend
+    want = be.decode_stage_runs * (PHI_LAYERS // 2)
+    if pcounts["paged_attention"] != want or want == 0:
+        raise AssertionError(f"moe-phi-pipe: {pcounts['paged_attention']} "
+                             f"paged launches, want {be.decode_stage_runs} "
+                             f"stage runs x {PHI_LAYERS // 2}")
+    greedy = [i for i in range(SERVE_REQUESTS) if i % 2 == 0]
+    same = sum(a == b for i in greedy for a, b in
+               zip(outs[i].token_ids, pouts[i].token_ids))
+    share = same / (len(greedy) * SERVE_NEW)
+    log(f"[moe-phi-pipe] 2 stages, {MOE_PIPE_MB} x {MOE_PIPE_N_MB} slots: "
+        f"paged launches {pcounts['paged_attention']} = "
+        f"{be.decode_stage_runs} stage runs x {PHI_LAYERS // 2}; greedy "
+        f"tokens equal to the local engine's: {same}/"
+        f"{len(greedy) * SERVE_NEW} ({share:.1%}; a microbatch of "
+        f"{MOE_PIPE_MB} rows "
+        f"routes another N through the capacity than {MOE_MB}, so the "
+        "streams may part)")
+    log(f"[moe-phi] dropped assignments: local {local_drops[0]} of "
+        f"{local_drops[1]} (token, choice) pairs, pipelined "
+        f"{pipe_drops[0]} of {pipe_drops[1]}")
+    summary = {"layers": PHI_LAYERS, "weight_gb": _param_bytes(params) / 1e9,
+               "decode_tok_per_s": rep["decode_tok_per_s"],
+               "prefill_tok_per_s": rep["prefill_tok_per_s"],
+               "pipe_decode_tok_per_s": prep["decode_tok_per_s"],
+               "pipe_prefill_tok_per_s": prep["prefill_tok_per_s"],
+               "dropped": {"local": local_drops, "pipelined": pipe_drops},
+               "pipe_greedy_equal_share": share, **tick, "moe_split": split}
+    return {"phi3.5-moe": counts, "phi3.5-moe pipelined": pcounts}, summary
+
+
+def phase_moe_qwen3(torch, np, card: str):
+    """qwen3-moe at full width and ``QWEN_LAYERS`` layers: 128 experts,
+    top 8 renormalised, qk-norm, the paged kernel at G = 16 (two launches
+    of 8 a layer)."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.serving.llm import EngineConfig
+
+    cfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b"),
+                              num_layers=QWEN_LAYERS)
+    rt = _arch_rt(torch, torch.bfloat16)
+    params = _moe_params(torch, cfg, rt, "moe-qwen3")
+    econf = EngineConfig(mb_size=MOE_MB, num_microbatches=1,
+                         pool=_moe_pool(MOE_MB, 1), seed=SEED,
+                         max_prefill_tokens_per_tick=256)
+    with _DropCounter(torch) as drops:
+        llm, _, counts, rep, _ = _arch_serve(
+            torch, np, "moe-qwen3", cfg, params, rt, econf, SERVE_REQUESTS,
+            SERVE_PROMPTS, SERVE_NEW)
+    dropped = drops.read()
+    per_tick = QWEN_LAYERS * 2          # G = 16: two launches of 8
+    if counts != {"paged_attention": rep["decode_ticks"] * per_tick,
+                  "flash_attention": 0, "rglru_scan": 0}:
+        raise AssertionError(f"moe-qwen3: launches {counts} for "
+                             f"{rep['decode_ticks']} ticks x {per_tick}")
+    tick = dict(_arch_tick(torch, np, cfg, rt, params, llm.engine.backend),
+                rows=MOE_MB)
+    _log_tick("moe-qwen3", card, tick, counts, rep,
+              f"{QWEN_LAYERS} layers x 2")
+    split = _moe_tick_split(torch, cfg, params, rt, MOE_MB)
+    _log_moe_split("moe-qwen3", card, split)
+    log(f"[moe-qwen3] dropped assignments: {dropped[0]} of {dropped[1]} "
+        "(token, choice) pairs")
+    summary = {"layers": QWEN_LAYERS,
+               "weight_gb": _param_bytes(params) / 1e9,
+               "decode_tok_per_s": rep["decode_tok_per_s"],
+               "prefill_tok_per_s": rep["prefill_tok_per_s"],
+               "dropped": dropped, **tick, "moe_split": split}
+    return {"qwen3-moe": counts}, summary
+
+
+def phase_xlstm(torch, np, card: str):
+    """xlstm-1.3b at full width and depth (42 mLSTM, 6 sLSTM layers):
+    exact prefill in power-of-two buckets through the chunkwise mLSTM,
+    ``XL_REQUESTS`` requests over ``XL_MB`` slots, so slots are reassigned
+    and ``reset_slot`` clears both recurrent kinds' states."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import kv_cache as kvc
+    from repro_torch.serving.kv_cache import PoolConfig
+    from repro_torch.serving.llm import EngineConfig
+
+    _free_card(torch)
+    cfg = get_arch("xlstm-1.3b")
+    kinds = cfg.layer_kinds()
+    rt = _arch_rt(torch, torch.bfloat16)
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, SEED, rt, "cuda")
+    torch.cuda.synchronize()
+    dh = cfg.d_rnn // cfg.num_heads
+    row_state = _param_bytes(model_lib.init_caches(cfg, 1, 1, rt, "cuda"))
+    log(f"[xlstm] xlstm-1.3b full width and depth: {cfg.num_layers} layers "
+        f"({kinds.count('mlstm')} mLSTM of {cfg.num_heads} heads x {dh}, "
+        f"{kinds.count('slstm')} sLSTM), d_rnn {cfg.d_rnn}; "
+        f"{_param_bytes(params) / 1e9:.2f} GB of weights from seed {SEED} in "
+        f"{time.perf_counter() - t0:.1f}s; {row_state / 1e6:.1f} MB of "
+        f"float32 state a row, {XL_MB} rows")
+    econf = EngineConfig(
+        mb_size=XL_MB, num_microbatches=1,
+        pool=PoolConfig(page_size=16, n_local_pages=XL_MB * 8 + 1,
+                        max_pages_per_seq=(XL_PROMPTS[1] + XL_NEW) // 16 + 1),
+        seed=SEED, prefill_mode="auto")
+    resets = {"n": 0}
+    orig = kvc.reset_slot
+
+    def counted(caches, slot):
+        resets["n"] += 1
+        return orig(caches, slot)
+
+    kvc.reset_slot = counted
+    try:
+        llm, _, counts, rep, _ = _arch_serve(
+            torch, np, "xlstm", cfg, params, rt, econf, XL_REQUESTS,
+            XL_PROMPTS, XL_NEW)
+    finally:
+        kvc.reset_slot = orig
+    if llm.engine.chunked_prefill:
+        raise AssertionError("xlstm: 'auto' picked chunked prefill")
+    if any(counts.values()):
+        raise AssertionError(f"xlstm: kernel launches {counts} on an arch "
+                             "with no attention and no RG-LRU layer")
+    if resets["n"] != XL_REQUESTS or XL_REQUESTS <= XL_MB:
+        raise AssertionError(f"xlstm: {resets['n']} slot resets for "
+                             f"{XL_REQUESTS} requests over {XL_MB} slots")
+    tick = dict(_arch_tick(torch, np, cfg, rt, params, llm.engine.backend),
+                rows=XL_MB)
+    _log_tick("xlstm", card, tick, counts, rep, 0)
+    log(f"[xlstm] slot reuse: {resets['n']} resets (mLSTM c, n, m and sLSTM "
+        f"c, n = 1e-6, h, m) for {XL_REQUESTS} requests over {XL_MB} slots")
+    summary = {"weight_gb": _param_bytes(params) / 1e9,
+               "row_state_mb": row_state / 1e6, "resets": resets["n"],
+               "decode_tok_per_s": rep["decode_tok_per_s"],
+               "prefill_tok_per_s": rep["prefill_tok_per_s"], **tick}
+    return {"xlstm-1.3b": counts}, summary
+
+
+def phase_minitron(torch, np, card: str):
+    """minitron-4b at full width and depth: a short serve whose paged
+    decode runs at G = 3 (24 heads over 8, zero-padded to 4)."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.kv_cache import PoolConfig
+    from repro_torch.serving.llm import EngineConfig
+
+    _free_card(torch)
+    cfg = get_arch("minitron-4b")
+    rt = _arch_rt(torch, torch.bfloat16)
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, SEED, rt, "cuda")
+    torch.cuda.synchronize()
+    log(f"[minitron] minitron-4b full width and depth: {cfg.num_layers} "
+        f"layers, {cfg.num_heads} heads over {cfg.num_kv_heads} (G = "
+        f"{cfg.num_heads // cfg.num_kv_heads}); "
+        f"{_param_bytes(params) / 1e9:.2f} GB of bf16 weights from seed "
+        f"{SEED} in {time.perf_counter() - t0:.1f}s")
+    econf = EngineConfig(
+        mb_size=MT_MB, num_microbatches=1,
+        pool=PoolConfig(page_size=MOE_PAGE, n_local_pages=MT_MB *
+                        MOE_MAX_PAGES + 1, max_pages_per_seq=MOE_MAX_PAGES),
+        seed=SEED, max_prefill_tokens_per_tick=256)
+    llm, _, counts, rep, _ = _arch_serve(
+        torch, np, "minitron", cfg, params, rt, econf, MT_REQUESTS,
+        MT_PROMPTS, MT_NEW)
+    if counts != {"paged_attention": rep["decode_ticks"] * cfg.num_layers,
+                  "flash_attention": 0, "rglru_scan": 0}:
+        raise AssertionError(f"minitron: launches {counts} for "
+                             f"{rep['decode_ticks']} ticks x "
+                             f"{cfg.num_layers}")
+    tick = dict(_arch_tick(torch, np, cfg, rt, params, llm.engine.backend),
+                rows=MT_MB)
+    _log_tick("minitron", card, tick, counts, rep, cfg.num_layers)
+    summary = {"weight_gb": _param_bytes(params) / 1e9,
+               "decode_tok_per_s": rep["decode_tok_per_s"],
+               "prefill_tok_per_s": rep["prefill_tok_per_s"], **tick}
+    return {"minitron-4b": counts}, summary
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+class _Routes:
+    """The expert ids of every router call of a run, by wrapping
+    ``moe.router_probs``."""
+
+    def __init__(self):
+        from repro_torch.models import moe as moe_lib
+        self.lib, self.orig, self.ids = moe_lib, moe_lib.router_probs, []
+
+    def __enter__(self):
+        def recorded(x, w_router, moe):
+            out = self.orig(x, w_router, moe)
+            self.ids.append(out[1])
+            return out
+        self.lib.router_probs = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.lib.router_probs = self.orig
+
+
+def phase_arch_parity(torch, np):
+    """The card's path against the port's CPU path (which the parity tests
+    hold to the JAX package), float32, on one batch: a 2-layer full-width
+    phi3.5-moe through a chunked prefill into paged pools and 8 paged
+    decode steps (the paged kernel at G = 4 on the card), and an 8-layer
+    full-width xlstm-1.3b (one pattern period) through an exact prefill
+    and 8 decode steps.  Both devices decode the CPU's greedy tokens.  The
+    routing ids must agree exactly, the logits within
+    ``ARCH_PARITY_TOL``, xlstm's first layer's states within
+    ``XLSTM_STATE_TOL`` (each layer's state error is printed); then the
+    chunkwise mLSTM on the card against ``mlstm_sequential`` on the card
+    at full width."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import xlstm as xlstm_lib
+    from repro_torch.models.common import rms_norm
+    from repro_torch.serving import kv_cache as kvc
+
+    _free_card(torch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rt = _arch_rt(torch, torch.float32)
+    out = {}
+    rng = np.random.RandomState(SEED)
+    for arch, layers in (("phi3.5-moe-42b-a6.6b", 2), ("xlstm-1.3b", 8)):
+        cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+        card_params = model_lib.init_params(cfg, SEED, rt, "cuda")
+        cpu_params = _to(card_params, "cpu")
+        P, R = PARITY_PROMPT, PARITY_ROWS
+        tokens = rng.randint(1, cfg.vocab_size, (R, P)).astype(np.int64)
+        last = np.asarray([P - 1, P - 9], np.int64)
+        per_row = -(-(P + PARITY_STEPS) // 16)
+        table = 1 + np.arange(R * per_row, dtype=np.int32).reshape(R, per_row)
+        logits, routes, states, feed = {}, {}, {}, None
+        for dev, params in (("cpu", cpu_params), ("cuda", card_params)):
+            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            with _Routes() as rec, torch.inference_mode():
+                if cfg.moe is not None:
+                    pool = kvc.PoolConfig(page_size=16,
+                                          n_local_pages=R * per_row + 1,
+                                          max_pages_per_seq=per_row)
+                    caches = kvc.set_page_table(kvc.build_paged_caches(
+                        cfg, R, pool, rt, dev), table)
+                    lg, _ = model_lib.prefill_chunk(
+                        params, t(tokens), caches, t(np.zeros(R, np.int32)),
+                        t((last + 1).astype(np.int32)),
+                        t(last.astype(np.int32)), cfg, rt)
+                else:
+                    caches = model_lib.init_caches(cfg, R, P + PARITY_STEPS,
+                                                   rt, dev)
+                    lg, _ = model_lib.prefill(params, t(tokens), cfg, rt,
+                                              caches=caches,
+                                              last_index=t(last))
+                seq = [lg.cpu()]
+                toks = [lg.argmax(-1).cpu()] if feed is None else None
+                cur = last + 1
+                for step in range(PARITY_STEPS):
+                    nxt = toks[-1] if feed is None else feed[step]
+                    lg, _ = model_lib.decode_step(
+                        params, nxt.to(dev), caches,
+                        t(cur.astype(np.int32)), cfg, rt)
+                    seq.append(lg.cpu())
+                    if feed is None:
+                        toks.append(lg.argmax(-1).cpu())
+                    cur = cur + 1
+                if feed is None:
+                    feed = toks
+            logits[dev] = torch.stack(seq)
+            routes[dev] = [r.cpu() for r in rec.ids]
+            states[dev] = [{k: v.cpu() for k, v in layer.items()}
+                           for layer in caches["layers"]]
+        err = float((logits["cuda"] - logits["cpu"]).abs().max())
+        scale = float(logits["cpu"].abs().max())
+        argmax_eq = float((logits["cuda"].argmax(-1) ==
+                           logits["cpu"].argmax(-1)).float().mean())
+        tol = ARCH_PARITY_TOL[arch]
+        entry = {"layers": layers, "logits_max_abs_err": err,
+                 "logits_max_abs": scale, "argmax_equal_share": argmax_eq,
+                 "tol": tol}
+        if cfg.moe is not None:
+            n = sum(r.numel() for r in routes["cpu"])
+            same = sum(int((a == b).sum()) for a, b in
+                       zip(routes["cpu"], routes["cuda"]))
+            entry.update(routing_ids=n, routing_equal_share=same / max(n, 1))
+            log(f"[arch-parity] {arch} {layers} layers: routing ids equal "
+                f"{same}/{n} ({same / max(n, 1):.1%}) over "
+                f"{len(routes['cpu'])} router calls")
+            if len(routes["cpu"]) != len(routes["cuda"]) or same != n:
+                raise AssertionError(f"arch-parity {arch}: routing ids "
+                                     f"differ ({same}/{n} equal)")
+        log(f"[arch-parity] {arch} {layers} layers, float32, card vs CPU: "
+            f"logits max |diff| {err:.3g} (max |logit| {scale:.3g}, tol "
+            f"{tol:g}) over the prefill and {PARITY_STEPS} decode steps; "
+            f"argmax equal {argmax_eq:.1%}")
+        if not err <= tol:
+            raise AssertionError(f"arch-parity {arch}: logits differ by "
+                                 f"{err:.3g} > {tol:g}")
+        if cfg.moe is None:
+            rel = [max(float((g[k] - w[k]).abs().max() /
+                             w[k].abs().max().clamp(min=1e-30)) for k in w)
+                   for g, w in zip(states["cuda"], states["cpu"])]
+            log(f"[arch-parity] xlstm state error a layer after the run "
+                f"(max |diff| / max |state|, card vs CPU): "
+                + ", ".join(f"{r:.2g}" for r in rel))
+            entry["state_rel_err_by_layer"] = rel
+            if not rel[0] <= XLSTM_STATE_TOL:
+                raise AssertionError(f"arch-parity {arch}: the first "
+                                     f"layer's states differ by {rel[0]:.3g}")
+        out[arch] = entry
+        if cfg.moe is None:
+            w = card_params["layers"][0]
+            x = torch.randn((R, MLSTM_CARD_S, cfg.d_model), device="cuda")
+            with torch.inference_mode():
+                xm = rms_norm(x, w["ln1"], cfg.norm_eps) @ w["wm"]
+                gates = xlstm_lib.mlstm_qkv_gates(xm, w, cfg.num_heads)
+                hc, sc = xlstm_lib.mlstm_chunkwise(*gates, chunk=64)
+                hs, ss = xlstm_lib.mlstm_sequential(*gates)
+            h_err = float((hc - hs).abs().max() / hs.abs().max())
+            c_err = float((sc["c"] - ss["c"]).abs().max() /
+                          ss["c"].abs().max())
+            log(f"[arch-parity] mLSTM chunkwise (chunk 64) vs sequential on "
+                f"the card, float32, B={R}, S={MLSTM_CARD_S}, "
+                f"{cfg.num_heads} heads x {cfg.d_rnn // cfg.num_heads}: "
+                f"max |diff| / max |h| {h_err:.3g}, final C {c_err:.3g} "
+                f"(tol {MLSTM_CARD_TOL:g})")
+            if not (h_err <= MLSTM_CARD_TOL and c_err <= MLSTM_CARD_TOL):
+                raise AssertionError("arch-parity: chunkwise mLSTM differs "
+                                     "from the sequential one on the card")
+            out["mlstm_chunkwise_vs_sequential"] = {"h": h_err, "c": c_err}
+        del card_params, cpu_params
+        _free_card(torch)
+    return out
+
+
 def yi_params(torch):
     """Full-width, full-depth yi-9b weights in bf16 from the seed, shared by
     the yi-9b serve phases."""
@@ -3176,6 +3832,12 @@ def main() -> int:
     del gemma_params
     paths["recurrentgemma-9b"] = phase_serve_recurrentgemma(torch, np,
                                                             smi_line)
+    archs = {"parity": phase_arch_parity(torch, np)}
+    for tag, phase in (("minitron", phase_minitron), ("xlstm", phase_xlstm),
+                       ("moe-phi", phase_moe_phi),
+                       ("moe-qwen3", phase_moe_qwen3)):
+        arch_counts, archs[tag] = phase(torch, np, smi_line)
+        paths.update(arch_counts)
 
     def launches(kernel):
         by_path = {path: c[kernel] for path, c in paths.items()}
@@ -3206,6 +3868,7 @@ def main() -> int:
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"resilience": resilience}))
     print(json.dumps({"trace": trace}))
+    print(json.dumps({"archs": archs}))
     print(json.dumps({"kernels": entries}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,10 @@
 
 Only the fields the ported paths serve are kept.  A :class:`ModelConfig`
 describes an architecture by a *block pattern* of layer kinds tiled over
-the depth; the port runs the attention kinds (``"attn"``, ``"local"``,
-``"global"``) and the Griffin recurrent kind ``"rglru"``, and refuses the
-xLSTM kinds (``"mlstm"``, ``"slstm"``) at model construction (see
-``repro_torch.models.model.check_supported``).
+the depth: the attention kinds (``"attn"``, ``"local"``, ``"global"``), the
+Griffin recurrent kind ``"rglru"`` and the xLSTM kinds (``"mlstm"``,
+``"slstm"``).  An attention layer's FFN is a mixture of experts when
+``moe`` is set (:class:`MoEConfig`), else a SwiGLU of width ``d_ff``.
 """
 
 from __future__ import annotations
@@ -14,10 +14,25 @@ import dataclasses
 import importlib
 import pkgutil
 from dataclasses import dataclass
+from typing import Optional
 
 ATTN_KINDS = ("attn", "local", "global")       # consume / produce KV
 RECURRENT_KINDS = ("rglru", "mlstm", "slstm")  # carry O(1) state a row
 ALL_KINDS = ATTN_KINDS + RECURRENT_KINDS
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts FFN: top-k routing over ``num_experts`` SwiGLU
+    experts of width ``d_expert``, each taking at most ``capacity_factor``
+    times its even share of a call's token slots."""
+
+    num_experts: int
+    experts_per_token: int          # top-k
+    d_expert: int                   # per-expert FFN hidden size
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    normalize_router_weights: bool = True  # qwen3 renormalises top-k probs
 
 
 @dataclass(frozen=True)
@@ -35,6 +50,7 @@ class ModelConfig:
     head_dim: int = 0                # 0 -> d_model // num_heads
     block_pattern: tuple = ("attn",)
     window_size: int = 0             # sliding-window size for "local" layers
+    moe: Optional[MoEConfig] = None
     rope_theta: float = 10000.0
     rope_scaling: float = 1.0
     norm_eps: float = 1e-6
@@ -74,12 +90,29 @@ class ModelConfig:
             total += self.d_model * self.vocab_size
         return total + sum(self._layer_params(k) for k in self.layer_kinds())
 
+    def active_param_count(self) -> int:
+        """Parameters one token touches: all but the experts it is not
+        routed to (``repro.config``'s count, which takes every layer of
+        an MoE arch as an MoE layer)."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        inactive = self.moe.num_experts - self.moe.experts_per_token
+        return total - (inactive * 3 * self.d_model * self.moe.d_expert
+                        * self.num_layers_with_moe())
+
+    def num_layers_with_moe(self) -> int:
+        return self.num_layers if self.moe is not None else 0
+
     def _layer_params(self, kind: str) -> int:
         D, F, Dr = self.d_model, self.d_ff, self.d_rnn
         H, Hk, Dh = self.num_heads, self.num_kv_heads, self.head_dim
         mlp = 3 * D * F if F > 0 else 0
         if kind in ATTN_KINDS:
             n = D * H * Dh + 2 * D * Hk * Dh + H * Dh * D + 2 * D
+            if self.moe is not None:        # router, then the experts
+                E = self.moe.num_experts
+                mlp = D * E + E * 3 * D * self.moe.d_expert
             return n + (2 * Dh if self.use_qk_norm else 0) + mlp
         if kind == "rglru":
             # in-projections, conv, block-diagonal gates, 2 * Dr for Lambda
@@ -127,6 +160,13 @@ def reduced_config(cfg: ModelConfig, *, num_layers: int = 0,
     kv = max(1, min(heads, cfg.num_kv_heads))
     while heads % kv:
         kv -= 1
+    moe = None
+    if cfg.moe is not None:
+        moe = MoEConfig(num_experts=4,
+                        experts_per_token=min(2, cfg.moe.experts_per_token),
+                        d_expert=2 * d_model, capacity_factor=2.0,
+                        normalize_router_weights=(
+                            cfg.moe.normalize_router_weights))
     return dataclasses.replace(
         cfg,
         name=cfg.name + "-smoke",
@@ -138,6 +178,7 @@ def reduced_config(cfg: ModelConfig, *, num_layers: int = 0,
         d_ff=0 if cfg.d_ff == 0 else 4 * d_model,
         vocab_size=vocab,
         window_size=min(cfg.window_size, 32) if cfg.window_size else 0,
+        moe=moe,
         d_rnn=d_model,
         max_position_embeddings=4096,
     )

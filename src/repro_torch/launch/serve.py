@@ -6,8 +6,10 @@ local or the pipelined backend (counterpart of ``repro.launch.serve``).
       [--prefill-mode auto|chunked|exact] [--backend local|pipelined]
 
 ``--arch`` takes every registered arch of the port (``yi-9b``,
-``gemma3-12b``, ``gemma3-1b``, ``recurrentgemma-9b``); the sliding-window
-layers of gemma3 and recurrentgemma and recurrentgemma's RG-LRU layers are
+``gemma3-12b``, ``gemma3-1b``, ``recurrentgemma-9b``,
+``phi3.5-moe-42b-a6.6b``, ``qwen3-moe-235b-a22b``, ``xlstm-1.3b``,
+``llama3-70b``, ``minitron-4b``); the sliding-window layers of gemma3 and
+recurrentgemma and the recurrent layers of recurrentgemma and xlstm are
 served through exact-length prefill, which ``--prefill-mode auto`` picks.
 For example, full-width recurrentgemma on the card:
 

@@ -23,13 +23,18 @@ class Runtime:
     dtype of the main path on the card; the CPU tests use float32.
     ``kv_dtype="int8"`` stores the dense and ring caches as int8 with bf16
     per-(token, head) scales (the paged pools keep ``compute_dtype``, as in
-    the JAX package).  The JAX ``Runtime``'s ``use_pallas``, ``q_chunk``,
+    the JAX package).  ``mlstm_chunk`` is the chunk length of the
+    chunkwise mLSTM prefill; ``moe_chunk`` > 0 runs the MoE dispatch of a
+    training forward in token chunks of that size (serving never does, as
+    in the JAX package).  The JAX ``Runtime``'s ``use_pallas``, ``q_chunk``,
     ``kv_chunk`` and ``causal_scheme`` choose among XLA and Pallas routes
     and are not ported: on the card the CUDA kernels always run."""
 
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
     kv_dtype: str = "bf16"            # bf16 | int8 (quantized KV cache)
+    mlstm_chunk: int = 64             # chunkwise mLSTM chunk length
+    moe_chunk: int = 0                # token-chunked MoE dispatch (0 = off)
 
     def __post_init__(self):
         if self.kv_dtype not in ("bf16", "int8"):

@@ -1,6 +1,7 @@
 """The decoder for serving: weights, chunked and exact-length prefill,
-decode (counterpart of ``repro.models.model``; attention kinds and the
-Griffin recurrent kind ``"rglru"``).
+decode (counterpart of ``repro.models.model``; every layer kind: the
+attention kinds, the Griffin recurrent kind ``"rglru"`` and the xLSTM
+kinds ``"mlstm"`` and ``"slstm"``).
 
 Parameters are a plain dict of tensors, one entry per layer, with the JAX
 package's ``(in, out)`` weight layout::
@@ -9,10 +10,16 @@ package's ``(in, out)`` weight layout::
      "layers": [{"ln1", "wq", "wk", "wv", "wo", "ln2", "wg", "wu", "wd"}]}
 
 (``"untok"`` is absent with tied embeddings; ``"q_norm"``/``"k_norm"``
-join a layer with qk-norm.)  An ``"rglru"`` layer holds ``"ln1", "wg",
+join a layer with qk-norm; with ``cfg.moe`` an attention layer's FFN is
+``"ln2"`` and ``"moe": {"router" (D, E), "wg", "wu" (E, D, d_expert),
+"wd" (E, d_expert, D)}``.)  An ``"rglru"`` layer holds ``"ln1", "wg",
 "wx", "conv_w", "conv_b", "gate_a_w", "gate_a_b", "gate_x_w", "gate_x_b",
-"lam", "wo"`` and its MLP under ``"ln2", "wg_mlp", "wu", "wd"``; the gate
-biases and ``"lam"`` are float32 whatever ``param_dtype`` is
+"lam", "wo"`` and its MLP under ``"ln2", "wg_mlp", "wu", "wd"``; an
+``"mlstm"`` layer ``"ln1", "wm", "wz", "wq", "wk", "wv" (H, dh, dh),
+"w_i", "b_i", "w_f", "b_f", "wo"``; an ``"slstm"`` layer ``"ln1", "w_in"
+(4, D, Dr), "b_in" (4, Dr), "r" (4, H, dh, dh), "wo"``.  The router, the
+RG-LRU gate biases and Lambda, the mLSTM gate weights and biases and the
+sLSTM input bias are float32 whatever ``param_dtype`` is
 (``FLOAT32_LEAVES``).  Caches hold one entry per layer::
 
     {"layers": [...], "page_table": (B, max_pages) int32}
@@ -29,9 +36,11 @@ layers (``init_caches``, ``_kind_cache``)::
     (+ "k_scale", "v_scale": (B, C, Hk) bf16 when ``Runtime.kv_dtype`` is
     "int8", with int8 "k"/"v")
 
-or a recurrent state a row (``"rglru"``)::
+or a recurrent state a row::
 
-    {"h": (B, Dr) float32, "conv": (B, cw-1, Dr) compute dtype}
+    "rglru": {"h": (B, Dr) float32, "conv": (B, cw-1, Dr) compute dtype}
+    "mlstm": {"c": (B, H, dh, dh), "n": (B, H, dh), "m": (B, H)} float32
+    "slstm": {"c", "n", "h", "m": (B, Dr)} float32
 
 and one page table shared by every paged layer (absent when no layer is
 paged).  Pools, rings and recurrent states are updated **in place**
@@ -54,32 +63,23 @@ from repro_torch.config import ATTN_KINDS, ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import embedding as embed_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.common import (DEFAULT_RUNTIME, Runtime, dense_init,
                                        resolve_device, rms_norm, rope_tables,
                                        rotate_qk, swiglu)
 
 PAGED_KINDS = ("attn", "global")
-SERVED_KINDS = ATTN_KINDS + ("rglru",)
 LOCAL_ROPE_THETA = 10000.0      # gemma3: local layers keep the small base
-# the slice of the port that brings each layer kind it refuses
-_LATER_KINDS = {
-    "mlstm": "the other-architectures slice (xLSTM)",
-    "slstm": "the other-architectures slice (xLSTM)",
+# the leaves of each kind that stay float32 whatever param_dtype is (an
+# attention layer's under its nested "moe")
+FLOAT32_LEAVES = {
+    **{kind: ("router",) for kind in ATTN_KINDS},
+    "rglru": ("gate_a_b", "gate_x_b", "lam"),
+    "mlstm": ("w_i", "b_i", "w_f", "b_f"),
+    "slstm": ("b_in",),
 }
-# leaves of an "rglru" layer that stay float32 whatever param_dtype is
-FLOAT32_LEAVES = ("gate_a_b", "gate_x_b", "lam")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for an arch the port cannot run yet:
-    every layer must be an attention kind or ``"rglru"``."""
-    for kind in set(cfg.layer_kinds()):
-        if kind not in SERVED_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} is not ported yet — it "
-                f"comes with {_LATER_KINDS[kind]}; the port serves "
-                f"{SERVED_KINDS} layers")
 
 
 def layer_theta(kind: str, cfg: ModelConfig) -> float:
@@ -102,7 +102,6 @@ def init_params(cfg: ModelConfig, seed: int, rt: Runtime = DEFAULT_RUNTIME,
     ``rt.param_dtype``.  The numbers differ from the JAX package's (another
     generator); tests that compare the two convert the JAX weights instead
     (``models.convert``)."""
-    check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -110,8 +109,8 @@ def init_params(cfg: ModelConfig, seed: int, rt: Runtime = DEFAULT_RUNTIME,
     D, F = cfg.d_model, cfg.d_ff
     H, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
-    def dense(shape, fan_in=None):
-        return dense_init(gen, shape, pd, device, fan_in)
+    def dense(shape, fan_in=None, dtype=pd):
+        return dense_init(gen, shape, dtype, device, fan_in)
 
     def zeros(n):
         return torch.zeros((n,), dtype=pd, device=device)
@@ -121,15 +120,22 @@ def init_params(cfg: ModelConfig, seed: int, rt: Runtime = DEFAULT_RUNTIME,
         embed["untok"] = dense((cfg.vocab_size, D), fan_in=D)
     layers = []
     for kind in cfg.layer_kinds():
-        if kind == "rglru":
-            layers.append(_init_rglru_layer(cfg, dense, zeros, device))
+        if kind in _RECURRENT_INIT:
+            layers.append(_RECURRENT_INIT[kind](cfg, dense, zeros, device))
             continue
         w = {"ln1": zeros(D), "wq": dense((D, H * Dh)),
              "wk": dense((D, Hk * Dh)), "wv": dense((D, Hk * Dh)),
              "wo": dense((H * Dh, D), fan_in=H * Dh)}
         if cfg.use_qk_norm:
             w["q_norm"], w["k_norm"] = zeros(Dh), zeros(Dh)
-        if F > 0:
+        if cfg.moe is not None:
+            E, dE = cfg.moe.num_experts, cfg.moe.d_expert
+            w["ln2"] = zeros(D)
+            w["moe"] = {"router": dense((D, E), dtype=torch.float32),
+                        "wg": dense((E, D, dE), fan_in=D),
+                        "wu": dense((E, D, dE), fan_in=D),
+                        "wd": dense((E, dE, D), fan_in=dE)}
+        elif F > 0:
             w.update(ln2=zeros(D), wg=dense((D, F)), wu=dense((D, F)),
                      wd=dense((F, D), fan_in=F))
         layers.append(w)
@@ -160,6 +166,40 @@ def _init_rglru_layer(cfg: ModelConfig, dense, zeros, device) -> dict:
     return w
 
 
+def _init_mlstm_layer(cfg: ModelConfig, dense, zeros, device) -> dict:
+    """``repro.models.model._init_mlstm_layer``'s recipe: per-head q/k/v
+    of width dh = d_rnn / H, float32 gate weights and biases, and forget
+    biases spread over 3..6 across the heads (start by remembering)."""
+    D, Dr, H = cfg.d_model, cfg.d_rnn, cfg.num_heads
+    dh = Dr // H
+    f32 = torch.float32
+    return {"ln1": zeros(D), "wm": dense((D, Dr)), "wz": dense((D, Dr)),
+            "wq": dense((H, dh, dh), fan_in=dh),
+            "wk": dense((H, dh, dh), fan_in=dh),
+            "wv": dense((H, dh, dh), fan_in=dh),
+            "w_i": dense((H, dh), fan_in=dh, dtype=f32),
+            "b_i": torch.zeros((H,), dtype=f32, device=device),
+            "w_f": dense((H, dh), fan_in=dh, dtype=f32),
+            "b_f": torch.linspace(3.0, 6.0, H, dtype=f32, device=device),
+            "wo": dense((Dr, D), fan_in=Dr)}
+
+
+def _init_slstm_layer(cfg: ModelConfig, dense, zeros, device) -> dict:
+    """``repro.models.model._init_slstm_layer``'s recipe: the float32
+    input bias is 3 on the forget gate, 0 elsewhere."""
+    D, Dr, H = cfg.d_model, cfg.d_rnn, cfg.num_heads
+    dh = Dr // H
+    b_in = torch.zeros((4, Dr), dtype=torch.float32, device=device)
+    b_in[1] = 3.0
+    return {"ln1": zeros(D), "w_in": dense((4, D, Dr), fan_in=D),
+            "b_in": b_in, "r": dense((4, H, dh, dh), fan_in=dh),
+            "wo": dense((Dr, D), fan_in=Dr)}
+
+
+_RECURRENT_INIT = {"rglru": _init_rglru_layer, "mlstm": _init_mlstm_layer,
+                   "slstm": _init_slstm_layer}
+
+
 # ---------------------------------------------------------------------------
 # Dense and ring caches (the JAX package's ``init_caches`` / ``_kind_cache``)
 # ---------------------------------------------------------------------------
@@ -170,15 +210,18 @@ def _kind_cache(kind: str, cfg: ModelConfig, batch: int, capacity: int,
     """A per-row cache: for an attention kind ``capacity`` slots, or a
     ring of ``window_size`` slots for ``"local"``, with int8 values and
     bf16 per-(token, head) scales when ``rt.kv_dtype == "int8"``; for
-    ``"rglru"`` the recurrent state and the conv's trailing inputs."""
+    a recurrent kind its zero state (``"rglru"``: the state and the conv's
+    trailing inputs)."""
     if kind == "rglru":
         return {"h": torch.zeros((batch, cfg.d_rnn), dtype=torch.float32,
                                  device=device),
                 "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.d_rnn),
                                     dtype=rt.compute_dtype, device=device)}
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} has no cache in the "
-                                  "port yet")
+    if kind == "mlstm":
+        return xlstm_lib.mlstm_zero_state(
+            batch, cfg.num_heads, cfg.d_rnn // cfg.num_heads, device)
+    if kind == "slstm":
+        return xlstm_lib.slstm_zero_state(batch, cfg.d_rnn, device)
     Hk, Dh = cfg.num_kv_heads, cfg.head_dim
     c = capacity if (kind != "local" or cfg.window_size == 0) else min(
         cfg.window_size, capacity)
@@ -372,13 +415,25 @@ def _attn_layer(kind: str, w: dict, x: torch.Tensor, cfg: ModelConfig, *,
         _write_prefill_cache(cache, k, v, positions, idx)
 
     x = x + out.reshape(B, S, H * Dh) @ w["wo"]
-    if cfg.d_ff > 0:
+    if cfg.moe is not None:
+        # every row of the call, padding and free slots included, goes
+        # through the router and takes expert capacity, as in the JAX model
+        h2 = rms_norm(x, w["ln2"], cfg.norm_eps).reshape(B * S, -1)
+        x = x + moe_lib.moe_ffn(h2, w["moe"], cfg.moe).reshape(x.shape)
+    elif cfg.d_ff > 0:
         x = x + swiglu(rms_norm(x, w["ln2"], cfg.norm_eps), w["wg"], w["wu"],
                        w["wd"])
     return x
 
 
-def _rglru_layer(w: dict, x: torch.Tensor, cfg: ModelConfig, *,
+def _refuse_chunk(mode: str) -> None:
+    if mode == "chunk":
+        raise NotImplementedError(
+            "chunked prefill is not supported for recurrent layers")
+
+
+def _rglru_layer(w: dict, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
+                 *,
                  positions: torch.Tensor, mode: str,
                  cache: dict) -> torch.Tensor:
     """A Griffin residual block: RG-LRU mixer, then the MLP.  In a prefill
@@ -386,9 +441,7 @@ def _rglru_layer(w: dict, x: torch.Tensor, cfg: ModelConfig, *,
     recurrence (``_recurrent_valid``).  The new state is copied into the
     cache's own tensors: they may be a row view of the batch-wide caches,
     and rebinding the dict entry would lose it."""
-    if mode == "chunk":
-        raise NotImplementedError(
-            "chunked prefill is not supported for recurrent layers")
+    _refuse_chunk(mode)
     h = rms_norm(x, w["ln1"], cfg.norm_eps)
     y, new = rglru_lib.rglru_block(h, w, cfg.num_heads, mode=mode,
                                    state=cache,
@@ -400,6 +453,40 @@ def _rglru_layer(w: dict, x: torch.Tensor, cfg: ModelConfig, *,
         x = x + swiglu(rms_norm(x, w["ln2"], cfg.norm_eps), w["wg_mlp"],
                        w["wu"], w["wd"])
     return x
+
+
+def _mlstm_layer(w: dict, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
+                 *, positions: torch.Tensor, mode: str,
+                 cache: dict) -> torch.Tensor:
+    """An xLSTM mLSTM residual block (chunkwise prefill, exact decode
+    step); the new state is copied into the cache's own tensors."""
+    _refuse_chunk(mode)
+    h = rms_norm(x, w["ln1"], cfg.norm_eps)
+    y, new = xlstm_lib.mlstm_block(h, w, cfg.num_heads, mode=mode,
+                                   state=cache, chunk=rt.mlstm_chunk,
+                                   valid=_recurrent_valid(positions, mode))
+    for name, t in new.items():
+        cache[name].copy_(t)
+    return x + y
+
+
+def _slstm_layer(w: dict, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
+                 *, positions: torch.Tensor, mode: str,
+                 cache: dict) -> torch.Tensor:
+    """An xLSTM sLSTM residual block; the new state is copied into the
+    cache's own tensors."""
+    _refuse_chunk(mode)
+    h = rms_norm(x, w["ln1"], cfg.norm_eps)
+    y, new = xlstm_lib.slstm_block(h, w, cfg.num_heads, mode=mode,
+                                   state=cache,
+                                   valid=_recurrent_valid(positions, mode))
+    for name, t in new.items():
+        cache[name].copy_(t)
+    return x + y
+
+
+_RECURRENT_APPLY = {"rglru": _rglru_layer, "mlstm": _mlstm_layer,
+                    "slstm": _slstm_layer}
 
 
 def _recurrent_valid(positions: torch.Tensor, mode: str):
@@ -433,9 +520,9 @@ def run_layers(params: dict, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
     idx = None if paged is None else _step_index(
         mode, positions, page_table, paged["k_pages"].shape[1])
     for kind, w, cache in zip(kinds, ws, cs):
-        if kind == "rglru":
-            x = _rglru_layer(w, x, cfg, positions=positions, mode=mode,
-                             cache=cache)
+        if kind in _RECURRENT_APPLY:
+            x = _RECURRENT_APPLY[kind](w, x, cfg, rt, positions=positions,
+                                       mode=mode, cache=cache)
             continue
         x = _attn_layer(kind, w, x, cfg, positions=positions, mode=mode,
                         cache=cache, page_table=page_table,

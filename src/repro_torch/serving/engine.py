@@ -85,7 +85,7 @@ from repro_torch.distributed.elastic import (ElasticPlanner, MeshPlan,
                                              StragglerMitigator)
 from repro_torch.models.common import Runtime, make_layer_plan, \
     resolve_device
-from repro_torch.models.model import PAGED_KINDS, check_supported
+from repro_torch.models.model import PAGED_KINDS
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.backend import (DecodeResult, PipelinedBackend,
                                          PrefillChunk, PrefillResult,
@@ -213,7 +213,6 @@ class OfflineEngine:
                  fault_plan=None, prefix_cache: bool = False,
                  slo: Optional[SLOConfig] = None, device=None, trace=None,
                  strict: Optional[bool] = None):
-        check_supported(cfg)
         # a lost tick is injected again with the same tokens at the same
         # positions, which is transparent only when every cache write is
         # keyed by position (paged KV, ring slots); a recurrent update

@@ -6,10 +6,11 @@ Device state is one ``(P, page, Hk, Dh)`` K pool and V pool per paged
 attention layer (``"attn"``/``"global"``) plus one ``(batch, max_pages)``
 int32 page table shared by every paged layer, one ring of
 ``window_size`` slots per row for each sliding-window (``"local"``) layer,
-and one recurrent state per row for each ``"rglru"`` layer (``h`` and the
-conv's trailing inputs).  An arch with no paged layer (recurrentgemma)
-still has the table, which the allocator's bookkeeping fills, and no
-pool.  Bookkeeping (free lists, per-slot page lists, page refcounts and
+and one recurrent state per row for each recurrent layer (``"rglru"``:
+``h`` and the conv's trailing inputs; ``"mlstm"``: ``c``, ``n``, ``m``;
+``"slstm"``: ``c``, ``n``, ``h``, ``m``).  An arch with no paged layer
+(recurrentgemma, xlstm) still has the table, which the allocator's
+bookkeeping fills, and no pool.  Bookkeeping (free lists, per-slot page lists, page refcounts and
 the prefix-block index of :class:`PrefixCache`) is host Python.
 
 The page id space of each pool is partitioned as DeServe §4.2 lays it out:
@@ -33,8 +34,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.common import Runtime, resolve_device
-from repro_torch.models.model import PAGED_KINDS, _kind_cache, \
-    check_supported
+from repro_torch.models.model import PAGED_KINDS, _kind_cache
 
 
 @dataclass(frozen=True)
@@ -322,9 +322,8 @@ def build_paged_caches(cfg: ModelConfig, batch: int, pool: PoolConfig,
                        rt: Runtime, device=None) -> dict:
     """Engine caches on ``device`` (``cuda`` unless asked): zeroed pools for
     the paged kinds, empty rings (``pos`` -1) of ``window_size`` slots for
-    ``"local"``, zero recurrent states for ``"rglru"``, and a zero
+    ``"local"``, zero recurrent states for the recurrent kinds, and a zero
     (scratch-parked) table."""
-    check_supported(cfg)
     device = resolve_device(device)
     shape = (pool.n_pages, pool.page_size, cfg.num_kv_heads, cfg.head_dim)
 
@@ -354,15 +353,20 @@ def set_page_table(caches: dict, table: np.ndarray) -> dict:
 
 def reset_slot(caches: dict, slot: int) -> dict:
     """Clear a slot's per-row state when it is reassigned, in place: ring
-    positions back to -1, recurrent states (``h``, ``conv``) back to
-    zeros, as ``repro.serving.kv_cache.reset_slot`` does.  Paged pools
-    need no clearing (validity is governed by the sequence lengths)."""
+    positions back to -1, and every leaf of a recurrent state back to its
+    zero state: 0, except an sLSTM layer's normaliser ``n`` (the one 2-D
+    ``n``), which starts at 1e-6.  Paged pools need no clearing (validity
+    is governed by the sequence lengths).  This is what
+    ``repro.serving.kv_cache.reset_slot`` means to do; the reference never
+    reaches the recurrent layers (ROADMAP Queue 3)."""
     for layer in caches["layers"]:
+        if "k_pages" in layer:
+            continue
         if "pos" in layer:
             layer["pos"][slot] = -1
-        elif "h" in layer:
-            layer["h"][slot] = 0.0
-            layer["conv"][slot] = 0.0
+            continue
+        for name, leaf in layer.items():
+            leaf[slot] = 1e-6 if name == "n" and leaf.dim() == 2 else 0.0
     return caches
 
 

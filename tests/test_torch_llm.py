@@ -3,8 +3,9 @@
 Both front ends serve the same prompts on the same weights (the JAX
 package's ``init_params``, carried across with ``from_jax_params``), in
 float32 on the CPU, through the same prefill schedule: chunked for the
-fully-paged yi-9b, exact-length for the sliding-window gemma3 and the
-recurrent recurrentgemma (and for yi-9b under ``prefill_mode="exact"``).  Greedy
+fully-paged yi-9b and the MoE and dense archs of the other-architectures
+slice, exact-length for the sliding-window gemma3 and the recurrent
+recurrentgemma and xlstm (and for yi-9b under ``prefill_mode="exact"``).  Greedy
 streams must be identical token for token.  Sampled streams cannot be
 compared across the two (``jax.random`` and ``torch.Generator`` draw
 different noise), so they are checked for shape here and for layout
@@ -105,8 +106,8 @@ def assert_streams_match_jax(arch, variant, mb, n_mb, mixed, mode="auto"):
     want = jax_streams(jcfg, jparams, prompts, sampling(JaxSP, mixed), jmb,
                        jn_mb, mode)
     port = port_llm(tcfg, tparams, mb, n_mb, mode)
-    assert port.engine.chunked_prefill == (arch == "yi-9b" and
-                                           mode != "exact")
+    fully_paged = all(k in ("attn", "global") for k in tcfg.layer_kinds())
+    assert port.engine.chunked_prefill == (fully_paged and mode != "exact")
     got = port.generate(prompts, sampling(SamplingParams, mixed))
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.finished and w.finished
@@ -142,6 +143,65 @@ def test_exact_prefill_greedy_streams_match_jax(arch, mb, n_mb, mode):
     assert_streams_match_jax(arch, "reduced", mb, n_mb, True, mode)
 
 
+# The archs of the other-architectures slice, reduced: the MoE archs and
+# the dense llama3-70b / minitron-4b take chunked prefill (every row of a
+# chunk or a decode tick, padding and free slots included, takes expert
+# capacity, so the JAX side runs the same batch layout); xlstm takes the
+# exact path with power-of-two buckets, and its slots are reassigned on
+# the port's side, so reset_slot must clear the mLSTM and sLSTM states.
+@pytest.mark.parametrize("arch,mb,n_mb,mode", [
+    ("phi3.5-moe-42b-a6.6b", 2, 1, "auto"),
+    ("phi3.5-moe-42b-a6.6b", 2, 2, "auto"),
+    ("qwen3-moe-235b-a22b", 2, 2, "auto"),
+    ("qwen3-moe-235b-a22b", 3, 1, "exact"),
+    ("minitron-4b", 2, 2, "auto"),
+    ("llama3-70b", 2, 1, "auto"),
+    ("xlstm-1.3b", 2, 1, "auto"),
+    ("xlstm-1.3b", 2, 2, "auto"),
+])
+def test_other_archs_greedy_streams_match_jax(arch, mb, n_mb, mode):
+    assert_streams_match_jax(arch, "reduced", mb, n_mb, True, mode)
+
+
+def test_reassigned_xlstm_slot_streams_equal_a_fresh_engine():
+    """Through one slot, each request of reduced xlstm-1.3b starts from
+    the zero mLSTM and sLSTM states that ``reset_slot`` restores: its
+    greedy stream equals the one it gets alone in a fresh engine."""
+    _, tcfg, _, tparams, prompts = setup("reduced", "xlstm-1.3b")
+    sps = sampling(SamplingParams, False)[:3]
+    shared = port_llm(tcfg, tparams, 1, 1).generate(prompts[:3], sps)
+    for p, sp, out in zip(prompts[:3], sps, shared):
+        alone = port_llm(tcfg, tparams, 1, 1).generate([p], [sp])[0]
+        assert out.token_ids == alone.token_ids
+
+
+@pytest.mark.parametrize("knob", ["plan", "fault_plan"])
+def test_xlstm_refusals_match_jax(knob):
+    """Both packages refuse to plan KV pools for a pure-recurrent arch,
+    and to inject faults into one (a lost tick would step its recurrent
+    states twice when injected again), with the same message."""
+    from repro.distributed.elastic import FaultPlan as JaxFaultPlan
+    from repro_torch.distributed.elastic import FaultPlan
+    jcfg, tcfg, jparams, tparams, _ = setup("reduced", "xlstm-1.3b")
+    if knob == "plan":
+        kw = dict(n_stages=1, stage_time=0.1, latency=0.0, m_kv_bytes=1e6)
+        jconf = jax_llm.EngineConfig.plan(**kw)
+        tconf = llm.EngineConfig.plan(**kw)
+        match = "pure-recurrent"
+    else:
+        kw = dict(backend="pipelined", n_stages=1, num_microbatches=2,
+                  pool=None)
+        jconf = jax_llm.EngineConfig(
+            **kw, fault_plan=JaxFaultPlan.parse(["drop@decode:1:0"]))
+        tconf = llm.EngineConfig(
+            **kw, fault_plan=FaultPlan.parse(["drop@decode:1:0"]))
+        match = "recurrent layers accumulate state"
+    with pytest.raises(ValueError, match=match):
+        jax_llm.LLM(jcfg, config=jconf, params=jparams, rt=JRT)
+    with pytest.raises(ValueError, match=match):
+        llm.LLM(tcfg, config=tconf, params=tparams, rt=TRT, device="cpu")
+
+
 def test_exact_prefill_streams_equal_chunked_streams():
     """Both admission paths of the port give yi-9b the same greedy streams
     (the chunked path's attention is the exact path's, cut into chunks)."""
@@ -170,8 +230,18 @@ def test_reference_leaks_recurrent_state_into_reassigned_slots():
     ``reset_slot`` zeros ``h`` and ``conv``: its streams do not depend on
     the number of slots, and equal the JAX package's when every JAX
     request has a fresh slot."""
-    jcfg, tcfg, jparams, tparams, prompts = setup("reduced",
-                                                  "recurrentgemma-9b")
+    assert_reference_leaks_recurrent_state("recurrentgemma-9b")
+
+
+def test_reference_leaks_xlstm_state_into_reassigned_slots():
+    """The same defect on xlstm: the reference's ``reset_slot`` leaves
+    every mLSTM ``c, n, m`` and sLSTM ``c, n, h, m`` as the slot's last
+    request left them; the port restores the zero states."""
+    assert_reference_leaks_recurrent_state("xlstm-1.3b")
+
+
+def assert_reference_leaks_recurrent_state(arch):
+    jcfg, tcfg, jparams, tparams, prompts = setup("reduced", arch)
     sps = sampling(SamplingParams, False)
     fresh = [o.token_ids for o in jax_streams(
         jcfg, jparams, prompts, sampling(JaxSP, False), len(prompts), 1)]

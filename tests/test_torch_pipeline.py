@@ -20,9 +20,12 @@ of ``repro.models.model.init_params`` (``PRNGKey(0)``), carried across with
   token at N_S = 2, N_B = 3, offload on (microbatches 0 and 2 contend for
   global parity 0), on reduced yi-9b (chunked prefill, one leftover
   period in the epilogue), gemma3-12b (exact prefill, rings, a two-layer
-  tail) and recurrentgemma-9b (an epilogue of two rglru layers; each
+  tail), recurrentgemma-9b (an epilogue of two rglru layers; each
   request gets a fresh slot, because the reference leaks recurrent state
-  into reassigned slots, ROADMAP Queue 3).
+  into reassigned slots, ROADMAP Queue 3), phi3.5-moe and qwen3-moe (the
+  MoE FFN of each stage over its microbatch's rows, chunked prefill) and
+  xlstm-1.3b (one mLSTM/sLSTM period a stage, an epilogue of two mLSTM
+  layers, a fresh slot a request).
 - The port against itself: pipelined streams (sampled ones too) equal the
   local backend's, ``round_flush`` equals ``circular``, and the refusals.
 - The flight recorder's virtual clock: the traced yi-9b engine on 64 ms
@@ -73,7 +76,9 @@ DECODE_CASES = {"full": [2, 0], "filling": [1, -1], "draining": [-1, 2]}
 PREFILL_CASES = {"full": [1, 1], "filling": [1, 0], "draining": [0, 1]}
 WIRES = ("fp32", "int8")
 # the engine cases: JAX's contended-parity case (tests/test_backend.py)
-ENGINE_ARCHS = {"yi-9b": 10, "gemma3-12b": 10, "recurrentgemma-9b": 6}
+ENGINE_ARCHS = {"yi-9b": 10, "gemma3-12b": 10, "recurrentgemma-9b": 6,
+                "phi3.5-moe-42b-a6.6b": 10, "qwen3-moe-235b-a22b": 10,
+                "xlstm-1.3b": 6}
 ENGINE_POOL = dict(page_size=4, n_local_pages=32, n_global_pages=12,
                    max_pages_per_seq=6)
 ENGINE_NEW = 6
@@ -388,7 +393,8 @@ def test_pipelined_engine_matches_jax(jax_side, arch):
             f"{arch} request {i}"
     be = tl.engine.backend
     assert isinstance(be, PipelinedBackend)
-    assert tl.engine.chunked_prefill == (arch == "yi-9b")
+    assert tl.engine.chunked_prefill == all(
+        k in ("attn", "global") for k in tcfg.layer_kinds())
     assert be.swap_count == int(jax_side[f"engine/{arch}/swaps"]) > 0
     assert not be.pending() and not be.prefill_pending()
 
