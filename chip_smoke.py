@@ -182,6 +182,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
    router, dispatch, expert products and combine beside the weight-bytes
    bound; an ``{"archs": ...}`` JSON line.
 
+14. the front ends and the training path: ``[flash-grad]``, the flash
+   kernel's log-sum-exp output against the plain version's and
+   ``FlashAttention``'s dq, dk, dv against autograd through the plain
+   version at gemma3-1b's training shape (B=4, S=1024, 4 heads over 1 of
+   256, causal and window 512) and recurrentgemma-9b's (B=2, S=2048, G=16,
+   window 2048), float32 and bf16, timed with and without the LSE, the
+   plain-torch backward beside SDPA's; ``[scan-grad]``, ``RGLRUScan``'s
+   da, db, dh0 at B=2, S=2048, Dr=4096 against autograd through the plain
+   loop, the reversed launch timed; ``[train-gemma3-1b]``, full-width,
+   full-depth gemma3-1b trained as ``launch.train`` trains it (float32,
+   batch 4 x 1024, 30 steps: the loss falls, flash launches steps x 26,
+   tok/s, ms a step, peak GiB), then 20 steps checkpointed every 10 and
+   resumed from step 10 by a fresh manager (steps 11-20's losses equal
+   within ``TRAIN_RESUME_TOL``), then 20 int8-compressed steps;
+   ``[train-rgemma]``, recurrentgemma-9b at full width, 3 layers, batch 2
+   x 2048, 10 steps (scan launches steps x 2 layers x 2, flash steps x
+   1); ``[frontend-musicgen]`` / ``[frontend-qwen2vl]``, both at full
+   width and depth in bf16 through ``LLM.generate`` with the yi-9b
+   phase's traffic (paged launches ticks x layers at G = 1 / Dh = 64 and
+   G = 6 padded to 8); ``[frontend-parity]``, 2-layer full-width models
+   in float32 on the CPU and the card: a ``{"frames"}`` prefill and a
+   ``{"tokens", "patches"}`` prefill (256 patches), then 8 decode steps
+   (qwen2-vl from S + P) through paged pools, so the card runs the paged
+   kernel at both archs' head geometry; logits within ``FE_PARITY_TOL``
+   of the CPU's dense and paged runs, greedy equal.  Phase 3 also holds
+   the paged kernel to its plain version at both archs' serve shapes.
+
 Each serve phase sets every kernel's launch count to 0 just before it
 drives its path and reads them just after; the kernels line reports those
 counts by path.
@@ -190,7 +217,7 @@ It prints an ``{"offload": ...}`` line (swap books, copy and wait times,
 the planner's inputs), a ``{"pipeline": ...}`` line (the pipeline phase's
 numbers and wall times), a ``{"resilience": ...}`` line (phase 11's), a
 ``{"trace": ...}`` line (phase 12's), an ``{"archs": ...}`` line
-(phase 13's), a
+(phase 13's), a ``{"train": ...}`` line (phase 14's), a
 ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  It exits non-zero without a
 result when no CUDA device is visible.
@@ -199,6 +226,7 @@ result when no CUDA device is visible.
 from __future__ import annotations
 
 import json
+from collections import Counter
 import math
 import re
 import subprocess
@@ -336,6 +364,47 @@ PARITY_ROWS, PARITY_PROMPT, PARITY_STEPS = 2, 48, 8
 ARCH_PARITY_TOL = {"phi3.5-moe-42b-a6.6b": 1e-3, "xlstm-1.3b": 5e-2}
 XLSTM_STATE_TOL = 1e-4
 MLSTM_CARD_S, MLSTM_CARD_TOL = 200, 1e-4   # relative to max |h|, max |C|
+# phase 14 (the front ends and the training path).  [flash-grad]: the
+# training shapes of gemma3-1b (B = 4, S = 1024, 4 heads over 1 of 256;
+# causal global layers, local layers in a 512 window) and of
+# recurrentgemma-9b's local layers (B = 2, S = 2048, 16 over 1, window
+# 2048), float32 and bf16
+FLASH_GRAD_SHAPES = (("gemma3-1b", 4, 1024, 4, 1, 256, (0, 512)),
+                     ("recurrentgemma-9b", 2, 2048, 16, 1, 256, (2048,)))
+# the kernel's log-sum-exp against the plain version's, (atol, rtol): both
+# sum float32 scores of the same products in other orders (the bf16 kernel
+# in base 2), for values up to about 10
+LSE_TOL = (1e-4, 1e-5)
+# FlashAttention's dq, dk, dv against autograd through the plain version,
+# as a share of each gradient's max |g|: float32 within 1e-4 (summation
+# order); bf16 within 2e-2, because the backward reads the kernel's bf16
+# output (8 mantissa bits) in rowsum(dout * out) where autograd through the
+# plain version has the float32 softmax, and the gradients round to bf16
+FLASH_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# [scan-grad]: RGLRUScan at B = 2, S = 2048, Dr = 4096, float32, against
+# autograd through the plain loop, as a share of each gradient's max |g|
+# (the reversed kernel and the loop's backward sum each step's two terms
+# in the same float32 operations, so only rounding order can differ)
+SCAN_GRAD_SHAPE = (2, 2048, 4096)
+SCAN_GRAD_TOL = 1e-5
+# [train-gemma3-1b]: full width and depth through the CLI's setup
+# (``launch.train.setup``: float32, AdamW at 3e-3, seed 0), batch 4 x 1024;
+# then 20 steps with a checkpoint every 10, resumed from step 10 by a fresh
+# manager (steps 11-20's losses within TRAIN_RESUME_TOL relative: the CUDA
+# embedding backward accumulates with atomics, so it is not bitwise
+# deterministic); then 20 steps through the int8 compressor
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 30
+TRAIN_RESUME_STEPS, TRAIN_CKPT_EVERY, TRAIN_RESUME_TOL = 20, 10, 1e-4
+TRAIN_COMPRESS_STEPS = 20
+TRAIN_CKPT_DIR = ROOT / "build" / "ckpt"
+# [train-rgemma]: recurrentgemma-9b at full width, its first 3 layers
+# (rglru, rglru, local), float32, batch 2 x 2048
+RG_TRAIN_LAYERS, RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_TRAIN_STEPS = 3, 2, 2048, 10
+# [frontend-parity]: full width at 2 layers, float32, card vs CPU: a prefill
+# of 48 audio frames / 48 tokens after 256 patches, then 8 greedy decode
+# steps through paged pools; logits within FE_PARITY_TOL (float32 sums in
+# other orders)
+FE_PARITY_LAYERS, FE_PARITY_S, FE_PARITY_STEPS, FE_PARITY_TOL = 2, 48, 8, 1e-4
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -470,10 +539,11 @@ def phase_card(torch):
     return line, name
 
 
-def sass_counts(path) -> dict:
-    """How many of each of ``SASS_OPS`` the library's SASS holds, by
-    ``cuobjdump -sass`` from ``$CUDA_HOME/bin``; None when the tool is
-    absent or fails (the counts report the design, they decide nothing)."""
+def sass_functions(path) -> dict:
+    """The library's SASS by ``cuobjdump -sass`` from ``$CUDA_HOME/bin``:
+    each function's opcodes in order, by its mangled name; None when the
+    tool is absent or fails (the counts report the design, they decide
+    nothing)."""
     import os
     tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                 "cuobjdump")
@@ -483,13 +553,85 @@ def sass_counts(path) -> dict:
                          text=True, timeout=300)
     if res.returncode != 0:
         return None
-    ops = []
+    funcs, ops = {}, None
     for ln in res.stdout.splitlines():
         words = ln.split()      # /*1a90*/ [@P0] OPCODE.MODIFIERS ...
-        if len(words) > 2 and re.fullmatch(r"/\*[0-9a-f]+\*/", words[0]):
+        if len(words) == 3 and words[:2] == ["Function", ":"]:
+            ops = funcs.setdefault(words[2], [])
+        elif ops is not None and len(words) > 2 and \
+                re.fullmatch(r"/\*[0-9a-f]+\*/", words[0]):
             op = words[2] if words[1].startswith("@") else words[1]
             ops.append(op.split(".")[0])
+    return funcs
+
+
+def sass_counts(funcs) -> dict:
+    """How many of each of ``SASS_OPS`` all of ``sass_functions``' hold."""
+    if funcs is None:
+        return None
+    ops = [op for body in funcs.values() for op in body]
     return {op: ops.count(op) for op in SASS_OPS}
+
+
+def ptxas_registers(log_text: str) -> dict:
+    """Registers each entry function uses, by mangled name, from the
+    ``-Xptxas -v`` log."""
+    regs, fn = {}, None
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn is not None:
+            regs[fn] = int(m.group(1))
+            fn = None
+    return regs
+
+
+def flash_lse_instances(funcs, regs) -> dict:
+    """The bf16 flash kernel's two instances for each (Dh, G), the serving
+    one (kLse false) and the training one that also writes the LSE (kLse
+    true), side by side: registers, SASS instructions and the opcodes
+    whose counts differ, printed for the two training shapes (Dh 256 at G
+    4 and 16) and summed up over the rest."""
+    pat = re.compile(r"flash_fwd_wgmma_kernelILi(\d+)ELi(\d+)ELb([01])E")
+    by = {}
+    for name, body in (funcs or {}).items():
+        m = pat.search(name)
+        if m:
+            key = (int(m.group(1)), int(m.group(2)))
+            by.setdefault(key, {})[m.group(3) == "1"] = (body,
+                                                         regs.get(name))
+    out = {}
+    for (dh, g), pair in sorted(by.items()):
+        if len(pair) != 2:
+            continue
+        (serve, r0), (train, r1) = pair[False], pair[True]
+        c0, c1 = Counter(serve), Counter(train)
+        diff = {op: c1[op] - c0[op] for op in set(c0) | set(c1)
+                if c1[op] != c0[op]}
+        out[f"dh{dh}_g{g}"] = {"registers": [r0, r1],
+                               "instructions": [len(serve), len(train)],
+                               "opcode_diff": diff}
+        if dh == 256 and g in (4, 16):
+            top = sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:12]
+            log(f"[build] flash bf16 Dh={dh} G={g}: serving instance "
+                f"{r0} registers, {len(serve)} SASS instructions; kLse "
+                f"instance {r1} registers, {len(train)} "
+                f"({len(train) - len(serve):+d}: "
+                + ", ".join(f"{op} {n:+d}" for op, n in top) + ")")
+    if out:
+        deltas = [v["instructions"][1] - v["instructions"][0]
+                  for v in out.values()]
+        log(f"[build] flash bf16 kLse instances over all {len(out)} (Dh, G):"
+            f" {min(deltas):+d} to {max(deltas):+d} SASS instructions "
+            f"beside the serving ones; registers equal in "
+            f"{sum(v['registers'][0] == v['registers'][1] for v in out.values())}"
+            f"/{len(out)}")
+    else:
+        log("[build] flash bf16 instances: no SASS to compare (cuobjdump "
+            "absent from $CUDA_HOME/bin)")
+    return out
 
 
 def phase_build():
@@ -510,7 +652,11 @@ def phase_build():
             f"{len(regs)} kernel instances ({spills} with spills), e.g. "
             f"{regs[-1] if regs else '-'}")
         build.load(name)
-        sass[name] = sass_counts(info.path)
+        funcs = sass_functions(info.path)
+        sass[name] = sass_counts(funcs)
+        if name == "flash_attention":
+            sass["flash_lse_instances"] = flash_lse_instances(
+                funcs, ptxas_registers(info.log))
         log(f"[build] {name} SASS: " + (
             ", ".join(f"{op} {n}" for op, n in sass[name].items())
             if sass[name] is not None else
@@ -582,6 +728,31 @@ def phase_kernel_paged(torch, np):
         name = str(dtype).split(".")[-1]
         gemma[name] = args
         check(f"gemma3-12b decode shapes {name}", args, 0)
+    # the front ends' decode shapes as their serve phases (14) give them:
+    # musicgen-large's 32 heads over 32 of 64 (G = 1) and qwen2-vl-2b's 12
+    # over 2 of 128 (G = 6, each group padded to 8 by kernels/groups.py),
+    # at the serve phase's batch, table and pool, its context lengths, an
+    # empty row and an idle one (1 token on scratch page 0)
+    from repro_torch.config import get_arch
+    for arch in ("musicgen-large", "qwen2-vl-2b"):
+        fc = get_arch(arch)
+        sl = rng.randint(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + SERVE_NEW + 1,
+                         SERVE_MB)
+        sl[2], sl[9] = 0, SERVE_PROMPTS[1] + SERVE_NEW
+        for dtype in (torch.bfloat16, torch.float32):
+            args = paged_case(torch, np, rng, b=SERVE_MB, h=fc.num_heads,
+                              hk=fc.num_kv_heads, dh=fc.head_dim,
+                              page=SERVE_PAGE, max_pages=SERVE_MAX_PAGES,
+                              lens=sl, dtype=dtype, device=dev,
+                              pool_pages=SERVE_POOL_PAGES)
+            q, kp, vp, pt, sl_t = args
+            pt[7], sl_t[7] = 0, 1
+            kp[0, 0], vp[0, 0] = torch.randn(
+                (2, fc.num_kv_heads, fc.head_dim), device=dev).to(dtype)
+            check(f"{arch} decode shapes {str(dtype).split('.')[-1]} (H="
+                  f"{fc.num_heads} Hk={fc.num_kv_heads} Dh={fc.head_dim}, "
+                  f"table {tuple(pt.shape)}, pool {tuple(kp.shape)})",
+                  args, 0)
     for g in (1, 2, 4, 8):
         for dh in (64, 128, 256):
             for page in (8, 16, 32):
@@ -3683,7 +3854,7 @@ def phase_arch_parity(torch, np):
                 else:
                     caches = model_lib.init_caches(cfg, R, P + PARITY_STEPS,
                                                    rt, dev)
-                    lg, _ = model_lib.prefill(params, t(tokens), cfg, rt,
+                    lg, _ = model_lib.prefill(params, {"tokens": t(tokens)}, cfg, rt,
                                               caches=caches,
                                               last_index=t(last))
                 seq = [lg.cpu()]
@@ -3767,6 +3938,589 @@ def phase_arch_parity(torch, np):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the front ends and the training path
+# ---------------------------------------------------------------------------
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want| (float32)."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp(min=1e-30)).item()
+
+
+def phase_flash_grad(torch, np):
+    """[flash-grad]: the flash kernel's log-sum-exp output against the
+    plain version's, ``FlashAttention``'s gradients (the kernel forward,
+    the plain-torch backward) against autograd through the plain version,
+    and the times: the forward with the LSE beside it without (the serve
+    route), the plain backward beside SDPA's, at the two training
+    shapes."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import flash_attention_bwd
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 14)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for arch, b, s_len, h, hk, dh, windows in FLASH_GRAD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            q, k, v, dout = (torch.randn(shape, generator=gen, device=dev
+                                         ).to(dtype)
+                             for shape in ((b, s_len, h, dh),
+                                           (b, s_len, hk, dh),
+                                           (b, s_len, hk, dh),
+                                           (b, s_len, h, dh)))
+            for window in windows:
+                label = (f"{arch} train B={b} S={s_len} H={h} Hk={hk} "
+                         f"Dh={dh} causal window={window} {name}")
+                o_k, lse_k = fa.flash_attention(q, k, v, causal=True,
+                                                window=window,
+                                                return_lse=True)
+                torch.cuda.synchronize()
+                o_r, lse_r = ref.flash_attention_ref(q, k, v, causal=True,
+                                                     window=window,
+                                                     return_lse=True)
+                lse_err = (lse_k - lse_r).abs().max().item()
+                torch.testing.assert_close(
+                    lse_k, lse_r, atol=LSE_TOL[0], rtol=LSE_TOL[1],
+                    msg=lambda m: f"flash-grad {label} lse: {m}")
+                # gradients: FlashAttention (kernel forward with the LSE,
+                # plain backward) against autograd through the plain one
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                launched = fa.flash_attention.launches
+                got = torch.autograd.grad(
+                    kops.flash_attention(*leaves, causal=True,
+                                         window=window), leaves, dout)
+                if fa.flash_attention.launches != launched + 1:
+                    raise AssertionError(
+                        f"flash-grad {label}: "
+                        f"{fa.flash_attention.launches - launched} launches "
+                        "for one forward and backward, want 1")
+                want = torch.autograd.grad(
+                    ref.flash_attention_ref(*leaves, causal=True,
+                                            window=window), leaves, dout)
+                errs = [_rel_err(g, w) for g, w in zip(got, want)]
+                if not all(torch.isfinite(g.float()).all() for g in got) or \
+                        max(errs) > FLASH_GRAD_TOL[name]:
+                    raise AssertionError(
+                        f"flash-grad {label}: dq, dk, dv relative errors "
+                        f"{errs} (tol {FLASH_GRAD_TOL[name]:g})")
+                # times: forward with / without the LSE, plain backward,
+                # SDPA forward and backward on the same inputs.  The
+                # forwards are timed behind a spin, so each span is the
+                # device's work alone; a bf16 forward here is shorter than
+                # the host's issue of one call, so without the spin a span
+                # also holds the host's time between the start event and
+                # the launch (timed as well, to show that difference)
+                fwd = lambda: fa.flash_attention(q, k, v, causal=True,
+                                                 window=window)
+                fwd_lse = lambda: fa.flash_attention(
+                    q, k, v, causal=True, window=window, return_lse=True)
+                fwd_ms = time_ms(torch, fwd, 20, spin=GROUP_SPIN_CYCLES)
+                lse_ms = time_ms(torch, fwd_lse, 20, spin=GROUP_SPIN_CYCLES)
+                fwd_ms_issue = time_ms(torch, fwd, 20)
+                lse_ms_issue = time_ms(torch, fwd_lse, 20)
+                bwd_ms = time_ms(torch, lambda: flash_attention_bwd(
+                    q, k, v, o_k, lse_k, dout, causal=True, window=window), 5)
+                plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
+                    q, k, v, causal=True, window=window, return_lse=True), 3)
+                qt, kt, vt = (x.detach().transpose(1, 2).contiguous()
+                              .requires_grad_() for x in (q, k, v))
+                if window:
+                    i = torch.arange(s_len, device=dev)
+                    band = (i[None] <= i[:, None]) & \
+                        (i[None] > i[:, None] - window)
+                    lib_fwd = lambda: sdpa(qt, kt, vt, attn_mask=band,
+                                           enable_gqa=True)
+                else:
+                    lib_fwd = lambda: sdpa(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+                lib_ms = time_ms(torch, lib_fwd, 10, spin=GROUP_SPIN_CYCLES)
+                o_lib = lib_fwd()
+                dout_t = dout.transpose(1, 2).contiguous()
+                lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+                    o_lib, (qt, kt, vt), dout_t, retain_graph=True), 5)
+                esize = q.element_size()
+                bound_ms, bound_by, flops = flash_bound(
+                    s_len, s_len, True, window, h, hk, dh, esize, name)
+                bound_ms *= b
+                lse_bytes = b * h * s_len * 4
+                bound_lse = max(bound_ms, (b * (2 * s_len * h * dh + 2 *
+                                                s_len * hk * dh) * esize
+                                           + lse_bytes) / HBM_BYTES_PER_S
+                                * 1e3)
+                # the backward: 5 products of 2 * Dh flops a live (query,
+                # key) pair and head (s, dv, dp, dq, dk); q, k, v, out,
+                # dout, lse read, dq, dk, dv written
+                bwd_bound = max(2.5 * flops * b / PEAK_FLOPS["float32"],
+                                (b * (6 * s_len * h * dh + 4 * s_len * hk *
+                                      dh) * esize + lse_bytes)
+                                / HBM_BYTES_PER_S) * 1e3
+                log(f"[flash-grad] {label}: max |lse kernel - plain| = "
+                    f"{lse_err:.3e} (atol {LSE_TOL[0]:g}, rtol "
+                    f"{LSE_TOL[1]:g}); dq/dk/dv relative "
+                    f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} (tol "
+                    f"{FLASH_GRAD_TOL[name]:g}) ok")
+                log(f"[flash-grad] {label}: forward kernel_ms={fwd_ms:.4f} "
+                    f"with lse {lse_ms:.4f} (bound {bound_lse:.4f}, "
+                    f"{bound_by}) plain_ms={plain_ms:.4f} "
+                    f"library_ms(sdpa fwd)={lib_ms:.4f}; backward "
+                    f"plain-torch {bwd_ms:.4f} ms beside sdpa's "
+                    f"{lib_bwd_ms:.4f} (bound {bwd_bound:.4f}, float32 "
+                    f"arithmetic); forwards timed without the spin (the "
+                    f"host's issue inside the span) {fwd_ms_issue:.4f}, "
+                    f"with lse {lse_ms_issue:.4f}")
+                out[f"{arch} window={window} {name}"] = {
+                    "max_abs_err": (o_k.float() - o_r.float()).abs().max()
+                    .item(), "lse_max_abs_err": lse_err,
+                    "grad_rel_err": errs, "ms": lse_ms,
+                    "ms_without_lse": fwd_ms, "ms_unspun": lse_ms_issue,
+                    "ms_without_lse_unspun": fwd_ms_issue,
+                    "plain_ms": plain_ms,
+                    "bound_ms": bound_lse, "bound_by": bound_by,
+                    "library_ms": lib_ms, "bwd_plain_ms": bwd_ms,
+                    "bwd_library_ms": lib_bwd_ms, "bwd_bound_ms": bwd_bound}
+                del o_lib, qt, kt, vt
+    return out
+
+
+def phase_scan_grad(torch, np):
+    """[scan-grad]: ``RGLRUScan``'s da, db, dh0 (the forward and one
+    reversed launch of the scan kernel) against autograd through the plain
+    loop; the reversed launch's time beside its bytes bound."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rs
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 15)
+    b, s_len, dr = SCAN_GRAD_SHAPE
+    a = torch.sigmoid(torch.randn((b, s_len, dr), generator=gen, device=dev))
+    bb = torch.randn((b, s_len, dr), generator=gen, device=dev)
+    h0 = torch.randn((b, dr), generator=gen, device=dev)
+    dh = torch.randn((b, s_len, dr), generator=gen, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (a, bb, h0)]
+    launched = rs.rglru_scan.launches
+    got = torch.autograd.grad(kops.rglru_scan(*leaves), leaves, dh)
+    torch.cuda.synchronize()
+    if rs.rglru_scan.launches != launched + 2:
+        raise AssertionError(f"scan-grad: {rs.rglru_scan.launches - launched}"
+                             " launches for a forward and backward, want 2")
+    def plain_scan(a, b, h):
+        """The plain loop, differentiable: each step a multiply, rounded,
+        then an add, rounded, as ``ref.rglru_scan_ref`` steps."""
+        hs = []
+        for t in range(a.shape[1]):
+            h = torch.add(torch.mul(a[:, t], h), b[:, t])
+            hs.append(h)
+        return torch.stack(hs, dim=1)
+
+    want = torch.autograd.grad(plain_scan(*leaves), leaves, dh)
+    errs = [_rel_err(g, w) for g, w in zip(got, want)]
+    if max(errs) > SCAN_GRAD_TOL:
+        raise AssertionError(f"scan-grad: da, db, dh0 relative errors {errs}"
+                             f" (tol {SCAN_GRAD_TOL:g})")
+    # the reversed launch alone, and the whole backward (the flips, the
+    # launch and the products), cold L2
+    a_rev = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], 1).flip(1)
+    dh_rev = dh.flip(1).contiguous()
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms = time_ms(torch, lambda: rs.rglru_scan(a_rev, dh_rev), 50,
+                 flush_buf.zero_)
+    hs = kops.rglru_scan(*leaves)
+    bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        hs, leaves, dh, retain_graph=True), 20, flush_buf.zero_)
+    plain_ms = time_ms(torch, lambda: ref.rglru_scan_ref(a_rev, dh_rev), 3,
+                       flush_buf.zero_)
+    t_bytes = 12 * b * s_len * dr / HBM_BYTES_PER_S
+    t_ops = 2 * b * s_len * dr / PEAK_FLOPS["float32"]
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[scan-grad] B={b} S={s_len} Dr={dr} float32: da/db/dh0 relative "
+        f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} (tol {SCAN_GRAD_TOL:g}) "
+        f"ok; 2 launches a forward and backward; reversed launch "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f}"
+        f" ({bound_by}); whole backward {bwd_ms:.4f} ms, cold L2")
+    return {"grad_rel_err": errs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "backward_ms": bwd_ms, "max_abs_err": max(
+                (g - w).abs().max().item() for g, w in zip(got, want))}
+
+
+def _train_run(torch, tag, cfg, rt, ocfg, dcfg, steps, **kw):
+    """``train_loop.train`` from fresh weights (seed 0, on the card) over
+    the synthetic stream; returns (params, opt_state, result, launches,
+    peak GiB)."""
+    from repro_torch.data.pipeline import batches
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import train_loop
+    _free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = kw.pop("params", None)
+    if params is None:
+        params = model_lib.init_params(cfg, SEED, rt, "cuda")
+    data = kw.pop("data", None) or batches(dcfg)
+    reset_counts()
+    params, opt, res = train_loop.train(cfg, rt, ocfg, data, steps=steps,
+                                        params=params, **kw)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[{tag}] {steps} steps: loss {res.losses[0]:.4f} -> "
+        f"{res.losses[-1]:.4f}; {res.tokens_per_second:.1f} tok/s, "
+        f"{res.seconds / steps * 1e3:.1f} ms a step; peak {peak:.2f} GiB; "
+        f"launches {counts}")
+    return params, opt, res, counts, peak
+
+
+def _falls(tag, losses, n):
+    """The mean of the last ``n`` losses below the first ``n``'s, all
+    finite."""
+    first, last = sum(losses[:n]) / n, sum(losses[-n:]) / n
+    if not all(math.isfinite(x) for x in losses) or not last < first:
+        raise AssertionError(f"{tag}: the loss did not fall (first {n} "
+                             f"mean {first:.4f}, last {last:.4f}): {losses}")
+    return first, last
+
+
+def phase_train_gemma(torch, np, card: str):
+    """[train-gemma3-1b]: full-width, full-depth gemma3-1b trained as the
+    CLI trains it; then a checkpointed run resumed by a fresh manager; then
+    an int8-compressed run."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import batches
+    from repro_torch.distributed.compression import Compressor
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import optimizer as opt_lib
+
+    def cli(steps, *extra):
+        return train_cli.setup(train_cli.parse_args(
+            ["--arch", "gemma3-1b", "--full-size", "--steps", str(steps),
+             "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+             "--seed", str(SEED), "--device", "cuda", *extra]))[1:]
+
+    cfg, rt, ocfg, dcfg = cli(TRAIN_STEPS)
+    log(f"[train-gemma3-1b] gemma3-1b full width and depth: "
+        f"{cfg.num_layers} layers, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count() / 1e9:.3f}B params float32, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, AdamW lr {ocfg.lr:g} (warmup "
+        f"{ocfg.warmup_steps}, cosine over {ocfg.total_steps}), on {card}")
+    _, _, res, counts, peak = _train_run(torch, "train-gemma3-1b", cfg, rt,
+                                         ocfg, dcfg, TRAIN_STEPS)
+    first, last = _falls("train-gemma3-1b", res.losses, 5)
+    want = TRAIN_STEPS * cfg.num_layers
+    if counts != {"paged_attention": 0, "flash_attention": want,
+                  "rglru_scan": 0}:
+        raise AssertionError(f"train-gemma3-1b: launches {counts}, want "
+                             f"{want} flash (steps x layers)")
+    summary = {"steps": TRAIN_STEPS, "losses": res.losses,
+               "first5": first, "last5": last,
+               "tok_per_s": res.tokens_per_second,
+               "ms_per_step": res.seconds / TRAIN_STEPS * 1e3,
+               "peak_gib": peak, "flash_launches": counts["flash_attention"]}
+    paths = {"gemma3-1b train": counts}
+
+    # crash and resume: 20 steps with a checkpoint every 10; a fresh
+    # manager restores step 10 onto a fresh template, the stream replays
+    # its first 10 batches, and steps 11-20 must give the same losses
+    cfg, rt, ocfg, dcfg = cli(TRAIN_RESUME_STEPS)
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    mgr = CheckpointManager(str(TRAIN_CKPT_DIR), keep=3)
+    t0 = time.perf_counter()
+    _, _, ref_run, c_ref, _ = _train_run(
+        torch, "train-gemma3-1b resume-ref", cfg, rt, ocfg, dcfg,
+        TRAIN_RESUME_STEPS, checkpoint_mgr=mgr,
+        checkpoint_every=TRAIN_CKPT_EVERY)
+    wall_ref = time.perf_counter() - t0
+    _free_card(torch)
+    fresh = CheckpointManager(str(TRAIN_CKPT_DIR), keep=3)
+    t0 = time.perf_counter()
+    template = model_lib.init_params(cfg, SEED + 1, rt, "cuda")
+    restored, _ = fresh.restore({"params": template,
+                                 "opt_state": opt_lib.init(ocfg, template)},
+                                step=TRAIN_CKPT_EVERY)
+    del template
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if int(restored["opt_state"].step) != TRAIN_CKPT_EVERY:
+        raise AssertionError("train-gemma3-1b: restored step "
+                             f"{int(restored['opt_state'].step)}")
+    data = batches(dcfg)
+    for _ in range(TRAIN_CKPT_EVERY):
+        next(data)
+    _, _, resumed, c_res, _ = _train_run(
+        torch, "train-gemma3-1b resumed", cfg, rt, ocfg, dcfg,
+        TRAIN_RESUME_STEPS - TRAIN_CKPT_EVERY, params=restored["params"],
+        opt_state=restored["opt_state"], data=data)
+    del restored
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    tail = ref_run.losses[TRAIN_CKPT_EVERY:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed.losses, tail))
+    if rel > TRAIN_RESUME_TOL:
+        raise AssertionError(f"train-gemma3-1b: resumed losses "
+                             f"{resumed.losses} differ from the uninterrupted "
+                             f"run's {tail} by {rel:.2e} relative")
+    log(f"[train-gemma3-1b] crash and resume: steps "
+        f"{TRAIN_CKPT_EVERY + 1}-{TRAIN_RESUME_STEPS} resumed from the step "
+        f"{TRAIN_CKPT_EVERY} checkpoint within {rel:.2e} relative of the "
+        f"uninterrupted run's (tol {TRAIN_RESUME_TOL:g}); the checkpointed "
+        f"run took {wall_ref:.1f}s with {TRAIN_RESUME_STEPS // TRAIN_CKPT_EVERY}"
+        f" saves, the restore {restore_s:.1f}s")
+    summary["resume"] = {"max_rel_loss_diff": rel, "losses_ref": tail,
+                         "losses_resumed": resumed.losses,
+                         "checkpointed_run_s": wall_ref,
+                         "restore_s": restore_s}
+    paths["gemma3-1b train resume"] = {
+        k: c_ref[k] + c_res[k] for k in c_ref}
+
+    # int8-compressed gradients
+    cfg, rt, ocfg, dcfg = cli(TRAIN_COMPRESS_STEPS, "--compress", "int8")
+    comp = Compressor(method="int8")
+    params, _, res_c, c_comp, _ = _train_run(
+        torch, "train-gemma3-1b int8", cfg, rt, ocfg, dcfg,
+        TRAIN_COMPRESS_STEPS, compressor=comp)
+    c_first, c_last = _falls("train-gemma3-1b int8", res_c.losses, 5)
+    ratio = comp.compression_ratio(params)
+    log(f"[train-gemma3-1b] int8 gradients: loss {c_first:.4f} -> "
+        f"{c_last:.4f} (mean of the first / last 5), compression_ratio "
+        f"{ratio:.3f}, {comp.wire_bytes(params) / 2 ** 30:.3f} GiB a round "
+        "on the wire")
+    summary["int8"] = {"losses": res_c.losses, "compression_ratio": ratio,
+                       "tok_per_s": res_c.tokens_per_second}
+    paths["gemma3-1b train int8"] = c_comp
+    del params
+    return paths, summary
+
+
+def phase_train_rgemma(torch, np, card: str):
+    """[train-rgemma]: recurrentgemma-9b at full width, its first 3 layers,
+    trained as the CLI trains: the scan kernel forward and reversed in each
+    rglru layer, the flash kernel in the local one."""
+    import dataclasses
+
+    from repro_torch.launch import train as train_cli
+    args = train_cli.parse_args(
+        ["--arch", "recurrentgemma-9b", "--full-size", "--steps",
+         str(RG_TRAIN_STEPS), "--batch", str(RG_TRAIN_BATCH), "--seq",
+         str(RG_TRAIN_SEQ), "--seed", str(SEED), "--device", "cuda"])
+    _, cfg, rt, ocfg, dcfg = train_cli.setup(args)
+    cfg = dataclasses.replace(cfg, num_layers=RG_TRAIN_LAYERS)
+    kinds = cfg.layer_kinds()
+    log(f"[train-rgemma] recurrentgemma-9b full width, layers {kinds}, "
+        f"{cfg.param_count() / 1e9:.3f}B params float32, batch "
+        f"{RG_TRAIN_BATCH} x {RG_TRAIN_SEQ}, on {card}")
+    _, _, res, counts, peak = _train_run(torch, "train-rgemma", cfg, rt,
+                                         ocfg, dcfg, RG_TRAIN_STEPS)
+    first, last = _falls("train-rgemma", res.losses, 3)
+    n_rg = kinds.count("rglru")
+    want = {"paged_attention": 0,
+            "flash_attention": RG_TRAIN_STEPS * (len(kinds) - n_rg),
+            "rglru_scan": RG_TRAIN_STEPS * n_rg * 2}
+    if counts != want:
+        raise AssertionError(f"train-rgemma: launches {counts}, want {want}"
+                             " (scan: steps x rglru layers x forward and "
+                             "reversed)")
+    return {"recurrentgemma-9b train": counts}, {
+        "losses": res.losses, "first3": first, "last3": last,
+        "tok_per_s": res.tokens_per_second,
+        "ms_per_step": res.seconds / RG_TRAIN_STEPS * 1e3, "peak_gib": peak}
+
+
+def phase_frontend_serve(torch, np, card: str, arch: str, tag: str):
+    """[frontend-musicgen] / [frontend-qwen2vl]: the arch at full width and
+    depth in bf16 through ``LLM.generate`` with the yi-9b phase's traffic
+    (token ids inside the arch's vocab); paged launches ticks x layers."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.kv_cache import PoolConfig
+    from repro_torch.serving.llm import EngineConfig
+    _free_card(torch)
+    cfg = get_arch(arch)
+    rt = _arch_rt(torch, torch.bfloat16)
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, SEED, rt, "cuda")
+    torch.cuda.synchronize()
+    g = cfg.num_heads // cfg.num_kv_heads
+    log(f"[{tag}] {arch} full width and depth: {cfg.num_layers} layers, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads} (G = {g}) of "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}, frontend {cfg.frontend}; "
+        f"{_param_bytes(params) / 1e9:.2f} GB of bf16 weights from seed "
+        f"{SEED} in {time.perf_counter() - t0:.1f}s")
+    econf = EngineConfig(
+        mb_size=SERVE_MB, num_microbatches=SERVE_N_MB,
+        pool=PoolConfig(page_size=SERVE_PAGE, n_local_pages=SERVE_POOL_PAGES,
+                        max_pages_per_seq=SERVE_MAX_PAGES),
+        seed=SEED, max_prefill_tokens_per_tick=256)
+    torch.cuda.reset_peak_memory_stats()
+    llm, outs, counts, rep, wall = _arch_serve(
+        torch, np, tag, cfg, params, rt, econf, SERVE_REQUESTS,
+        SERVE_PROMPTS, SERVE_NEW)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ticks = rep["decode_ticks"]
+    if counts != {"paged_attention": ticks * cfg.num_layers,
+                  "flash_attention": 0, "rglru_scan": 0}:
+        raise AssertionError(f"{tag}: launches {counts} for {ticks} ticks x "
+                             f"{cfg.num_layers} layers")
+    log(f"[{tag}] on {card}: {len(outs)}/{SERVE_REQUESTS} requests; decode "
+        f"{rep['decode_tok_per_s']:.1f} tok/s, prefill "
+        f"{rep['prefill_tok_per_s']:.1f} tok/s; paged launches "
+        f"{counts['paged_attention']} (= {ticks} ticks x {cfg.num_layers}, "
+        f"G = {g} at Dh = {cfg.head_dim}); peak {peak:.2f} GiB")
+    del llm, params
+    return {f"{arch}": counts}, {
+        "decode_tok_per_s": rep["decode_tok_per_s"],
+        "prefill_tok_per_s": rep["prefill_tok_per_s"], "peak_gib": peak,
+        "decode_ticks": ticks, "wall_s": wall, "requests": len(outs)}
+
+
+def _paged_from_dense(torch, np, cfg, rt, dense, b: int, cap: int, dev):
+    """Paged caches (the serve phase's page size) that hold what a prefill
+    wrote into dense caches of ``cap`` slots: row r's slot i at page
+    ``table[r, i // page]``, offset ``i % page``.  A front-end prefill
+    cannot write the pools itself: ``prefill_chunk`` takes tokens only,
+    and on a vision arch the cache slot is the token's index while its t
+    position repeats (every patch sits at t = 0)."""
+    from repro_torch.serving import kv_cache as kvc
+    per_row = -(-cap // SERVE_PAGE)
+    pool = kvc.PoolConfig(page_size=SERVE_PAGE,
+                          n_local_pages=b * per_row + 1,
+                          max_pages_per_seq=per_row)
+    table = 1 + np.arange(b * per_row, dtype=np.int32).reshape(b, per_row)
+    caches = kvc.set_page_table(kvc.build_paged_caches(cfg, b, pool, rt, dev),
+                                table)
+    rows = torch.from_numpy(table).long().to(dev)
+    for src, dst in zip(dense["layers"], caches["layers"]):
+        for name in ("k", "v"):
+            t = torch.nn.functional.pad(
+                src[name], (0, 0, 0, 0, 0, per_row * SERVE_PAGE - cap))
+            dst[f"{name}_pages"][rows] = t.reshape(
+                b, per_row, SERVE_PAGE, *t.shape[2:])
+    return caches
+
+
+def phase_frontend_parity(torch, np):
+    """[frontend-parity]: musicgen-large and qwen2-vl-2b at full width and
+    FE_PARITY_LAYERS layers, float32, on the CPU and on the card: a prefill
+    of audio frames, or of text after 256 vision patches (the flash kernel
+    at G = 1, Dh = 64 and at G = 6 padded to 8), then greedy decode steps
+    (qwen2-vl from S + P, as the JAX package's test decodes).  The CPU
+    decodes from dense caches (the path the CPU tests hold to the JAX
+    package) and from paged pools (the paged kernel's plain version); the
+    card from paged pools, so each decode step runs the paged kernel at the
+    served head geometry, fed the CPU's greedy tokens.  The card's logits
+    within FE_PARITY_TOL of both CPU runs, the greedy tokens equal, and
+    the paged kernel launched steps x layers times."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import model as model_lib
+    rt = _arch_rt(torch, torch.float32)
+    rng = np.random.RandomState(SEED + 16)
+    out = {}
+    for arch in ("musicgen-large", "qwen2-vl-2b"):
+        _free_card(torch)
+        cfg = dataclasses.replace(get_arch(arch), num_layers=FE_PARITY_LAYERS)
+        cpu_params = model_lib.init_params(cfg, SEED, rt, "cpu")
+        card_params = _to(cpu_params, "cuda")
+        b, s_len = 2, FE_PARITY_S
+        if cfg.frontend == "audio_frames":
+            inputs = {"frames": rng.randn(b, s_len, cfg.d_model)
+                      .astype(np.float32)}
+            start = s_len
+        else:
+            p = cfg.num_patch_tokens
+            inputs = {"tokens": rng.randint(1, cfg.vocab_size, (b, s_len))
+                      .astype(np.int64),
+                      "patches": (0.1 * rng.randn(b, p, cfg.d_model))
+                      .astype(np.float32)}
+            start = s_len + p
+        cap = start + FE_PARITY_STEPS + 1
+        # the dense CPU run decodes its own greedy tokens; the other two
+        # are fed those, so one differing argmax does not change every
+        # later input
+        logits, counts = {}, None
+        for run, dev, params in (("cpu dense", "cpu", cpu_params),
+                                 ("cpu paged", "cpu", cpu_params),
+                                 ("card paged", "cuda", card_params)):
+            x = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
+            with torch.inference_mode():
+                lg, caches = model_lib.prefill(params, x, cfg, rt, cap)
+                if run != "cpu dense":
+                    caches = _paged_from_dense(torch, np, cfg, rt, caches, b,
+                                               cap, dev)
+                steps = [lg]
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    reset_counts()
+                for i in range(FE_PARITY_STEPS):
+                    feed = steps[-1].argmax(-1) if run == "cpu dense" else \
+                        logits["cpu dense"][i].argmax(-1).to(dev)
+                    cur = torch.full((b,), start + i, dtype=torch.int64,
+                                     device=dev)
+                    lg, caches = model_lib.decode_step(params, feed, caches,
+                                                       cur, cfg, rt)
+                    steps.append(lg)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    counts = read_counts()
+            logits[run] = torch.stack(steps).cpu()
+        want_counts = {"paged_attention": FE_PARITY_STEPS * FE_PARITY_LAYERS,
+                       "flash_attention": 0, "rglru_scan": 0}
+        if counts != want_counts:
+            raise AssertionError(f"frontend-parity {arch}: card decode "
+                                 f"launches {counts}, want {want_counts}")
+        card = logits["card paged"]
+        err = (card - logits["cpu dense"]).abs().max().item()
+        err_plain = (card - logits["cpu paged"]).abs().max().item()
+        scale = logits["cpu dense"].abs().max().item()
+        same = bool((card.argmax(-1) ==
+                     logits["cpu dense"].argmax(-1)).all())
+        g = cfg.num_heads // cfg.num_kv_heads
+        log(f"[frontend-parity] {arch} {FE_PARITY_LAYERS} layers full width "
+            f"float32, {'frames' if 'frames' in inputs else 'tokens + patches'}"
+            f" prefill then {FE_PARITY_STEPS} paged decode steps from {start} "
+            f"(paged kernel {counts['paged_attention']} launches at G = {g}, "
+            f"Dh = {cfg.head_dim}): max |card paged - cpu dense| logits "
+            f"{err:.3e}, |card paged - cpu paged (plain kernel)| "
+            f"{err_plain:.3e} (max |logit| {scale:.2f}, tol "
+            f"{FE_PARITY_TOL:g}); greedy tokens equal: {same}")
+        if err > FE_PARITY_TOL or err_plain > FE_PARITY_TOL or not same:
+            raise AssertionError(f"frontend-parity {arch}: logits {err:.3e} "
+                                 f"/ {err_plain:.3e} apart, greedy equal "
+                                 f"{same}")
+        out[arch] = {"max_abs_logit_err": err,
+                     "max_abs_logit_err_vs_paged_plain": err_plain,
+                     "max_abs_logit": scale, "greedy_equal": same,
+                     "paged_launches": counts["paged_attention"]}
+        del cpu_params, card_params
+    return out
+
+
+def phase_frontends_and_training(torch, np, card: str):
+    """Phase 14; returns (launch counts by path, the ``train`` summary)."""
+    summary = {"flash_grad": phase_flash_grad(torch, np),
+               "scan_grad": phase_scan_grad(torch, np)}
+    paths, summary["gemma3-1b"] = phase_train_gemma(torch, np, card)
+    rg_counts, summary["recurrentgemma-9b"] = phase_train_rgemma(torch, np,
+                                                                 card)
+    paths.update(rg_counts)
+    for arch, tag in (("musicgen-large", "frontend-musicgen"),
+                      ("qwen2-vl-2b", "frontend-qwen2vl")):
+        fe_counts, summary[arch] = phase_frontend_serve(torch, np, card,
+                                                        arch, tag)
+        paths.update(fe_counts)
+    summary["frontend_parity"] = phase_frontend_parity(torch, np)
+    return paths, summary
+
+
 def yi_params(torch):
     """Full-width, full-depth yi-9b weights in bf16 from the seed, shared by
     the yi-9b serve phases."""
@@ -3838,6 +4592,8 @@ def main() -> int:
                        ("moe-qwen3", phase_moe_qwen3)):
         arch_counts, archs[tag] = phase(torch, np, smi_line)
         paths.update(arch_counts)
+    train_counts, train = phase_frontends_and_training(torch, np, smi_line)
+    paths.update(train_counts)
 
     def launches(kernel):
         by_path = {path: c[kernel] for path, c in paths.items()}
@@ -3856,11 +4612,14 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:136",
          "ok": True, **launches("flash_attention"), **flash,
          "group_sizes": group_sizes["flash"],
+         "training": train["flash_grad"],
+         "lse_instances": sass["flash_lse_instances"],
          "sass": sass["flash_attention"]},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:54",
          "ok": True, **launches("rglru_scan"), **scan,
+         "reversed": train["scan_grad"],
          "sass": sass["rglru_scan"]},
     ]
     print(json.dumps({"offload": {"swap_order": swap_order,
@@ -3869,6 +4628,7 @@ def main() -> int:
     print(json.dumps({"resilience": resilience}))
     print(json.dumps({"trace": trace}))
     print(json.dumps({"archs": archs}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": entries}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,11 @@ the depth: the attention kinds (``"attn"``, ``"local"``, ``"global"``), the
 Griffin recurrent kind ``"rglru"`` and the xLSTM kinds (``"mlstm"``,
 ``"slstm"``).  An attention layer's FFN is a mixture of experts when
 ``moe`` is set (:class:`MoEConfig`), else a SwiGLU of width ``d_ff``.
+The input is tokens, or precomputed embeddings projected into the
+residual stream (``frontend``): audio frames instead of tokens, or
+``num_patch_tokens`` vision patches ahead of the text, rotated by M-RoPE.
+``param_count`` counts the frame / patch projections as the JAX package
+does: not at all.
 """
 
 from __future__ import annotations
@@ -56,6 +61,8 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     use_qk_norm: bool = False
+    frontend: str = "token"          # token | audio_frames | vision_patches
+    num_patch_tokens: int = 0        # vlm: patch tokens prepended to the text
     logit_softcap: float = 0.0
     scale_embeddings: bool = False
     d_rnn: int = 0                   # recurrent width (0 -> d_model)
@@ -180,5 +187,6 @@ def reduced_config(cfg: ModelConfig, *, num_layers: int = 0,
         window_size=min(cfg.window_size, 32) if cfg.window_size else 0,
         moe=moe,
         d_rnn=d_model,
+        num_patch_tokens=min(cfg.num_patch_tokens, 4),
         max_position_embeddings=4096,
     )

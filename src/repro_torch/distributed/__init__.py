@@ -1,3 +1,4 @@
-"""Inter-stage links of the §4.3 pipeline: transports on a virtual clock,
-deployment plans and the int8 activation codec (counterparts of
-``repro.distributed.transport`` and ``repro.distributed.compression``)."""
+"""Inter-stage links of the §4.3 pipeline (transports on a virtual clock,
+deployment plans, the int8 activation codec), the gradient compressors of
+data-parallel training, and fault tolerance (counterparts of
+``repro.distributed.transport``, ``compression`` and ``elastic``)."""

@@ -10,6 +10,9 @@
 //   q    (B, Sq, H, Dh)    bf16 or f32, head h = kv_head * G + g
 //   k/v  (B, Skv, Hk, Dh)  q's dtype
 //   out  (B, Sq, H, Dh)    q's dtype; float32 accumulation
+//   lse  (B, Hk, G, Sq)    float32, optional (null: not written): each
+//                          score row's log-sum-exp m + log(max(l, 1e-30)),
+//                          natural log, what a training backward needs
 //
 // Query position i sees key j when j < Skv, and j <= i if causal, and
 // j > i - window if window > 0.  Scores are scaled by 1/sqrt(Dh) (the
@@ -62,7 +65,14 @@
 //     edge or Skv; a tile wholly outside a warpgroup's rows is not
 //     computed at all (the warpgroup only releases its stage);
 //   * under causal masking the q tiles are launched longest first, so the
-//     blocks with the most kv tiles do not run last.
+//     blocks with the most kv tiles do not run last;
+//   * the log-sum-exp a training step asks for is written by an instance
+//     of its own (template flag kLse), beside the row's output: the
+//     serving instance compiles without it, so the serving route's code is
+//     what it was before the LSE existed.  The float32 kernel below keeps
+//     a run-time null check instead: it is not on a serving route that
+//     matters (serving runs bf16), and chip_smoke.py's [flash-grad] times
+//     it with and without the store at the training shapes.
 // What is left on the table (later work): inside a warpgroup the softmax
 // of one tile does not overlap the products; only the other warpgroup's
 // products run meanwhile, in whatever order the two fall into.  Two
@@ -105,9 +115,9 @@ constexpr int smem_floats() {
 template <typename T, int DH, int G>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int Sq,
-                 int Skv, int H, int Hk, int causal, int window,
-                 float scale) {
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int Sq, int Skv, int H, int Hk,
+                 int causal, int window, float scale) {
   constexpr int BQ = kRows / G;           // query positions per block
   constexpr int VEC = 16 / sizeof(T);     // elements per 16-byte load
   constexpr int DCH = DH / VEC;           // 16-byte chunks per head row
@@ -284,6 +294,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + r / G;
     if (qi >= Sq) continue;
     const float l = fmaxf(l_run[i], 1e-30f);
+    if (lse != nullptr && tx == 0)        // one of the row's 8 threads
+      lse[((int64_t)blockIdx.x * G + r % G) * Sq + qi] = m_run[i] + logf(l);
     T* orow = ob + qi * q_stride + (r % G) * DH;
 #pragma unroll
     for (int ii = 0; ii < DH / 32; ++ii)
@@ -303,6 +315,7 @@ constexpr int kFaKeys = 64;              // keys a kv tile
 constexpr int kFaThreads = 384;          // producer + 2 consumer warpgroups
 constexpr int kRowBytes = 128;           // one swizzled row: 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DH>
 struct FaLayout {
@@ -631,14 +644,16 @@ __device__ __forceinline__ void online_softmax(
   }
 }
 
-template <int DH, int G>
+// kLse: the instance that also writes the log-sum-exp (training); the
+// serving instance (kLse false) compiles without that store
+template <int DH, int G, bool kLse>
 __global__ void __launch_bounds__(kFaThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
-                       __nv_bfloat16* __restrict__ out, int Sq, int Skv,
-                       int H, int Hk, int causal, int window,
-                       float scale_log2) {
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int Sq, int Skv, int H,
+                       int Hk, int causal, int window, float scale_log2) {
   using L = FaLayout<DH>;
   constexpr int BQ = kFaRows / G;          // query positions a block
   constexpr int NB = L::kBoxes;
@@ -809,6 +824,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const int r = row0 + 8 * h;
       const int qi = q0 + r / G;
       if (qi >= Sq) continue;
+      if (kLse && tig == 0)               // m_run is in log2 units
+        lse[((int64_t)blockIdx.y * G + r % G) * Sq + qi] =
+            m_run[h] * kLn2 + logf(fmaxf(l, 1e-30f));
       __nv_bfloat16* orow =
           out + (((int64_t)b * Sq + qi) * H + (int64_t)kvh * G + r % G) * DH;
 #pragma unroll
@@ -824,7 +842,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 struct Args {
-  const void* q; const void* k; const void* v; void* out;
+  const void* q; const void* k; const void* v; void* out; float* lse;
   int B, Sq, Skv, H, Hk, causal, window;
   float scale;
 };
@@ -843,8 +861,8 @@ int launch_f32(const Args& a, cudaStream_t stream) {
   const dim3 grid(a.B * a.Hk, (a.Sq + BQ - 1) / BQ);
   flash_fwd_kernel<float, DH, G><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.Sq,
-      a.Skv, a.H, a.Hk, a.causal, a.window, a.scale);
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse,
+      a.Sq, a.Skv, a.H, a.Hk, a.causal, a.window, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -900,8 +918,8 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 
 // bf16: the TMA + wgmma kernel; the maps are built per launch (host work
 // of a few microseconds, no device memory)
-template <int DH, int G>
-int launch_bf16(const Args& a, cudaStream_t stream) {
+template <int DH, int G, bool kLse>
+int launch_wgmma(const Args& a, cudaStream_t stream) {
   constexpr int BQ = kFaRows / G;
   CUtensorMap q_map, k_map, v_map;
   int rc = make_map(&q_map, a.q, a.B, a.Sq, a.H, DH, G, BQ);
@@ -910,14 +928,20 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
   if (rc != 0) return rc;
   constexpr int bytes = FaLayout<DH>::kSmemBytes;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<DH, G>,
+      flash_fwd_wgmma_kernel<DH, G, kLse>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.Hk);
-  flash_fwd_wgmma_kernel<DH, G><<<grid, kFaThreads, bytes, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(a.out), a.Sq, a.Skv,
-      a.H, a.Hk, a.causal, a.window, a.scale * kLog2e);
+  flash_fwd_wgmma_kernel<DH, G, kLse><<<grid, kFaThreads, bytes, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(a.out), a.lse, a.Sq,
+      a.Skv, a.H, a.Hk, a.causal, a.window, a.scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH, int G>
+int launch_bf16(const Args& a, cudaStream_t stream) {
+  return a.lse != nullptr ? launch_wgmma<DH, G, true>(a, stream)
+                          : launch_wgmma<DH, G, false>(a, stream);
 }
 
 template <bool kBf16, int DH>
@@ -949,17 +973,19 @@ int launch_dh(int Dh, int G, const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
+// dtype: 0 = float32, 1 = bfloat16.  lse may be null (the serving path:
+// nothing more is written); else a (B, Hk, G, Sq) float32 buffer.
+// Returns cudaGetLastError() after the
 // launch (0 = launched), a cudaFuncSetAttribute error, -1 for a shape or
 // dtype this file has no instance of, or -2 when the driver refuses a
 // tensor map.  Launches on `stream` and does not synchronise.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, int B, int Sq,
-                                   int Skv, int H, int Hk, int Dh, int causal,
-                                   int window, float scale, int dtype,
-                                   void* stream) {
+                                   const void* v, void* out, float* lse,
+                                   int B, int Sq, int Skv, int H, int Hk,
+                                   int Dh, int causal, int window,
+                                   float scale, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hk <= 0 || H % Hk != 0) return -1;
-  const Args a{q, k, v, out, B, Sq, Skv, H, Hk, causal, window, scale};
+  const Args a{q, k, v, out, lse, B, Sq, Skv, H, Hk, causal, window, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = H / Hk;
   switch (dtype) {

@@ -14,7 +14,11 @@ producer warp loads the Q tile and a ring of 64-key K/V tiles through TMA
 zeros past ``Sq`` / ``Skv``); two consumer warpgroups run both products on
 ``wgmma`` (P entering P.V as hi + lo bf16 terms) with an online softmax,
 masking only the tiles that cross the diagonal, a window edge or ``Skv``.
-float32 runs scalar FMAs (64 score rows x 32-key tiles).
+float32 runs scalar FMAs (64 score rows x 32-key tiles).  With
+``return_lse`` each score row also writes its log-sum-exp, (B, Hk, G, Sq)
+float32, which the training backward (``kernels.ops.FlashAttention``)
+recomputes the block scores from; the serving path asks for none and
+the kernel writes nothing more.
 
 The wrapper takes CUDA tensors only: it checks them, allocates the output,
 launches on the current stream and counts the launch.  The kernel is
@@ -51,7 +55,7 @@ def _library():
         # repro-torch-audit: allow(retrace-jit) — memoised in _lib: one load a process (the strict auditor pins the library mid-serve)
         lib = build.load("flash_attention")
         fn = lib.flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
             [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -96,32 +100,46 @@ def check_inputs(q, k, v, window: int) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    return_lse: bool = False):
     """Causal / sliding-window GQA attention forward, on the card.
 
-    q (B, Sq, H, Dh); k/v (B, Skv, Hk, Dh) -> (B, Sq, H, Dh) in q's dtype.
-    ``flash_attention.launches`` counts launches.
+    q (B, Sq, H, Dh); k/v (B, Skv, Hk, Dh) -> (B, Sq, H, Dh) in q's dtype,
+    and with ``return_lse`` also each score row's log-sum-exp (B, Hk, G,
+    Sq) float32.  ``flash_attention.launches`` counts launches.
     """
     check_inputs(q, k, v, window)
     hk = k.shape[2]
     plan = groups.group_plan(q.shape[2] // hk, GROUP_SIZES)
     if len(plan) == 1 and plan[0][1] == plan[0][2]:
-        return _launch(q, k, v, causal, window)
-    outs = [_launch(qi, k, v, causal, window)
+        out, lse = _launch(q, k, v, causal, window, return_lse)
+        return (out, lse) if return_lse else out
+    runs = [_launch(qi, k, v, causal, window, return_lse)
             for qi in groups.split_groups(q, hk, plan, 2)]
-    return groups.merge_groups(outs, hk, plan, 2)
+    out = groups.merge_groups([o for o, _ in runs], hk, plan, 2)
+    if not return_lse:
+        return out
+    # the LSE's group axis is padded as the heads were: (B, Hk * Gp, Sq)
+    # rows, merged like a head axis, then (B, Hk, G, Sq)
+    lse = groups.merge_groups([l.flatten(1, 2) for _, l in runs], hk, plan,
+                              1)
+    return out, lse.unflatten(1, (hk, -1))
 
 
-def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
-    """One kernel launch, at a group size in ``GROUP_SIZES``."""
+def _launch(q, k, v, causal: bool, window: int, return_lse: bool):
+    """One kernel launch, at a group size in ``GROUP_SIZES``: (out, lse
+    (B, Hk, G, Sq) float32 or None)."""
     lib = _library()
     b, sq, h, dh = q.shape
     skv, hk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = torch.empty((b, hk, h // hk, sq), dtype=torch.float32,
+                      device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, sq, skv, h, hk, dh, int(bool(causal)), window,
             1.0 / math.sqrt(dh), _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
@@ -129,7 +147,7 @@ def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
                            f"q {tuple(q.shape)} k {tuple(k.shape)} "
                            f"{q.dtype}")
     flash_attention.launches += 1
-    return out
+    return out, lse
 
 
 flash_attention.launches = 0

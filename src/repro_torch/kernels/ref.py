@@ -61,10 +61,14 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int = 0) -> torch.Tensor:
+                        causal: bool = True, window: int = 0,
+                        return_lse: bool = False):
     """Whole-sequence GQA attention with a float32 softmax.
 
-    q (B, Sq, H, Dh); k/v (B, Skv, Hk, Dh) -> (B, Sq, H, Dh) in q's dtype.
+    q (B, Sq, H, Dh); k/v (B, Skv, Hk, Dh) -> (B, Sq, H, Dh) in q's dtype;
+    with ``return_lse`` also each score row's log-sum-exp ``m + log(l)``
+    (B, Hk, G, Sq) float32, as ``repro.models.attention._flash_impl``
+    returns it (the training backward's residual).
 
     Computes what ``repro.kernels.flash_attention.flash_attention_pallas``
     and ``repro.models.attention.flash_attention`` compute with
@@ -94,7 +98,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
     out = torch.einsum("bkgqc,bckd->bkgqd", p, v.float()) / l
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l))[..., 0]
+    return out
 
 
 def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,

@@ -155,8 +155,8 @@ def run_case(torch, np, arch: str) -> None:
     fa.flash_attention.launches = 0
     rs.rglru_scan.launches = 0
     step_ms, traced_ms, rows = profile(
-        torch, lambda: model_lib.prefill(params, prompt, cfg, rt, 0,
-                                         caches=view, last_index=last), 3)
+        torch, lambda: model_lib.prefill(params, {"tokens": prompt}, cfg, rt,
+                                         0, caches=view, last_index=last), 3)
     report(f"{cfg.name} exact prefill of {n_prompt} tokens padded to "
            f"S={S} bf16", cfg, step_ms, traced_ms, rows,
            {"flash": fa.flash_attention.launches // 9,

@@ -1,5 +1,5 @@
-"""Shared model components: runtime knobs, layer plans, norms, RoPE, MLP,
-init (counterpart of ``repro.models.common``).
+"""Shared model components: runtime knobs, layer plans, norms, RoPE and
+M-RoPE, MLP, init (counterpart of ``repro.models.common``).
 
 Functions take and return ``torch.Tensor``s and keep the JAX package's
 layouts at their boundaries (activations ``(..., S, H, Dh)``, weights
@@ -26,15 +26,24 @@ class Runtime:
     the JAX package).  ``mlstm_chunk`` is the chunk length of the
     chunkwise mLSTM prefill; ``moe_chunk`` > 0 runs the MoE dispatch of a
     training forward in token chunks of that size (serving never does, as
-    in the JAX package).  The JAX ``Runtime``'s ``use_pallas``, ``q_chunk``,
-    ``kv_chunk`` and ``causal_scheme`` choose among XLA and Pallas routes
-    and are not ported: on the card the CUDA kernels always run."""
+    in the JAX package).  ``remat`` recomputes each layer's activations in
+    the backward pass of a training step (``torch.utils.checkpoint``);
+    ``vocab_chunk`` > 0 computes the training loss over token chunks of
+    that size, each chunk's logits recomputed in the backward, so the
+    (tokens, V) float32 logits never exist whole.  The JAX ``Runtime``'s
+    ``use_pallas``, ``q_chunk``, ``kv_chunk`` and ``causal_scheme`` choose
+    among XLA and Pallas routes and are not ported: on the card the CUDA
+    kernels always run.  Its ``mesh_axes``, ``use_ep_moe``, ``ep_axis``,
+    ``train_style`` and ``sequence_parallel`` shape an SPMD mesh, and the
+    port runs on one device."""
 
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
     kv_dtype: str = "bf16"            # bf16 | int8 (quantized KV cache)
     mlstm_chunk: int = 64             # chunkwise mLSTM chunk length
     moe_chunk: int = 0                # token-chunked MoE dispatch (0 = off)
+    remat: bool = False               # recompute each layer in training
+    vocab_chunk: int = 0              # 0 = unchunked loss; else token chunk
 
     def __post_init__(self):
         if self.kv_dtype not in ("bf16", "int8"):
@@ -145,6 +154,61 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                scaling: float = 1.0) -> torch.Tensor:
     """Rotary embedding.  x (..., S, H, Dh); positions (..., S) integers."""
     return rotate(x, *rope_tables(positions, x.shape[-1], theta, scaling))
+
+
+# M-RoPE sections (rotation pairs taking their position from the t / h / w
+# component), qwen2-vl style, scaled to the head's Dh / 2 pairs
+MROPE_SECTIONS = (16, 24, 24)
+
+
+def mrope_components(head_dim: int) -> np.ndarray:
+    """(Dh/2,) the position component (0 = t, 1 = h, 2 = w) each rotation
+    pair reads: contiguous sections of the frequency spectrum in the
+    proportions of ``MROPE_SECTIONS``, the last taking the rounding."""
+    half = head_dim // 2
+    sections = np.asarray(MROPE_SECTIONS, dtype=np.int64)
+    sections = (sections * half / sections.sum()).astype(np.int64)
+    sections[-1] = half - sections[:-1].sum()
+    return np.repeat(np.arange(3), sections)
+
+
+@functools.lru_cache(maxsize=32)
+def _mrope_comp(head_dim: int, device: torch.device):
+    """``mrope_components`` on ``device``, uploaded once."""
+    return torch.as_tensor(mrope_components(head_dim)).to(device)
+
+
+def mrope_tables(positions3: torch.Tensor, head_dim: int, theta: float):
+    """M-RoPE's (cos, sin), each (..., S, 1, Dh/2) float32 as
+    ``rope_tables`` gives them, from ``positions3`` (3, ..., S) (t, h, w):
+    pair ``i`` rotates by ``positions3[comp_i] * freq_i``.  With equal
+    components (text) this is ``rope_tables`` at scaling 1 exactly."""
+    freqs = _rope_freqs(head_dim, theta, positions3.device)
+    pos = positions3.float().index_select(0, _mrope_comp(head_dim,
+                                                         positions3.device))
+    angles = pos.movedim(0, -1) * freqs                     # (..., S, Dh/2)
+    angles = angles[..., None, :]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """Multimodal RoPE.  x (..., S, H, Dh); positions3 (3, ..., S)."""
+    return rotate(x, *mrope_tables(positions3, x.shape[-1], theta))
+
+
+def text_positions3(positions: torch.Tensor) -> torch.Tensor:
+    """Text tokens use identical (t, h, w) components: (3, ..., S)."""
+    return positions[None].expand((3,) + tuple(positions.shape))
+
+
+def patch_positions3(batch: int, n_patches: int, device=None) -> torch.Tensor:
+    """A square patch grid at t = 0 with (h, w) raster positions:
+    (3, B, P)."""
+    side = max(1, int(np.sqrt(n_patches)))
+    idx = torch.arange(n_patches, device=device)
+    p3 = torch.stack([torch.zeros_like(idx), idx // side, idx % side])
+    return p3[:, None, :].expand(3, batch, n_patches)
 
 
 # ---------------------------------------------------------------------------

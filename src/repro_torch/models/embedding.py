@@ -1,5 +1,10 @@
-"""Token embedding and unembedding (counterpart of
-``repro.models.embedding``; the token front end only)."""
+"""Token embedding, the stub audio and vision front ends, and the
+unembedding (counterpart of ``repro.models.embedding``).
+
+The ``[audio]`` / ``[vlm]`` archs specify the transformer backbone only:
+their front end takes precomputed frame / patch embeddings and projects
+them into the residual stream with one ``(D, D)`` matrix.
+"""
 
 from __future__ import annotations
 
@@ -19,6 +24,21 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
         # as the JAX package rounds it, with no host-to-device copy
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype)
     return x
+
+
+def embed_frames(params: dict, frames: torch.Tensor, cfg: ModelConfig,
+                 compute_dtype: torch.dtype) -> torch.Tensor:
+    """Audio stub: precomputed EnCodec frame embeddings (B, S, D_in) are
+    projected into the residual stream -> (B, S, D)."""
+    return frames.to(compute_dtype) @ params["frame_proj"].to(compute_dtype)
+
+
+def embed_patches(params: dict, patches: torch.Tensor, cfg: ModelConfig,
+                  compute_dtype: torch.dtype) -> torch.Tensor:
+    """Vision stub: precomputed merged-patch embeddings (B, P, D_in)
+    projected into the residual stream (qwen2-vl's ``merger``, one layer
+    here) -> (B, P, D)."""
+    return patches.to(compute_dtype) @ params["patch_proj"].to(compute_dtype)
 
 
 def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

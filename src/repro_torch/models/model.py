@@ -1,7 +1,8 @@
-"""The decoder for serving: weights, chunked and exact-length prefill,
-decode (counterpart of ``repro.models.model``; every layer kind: the
-attention kinds, the Griffin recurrent kind ``"rglru"`` and the xLSTM
-kinds ``"mlstm"`` and ``"slstm"``).
+"""The decoder: weights, the training loss, chunked and exact-length
+prefill, decode (counterpart of ``repro.models.model``; every layer kind:
+the attention kinds, the Griffin recurrent kind ``"rglru"`` and the xLSTM
+kinds ``"mlstm"`` and ``"slstm"``; every front end: tokens, audio frames,
+vision patches ahead of text with M-RoPE).
 
 Parameters are a plain dict of tensors, one entry per layer, with the JAX
 package's ``(in, out)`` weight layout::
@@ -9,7 +10,9 @@ package's ``(in, out)`` weight layout::
     {"embed": {"tok": (V, D), "untok": (V, D)}, "final_norm": (D,),
      "layers": [{"ln1", "wq", "wk", "wv", "wo", "ln2", "wg", "wu", "wd"}]}
 
-(``"untok"`` is absent with tied embeddings; ``"q_norm"``/``"k_norm"``
+(``"untok"`` is absent with tied embeddings; ``"embed"`` also holds
+``"frame_proj"`` or ``"patch_proj"`` (D, D) for an audio or vision front
+end; ``"q_norm"``/``"k_norm"``
 join a layer with qk-norm; with ``cfg.moe`` an attention layer's FFN is
 ``"ln2"`` and ``"moe": {"router" (D, E), "wg", "wu" (E, D, d_expert),
 "wd" (E, d_expert, D)}``.)  An ``"rglru"`` layer holds ``"ln1", "wg",
@@ -50,6 +53,9 @@ the serving backend hands the model a row *view* of its caches
 (``serving.kv_cache.slot_view``), through which only in-place writes
 reach the batch-wide tensors.  ``run_layers`` is a loop over layers, or
 over one contiguous range of them (a pipeline stage, ``core.pipeline``).
+A training forward (``mode="train"``, ``train_loss``) keeps no cache and
+writes nothing in place; its attention and scan run through the kernels'
+autograd wrappers (``kernels.ops``).
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ATTN_KINDS, ModelConfig
 from repro_torch.kernels import ops as kops
@@ -67,8 +74,9 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.common import (DEFAULT_RUNTIME, Runtime, dense_init,
+                                       mrope_tables, patch_positions3,
                                        resolve_device, rms_norm, rope_tables,
-                                       rotate_qk, swiglu)
+                                       rotate_qk, swiglu, text_positions3)
 
 PAGED_KINDS = ("attn", "global")
 LOCAL_ROPE_THETA = 10000.0      # gemma3: local layers keep the small base
@@ -116,6 +124,10 @@ def init_params(cfg: ModelConfig, seed: int, rt: Runtime = DEFAULT_RUNTIME,
         return torch.zeros((n,), dtype=pd, device=device)
 
     embed = {"tok": dense((cfg.vocab_size, D), fan_in=D)}
+    if cfg.frontend == "audio_frames":
+        embed["frame_proj"] = dense((D, D))
+    elif cfg.frontend == "vision_patches":
+        embed["patch_proj"] = dense((D, D))
     if not cfg.tie_embeddings:
         embed["untok"] = dense((cfg.vocab_size, D), fan_in=D)
     layers = []
@@ -356,8 +368,9 @@ def _write_prefill_cache(cache: dict, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _attn_layer(kind: str, w: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                positions: torch.Tensor, mode: str, cache: dict,
+def _attn_layer(kind: str, w: dict, x: torch.Tensor, cfg: ModelConfig,
+                rt: Runtime, *, positions: torch.Tensor, mode: str,
+                cache: Optional[dict],
                 page_table, rope: tuple, idx) -> torch.Tensor:
     B, S = x.shape[:2]
     H, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -409,17 +422,22 @@ def _attn_layer(kind: str, w: dict, x: torch.Tensor, cfg: ModelConfig, *,
             q, kg, vg, torch.arange(n_ctx, device=x.device), positions,
             window=window)
     else:
-        # exact-length prefill: the whole sequence through the flash
-        # kernel (its plain version on the CPU), then the cache write
+        # exact-length prefill or a training forward: the whole sequence
+        # through the flash kernel (its plain version on the CPU; with a
+        # gradient when training), then a prefill's cache write
         out = kops.flash_attention(q, k, v, causal=True, window=window)
-        _write_prefill_cache(cache, k, v, positions, idx)
+        if mode == "prefill":
+            _write_prefill_cache(cache, k, v, positions, idx)
 
     x = x + out.reshape(B, S, H * Dh) @ w["wo"]
     if cfg.moe is not None:
         # every row of the call, padding and free slots included, goes
         # through the router and takes expert capacity, as in the JAX model
         h2 = rms_norm(x, w["ln2"], cfg.norm_eps).reshape(B * S, -1)
-        x = x + moe_lib.moe_ffn(h2, w["moe"], cfg.moe).reshape(x.shape)
+        x = x + moe_lib.moe_ffn(
+            h2, w["moe"], cfg.moe,
+            token_chunk=rt.moe_chunk if mode == "train" else 0
+        ).reshape(x.shape)
     elif cfg.d_ff > 0:
         x = x + swiglu(rms_norm(x, w["ln2"], cfg.norm_eps), w["wg"], w["wu"],
                        w["wd"])
@@ -446,8 +464,9 @@ def _rglru_layer(w: dict, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
     y, new = rglru_lib.rglru_block(h, w, cfg.num_heads, mode=mode,
                                    state=cache,
                                    valid=_recurrent_valid(positions, mode))
-    cache["h"].copy_(new["h"])
-    cache["conv"].copy_(new["conv"])
+    if cache is not None:
+        cache["h"].copy_(new["h"])
+        cache["conv"].copy_(new["conv"])
     x = x + y
     if cfg.d_ff > 0:
         x = x + swiglu(rms_norm(x, w["ln2"], cfg.norm_eps), w["wg_mlp"],
@@ -465,8 +484,7 @@ def _mlstm_layer(w: dict, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
     y, new = xlstm_lib.mlstm_block(h, w, cfg.num_heads, mode=mode,
                                    state=cache, chunk=rt.mlstm_chunk,
                                    valid=_recurrent_valid(positions, mode))
-    for name, t in new.items():
-        cache[name].copy_(t)
+    _keep_state(cache, new)
     return x + y
 
 
@@ -480,9 +498,16 @@ def _slstm_layer(w: dict, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
     y, new = xlstm_lib.slstm_block(h, w, cfg.num_heads, mode=mode,
                                    state=cache,
                                    valid=_recurrent_valid(positions, mode))
-    for name, t in new.items():
-        cache[name].copy_(t)
+    _keep_state(cache, new)
     return x + y
+
+
+def _keep_state(cache: Optional[dict], new: dict) -> None:
+    """Copy a recurrent layer's new state into its cache (none in a
+    training forward)."""
+    if cache is not None:
+        for name, t in new.items():
+            cache[name].copy_(t)
 
 
 _RECURRENT_APPLY = {"rglru": _rglru_layer, "mlstm": _mlstm_layer,
@@ -491,43 +516,170 @@ _RECURRENT_APPLY = {"rglru": _rglru_layer, "mlstm": _mlstm_layer,
 
 def _recurrent_valid(positions: torch.Tensor, mode: str):
     """Which tokens update the recurrent state: in a prefill, the positions
-    not marked -1 (right padding of a bucketed prompt); decode positions
-    are all real, so no mask."""
+    not marked -1 (right padding of a bucketed prompt); decode and training
+    positions are all real, so no mask."""
     return positions >= 0 if mode == "prefill" else None
 
 
 def run_layers(params: dict, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
-               *, mode: str, caches: dict, positions: torch.Tensor,
+               *, mode: str, caches: Optional[dict], positions: torch.Tensor,
                layers: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Apply the layers in order, every one or only ``layers = (lo, hi)``
     (a pipeline stage: layers ``lo .. hi-1``, whose weights and caches are
     ``params["layers"][lo:hi]`` and ``caches["layers"][lo:hi]``); the caches
-    change in place.  The RoPE tables (one per base the attention layers
-    use) and the pool addressing depend on the positions only, so they are
-    computed once here for all the layers of the call."""
-    if mode not in ("decode", "chunk", "prefill"):
-        raise ValueError("mode must be 'decode', 'chunk' or 'prefill', "
-                         f"got {mode!r}")
+    change in place.  ``mode="train"`` takes no caches (None): attention
+    runs whole-sequence without a cache write, the recurrent layers keep
+    no state, the MoE dispatch runs in ``rt.moe_chunk`` token chunks, and
+    with ``rt.remat`` each layer is a non-reentrant
+    ``torch.utils.checkpoint`` (its activations recomputed in the
+    backward; the JAX package checkpoints each scanned period).
+
+    ``positions`` is (B, S), or (3, B, S) (t, h, w) on a vision arch, whose
+    attention then rotates by M-RoPE; its t component is the position
+    everything else reads (cache slots, validity), as in the JAX model.
+    The RoPE tables (one per base the attention layers use) and the pool
+    addressing depend on the positions only, so they are computed once
+    here for all the layers of the call."""
+    if mode not in ("decode", "chunk", "prefill", "train"):
+        raise ValueError("mode must be 'decode', 'chunk', 'prefill' or "
+                         f"'train', got {mode!r}")
+    if (caches is None) != (mode == "train"):
+        raise ValueError(f"mode {mode!r}: a training forward takes no "
+                         "caches, every other mode takes them")
     lo, hi = (0, cfg.num_layers) if layers is None else layers
     kinds = cfg.layer_kinds()[lo:hi]
-    ws, cs = params["layers"][lo:hi], caches["layers"][lo:hi]
-    ropes = {theta: rope_tables(positions, cfg.head_dim, theta,
-                                cfg.rope_scaling)
-             for theta in {layer_theta(k, cfg) for k in kinds
-                           if k in ATTN_KINDS}}
-    page_table = caches.get("page_table")
-    paged = next((c for c in cs if "k_pages" in c), None)
+    ws = params["layers"][lo:hi]
+    cs = [None] * len(ws) if caches is None else caches["layers"][lo:hi]
+    pos = positions[0] if positions.dim() == 3 else positions
+    if positions.dim() == 3 and cfg.frontend == "vision_patches":
+        tables = lambda theta: mrope_tables(positions, cfg.head_dim, theta)
+    else:
+        tables = lambda theta: rope_tables(pos, cfg.head_dim, theta,
+                                           cfg.rope_scaling)
+    ropes = {theta: tables(theta) for theta in
+             {layer_theta(k, cfg) for k in kinds if k in ATTN_KINDS}}
+    page_table = None if caches is None else caches.get("page_table")
+    paged = next((c for c in cs if c is not None and "k_pages" in c), None)
     idx = None if paged is None else _step_index(
-        mode, positions, page_table, paged["k_pages"].shape[1])
+        mode, pos, page_table, paged["k_pages"].shape[1])
     for kind, w, cache in zip(kinds, ws, cs):
-        if kind in _RECURRENT_APPLY:
-            x = _RECURRENT_APPLY[kind](w, x, cfg, rt, positions=positions,
-                                       mode=mode, cache=cache)
-            continue
-        x = _attn_layer(kind, w, x, cfg, positions=positions, mode=mode,
-                        cache=cache, page_table=page_table,
-                        rope=ropes[layer_theta(kind, cfg)], idx=idx)
+        args = (kind, w, x, cfg, rt, pos, mode, cache, page_table, ropes, idx)
+        if rt.remat and mode == "train":
+            x = checkpoint(_layer, *args, use_reentrant=False)
+        else:
+            x = _layer(*args)
     return x
+
+
+def _layer(kind: str, w: dict, x: torch.Tensor, cfg: ModelConfig,
+           rt: Runtime, positions: torch.Tensor, mode: str,
+           cache: Optional[dict], page_table, ropes: dict,
+           idx) -> torch.Tensor:
+    """One layer of ``run_layers``, by kind."""
+    if kind in _RECURRENT_APPLY:
+        return _RECURRENT_APPLY[kind](w, x, cfg, rt, positions=positions,
+                                      mode=mode, cache=cache)
+    return _attn_layer(kind, w, x, cfg, rt, positions=positions, mode=mode,
+                       cache=cache, page_table=page_table,
+                       rope=ropes[layer_theta(kind, cfg)], idx=idx)
+
+
+# ---------------------------------------------------------------------------
+# Inputs / embedding
+# ---------------------------------------------------------------------------
+
+
+def embed_inputs(params: dict, inputs: dict, cfg: ModelConfig, rt: Runtime):
+    """(x (B, S, D), positions) from an input dict: ``{"tokens": (B, S)}``,
+    ``{"frames": (B, S, D)}`` (audio) or ``{"tokens": (B, S_text),
+    "patches": (B, P, D)}`` (vision; the patches go first).
+
+    Positions are (B, S), or (3, B, S) (t, h, w) on a vision arch: the P
+    patches share t = 0 on a square raster of side ``int(sqrt(P))``, and
+    the text after them starts at t = that side, as the JAX model places
+    them (``repro.models.model.embed_inputs``)."""
+    cd = rt.compute_dtype
+    if cfg.frontend == "audio_frames" and "frames" in inputs:
+        x = embed_lib.embed_frames(params["embed"], inputs["frames"], cfg, cd)
+        B, S = x.shape[:2]
+        return x, torch.arange(S, device=x.device)[None].expand(B, S)
+    if cfg.frontend == "vision_patches" and "patches" in inputs:
+        xp = embed_lib.embed_patches(params["embed"], inputs["patches"], cfg,
+                                     cd)
+        xt = embed_lib.embed_tokens(params["embed"], inputs["tokens"], cfg, cd)
+        B, P = xp.shape[:2]
+        St = xt.shape[1]
+        side = max(1, int(np.sqrt(P)))
+        text = side + torch.arange(St, device=xt.device)[None].expand(B, St)
+        positions = torch.cat([patch_positions3(B, P, xt.device),
+                               text_positions3(text)], dim=2)
+        return torch.cat([xp, xt], dim=1), positions
+    tokens = inputs["tokens"]
+    x = embed_lib.embed_tokens(params["embed"], tokens, cfg, cd)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    if cfg.frontend == "vision_patches":
+        positions = text_positions3(positions)
+    return x, positions
+
+
+# ---------------------------------------------------------------------------
+# Training loss (chunked cross-entropy)
+# ---------------------------------------------------------------------------
+
+
+def _ce_chunk(xc: torch.Tensor, labels_c: torch.Tensor, mask_c: torch.Tensor,
+              params: dict, cfg: ModelConfig):
+    """(sum of masked token NLLs, sum of the mask) over (B, c, D)
+    activations: the float32 logits (softcap included), their
+    log-sum-exp, and the label's logit."""
+    logits = embed_lib.unembed(params["embed"], xc, cfg)        # (B, c, V)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels_c.long()[..., None])[..., 0]
+    return ((logz - ll) * mask_c).sum(), mask_c.sum()
+
+
+def ce_loss(params: dict, x: torch.Tensor, labels: torch.Tensor,
+            cfg: ModelConfig, rt: Runtime,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy over (B, S, D) final-norm activations, weighted
+    by ``mask`` (B, S) (ones when None): sum of masked NLLs over the sum
+    of the mask (floored at 1).  With ``rt.vocab_chunk`` > 0 the tokens go
+    in chunks of that many positions, each a non-reentrant checkpoint, so
+    only one chunk's (B, c, V) float32 logits exist at a time, in the
+    forward and again in the backward (the JAX package's ``jax.checkpoint``
+    per chunk of its scan)."""
+    B, S, _ = x.shape
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    mask = mask.float()
+    chunk = rt.vocab_chunk
+    if chunk <= 0 or S <= chunk:
+        total, denom = _ce_chunk(x, labels, mask, params, cfg)
+    else:
+        total = denom = 0.0
+        for i in range(0, S, chunk):
+            t, d = checkpoint(_ce_chunk, x[:, i:i + chunk],
+                              labels[:, i:i + chunk], mask[:, i:i + chunk],
+                              params, cfg, use_reentrant=False)
+            total, denom = total + t, denom + d
+    return total / denom.clamp(min=1.0)
+
+
+def train_loss(params: dict, batch: dict, cfg: ModelConfig,
+               rt: Runtime = DEFAULT_RUNTIME) -> torch.Tensor:
+    """The training loss of one batch: an input dict (``embed_inputs``)
+    with ``"labels"`` (B, S) and optionally ``"loss_mask"`` (B, S).  On a
+    vision arch the labels cover the text only, so the patch positions'
+    activations are dropped before the loss."""
+    x, positions = embed_inputs(params, batch, cfg, rt)
+    x = run_layers(params, x, cfg, rt, mode="train", caches=None,
+                   positions=positions)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    labels = batch["labels"]
+    if x.shape[1] != labels.shape[1]:       # vision: drop patch positions
+        x = x[:, x.shape[1] - labels.shape[1]:]
+    return ce_loss(params, x, labels, cfg, rt, batch.get("loss_mask"))
 
 
 # ---------------------------------------------------------------------------
@@ -535,11 +687,12 @@ def run_layers(params: dict, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
 # ---------------------------------------------------------------------------
 
 
-def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+def prefill(params: dict, inputs: dict, cfg: ModelConfig,
             rt: Runtime = DEFAULT_RUNTIME, capacity: int = 0, caches=None,
             last_index=None):
-    """Exact-length prefill of whole prompts.  tokens (B, S).  Returns
-    (last_logits (B, V) float32, caches).
+    """Exact-length prefill of whole prompts.  ``inputs`` is an input dict
+    (``embed_inputs``: ``{"tokens"}``, ``{"frames"}`` or ``{"tokens",
+    "patches"}``).  Returns (last_logits (B, V) float32, caches).
 
     ``caches`` may be pre-built (the serving engine's pools and rings,
     written in place); otherwise dense caches of ``capacity`` slots are
@@ -548,15 +701,15 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     after it ``-1``, so the cache writes drop them.  The last position is
     taken before the final norm and the unembedding, so no (S, V) logits
     are made."""
-    B, S = tokens.shape
-    dev = tokens.device
-    positions = torch.arange(S, device=dev)[None].expand(B, S)
+    x, positions = embed_inputs(params, inputs, cfg, rt)
+    B, S = x.shape[:2]
+    dev = x.device
     if last_index is not None:
         li = torch.as_tensor(last_index, device=dev).long().reshape(B)
-        positions = torch.where(positions > li[:, None], -1, positions)
+        pad = torch.arange(S, device=dev)[None] > li[:, None]
+        positions = torch.where(pad, -1, positions)
     if caches is None:
         caches = init_caches(cfg, B, capacity, rt, dev)
-    x = embed_lib.embed_tokens(params["embed"], tokens, cfg, rt.compute_dtype)
     x = run_layers(params, x, cfg, rt, mode="prefill", caches=caches,
                    positions=positions)
     x_last = x[:, -1] if last_index is None else \
@@ -580,6 +733,8 @@ def prefill_chunk(params: dict, tokens: torch.Tensor, caches: dict,
     ``caches["page_table"]`` holds the rows being prefilled.  Returns
     (logits (B, V) float32 at ``last_in_chunk``, caches)."""
     pos = chunk_positions(offsets, n_valid, tokens.shape[1])
+    if cfg.frontend == "vision_patches":
+        pos = text_positions3(pos)
     x = embed_lib.embed_tokens(params["embed"], tokens, cfg, rt.compute_dtype)
     x = run_layers(params, x, cfg, rt, mode="chunk", caches=caches,
                    positions=pos)
@@ -616,10 +771,15 @@ def decode_logits(params: dict, x: torch.Tensor,
 def decode_step(params: dict, tokens: torch.Tensor, caches: dict,
                 cur_pos: torch.Tensor, cfg: ModelConfig,
                 rt: Runtime = DEFAULT_RUNTIME):
-    """One decode step.  tokens (B,); cur_pos (B,) absolute positions.
+    """One decode step.  tokens (B,); cur_pos (B,) absolute positions,
+    which are also the cache slots; a vision arch rotates at the text
+    M-RoPE position (t = h = w = ``cur_pos``), as the JAX model does.
     Returns (logits (B, V) float32, caches)."""
     x = embed_lib.embed_tokens(params["embed"], tokens[:, None], cfg,
                                rt.compute_dtype)
+    positions = cur_pos[:, None]
+    if cfg.frontend == "vision_patches":
+        positions = text_positions3(positions)
     x = run_layers(params, x, cfg, rt, mode="decode", caches=caches,
-                   positions=cur_pos[:, None])
+                   positions=positions)
     return decode_logits(params, x, cfg), caches

@@ -269,7 +269,7 @@ class _SlotCacheBackend:
         view = kvc.slot_view(caches, slot, 1)
         last = torch.full((1,), last_idx, dtype=torch.int32,
                           device=tokens.device)
-        logits, _ = model_lib.prefill(params, tokens, cfg, rt, 0,
+        logits, _ = model_lib.prefill(params, {"tokens": tokens}, cfg, rt, 0,
                                       caches=view, last_index=last)
         for layer in view["layers"]:
             if "pos" in layer:

@@ -235,3 +235,49 @@ def test_kernel_at_tile_edges_on_card(g, sq, skv):
         atol, rtol = BF16_TOL
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                    atol=atol)
+
+
+# training: the kernel's log-sum-exp output and ``ops.FlashAttention``'s
+# gradients.  The LSE against the plain version's within (1e-4, 1e-5)
+# (atol, rtol): the same float32 scores summed in another order; the
+# gradients as a share of each one's max |g|: float32 within 1e-4, bf16
+# within 2e-2 (the backward reads the kernel's bf16 output in
+# rowsum(dout * out), and the gradients round to bf16)
+LSE_TOL = (1e-4, 1e-5)
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,dh,window", [(1, 64, 0), (4, 256, 37),
+                                         (6, 128, 0), (16, 256, 40)])
+def test_kernel_lse_and_gradients_on_card(g, dh, window, dtype):
+    _card()
+    tdt = getattr(torch, dtype)
+    q, k, v = (t.cuda().to(tdt) for t in _torch(*make_inputs(
+        g, dh, 150, 150, seed=11, hk=1, b=2)))
+    out, lse = cuda_flash.flash_attention(q, k, v, causal=True,
+                                          window=window, return_lse=True)
+    torch.cuda.synchronize()
+    want_out, want_lse = ref.flash_attention_ref(q, k, v, causal=True,
+                                                 window=window,
+                                                 return_lse=True)
+    assert lse.shape == want_lse.shape == (2, 1, g, 150)
+    torch.testing.assert_close(lse, want_lse, atol=LSE_TOL[0],
+                               rtol=LSE_TOL[1])
+    # the serving route (no LSE) gives the same output
+    assert torch.equal(cuda_flash.flash_attention(q, k, v, causal=True,
+                                                  window=window), out)
+    dout = torch.randn_like(q)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = cuda_flash.flash_attention.launches
+    got = torch.autograd.grad(ops.flash_attention(*leaves, causal=True,
+                                                  window=window),
+                              leaves, dout)
+    assert cuda_flash.flash_attention.launches == before + len(
+        cuda_flash.groups.group_plan(g, cuda_flash.GROUP_SIZES))
+    want = torch.autograd.grad(ref.flash_attention_ref(
+        *leaves, causal=True, window=window), leaves, dout)
+    for a, w in zip(got, want):
+        err = (a.float() - w.float()).abs().max() / w.float().abs().max()
+        assert err <= GRAD_TOL[dtype]

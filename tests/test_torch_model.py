@@ -184,7 +184,8 @@ def test_unported_layer_kinds_raise():
             tmodel.run_layers(params, torch.zeros((1, 4, cfg.d_model)), cfg,
                               TRT, mode="chunk", caches=caches,
                               positions=torch.arange(4)[None])
-        tmodel.prefill(params, tokens, cfg, TRT, 8, caches=caches)
+        tmodel.prefill(params, {"tokens": tokens}, cfg, TRT, 8,
+                       caches=caches)
 
 
 @pytest.mark.parametrize("window", [0, 5])
@@ -289,7 +290,7 @@ def test_exact_prefill_then_ring_decode_match_jax(arch, kv_dtype):
     last = np.asarray([S - 1, 33], np.int32)
     jl, jc = jax_prefill(jparams, {"tokens": jnp.asarray(tokens)}, jcfg, jrt,
                          cap, last_index=jnp.asarray(last))
-    tl, tc = tmodel.prefill(tparams, _t(tokens), tcfg, trt, cap,
+    tl, tc = tmodel.prefill(tparams, {"tokens": _t(tokens)}, tcfg, trt, cap,
                             last_index=_t(last))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
     for kind, want, got in zip(tcfg.layer_kinds(),
@@ -336,7 +337,7 @@ def test_padded_ring_prefill_keeps_the_reference_behaviour():
     last = np.asarray([12], np.int32)
     _, jc = jax_prefill(jparams, {"tokens": jnp.asarray(tokens)}, jcfg, JRT,
                         64, last_index=jnp.asarray(last))
-    _, tc = tmodel.prefill(tparams, _t(tokens), tcfg, TRT, 64,
+    _, tc = tmodel.prefill(tparams, {"tokens": _t(tokens)}, tcfg, TRT, 64,
                            last_index=_t(last))
     ring = [8, 9, 10, 11, 12, -1, -1, -1]
     for kind, want, got in zip(tcfg.layer_kinds(),
@@ -409,13 +410,13 @@ def test_recurrentgemma_prefill_then_decode_match_jax():
     tokens = rng.randint(1, jcfg.vocab_size, (2, S)).astype(np.int32)
     jl, _ = jax_prefill(jparams, {"tokens": jnp.asarray(tokens)}, jcfg, JRT,
                         cap)
-    tl, _ = tmodel.prefill(tparams, _t(tokens), tcfg, TRT, cap)
+    tl, _ = tmodel.prefill(tparams, {"tokens": _t(tokens)}, tcfg, TRT, cap)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
 
     last = np.asarray([S - 1, 28], np.int32)
     jl, jc = jax_prefill(jparams, {"tokens": jnp.asarray(tokens)}, jcfg, JRT,
                          cap, last_index=jnp.asarray(last))
-    tl, tc = tmodel.prefill(tparams, _t(tokens), tcfg, TRT, cap,
+    tl, tc = tmodel.prefill(tparams, {"tokens": _t(tokens)}, tcfg, TRT, cap,
                             last_index=_t(last))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
 
@@ -458,8 +459,8 @@ def test_padded_prefill_carries_the_exact_recurrent_state():
     tokens = torch.randint(1, tcfg.vocab_size, (1, 13),
                            generator=torch.Generator().manual_seed(0))
     padded = torch.cat([tokens, torch.zeros((1, 3), dtype=tokens.dtype)], 1)
-    want, wc = tmodel.prefill(tparams, tokens, tcfg, TRT, 64)
-    got, gc = tmodel.prefill(tparams, padded, tcfg, TRT, 64,
+    want, wc = tmodel.prefill(tparams, {"tokens": tokens}, tcfg, TRT, 64)
+    got, gc = tmodel.prefill(tparams, {"tokens": padded}, tcfg, TRT, 64,
                              last_index=torch.tensor([12]))
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
     for kind, w, g in zip(tcfg.layer_kinds(), wc["layers"], gc["layers"]):
@@ -593,7 +594,7 @@ def test_xlstm_prefill_then_decode_match_jax():
     last = np.asarray([S - 1, 28], np.int32)
     jl, jc = jax_prefill(jparams, {"tokens": jnp.asarray(tokens)}, jcfg, jrt,
                          S, last_index=jnp.asarray(last))
-    tl, tc = tmodel.prefill(tparams, _t(tokens), tcfg, trt, S,
+    tl, tc = tmodel.prefill(tparams, {"tokens": _t(tokens)}, tcfg, trt, S,
                             last_index=_t(last))
     tol = XLSTM_TOL
 
@@ -620,6 +621,36 @@ def test_xlstm_prefill_then_decode_match_jax():
         assert (tl.argmax(-1).numpy() == np.asarray(jnp.argmax(jl, -1))).all()
         toks = np.asarray(tl.argmax(-1), np.int32)
         cur = cur + 1
+
+
+@pytest.mark.parametrize("factor", [1.0, 0.5])
+def test_xlstm_model_gap_is_the_random_inits_amplification(factor):
+    """The check behind ``XLSTM_TOL``: the same prefill with the mLSTM /
+    sLSTM matrices (``wm, wz, wq, wk, wv, wo, w_in, r``) of the converted
+    JAX weights scaled by ``factor``, in both packages alike.  At 1.0 the
+    random init lets each block multiply a float32 rounding difference,
+    and the logits end up about 1e-2 apart; at 0.5 the recurrence
+    contracts and the whole model agrees within ``TOL``, as each block
+    alone does: the gap is the init's, not a port fault."""
+    jcfg, tcfg = gemma_configs("xlstm-1.3b")
+    jrt = JRT.replace(mlstm_chunk=16)
+    trt = dataclasses.replace(TRT, mlstm_chunk=16)
+    names = ("wm", "wz", "wq", "wk", "wv", "wo", "w_in", "r")
+    jparams = jax.tree_util.tree_map_with_path(
+        lambda p, a: a * factor if getattr(p[-1], "key", None) in names
+        else a, jax_model.init_params(jcfg, jax.random.PRNGKey(2), jrt))
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg, trt,
+                              device="cpu")
+    tokens = np.random.RandomState(5).randint(
+        1, jcfg.vocab_size, (2, 40)).astype(np.int32)
+    jl, _ = jax_prefill(jparams, {"tokens": jnp.asarray(tokens)}, jcfg, jrt,
+                        40)
+    tl, _ = tmodel.prefill(tparams, {"tokens": _t(tokens)}, tcfg, trt, 40)
+    gap = float(np.abs(tl.numpy() - np.asarray(jl)).max())
+    if factor == 1.0:
+        assert TOL < gap <= XLSTM_TOL
+    else:
+        assert gap <= TOL
 
 
 @pytest.mark.parametrize("reduced", [False, True])

@@ -312,3 +312,28 @@ def test_kernel_refuses_what_it_does_not_take_on_card():
     shifted = buf[1:].view(1, 8, 64)
     with pytest.raises(ValueError, match="16 bytes"):
         cuda_scan.rglru_scan(shifted, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_scan_gradients_on_card(with_h0):
+    """``ops.RGLRUScan`` on the card: a forward and one reversed launch of
+    the kernel, da / db / dh0 against the same backward on the CPU (the
+    plain loop forward and reversed), which rounds as the kernel does, so
+    exactly."""
+    _card()
+    a, bb, h0 = scan_inputs(2, 300, 256, seed=12)
+    dh = np.random.RandomState(13).randn(2, 300, 256).astype(np.float32)
+    args = [a, bb, h0] if with_h0 else [a, bb]
+
+    def grads(device):
+        leaves = [_t(x).to(device).requires_grad_() for x in args]
+        return torch.autograd.grad(ops.rglru_scan(*leaves), leaves,
+                                   _t(dh).to(device))
+
+    before = cuda_scan.rglru_scan.launches
+    got = grads("cuda")
+    torch.cuda.synchronize()
+    assert cuda_scan.rglru_scan.launches == before + 2
+    for x, w in zip(got, grads("cpu")):
+        torch.testing.assert_close(x.cpu(), w, rtol=0, atol=0)
