@@ -34,6 +34,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (the kernel's with its TFLOP/s and the previous design's time);
    and at recurrentgemma-9b's local layers (B=1, H=16 over one kv head:
    G=16, Dh=256, causal, window 2048, S from 8 to 4096), with its times;
+   and at yi-9b's fixed-batch prefill (B=4, S=512, H=32, Hk=4, Dh=128,
+   causal, k and v the front of buffers whose tail is NaN), bf16 and
+   float32, with its four times;
 5. the RG-LRU scan kernel against its plain version (a float32 loop over
    time) at recurrentgemma-9b's prefill shapes (B=1, Dr=4096, S in 8, 100
    and the buckets 1024, 2048, 4096, random h0) and a sweep of B in
@@ -209,6 +212,39 @@ Phases, each of which raises on failure (the script then exits non-zero):
    of the CPU's dense and paged runs, greedy equal.  Phase 3 also holds
    the paged kernel to its plain version at both archs' serve shapes.
 
+15. the fixed-batch passes of §4.3's circular pipeline
+   (``core.pipeline.pipeline_prefill`` / ``pipeline_decode_step`` /
+   ``pipeline_decode_rounds``), the §6 market and the examples:
+   ``[fixed-pipe]``, full-width, full-depth yi-9b in bf16 on the yi-9b
+   phase's weights, 2 stages of 24 layers, N_B = 4 microbatches of 4
+   rows, 16 prompts of 512 tokens from the seed: the pipelined prefill's
+   greedy tokens equal the plain ``model.prefill``'s run a microbatch at
+   a time (the rows every stage call sees; max |logit difference| within
+   ``FIXED_LOGIT_BOUND``), a decode step's equal ``decode_step``'s, 32
+   rounds in one circular pass equal 32 sequential plain decode steps;
+   the plain model over the whole batch in one call is reported beside
+   it, not gated (its bf16 GEMMs of other shapes may round a near-tie the
+   other way); flash launches N_B x 48 for one prefill and none in the
+   decode passes (dense caches, the plain decode attention, as in the JAX
+   passes); prefill ms, rounds tok/s beside the sequential decode's, the
+   bubble share (N_S-1)/(R*N_B+N_S-1), peak GiB;
+   ``[fixed-pipe-rgemma]``, recurrentgemma-9b at full width, its first 8
+   layers (a period a stage, two rglru layers in the epilogue), N_B = 2 x
+   2 rows of 1,024 tokens, 16 rounds: the same equalities, scan launches
+   N_B x 4 + 2 and flash N_B x 2 for one prefill;
+   ``[fixed-pipe-parity]``, phase 6's models in float32 (the yi-shaped
+   one at 4 layers, ``(local, global)`` at 4, ``(rglru, rglru, local)``
+   at 8), the passes on the CPU and the card: logits within ``FP_TOL``,
+   greedy tokens and rounds equal; ``[market]``, the §6 protocol on
+   served output: phase 10's run-1 streams (the miner) signed, verified
+   and paid from an escrow each, every honest dispute against the local
+   engine's streams dismissed, a result with one token changed slashed
+   with the stake going to the owner, a third party's dispute refused;
+   ``[examples]``, the five ``repro_torch.examples`` modules (and
+   ``offline_serving`` pipelined) as subprocesses on the card, started
+   together, each exiting 0 with its key lines (on the card their reduced
+   models are widened to 64 a head, the kernels' smallest head dim).
+
 Each serve phase sets every kernel's launch count to 0 just before it
 drives its path and reads them just after; the kernels line reports those
 counts by path.
@@ -218,7 +254,8 @@ the planner's inputs), a ``{"pipeline": ...}`` line (the pipeline phase's
 numbers and wall times), a ``{"resilience": ...}`` line (phase 11's), a
 ``{"trace": ...}`` line (phase 12's), an ``{"archs": ...}`` line
 (phase 13's), a ``{"train": ...}`` line (phase 14's), a
-``{"kernels": [...]}`` line, the card's
+``{"fixed_pipe": ...}`` line (phase 15's), a ``{"kernels": [...]}`` line,
+the card's
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  It exits non-zero without a
 result when no CUDA device is visible.
 """
@@ -405,6 +442,42 @@ RG_TRAIN_LAYERS, RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_TRAIN_STEPS = 3, 2, 2048, 10
 # steps through paged pools; logits within FE_PARITY_TOL (float32 sums in
 # other orders)
 FE_PARITY_LAYERS, FE_PARITY_S, FE_PARITY_STEPS, FE_PARITY_TOL = 2, 48, 8, 1e-4
+# [fixed-pipe]: full yi-9b through the fixed-batch passes, 2 stages of 24
+# layers, N_B microbatches of mb rows, prompts of S tokens, R greedy rounds
+FIXED_STAGES, FIXED_N_MB, FIXED_MB, FIXED_S = 2, 4, 4, 512
+FIXED_CAP, FIXED_R = 576, 32
+# the pipelined prefill's and decode step's logits against the plain model
+# run a microbatch at a time, relative to the largest |logit|: every layer
+# sees the stage calls' rows, but the final norm and the unembedding run
+# over the whole batch in the passes (the JAX passes' epilogue) and over a
+# microbatch in the plain calls, so that GEMM may round a bf16 logit by
+# one ulp (at most 2^-7 of the value); the bound allows two
+FIXED_LOGIT_BOUND = 2 ** -6
+# [fixed-pipe-rgemma]: recurrentgemma-9b at full width, its first 8 layers
+# (a (rglru, rglru, local) period a stage, an epilogue of 2 rglru layers)
+RG_FIXED_LAYERS, RG_FIXED_N_MB, RG_FIXED_MB, RG_FIXED_S = 8, 2, 2, 1024
+RG_FIXED_CAP, RG_FIXED_R = 1056, 16
+# [fixed-pipe-parity]: phase 6's models, float32, CPU vs card
+FP_N_MB, FP_MB, FP_S, FP_CAP, FP_R, FP_TOL = 2, 2, 40, 64, 8, 1e-4
+# [market]: the miner's stake and the price a result
+MARKET_STAKE, MARKET_PRICE = 80.0, 1.0
+# [examples]: each module with small arguments, and the lines it prints
+EXAMPLES = {
+    "quickstart": ([], ("registered architectures:", "engine report:",
+                        "N_B* = ")),
+    "offline_serving": (["--requests", "8", "--max-new", "8"],
+                        ("served 8 requests", "tok/s on cuda")),
+    "offline_serving --backend pipelined": (
+        ["--arch", "yi-9b", "--backend", "pipelined", "--stages", "2",
+         "--requests", "8", "--max-new", "8"],
+        ("[pipelined]: served 8 requests",)),
+    "networked_serving": ([], ("outputs bit-identical across all three",
+                               "int8 wire codec:")),
+    "train_small": (["--steps", "20"], ("loss: ", "on cuda")),
+    "decentralized_market": ([], ("payment released:", ": dismissed",
+                                  "miner7: slashed")),
+}
+EXAMPLE_TIMEOUT_S = 300
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -850,18 +923,19 @@ def phase_kernel_paged(torch, np):
                               "library_ms": g_lib}}
 
 
-def flash_bound(sq, skv, causal, window, h, hk, dh, esize, dtype_name):
+def flash_bound(sq, skv, causal, window, h, hk, dh, esize, dtype_name,
+                b=1):
     """Least time for the work: the live (query, key) pairs cost 4 * Dh
     flops a head over the peak rate of the dtype; q, k, v read once and the
-    output written once over the memory rate.  The larger wins.  Returns
-    (ms, what bounds it, flops)."""
+    output written once over the memory rate, for each of ``b`` rows.  The
+    larger wins.  Returns (ms, what bounds it, flops)."""
     live = 0                                  # visible (query, key) pairs
     for i in range(sq):
         hi = min(i, skv - 1) if causal else skv - 1
         lo = max(0, i - window + 1) if window > 0 else 0
         live += max(0, hi - lo + 1)
-    flops = 4 * dh * h * live
-    nbytes = (2 * sq * h * dh + 2 * skv * hk * dh) * esize
+    flops = 4 * dh * h * live * b
+    nbytes = (2 * sq * h * dh + 2 * skv * hk * dh) * esize * b
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -939,6 +1013,27 @@ def phase_kernel_flash(torch, np):
             check(f"sweep Dh={dh} G=16 Sq=77 Skv=130 non-causal",
                   case(1, 77, 130, 16, 1, dh, dtype), False, 0)
 
+    # yi-9b's fixed-batch prefill (phase 15): one launch a microbatch of
+    # FIXED_MB rows of FIXED_S tokens, 32 heads over 4 kv heads of 128,
+    # causal; k and v each the front of a flat buffer whose tail is NaN
+    def batched_case(b, s_len, h, hk, dh, dtype):
+        q = torch.randn((b, s_len, h, dh), device=dev).to(dtype)
+        kv = []
+        for _ in range(2):
+            n = b * s_len * hk * dh
+            flat = torch.randn((n + 64 * hk * dh,), device=dev)
+            flat[n:] = float("nan")
+            kv.append(flat.to(dtype)[:n].view(b, s_len, hk, dh))
+        return q, kv[0], kv[1]
+
+    yi_fixed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = batched_case(FIXED_MB, FIXED_S, 32, 4, 128, dtype)
+        err = check(f"yi-9b fixed-batch prefill B={FIXED_MB} S={FIXED_S} "
+                    "H=32 Hk=4 Dh=128 causal", args, True, 0)
+        if dtype == torch.bfloat16:
+            yi_fixed = {"args": args, "err": err}
+
     # the bf16 kernel's tile edges: 128 score rows a block (128 / G
     # positions), 64 keys a kv tile; Sq and Skv one short of a tile,
     # exactly a tile, and one over, at G = 1 and G = 16
@@ -1009,8 +1104,29 @@ def phase_kernel_flash(torch, np):
     rg_times = {"max_abs_err": rg["err"], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms}
+    # the same four times at yi-9b's fixed-batch prefill shape
+    q, k, v = yi_fixed["args"]
+    b, s_len = q.shape[:2]
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True),
+                 20)
+    plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
+        q, k, v, causal=True), 5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True), 20)
+    bound_ms, bound_by, flops = flash_bound(s_len, s_len, True, 0, 32, 4,
+                                            128, 2, "bfloat16", b=b)
+    log(f"[flash] times at yi-9b fixed-batch prefill B={b} S={s_len} H=32 "
+        f"Hk=4 Dh=128 causal bf16: kernel_ms={ms:.4f} plain_ms="
+        f"{plain_ms:.4f} library_ms(sdpa)={library_ms:.4f} bound_ms="
+        f"{bound_ms:.4f} ({bound_by}); kernel at {bound_ms / ms:.1%} of the "
+        f"bound, {flops / ms / 1e9:.1f} TFLOP/s")
+    yi_times = {"max_abs_err": yi_fixed["err"], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
     return {**times[0], "window_1024": times[1024],
-            "recurrentgemma_prefill": rg_times}
+            "recurrentgemma_prefill": rg_times,
+            "yi9b_fixed_prefill": yi_times}
 
 
 def phase_kernel_scan(torch, np):
@@ -2385,7 +2501,7 @@ def phase_pipeline(torch, np, card: str, params, local_run):
     info["wall_s"] = walls
     log(f"[pipe] phase wall times: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in walls.items()))
-    return counts, info, outs3
+    return counts, info, outs3, outs1
 
 
 # ---------------------------------------------------------------------------
@@ -4521,6 +4637,495 @@ def phase_frontends_and_training(torch, np, card: str):
     return paths, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the fixed-batch pipeline passes, the §6 market, the examples
+# ---------------------------------------------------------------------------
+
+
+def _clone_tree(tree):
+    """A copy of a cache tree (dicts, lists, None, tensors)."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return None if tree is None else tree.clone()
+
+
+def _fixed_run(torch, cfg, rt, params, pcfg, inputs, cap, rounds, dev):
+    """The three fixed-batch passes on ``inputs`` (B, S) tokens beside two
+    runs of the plain model on the same weights and tokens:
+
+    - ``mb``: a microbatch at a time (``model.prefill`` and ``decode_step``
+      on its ``mb_size`` rows and caches of its own), so every layer sees
+      the rows the pipeline's stage calls see;
+    - ``batch``: the whole batch in one call.
+
+    Each gives a prefill, a decode step of the pipe's greedy tokens (on a
+    copy of the caches) and ``rounds`` sequential greedy decode steps.  The
+    pipelined prefill is timed on its second call, on fresh caches (launch
+    counts of that call on ``cuda``), the rounds and the sequential decodes
+    are timed too.  Returns (numbers, the prefill's launch counts, the
+    rounds')."""
+    from repro_torch.core import pipeline as PL
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.sampler import greedy
+
+    on_card = dev == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def clock(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    n_mb, mb, B = pcfg.n_microbatches, pcfg.mb_size, pcfg.global_batch
+    S = inputs.shape[1]
+    cur = torch.full((B,), S, dtype=torch.int32, device=dev)
+
+    def plain(rows):
+        """The plain model on ``rows``: prefill logits, caches, seconds."""
+        (lg, c), t = clock(lambda: model_lib.prefill(
+            params, {"tokens": inputs[rows]}, cfg, rt, cap))
+        return lg, c, t
+
+    def plain_decodes(rows, tok, caches):
+        """A decode step's logits (on a copy of ``caches``), then
+        ``rounds`` sequential greedy steps: (step, (rounds, rows) tokens,
+        seconds)."""
+        step, _ = model_lib.decode_step(params, tok, _clone_tree(caches),
+                                        cur[rows], cfg, rt)
+
+        def steps():
+            seq, t, c = [], tok, caches
+            for r in range(rounds):
+                lg, c = model_lib.decode_step(params, t, c, cur[rows] + r,
+                                              cfg, rt)
+                t = greedy(lg)
+                seq.append(t)
+            return torch.stack(seq)
+        seq, secs = clock(steps)
+        return step, seq, secs
+
+    queue = inputs.reshape(n_mb, mb, S)
+    # a warm-up call on caches of its own: a prefill starts the recurrent
+    # layers from the states it finds
+    PL.pipeline_prefill(params, queue, PL.init_pipeline_caches(
+        cfg, pcfg, cap, rt, device=dev), cfg, rt, pcfg)
+    caches = PL.init_pipeline_caches(cfg, pcfg, cap, rt, device=dev)
+    if on_card:
+        reset_counts()
+    (logits, caches), prefill_s = clock(lambda: PL.pipeline_prefill(
+        params, queue, caches, cfg, rt, pcfg))
+    prefill_counts = read_counts() if on_card else None
+    logits = logits.reshape(B, -1)
+    tok0 = greedy(logits)
+    step, _ = PL.pipeline_decode_step(
+        params, tok0.reshape(n_mb, mb), _clone_tree(caches),
+        cur.reshape(n_mb, mb), cfg, rt, pcfg)
+    if on_card:
+        reset_counts()
+    (outs, _), rounds_s = clock(lambda: PL.pipeline_decode_rounds(
+        params, tok0.reshape(n_mb, mb), caches, cur.reshape(n_mb, mb), cfg,
+        rt, pcfg, rounds=rounds))
+    rounds_counts = read_counts() if on_card else None
+    del caches
+    run = {"logits": logits, "step": step.reshape(B, -1),
+           "rounds": outs.reshape(rounds, B), "prefill_s": prefill_s,
+           "rounds_s": rounds_s}
+
+    # the plain model, a microbatch at a time
+    parts = []
+    for m in range(n_mb):
+        rows = slice(m * mb, (m + 1) * mb)
+        lg, c, t = plain(rows)
+        parts.append((lg, t) + plain_decodes(rows, tok0[rows], c))
+        del c
+    run["mb"] = {"logits": torch.cat([p[0] for p in parts]),
+                 "prefill_s": sum(p[1] for p in parts),
+                 "step": torch.cat([p[2] for p in parts]),
+                 "rounds": torch.cat([p[3] for p in parts], dim=1),
+                 "seq_s": sum(p[4] for p in parts)}
+    # the plain model over the whole batch at once
+    lg, c, t = plain(slice(0, B))
+    step_b, seq_b, secs_b = plain_decodes(slice(0, B), tok0, c)
+    del c
+    run["batch"] = {"logits": lg, "prefill_s": t, "step": step_b,
+                    "rounds": seq_b, "seq_s": secs_b}
+    for part in (run, run["mb"], run["batch"]):
+        for name in ("logits", "step", "rounds"):
+            part[name] = part[name].float().cpu() if name != "rounds" \
+                else part[name].cpu()
+    return run, prefill_counts, rounds_counts
+
+
+def _fixed_check(tag, run, bound_rel, card, pcfg, rounds, tokens):
+    """Gate: the passes' greedy prefill, step and rounds tokens equal the
+    plain model's run a microbatch at a time (the layers see the rows the
+    stage calls see), and their prefill and step logits lie within
+    ``bound_rel`` of the largest |logit|.  Reported beside it, not gated:
+    the plain model over the whole batch in one call, whose GEMMs take
+    other shapes, so its bf16 sums may round the other way and a near-tie
+    go the other way (on an H100 at 700 W, yi-9b's decode step flipped 3
+    of 16 greedy tokens at a logit difference of 2% of the largest).
+    Logs and returns the numbers."""
+    ref, whole = run["mb"], run["batch"]
+    out = {}
+    for name in ("logits", "step"):
+        got, want = run[name], ref[name]
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        same = bool((got.argmax(-1) == want.argmax(-1)).all())
+        if not same or err > bound_rel * scale:
+            raise AssertionError(
+                f"{tag}: {name} greedy tokens equal {same}, max |logit "
+                f"difference| {err:.3e} against the bound {bound_rel:g} x "
+                f"{scale:.3e}")
+        key = "prefill" if name == "logits" else "step"
+        out[key] = {
+            "max_abs_logit_err": err, "max_abs_logit": scale,
+            "bound": bound_rel * scale,
+            "whole_batch_max_abs_logit_err":
+                (got - whole[name]).abs().max().item(),
+            "whole_batch_greedy_equal": int(
+                (got.argmax(-1) == whole[name].argmax(-1)).sum()),
+            "rows": got.shape[0]}
+    # round r's token is the plain model's greedy token after r + 1 decode
+    # steps (tests/test_pipeline_spmd.py holds got[:R-1] to its ref[1:],
+    # whose ref[0] is the first input; here every round is held)
+    got = run["rounds"]
+    if not bool((got == ref["rounds"]).all()):
+        bad = (got != ref["rounds"]).nonzero()[:4].tolist()
+        raise AssertionError(f"{tag}: rounds differ from the sequential "
+                             f"plain decodes at (round, row) {bad}")
+    B = pcfg.global_batch
+    n_s, n_mb = pcfg.n_stages, pcfg.n_microbatches
+    bubble = (n_s - 1) / (rounds * n_mb + n_s - 1)
+    agree = (got == whole["rounds"]).float().mean().item()
+    out.update(
+        prefill_ms=run["prefill_s"] * 1e3,
+        plain_prefill_ms=whole["prefill_s"] * 1e3,
+        plain_mb_prefill_ms=ref["prefill_s"] * 1e3,
+        prefill_tok_per_s=B * tokens / run["prefill_s"],
+        rounds_tok_per_s=rounds * B / run["rounds_s"],
+        sequential_tok_per_s=rounds * B / whole["seq_s"],
+        sequential_mb_tok_per_s=rounds * B / ref["seq_s"],
+        whole_batch_rounds_share_equal=agree,
+        bubble_share=bubble, rounds=rounds, rows=B)
+    log(f"[{tag}] greedy prefill, step and {rounds}-round tokens equal the "
+        f"plain model's run a microbatch at a time; max |logit difference| "
+        f"prefill {out['prefill']['max_abs_logit_err']:.3e}, step "
+        f"{out['step']['max_abs_logit_err']:.3e} (bound {bound_rel:g} x "
+        f"max |logit| {out['prefill']['max_abs_logit']:.3f})")
+    log(f"[{tag}] against the plain model over the whole batch (not "
+        f"gated): prefill {out['prefill']['whole_batch_greedy_equal']} / "
+        f"{B} greedy equal, max |logit difference| "
+        f"{out['prefill']['whole_batch_max_abs_logit_err']:.3e}; step "
+        f"{out['step']['whole_batch_greedy_equal']} / {B}, "
+        f"{out['step']['whole_batch_max_abs_logit_err']:.3e}; rounds "
+        f"{agree:.1%} of tokens equal")
+    log(f"[{tag}] {n_s} stages, N_B {n_mb} x {pcfg.mb_size} rows, "
+        f"{tokens}-token prompts on {card}: prefill "
+        f"{out['prefill_ms']:.1f} ms ({out['prefill_tok_per_s']:.0f} tok/s; "
+        f"plain over the batch {out['plain_prefill_ms']:.1f} ms, a "
+        f"microbatch at a time {out['plain_mb_prefill_ms']:.1f} ms); rounds "
+        f"decode {out['rounds_tok_per_s']:.1f} tok/s beside "
+        f"{out['sequential_tok_per_s']:.1f} tok/s of {rounds} sequential "
+        f"plain decode steps over the batch "
+        f"({out['sequential_mb_tok_per_s']:.1f} a microbatch at a time); "
+        f"bubble share (N_S-1)/(R*N_B+N_S-1) = {bubble:.4f}")
+    return out
+
+
+def phase_fixed_pipe_yi(torch, np, card: str, params):
+    """[fixed-pipe]: full yi-9b (48 layers, 2 stages of 24, no epilogue)
+    through the fixed-batch passes in bf16 on the yi-9b phase's weights."""
+    import gc
+
+    from repro_torch.config import get_arch
+    from repro_torch.core import pipeline as PL
+    from repro_torch.models.common import Runtime
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch("yi-9b")
+    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    pcfg = PL.PipelineConfig(FIXED_STAGES, FIXED_N_MB, FIXED_MB)
+    if PL.stage_ranges(cfg, FIXED_STAGES)[-1] != (YI_LAYERS, YI_LAYERS):
+        raise AssertionError("fixed-pipe: yi-9b at 2 stages has an epilogue")
+    rng = np.random.RandomState(SEED)
+    tokens = torch.from_numpy(rng.randint(
+        1, cfg.vocab_size, (pcfg.global_batch, FIXED_S)).astype(
+            np.int32)).cuda()
+    run, pc, rc = _fixed_run(torch, cfg, rt, params, pcfg, tokens, FIXED_CAP,
+                             FIXED_R, "cuda")
+    want = {"paged_attention": 0, "flash_attention": FIXED_N_MB * YI_LAYERS,
+            "rglru_scan": 0}
+    if pc != want or any(rc.values()):
+        raise AssertionError(f"fixed-pipe: prefill launches {pc}, want "
+                             f"{want}; rounds launches {rc}, want none")
+    log(f"[fixed-pipe] one pipeline_prefill: {pc['flash_attention']} flash "
+        f"launches = N_B {FIXED_N_MB} x {YI_LAYERS} layers; the decode "
+        "passes launch no kernel (dense caches, the plain decode attention, "
+        "as in the JAX passes)")
+    info = _fixed_check("fixed-pipe", run, FIXED_LOGIT_BOUND, card, pcfg,
+                        FIXED_R, FIXED_S)
+    info["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[fixed-pipe] peak {info['peak_gib']:.2f} GiB allocated (weights "
+        "included)")
+    return {"yi-9b fixed-pipe prefill": pc,
+            "yi-9b fixed-pipe rounds": rc}, info
+
+
+def phase_fixed_pipe_rgemma(torch, np, card: str):
+    """[fixed-pipe-rgemma]: recurrentgemma-9b at full width, its first 8
+    layers, through the fixed-batch passes in bf16: the scan kernel in
+    both stages and the epilogue, the flash kernel in the stages."""
+    import dataclasses
+    import gc
+
+    from repro_torch.config import get_arch
+    from repro_torch.core import pipeline as PL
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import Runtime
+
+    cfg = dataclasses.replace(get_arch("recurrentgemma-9b"),
+                              num_layers=RG_FIXED_LAYERS)
+    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    pcfg = PL.PipelineConfig(FIXED_STAGES, RG_FIXED_N_MB, RG_FIXED_MB)
+    ranges = PL.stage_ranges(cfg, FIXED_STAGES)
+    kinds = cfg.layer_kinds()
+    epi = kinds[ranges[-1][0]:]
+    if epi != ("rglru", "rglru"):
+        raise AssertionError(f"fixed-pipe-rgemma: epilogue {epi}")
+    params = model_lib.init_params(cfg, SEED, rt, "cuda")
+    rng = np.random.RandomState(SEED + 1)
+    tokens = torch.from_numpy(rng.randint(
+        1, cfg.vocab_size, (pcfg.global_batch, RG_FIXED_S)).astype(
+            np.int32)).cuda()
+    run, pc, rc = _fixed_run(torch, cfg, rt, params, pcfg, tokens,
+                             RG_FIXED_CAP, RG_FIXED_R, "cuda")
+    staged = kinds[:ranges[-1][0]]
+    want = {"paged_attention": 0,
+            "flash_attention": RG_FIXED_N_MB * staged.count("local"),
+            "rglru_scan": RG_FIXED_N_MB * staged.count("rglru") + len(epi)}
+    if pc != want or any(rc.values()):
+        raise AssertionError(f"fixed-pipe-rgemma: prefill launches {pc}, "
+                             f"want {want}; rounds launches {rc}")
+    log(f"[fixed-pipe-rgemma] {cfg.num_layers} layers {kinds}: one "
+        f"pipeline_prefill launches the scan {pc['rglru_scan']} times "
+        f"(N_B {RG_FIXED_N_MB} x 4 stage layers + 2 epilogue layers over "
+        f"the batch) and flash {pc['flash_attention']} times (N_B x 2)")
+    info = _fixed_check("fixed-pipe-rgemma", run, FIXED_LOGIT_BOUND, card,
+                        pcfg, RG_FIXED_R, RG_FIXED_S)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"recurrentgemma-9b fixed-pipe prefill": pc,
+            "recurrentgemma-9b fixed-pipe rounds": rc}, info
+
+
+def phase_fixed_pipe_parity(torch, np):
+    """[fixed-pipe-parity]: phase 6's models, float32, through the
+    fixed-batch passes on the CPU (the plain versions) and on the card
+    (the kernels), identical weights: logits within ``FP_TOL``, greedy
+    tokens and rounds equal.  Each depth leaves no attention layer in the
+    epilogue."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.core import pipeline as PL
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import Runtime
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # as phase 6
+    torch.backends.cudnn.allow_tf32 = False
+    rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
+    models = {
+        "yi-9b-4layer": dataclasses.replace(
+            get_arch("yi-9b"), name="yi-9b-4layer", num_layers=4,
+            d_model=512, d_ff=1024, vocab_size=2048),
+        "gemma3-local-global": dataclasses.replace(
+            get_arch("gemma3-12b"), name="gemma3-local-global",
+            num_layers=4, block_pattern=("local", "global"), d_model=512,
+            num_heads=8, num_kv_heads=4, head_dim=64, d_ff=1024,
+            vocab_size=2048, window_size=32),
+        "recurrentgemma-rglru-local": dataclasses.replace(
+            get_arch("recurrentgemma-9b"), name="recurrentgemma-rglru-local",
+            num_layers=8, d_model=512, d_rnn=512, num_heads=16,
+            num_kv_heads=1, head_dim=64, d_ff=1024, vocab_size=2048,
+            window_size=32),
+    }
+    pcfg = PL.PipelineConfig(FIXED_STAGES, FP_N_MB, FP_MB)
+    out, counts = {}, {}
+    for label, cfg in models.items():
+        cpu_params = model_lib.init_params(cfg, SEED, rt, "cpu")
+        tokens = np.random.RandomState(SEED + 3).randint(
+            1, cfg.vocab_size, (pcfg.global_batch, FP_S)).astype(np.int32)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            params = _to(cpu_params, dev)
+            runs[dev], pc, _ = _fixed_run(
+                torch, cfg, rt, params, pcfg,
+                torch.from_numpy(tokens).to(dev), FP_CAP, FP_R, dev)
+            if dev == "cuda":
+                counts[f"{label} fixed-pipe parity"] = pc
+        cpu, card = runs["cpu"], runs["cuda"]
+        errs = {name: (card[name] - cpu[name]).abs().max().item()
+                for name in ("logits", "step")}
+        same = {name: bool((card[name].argmax(-1) ==
+                            cpu[name].argmax(-1)).all())
+                for name in ("logits", "step")}
+        same["rounds"] = bool((card["rounds"] == cpu["rounds"]).all())
+        if max(errs.values()) > FP_TOL or not all(same.values()):
+            raise AssertionError(f"fixed-pipe-parity {label}: card vs CPU "
+                                 f"max |logit difference| {errs} (tol "
+                                 f"{FP_TOL}), greedy equal {same}")
+        staged = cfg.layer_kinds()[:PL.stage_ranges(cfg,
+                                                   FIXED_STAGES)[-1][0]]
+        n_attn = sum(k in ("attn", "local", "global") for k in staged)
+        if counts[f"{label} fixed-pipe parity"]["flash_attention"] != \
+                FP_N_MB * n_attn:
+            raise AssertionError(f"fixed-pipe-parity {label}: flash "
+                                 f"launches {counts}")
+        log(f"[fixed-pipe-parity] {label} ({cfg.num_layers} layers, "
+            f"{cfg.layer_kinds()}): card vs CPU max |logit difference| "
+            f"prefill {errs['logits']:.3e}, step {errs['step']:.3e} (tol "
+            f"{FP_TOL:g}); greedy prefill, step and {FP_R}-round tokens "
+            f"equal; card launches {counts[f'{label} fixed-pipe parity']}")
+        out[label] = {"max_abs_logit_err_prefill": errs["logits"],
+                      "max_abs_logit_err_step": errs["step"],
+                      "greedy_equal": True}
+    return counts, out
+
+
+def phase_market(miner_outs, owner_outs, vocab: int):
+    """[market]: the §6 protocol on served output.  The miner is the
+    pipelined engine of phase 10's run 1, the task owner's reference the
+    local engine it is held against: each of the results is signed,
+    verified and paid from its own escrow; every honest dispute is
+    dismissed, a result with one token changed (signed by the miner) is
+    slashed with the stake going to the owner, and a third party's
+    dispute is refused."""
+    from repro_torch.framework.arbitration import (ArbitrationModule,
+                                                   SignedResult)
+    from repro_torch.framework.payment import PaymentModule
+
+    pay = PaymentModule()
+    arb = ArbitrationModule(pay)
+    pay.deposit("miner", MARKET_STAKE)
+    key = arb.register_miner("miner", stake=MARKET_STAKE)
+    n = len(miner_outs)
+    pay.deposit("owner", MARKET_PRICE * n)
+    task = 0
+    arb.register_task_owner(task, "owner")
+    results, sign_s = [], 0.0
+    for o in miner_outs:
+        escrow = pay.lock("owner", task, MARKET_PRICE)
+        t0 = time.perf_counter()
+        r = SignedResult.sign(task, o.request_id, "miner", o.token_ids, key)
+        sign_s += time.perf_counter() - t0
+        if not (r.verify_signature(key) and r.matches_output(o.token_ids)):
+            raise AssertionError(f"market: result {o.request_id} does not "
+                                 "verify")
+        pay.release(escrow.escrow_id, "miner")
+        results.append(r)
+    if pay.balance("miner") != MARKET_PRICE * n or pay.balance("owner"):
+        raise AssertionError(f"market: balances {pay.balances}")
+    outcomes = [arb.open_dispute("owner", r, o.token_ids, ref.token_ids)
+                .outcome for r, o, ref in zip(results, miner_outs,
+                                              owner_outs)]
+    if outcomes != ["dismissed"] * n:
+        raise AssertionError(f"market: honest disputes {outcomes}")
+    try:
+        arb.open_dispute("mallory", results[0], miner_outs[0].token_ids,
+                         [0] * len(miner_outs[0].token_ids))
+        raise AssertionError("market: a third party's dispute was taken")
+    except PermissionError:
+        pass
+    bad = list(miner_outs[0].token_ids)
+    bad[len(bad) // 2] = (bad[len(bad) // 2] + 1) % vocab
+    forged = SignedResult.sign(task, n, "miner", bad, key)
+    d = arb.open_dispute("owner", forged, bad, owner_outs[0].token_ids)
+    if d.outcome != "slashed" or arb.stakes["miner"] != 0.0 or \
+            pay.balance("owner") != MARKET_STAKE:
+        raise AssertionError(f"market: tampered result {d.outcome}, stake "
+                             f"{arb.stakes}, balances {pay.balances}")
+    log(f"[market] {n} served results signed, verified and paid from "
+        f"{n} escrows ({sign_s / n * 1e6:.1f} µs a signature); {n} honest "
+        "disputes against the local engine's streams dismissed; a third "
+        "party's dispute refused; a result with one token changed, signed "
+        f"by the miner, slashed: the stake of {MARKET_STAKE:g} went to the "
+        "owner")
+    return {"results": n, "dismissed": n, "slashed": 1,
+            "third_party_refused": True, "sign_us": sign_s / n * 1e6}
+
+
+def phase_examples():
+    """[examples]: each example module on the card as a subprocess with
+    small arguments, all started together; each must exit 0 and print its
+    key lines."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    try:
+        for name, (args, _) in EXAMPLES.items():
+            module = name.split()[0]
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", f"repro_torch.examples.{module}",
+                 *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        out, t0 = {}, time.perf_counter()
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            lines = EXAMPLES[name][1]
+            missing = [ln for ln in lines if ln not in stdout]
+            if proc.returncode != 0 or missing:
+                raise AssertionError(
+                    f"examples: {name} exited {proc.returncode}, missing "
+                    f"{missing}:\n{stdout[-1500:]}\n{stderr[-1500:]}")
+            keep = [ln for ln in stdout.splitlines()
+                    if any(k in ln for k in lines)]
+            log(f"[examples] {name}: exit 0 within {wall:.1f} s of the "
+                "start; " + " | ".join(ln.strip() for ln in keep))
+            out[name] = {"exit": 0, "done_within_s": wall}
+        return out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_fixed_pipeline(torch, np, card: str, params, miner_outs,
+                         owner_outs):
+    """Phase 15; returns (launch counts by path, the ``fixed_pipe``
+    summary)."""
+    t0 = time.perf_counter()
+    paths, summary = {}, {}
+    counts, summary["yi-9b"] = phase_fixed_pipe_yi(torch, np, card, params)
+    paths.update(counts)
+    counts, summary["recurrentgemma-9b"] = phase_fixed_pipe_rgemma(
+        torch, np, card)
+    paths.update(counts)
+    counts, summary["parity"] = phase_fixed_pipe_parity(torch, np)
+    paths.update(counts)
+    from repro_torch.config import get_arch
+    summary["market"] = phase_market(miner_outs, owner_outs,
+                                     get_arch("yi-9b").vocab_size)
+    summary["examples"] = phase_examples()
+    summary["wall_s"] = time.perf_counter() - t0
+    log(f"[fixed-pipe] phase 15 wall time {summary['wall_s']:.1f} s")
+    return paths, summary
+
+
 def yi_params(torch):
     """Full-width, full-depth yi-9b weights in bf16 from the seed, shared by
     the yi-9b serve phases."""
@@ -4566,7 +5171,7 @@ def main() -> int:
                                                          smi_line, params)
     paths.update({f"yi-9b {tag}": c for tag, c in off_counts.items()})
     paths["yi-9b planned"], plan = phase_plan(torch, np, smi_line, params)
-    pipe_counts, pipeline, int8_outs = phase_pipeline(
+    pipe_counts, pipeline, int8_outs, pipe_outs = phase_pipeline(
         torch, np, smi_line, params, local_run)
     paths.update(pipe_counts)
     res_counts, resilience = phase_resilience(
@@ -4578,6 +5183,9 @@ def main() -> int:
         dict(outs=serve_outs, counts=paths["yi-9b"]), int8_outs,
         local_run, res_counts)
     paths.update(trace_counts)
+    fixed_counts, fixed_pipe = phase_fixed_pipeline(
+        torch, np, smi_line, params, pipe_outs, local_run["outs"])
+    paths.update(fixed_counts)
     del params
     paths["gemma3-12b"], gemma_outs, gemma_params = phase_serve_gemma(
         torch, np, smi_line)
@@ -4629,6 +5237,7 @@ def main() -> int:
     print(json.dumps({"trace": trace}))
     print(json.dumps({"archs": archs}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"fixed_pipe": fixed_pipe}))
     print(json.dumps({"kernels": entries}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

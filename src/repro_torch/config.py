@@ -11,6 +11,11 @@ residual stream (``frontend``): audio frames instead of tokens, or
 ``num_patch_tokens`` vision patches ahead of the text, rotated by M-RoPE.
 ``param_count`` counts the frame / patch projections as the JAX package
 does: not at all.
+
+The workload shapes (:class:`ShapeConfig`, ``SHAPES``) and the device
+meshes (:class:`MeshConfig`, ``SINGLE_POD``, ``MULTI_POD``) are the JAX
+package's TPU-pod tables, copied value for value as data that the dry run
+and the examples read; nothing on the card is sized by them.
 """
 
 from __future__ import annotations
@@ -82,12 +87,31 @@ class ModelConfig:
             if k not in ALL_KINDS:
                 raise ValueError(f"unknown layer kind {k!r}")
 
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
     def layer_kinds(self) -> tuple:
         p = self.block_pattern
         return tuple(p[i % len(p)] for i in range(self.num_layers))
 
+    def attention_layer_count(self) -> int:
+        return sum(1 for k in self.layer_kinds() if k in ATTN_KINDS)
+
     def recurrent_layer_count(self) -> int:
         return sum(1 for k in self.layer_kinds() if k in RECURRENT_KINDS)
+
+    def is_subquadratic(self) -> bool:
+        """True when long-context decode memory does not grow with a full
+        attention cache in every layer: no full-attention layer, or at most
+        a third of the layers (SSM, hybrid, sliding window)."""
+        kinds = self.layer_kinds()
+        full = sum(1 for k in kinds if k in ("attn", "global"))
+        return full == 0 or (full / len(kinds)) <= 0.34
 
     def param_count(self) -> int:
         """Total parameters (embedding counted once when tied), layer by
@@ -132,6 +156,59 @@ class ModelConfig:
             return 2 * D * Dr + 3 * Dr * Dr // max(H, 1) + 3 * Dr + Dr * D + D
         return 4 * D * Dr + 4 * (Dr * Dr // max(H, 1)) + 4 * Dr + Dr * D + D
 
+    def kv_bytes_per_token_per_layer(self, dtype_bytes: int = 2) -> int:
+        return 2 * self.num_kv_heads * self.head_dim * dtype_bytes
+
+    def kv_bytes_per_token(self, dtype_bytes: int = 2) -> int:
+        """KV bytes a token over every attention layer (the JAX package's
+        count: a local layer counts as a full one)."""
+        return self.attention_layer_count() * \
+            self.kv_bytes_per_token_per_layer(dtype_bytes)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """A benchmark / dry-run workload shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+    @property
+    def tokens_per_step(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch          # one new token a sequence
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A device topology: axis sizes and names."""
+
+    name: str
+    shape: tuple
+    axes: tuple
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+SINGLE_POD = MeshConfig("single_pod", (16, 16), ("data", "model"))
+MULTI_POD = MeshConfig("multi_pod", (2, 16, 16), ("pod", "data", "model"))
+
 
 _REGISTRY: dict = {}
 
@@ -153,6 +230,11 @@ def get_arch(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_archs() -> list:
+    _load_all_configs()
+    return sorted(_REGISTRY)
 
 
 def reduced_config(cfg: ModelConfig, *, num_layers: int = 0,

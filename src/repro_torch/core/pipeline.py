@@ -1,5 +1,5 @@
-"""DeServe's §4.3 persistent circular pipeline, one tick at a time
-(counterpart of the tick path of ``repro.core.pipeline``).
+"""DeServe's §4.3 circular pipeline (counterpart of ``repro.core.pipeline``):
+the persistent pipe one tick at a time, and the fixed-batch passes.
 
 The model's layers are split into ``n_stages`` contiguous stage slices,
 aligned to the layer plan's periods as the JAX split is: stage ``s`` owns
@@ -31,13 +31,26 @@ The host decides which stages are occupied (``mb_assign`` / ``occupied``,
 host integers), so a tick needs no device-to-host transfer of its own.
 The JAX ticks' fault seam (``drop_stage``, which masks a dropped stage's
 writes) has no counterpart: the backend drops a stage by emptying its
-entry, and a bubble writes nothing.  The fixed-batch passes (``pipeline_decode_step``,
-``pipeline_prefill``, ``pipeline_decode_rounds``, used only by the dry run)
-are not ported.
+entry, and a bubble writes nothing.
+
+The fixed-batch passes (``pipeline_prefill``, ``pipeline_decode_step``,
+``pipeline_decode_rounds``) run one whole pass of the schedule over
+``N_B`` microbatches of ``mb_size`` rows (:class:`PipelineConfig`): at tick
+``t`` stage ``p`` works on microbatch ``t - p``, in ``N_B + N_S - 1`` ticks
+(``R·N_B + N_S - 1`` for ``R`` greedy rounds).  They own dense caches
+(``init_pipeline_caches``): each stage's layers a microbatch, the
+epilogue's layers over the global batch, as the JAX passes lay them out.
+The same rules hold as for the ticks: the stages run in turn, a bubble
+does no work, the activation itself is the next stage's input (the JAX
+passes ship it raw: no wire codec), and every cache is written in place.
+A stage call sees one microbatch and the epilogue of a prefill or a
+decode step the whole batch, the JAX passes' call boundaries, which an
+MoE layer's capacity follows.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -47,11 +60,29 @@ from repro_torch.distributed.compression import (int8_compress_rows,
                                                  int8_decompress_rows)
 from repro_torch.models import embedding as embed_lib
 from repro_torch.models import model as model_lib
-from repro_torch.models.common import Runtime, make_layer_plan
+from repro_torch.models.common import (Runtime, make_layer_plan,
+                                       resolve_device, text_positions3)
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.sampler import greedy, sample_batched, token_logprobs
 
 WIRE_DTYPES = ("fp32", "int8")
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """The geometry of a fixed-batch pass."""
+
+    n_stages: int
+    n_microbatches: int
+    mb_size: int                      # sequences per microbatch
+
+    @property
+    def global_batch(self) -> int:
+        return self.n_microbatches * self.mb_size
+
+    @property
+    def n_ticks(self) -> int:
+        return self.n_microbatches + self.n_stages - 1
 
 
 def split_layers(cfg: ModelConfig, n_stages: int) -> Tuple[int, int]:
@@ -238,3 +269,219 @@ def pipeline_prefill_chunk_tick(params: dict, caches: dict, act: list,
                    caches={"layers": caches["layers"], "page_table": tabs},
                    positions=pos, layers=ranges[n_stages])
     return model_lib.chunk_logits(params, xf, lasts, cfg), new_act
+
+
+# ---------------------------------------------------------------------------
+# The fixed-batch passes
+# ---------------------------------------------------------------------------
+
+
+def split_scan_params(params: dict, cfg: ModelConfig, n_stages: int):
+    """``(stage_params, epilogue_params)``: each stage's ``((lo, hi),
+    layers)``, its layer range and its weights ``params["layers"][lo:hi]``
+    (the layer dicts themselves, no copy), then the epilogue's (the
+    leftover periods and the tail; ``None`` when the stages hold every
+    layer).  The JAX package stacks the periods' leaves per stage instead;
+    the port's weights are one flat list of layers."""
+    ranges = stage_ranges(cfg, n_stages)
+    stages = [((lo, hi), params["layers"][lo:hi]) for lo, hi in ranges[:-1]]
+    lo, hi = ranges[-1]
+    return stages, (((lo, hi), params["layers"][lo:hi]) if hi > lo
+                    else None)
+
+
+def init_pipeline_caches(cfg: ModelConfig, pcfg: PipelineConfig,
+                         capacity: int, rt: Runtime, device=None) -> dict:
+    """Dense caches (``models.model._kind_cache``) for the fixed-batch
+    passes, on ``device`` (``cuda`` unless asked)::
+
+        {"stage": [{"layers": [...]} for each microbatch],
+         "epilogue": {"layers": [...]}}
+
+    Each list holds ``cfg.num_layers`` entries in the flat layer order: a
+    microbatch's list holds the stages' layers over its ``mb_size`` rows
+    (``None`` in the epilogue's places), the epilogue's list the epilogue
+    layers over the global batch (``None`` in the stages' places), as the
+    JAX passes lay them out."""
+    device = resolve_device(device)
+    n_staged = stage_ranges(cfg, pcfg.n_stages)[-1][0]
+    kinds = cfg.layer_kinds()
+
+    def layers(staged: bool, batch: int) -> list:
+        return [model_lib._kind_cache(kind, cfg, batch, capacity, rt, device)
+                if (i < n_staged) == staged else None
+                for i, kind in enumerate(kinds)]
+
+    return {"stage": [{"layers": layers(True, pcfg.mb_size)}
+                      for _ in range(pcfg.n_microbatches)],
+            "epilogue": {"layers": layers(False, pcfg.global_batch)}}
+
+
+def _rows(caches: dict, start: int, size: int) -> dict:
+    """``size`` rows of dense caches from ``start``: views, so the layers'
+    in-place writes reach the batch-wide tensors (the JAX passes'
+    ``_epi_take`` / ``_epi_put``)."""
+    return {"layers": [None if c is None else
+                       {name: t[start:start + size] for name, t in c.items()}
+                       for c in caches["layers"]]}
+
+
+def _pipeline_pass(params: dict, caches: dict, queue: torch.Tensor,
+                   positions_q: torch.Tensor, *, cfg: ModelConfig,
+                   rt: Runtime, pcfg: PipelineConfig,
+                   mode: str) -> torch.Tensor:
+    """One fill and drain of the circular schedule over the stages (the
+    geometry and the mode are host values, keyword-only).
+
+    queue:       (n_mb, mb, S, D) embedded microbatch inputs.
+    positions_q: (n_mb, mb, S), or (n_mb, 3, mb, S) with M-RoPE.
+    Returns the last stage's outputs, (n_mb, mb, S, D); the stage caches
+    change in place."""
+    n_s, n_mb = pcfg.n_stages, pcfg.n_microbatches
+    _validate_tick_args(
+        "_pipeline_pass", n_stages=n_s, checks={
+            "queue": (queue.shape[:2], (n_mb, pcfg.mb_size)),
+            "stage caches": ((len(caches["stage"]),), (n_mb,)),
+        })
+    stages, _ = split_scan_params(params, cfg, n_s)
+    act: List[Optional[torch.Tensor]] = [None] * n_s
+    outs: List[Optional[torch.Tensor]] = [None] * n_mb
+    for t in range(pcfg.n_ticks):
+        nxt: List[Optional[torch.Tensor]] = [None] * n_s
+        for s, (layers, _) in enumerate(stages):
+            m = t - s
+            if not 0 <= m < n_mb:
+                continue                # a bubble does no work
+            y = model_lib.run_layers(
+                params, queue[m] if s == 0 else act[s], cfg, rt, mode=mode,
+                caches=caches["stage"][m], positions=positions_q[m],
+                layers=layers)
+            if s < n_s - 1:
+                nxt[s + 1] = y          # the ppermute downstream
+            else:
+                outs[m] = y             # the drained microbatch
+        act = nxt
+    return torch.stack(outs)
+
+
+def pipeline_decode_step(params: dict, tokens: torch.Tensor, caches: dict,
+                         cur_pos: torch.Tensor, cfg: ModelConfig,
+                         rt: Runtime, pcfg: PipelineConfig):
+    """One pipelined decode token for every microbatch.
+
+    tokens (n_mb, mb) int32; cur_pos (n_mb, mb) int32 absolute positions.
+    Returns (logits (n_mb, mb, V) float32, caches)."""
+    n_mb, mb = tokens.shape
+    queue = embed_lib.embed_tokens(params["embed"], tokens[..., None], cfg,
+                                   rt.compute_dtype)       # (n_mb, mb, 1, D)
+    positions_q = cur_pos[..., None]                       # (n_mb, mb, 1)
+    if cfg.frontend == "vision_patches":
+        positions_q = text_positions3(positions_q).transpose(0, 1)
+    drained = _pipeline_pass(params, caches, queue, positions_q, cfg=cfg,
+                             rt=rt, pcfg=pcfg, mode="decode")
+    xf = drained.reshape(pcfg.global_batch, 1, cfg.d_model)
+    pos = cur_pos.reshape(pcfg.global_batch, 1)
+    if cfg.frontend == "vision_patches":
+        pos = text_positions3(pos)
+    xf = _epilogue(params, xf, cfg, rt, mode="decode",
+                   caches=caches["epilogue"], positions=pos,
+                   layers=stage_ranges(cfg, pcfg.n_stages)[-1])
+    logits = model_lib.decode_logits(params, xf, cfg)
+    return logits.reshape(n_mb, mb, -1), caches
+
+
+def pipeline_prefill(params: dict, inputs, caches: dict, cfg: ModelConfig,
+                     rt: Runtime, pcfg: PipelineConfig):
+    """Pipelined exact-length prefill of whole prompts.
+
+    ``inputs``: ``{"tokens": (n_mb, mb, S)}`` (or that tensor alone),
+    ``{"frames": (n_mb, mb, S, D)}`` or ``{"tokens", "patches"}`` (vision),
+    the (n_mb, mb) microbatch layout on the leading dims; every row is S
+    long.  Returns (last logits (n_mb, mb, V) float32, caches)."""
+    if isinstance(inputs, torch.Tensor):
+        inputs = {"tokens": inputs}
+    n_mb, mb = next(iter(inputs.values())).shape[:2]
+    flat = {k: v.reshape((n_mb * mb,) + tuple(v.shape[2:]))
+            for k, v in inputs.items()}
+    x, positions = model_lib.embed_inputs(params, flat, cfg, rt)
+    S = x.shape[1]
+    queue = x.reshape(n_mb, mb, S, cfg.d_model)
+    if positions.dim() == 3:                # (3, B, S) M-RoPE
+        positions_q = positions.reshape(3, n_mb, mb, S).transpose(0, 1)
+    else:
+        positions_q = positions.reshape(n_mb, mb, S)
+    drained = _pipeline_pass(params, caches, queue, positions_q, cfg=cfg,
+                             rt=rt, pcfg=pcfg, mode="prefill")
+    xf = _epilogue(params, drained.reshape(pcfg.global_batch, S, cfg.d_model),
+                   cfg, rt, mode="prefill", caches=caches["epilogue"],
+                   positions=positions,
+                   layers=stage_ranges(cfg, pcfg.n_stages)[-1])
+    logits = model_lib.decode_logits(params, xf[:, -1:], cfg)
+    return logits.reshape(n_mb, mb, -1), caches
+
+
+def pipeline_decode_rounds(params: dict, tokens: torch.Tensor, caches: dict,
+                           cur_pos: torch.Tensor, cfg: ModelConfig,
+                           rt: Runtime, pcfg: PipelineConfig, *,
+                           rounds: int):
+    """Greedy-decode ``rounds`` tokens a microbatch in ONE circular pass.
+
+    This is the schedule the paper runs in steady state: microbatch ``m``'s
+    round-``r`` token is injected at tick ``r·N_B + m``, right behind its
+    round-``r−1`` drain (legal because N_B ≥ N_S), so the fill and drain
+    bubbles amortise to (N_S−1)/(R·N_B + N_S − 1).  The epilogue, the
+    greedy pick and the next embedding run on each drained microbatch's
+    rows (the return link carries the (mb,) token ids); its rows of the
+    epilogue caches are written in place.
+
+    tokens / cur_pos (n_mb, mb) int32.  Returns (all tokens (rounds, n_mb,
+    mb) int32, caches).  Requires N_B ≥ N_S."""
+    n_s, n_mb, mb = pcfg.n_stages, pcfg.n_microbatches, pcfg.mb_size
+    if n_mb < n_s:
+        raise ValueError("multi-round circular decode needs N_B >= N_S")
+    _validate_tick_args(
+        "pipeline_decode_rounds", n_stages=n_s, checks={
+            "tokens": (tokens.shape, (n_mb, mb)),
+            "cur_pos": (cur_pos.shape, (n_mb, mb)),
+            "stage caches": ((len(caches["stage"]),), (n_mb,)),
+        })
+    stages, _ = split_scan_params(params, cfg, n_s)
+    epi_layers = stage_ranges(cfg, n_s)[-1]
+    vision = cfg.frontend == "vision_patches"
+    toks, pos = tokens.clone(), cur_pos.clone()
+    outs = torch.zeros((rounds, n_mb, mb), dtype=torch.int32,
+                       device=tokens.device)
+    act: List[Optional[torch.Tensor]] = [None] * n_s
+    for t in range(rounds * n_mb + n_s - 1):
+        nxt: List[Optional[torch.Tensor]] = [None] * n_s
+        y = None
+        for s, (layers, _) in enumerate(stages):
+            k = t - s
+            if k < 0 or k // n_mb >= rounds:
+                continue                # a bubble does no work
+            m = k % n_mb
+            x = embed_lib.embed_tokens(params["embed"], toks[m][:, None], cfg,
+                                       rt.compute_dtype) if s == 0 \
+                else act[s]
+            p1 = pos[m][:, None]
+            y = model_lib.run_layers(
+                params, x, cfg, rt, mode="decode", caches=caches["stage"][m],
+                positions=text_positions3(p1) if vision else p1,
+                layers=layers)
+            if s < n_s - 1:
+                nxt[s + 1] = y
+        act = nxt
+        out = t - (n_s - 1)
+        if out < 0 or out // n_mb >= rounds:
+            continue                    # nothing drains this tick
+        m, r = out % n_mb, out // n_mb
+        p1 = pos[m][:, None]
+        xf = _epilogue(params, y, cfg, rt, mode="decode",
+                       caches=_rows(caches["epilogue"], m * mb, mb),
+                       positions=text_positions3(p1) if vision else p1,
+                       layers=epi_layers)
+        new = greedy(model_lib.decode_logits(params, xf, cfg))
+        toks[m] = new
+        pos[m] += 1
+        outs[r, m] = new
+    return outs, caches

@@ -82,6 +82,13 @@ the engine's books after every submit, step and reshard.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --trace out.json --strict
+
+``--metrics`` keeps a metrics registry (``obs.metrics``) over the run:
+a one-line ``[metrics]`` banner every ``--metrics-every`` engine steps and
+the Prometheus exposition text at exit, as the JAX serve CLI prints them.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --metrics --metrics-every 2
 """
 
 from __future__ import annotations
@@ -139,7 +146,8 @@ def pinned_copy_rate(device, nbytes: int = 256 << 20, iters: int = 5):
     return rates[0], rates[1]
 
 
-def main(argv=None) -> None:
+def build_parser() -> argparse.ArgumentParser:
+    """The serve CLI's flags."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="yi-9b")
     ap.add_argument("--requests", type=int, default=16)
@@ -158,8 +166,10 @@ def main(argv=None) -> None:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--mixed", action="store_true",
                     help="serve greedy and sampled requests side by side")
-    ap.add_argument("--full", action="store_true",
-                    help="the registered width and depth, bf16")
+    ap.add_argument("--full", "--full-size", dest="full",
+                    action="store_true",
+                    help="the registered width and depth, bf16 "
+                         "(--full-size is the JAX serve CLI's name)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
@@ -250,7 +260,18 @@ def main(argv=None) -> None:
                          "transport / offload / kernel-library audits "
                          "after every step, failing at the tick that "
                          "corrupted state")
-    args = ap.parse_args(argv)
+    ap.add_argument("--metrics", action="store_true",
+                    help="metrics registry over the run: a one-line stats "
+                         "banner every --metrics-every engine steps plus "
+                         "Prometheus exposition text at exit")
+    ap.add_argument("--metrics-every", type=int, default=50,
+                    metavar="STEPS",
+                    help="engine steps between --metrics banners")
+    return ap
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
 
     deployment = None
     if args.deployment:
@@ -306,6 +327,9 @@ def main(argv=None) -> None:
     if args.arrival_rate <= 0:
         raise SystemExit(f"--arrival-rate must be > 0, "
                          f"got {args.arrival_rate}")
+    if args.metrics_every < 1:
+        raise SystemExit(f"--metrics-every must be >= 1, "
+                         f"got {args.metrics_every}")
     if args.prefix_cache and args.prefill_mode == "exact":
         raise SystemExit("--prefix-cache needs chunked prefill (prefix "
                          "hits resume mid-prompt); drop "
@@ -467,12 +491,16 @@ def main(argv=None) -> None:
     else:
         sps = SamplingParams(temperature=args.temperature,
                              max_new_tokens=args.max_new)
+    banner = _metrics_banner(engine, args) if args.metrics else None
     if args.online:
-        outs = _serve_online(llm, OnlineLLM, prompts, sps, args, rng)
-    elif reshard_at or detect:
+        outs = _serve_online(llm, OnlineLLM, prompts, sps, args, rng,
+                             banner)
+    elif reshard_at or detect or banner is not None:
+        # the drills and the banner need a live loop: the engine stepped
+        # by hand over the same workload
         outs = _serve_drill(engine, llm, RequestOutput, FailureDetector,
                             prompts, sps, args, reshard_at, reshard_stages,
-                            detect, kills)
+                            detect, kills, banner)
     else:
         outs = llm.generate(prompts, sps)
     rep = llm.stats()
@@ -509,6 +537,10 @@ def main(argv=None) -> None:
                      f"{t['compression_ratio']:.1f}x on the wire)")
         print(line)
     print(f"report: {rep}")
+    if banner is not None:
+        banner()
+        print("metrics (Prometheus exposition):")
+        print(banner.metrics.prometheus_text(), end="")
     if args.trace:
         from repro_torch.obs.timeline import write_chrome_trace
         trace = write_chrome_trace(engine.recorder, args.trace)
@@ -530,7 +562,35 @@ def main(argv=None) -> None:
               f"${profit_per_hour(450, p.cost_per_hour):+.2f}")
 
 
-def _serve_online(llm, online_cls, prompts, sps, args, rng):
+def _metrics_banner(engine, args):
+    """A callable that maps the engine's report onto a fresh
+    ``obs.metrics.Metrics`` and prints the JAX serve CLI's ``[metrics]``
+    line (tokens since the previous banner, finished requests, queue
+    depth, decode tok/s); ``.metrics`` is the registry."""
+    from repro_torch.obs.metrics import Metrics, update_from_engine
+
+    metrics = Metrics()
+    prev: dict = {}
+
+    def banner() -> None:
+        snap = update_from_engine(metrics, engine)
+        d = Metrics.delta(prev, snap)
+        prev.clear()
+        prev.update(snap)
+        print(f"[metrics] step={engine.stats.steps} "
+              f"tokens+={d.get('repro_tokens_total', 0.0):.0f} "
+              f"finished="
+              f"{snap.get('repro_requests_finished_total', 0.0):.0f}"
+              f"/{args.requests} "
+              f"queue={snap.get('repro_queue_depth', 0.0):.0f} "
+              f"decode tok/s="
+              f"{snap.get('repro_decode_tok_per_s', 0.0):.1f}")
+
+    banner.metrics = metrics
+    return banner
+
+
+def _serve_online(llm, online_cls, prompts, sps, args, rng, banner=None):
     """Submit the requests into the live engine at seeded Poisson arrival
     times (cooperative pump); print TTFT and ITL percentiles."""
     import numpy as np
@@ -540,13 +600,19 @@ def _serve_online(llm, online_cls, prompts, sps, args, rng):
                                          size=args.requests))
     sps_list = sps if isinstance(sps, list) else [sps] * args.requests
     streams, nxt = [], 0
+    engine = llm.engine
+    next_banner = args.metrics_every
     t0 = time.perf_counter()
     while True:
         now = time.perf_counter() - t0
         while nxt < args.requests and arrivals[nxt] <= now:
             streams.append(online.submit(prompts[nxt], sps_list[nxt]))
             nxt += 1
-        if not online.step():
+        busy = online.step()
+        if banner is not None and engine.stats.steps >= next_banner:
+            banner()
+            next_banner = engine.stats.steps + args.metrics_every
+        if not busy:
             if nxt >= args.requests:
                 break
             # idle before the next arrival: sleep up to it
@@ -567,9 +633,10 @@ def _serve_online(llm, online_cls, prompts, sps, args, rng):
 
 
 def _serve_drill(engine, llm, output_cls, detector_cls, prompts, sps, args,
-                 reshard_at, reshard_stages, detect, kills):
+                 reshard_at, reshard_stages, detect, kills, banner=None):
     """Step the engine by hand: reshard at ``reshard_at``, or when the
-    failure detector declares a silenced device dead."""
+    failure detector declares a silenced device dead; print the metrics
+    banner every ``--metrics-every`` steps."""
     seqs = engine.submit(llm._make_requests(prompts, sps))
     step, resharded = 0, False
     detector = None
@@ -580,6 +647,8 @@ def _serve_drill(engine, llm, output_cls, detector_cls, prompts, sps, args,
             detector.beat(d, 0.0)
     while engine.step():
         step += 1
+        if banner is not None and step % args.metrics_every == 0:
+            banner()
         if reshard_at and step == reshard_at:
             old = engine.n_stages
             rplan = engine.reshard(n_stages=reshard_stages)

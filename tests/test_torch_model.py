@@ -676,6 +676,47 @@ def test_param_counts_match_jax(reduced):
     assert phi.active_param_count() < phi.param_count()
 
 
+def test_shape_and_mesh_tables_match_jax():
+    """``SHAPES``, ``SINGLE_POD`` / ``MULTI_POD`` and ``list_archs`` are the
+    JAX package's, value for value."""
+    from repro import config as jconfig
+    from repro_torch import config as tconfig
+    assert {k: dataclasses.asdict(v) for k, v in tconfig.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jconfig.SHAPES.items()}
+    for name, s in tconfig.SHAPES.items():
+        assert s.tokens_per_step == jconfig.SHAPES[name].tokens_per_step
+    for mesh in ("SINGLE_POD", "MULTI_POD"):
+        t, j = getattr(tconfig, mesh), getattr(jconfig, mesh)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        assert t.num_devices == j.num_devices
+    assert tconfig.MULTI_POD.num_devices == 512
+    assert tconfig.list_archs() == jconfig.list_archs()
+    assert len(tconfig.list_archs()) == 11
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_config_methods_match_jax(reduced):
+    """``q_dim``, ``kv_dim``, ``attention_layer_count``,
+    ``kv_bytes_per_token_per_layer``, ``kv_bytes_per_token`` and
+    ``is_subquadratic`` equal ``repro.config``'s for every arch."""
+    from repro_torch.config import list_archs
+    for name in list_archs():
+        jcfg, tcfg = jax_get_arch(name), get_arch(name)
+        if reduced:
+            jcfg, tcfg = jax_reduced(jcfg), reduced_config(tcfg)
+        for attr in ("q_dim", "kv_dim"):
+            assert getattr(tcfg, attr) == getattr(jcfg, attr), (name, attr)
+        for meth in ("attention_layer_count", "is_subquadratic",
+                     "kv_bytes_per_token_per_layer", "kv_bytes_per_token"):
+            assert getattr(tcfg, meth)() == getattr(jcfg, meth)(), \
+                (name, meth)
+        for nbytes in (1, 4):
+            assert tcfg.kv_bytes_per_token(nbytes) == \
+                jcfg.kv_bytes_per_token(nbytes), name
+            assert tcfg.kv_bytes_per_token_per_layer(nbytes) == \
+                jcfg.kv_bytes_per_token_per_layer(nbytes), name
+
+
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_from_jax_params_shapes_and_dtypes_for_new_configs(arch):
     """Under bf16 parameters every converted leaf has the JAX leaf's shape

@@ -551,3 +551,29 @@ def test_serve_cli_writes_a_checked_trace(tmp_path):
     assert r.returncode == 0 and "valid" in r.stdout, r.stdout + r.stderr
     names = {e["name"] for e in json.loads(out.read_text())["traceEvents"]}
     assert {"decode", "tick", "send", "busy", "fault_drop"} <= names
+
+
+def test_serve_cli_metrics_banner_and_full_size_alias():
+    """``--metrics --metrics-every 2`` prints the JAX serve CLI's
+    ``[metrics]`` banner every two engine steps, once more at exit, and
+    the Prometheus text; ``--full-size`` is the JAX CLI's name for
+    ``--full``."""
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--requests", "4", "--max-new", "6", "--metrics",
+         "--metrics-every", "2"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    banners = [ln for ln in r.stdout.splitlines()
+               if ln.startswith("[metrics] step=")]
+    steps = [int(ln.split()[1].split("=")[1]) for ln in banners]
+    assert steps[:-1] == list(range(2, 2 * len(steps) - 1, 2)), steps
+    assert banners[-1].split()[3] == "finished=4/4"
+    assert "metrics (Prometheus exposition):" in r.stdout
+    assert "repro_tokens_total" in r.stdout
+    from repro_torch.launch import serve
+    for flag in ("--full-size", "--full"):
+        assert serve.build_parser().parse_args([flag]).full
+    assert not serve.build_parser().parse_args([]).full
