@@ -245,6 +245,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    together, each exiting 0 with its key lines (on the card their reduced
    models are widened to 64 a head, the kernels' smallest head dim).
 
+16. the dry run (``repro_torch.launch.dryrun``): the whole table (every
+   arch x ``SHAPES`` entry x one pod / two pods, traced on meta tensors,
+   nothing allocated) runs in a subprocess started with the script, kept
+   off the card, in ``DRYRUN_JOBS`` workers; this phase waits for it and
+   checks every cell ok, or skipped where the JAX dry run skips it, and
+   prints each cell's peak a device, whether one H100 holds it and its
+   dominant roofline term (``[dryrun-table]`` lines).  Then three
+   one-card cells, each predicted on meta by the same code and then run
+   on the card under the same counters (``dryrun.check_cell``):
+   ``[dryrun-prefill]``, full yi-9b ``model.prefill`` of 2 x 8,192 tokens
+   in bf16 (48 flash launches a run); ``[dryrun-pipe]``, yi-9b
+   ``pipeline_prefill`` and one ``pipeline_decode_step``, 2 stages, 4 x 4
+   rows of 512 (phase 15's geometry, the same seed's weights); and
+   ``[dryrun-train]``, one float32 ``train_step`` of full-depth gemma3-1b
+   at 4 x 1,024 (flash with its LSE), on the allocator's expandable
+   segments.  Each must have its argument bytes within 0.5% of
+   ``memory_allocated``'s growth, the card's flops equal to
+   the prediction, its predicted peak over ``max_memory_allocated``'s
+   within [0.8, 1.25], and a step (host clock, synchronised) no faster
+   than the roofline bound; each is run twice (counted, then timed).
+
 Each serve phase sets every kernel's launch count to 0 just before it
 drives its path and reads them just after; the kernels line reports those
 counts by path.
@@ -254,7 +275,8 @@ the planner's inputs), a ``{"pipeline": ...}`` line (the pipeline phase's
 numbers and wall times), a ``{"resilience": ...}`` line (phase 11's), a
 ``{"trace": ...}`` line (phase 12's), an ``{"archs": ...}`` line
 (phase 13's), a ``{"train": ...}`` line (phase 14's), a
-``{"fixed_pipe": ...}`` line (phase 15's), a ``{"kernels": [...]}`` line,
+``{"fixed_pipe": ...}`` line (phase 15's), a ``{"dryrun": ...}`` line
+(phase 16's), a ``{"kernels": [...]}`` line,
 the card's
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  It exits non-zero without a
 result when no CUDA device is visible.
@@ -265,7 +287,9 @@ from __future__ import annotations
 import json
 from collections import Counter
 import math
+import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -274,10 +298,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.kernels import cost  # noqa: E402  (no torch import)
+
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12             # H100 SXM HBM3
-PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core bf16
-              "float32": 67e12}       # float32 outside the tensor cores
+# the H100's memory rate and peak rates by dtype, from kernels.cost (the
+# one home of each kernel's work and of the card's rates)
+HBM_BYTES_PER_S = cost.HBM_BYTES_PER_S
+PEAK_FLOPS = cost.PEAK_FLOPS
 YI_LAYERS = 48
 KERNELS = ("paged_attention", "flash_attention", "rglru_scan")
 # kernel against plain version, (atol, rtol).  Both compute in float32 and
@@ -566,18 +593,13 @@ def paged_case(torch, np, rng, *, b, h, hk, dh, page, max_pages, lens,
 
 
 def bound(case_lens, window, h, hk, dh, esize, dtype_name, b, max_pages):
-    """Least time for the work: K and V rows each read once for the tokens
-    attended, q / table / lengths read once, out written once; and the
-    flops 4 * H * Dh per token over the peak rate of the dtype.  Returns
-    (ms, what bounds it, bytes)."""
-    toks = sum(min(int(n), window) if window else int(n) for n in case_lens)
-    nbytes = toks * hk * dh * 2 * esize + 2 * b * h * dh * esize \
-        + b * max_pages * 4 + b * 4
-    flops = 4 * h * dh * toks
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations"), nbytes
+    """Least time for the work (``kernels.cost.paged_cost``): K and V rows
+    each read once for the tokens attended, q / table / lengths read once,
+    out written once; and the flops 4 * H * Dh per token over the peak
+    rate of the dtype.  Returns (ms, what bounds it, bytes)."""
+    flops, nbytes = cost.paged_cost(case_lens, window, h, hk, dh, esize, b,
+                                    max_pages)
+    return (*cost.least_ms(flops, nbytes, dtype_name), nbytes)
 
 
 def paged_sdpa(torch, q, kp, vp, pt, sl):
@@ -925,21 +947,14 @@ def phase_kernel_paged(torch, np):
 
 def flash_bound(sq, skv, causal, window, h, hk, dh, esize, dtype_name,
                 b=1):
-    """Least time for the work: the live (query, key) pairs cost 4 * Dh
-    flops a head over the peak rate of the dtype; q, k, v read once and the
-    output written once over the memory rate, for each of ``b`` rows.  The
-    larger wins.  Returns (ms, what bounds it, flops)."""
-    live = 0                                  # visible (query, key) pairs
-    for i in range(sq):
-        hi = min(i, skv - 1) if causal else skv - 1
-        lo = max(0, i - window + 1) if window > 0 else 0
-        live += max(0, hi - lo + 1)
-    flops = 4 * dh * h * live * b
-    nbytes = (2 * sq * h * dh + 2 * skv * hk * dh) * esize * b
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes"), flops
+    """Least time for the work (``kernels.cost.flash_cost``): the live
+    (query, key) pairs cost 4 * Dh flops a head over the peak rate of the
+    dtype; q, k, v read once and the output written once over the memory
+    rate, for each of ``b`` rows.  The larger wins.  Returns (ms, what
+    bounds it, flops)."""
+    flops, nbytes = cost.flash_cost(b, sq, skv, h, hk, dh, causal, window,
+                                    esize)
+    return (*cost.least_ms(flops, nbytes, dtype_name), flops)
 
 
 def phase_kernel_flash(torch, np):
@@ -1200,10 +1215,8 @@ def phase_kernel_scan(torch, np):
         add_ms = time_ms(torch, lambda: torch.add(a, bb, out=o), 50, flush)
         # a and b read once, every h_t written once: 12 bytes a step and
         # channel, 2 flops
-        t_bytes = 12 * b * s_len * dr / HBM_BYTES_PER_S
-        t_ops = 2 * b * s_len * dr / PEAK_FLOPS["float32"]
-        bound_ms = max(t_bytes, t_ops) * 1e3
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        bound_ms, bound_by = cost.least_ms(*cost.scan_cost(b, s_len, dr),
+                                           "float32")
         log(f"[scan] times at recurrentgemma-9b prefill B={b} S={s_len} "
             f"Dr={dr} float32, cold L2: kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms=none (no single PyTorch "
@@ -4253,10 +4266,8 @@ def phase_scan_grad(torch, np):
         hs, leaves, dh, retain_graph=True), 20, flush_buf.zero_)
     plain_ms = time_ms(torch, lambda: ref.rglru_scan_ref(a_rev, dh_rev), 3,
                        flush_buf.zero_)
-    t_bytes = 12 * b * s_len * dr / HBM_BYTES_PER_S
-    t_ops = 2 * b * s_len * dr / PEAK_FLOPS["float32"]
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bound_ms, bound_by = cost.least_ms(*cost.scan_cost(b, s_len, dr),
+                                       "float32")
     log(f"[scan-grad] B={b} S={s_len} Dr={dr} float32: da/db/dh0 relative "
         f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} (tol {SCAN_GRAD_TOL:g}) "
         f"ok; 2 launches a forward and backward; reversed launch "
@@ -5126,6 +5137,160 @@ def phase_fixed_pipeline(torch, np, card: str, params, miner_outs,
     return paths, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry run's table, and three one-card cells held to it
+# ---------------------------------------------------------------------------
+
+# the table runs in a subprocess started with the script (meta tensors
+# only, kept off the card, at a lower priority), in DRYRUN_JOBS worker
+# processes; it is stopped (SIGSTOP) while the yi-9b serving phases 7-12
+# run, whose host-bound stage times set the latency curve's gated ratio
+# (chip run 5 of PR 23: T_S 34.2 ms beside a running table, 25.9 ms in
+# run 3, and the ratio 2.86x under its 3.0x floor)
+DRYRUN_JOBS = 4
+DRYRUN_TABLE_BUDGET_S = 1050
+DRYRUN_DIR = ROOT / "experiments" / "dryrun_torch"
+DRYRUN_LOG = ROOT / "build" / "dryrun_table.log"
+# flash launches a counted and a timed run of each checked cell: yi-9b's
+# 48 layers a prefill, N_B x 48 a pipelined prefill (no kernel in its
+# dense-cache decode step), gemma3-1b's 26 layers a training step
+DRYRUN_FLASH = {"dryrun-prefill": 2 * 48, "dryrun-pipe": 2 * 4 * 48,
+                "dryrun-train": 2 * 26}
+
+
+def start_dryrun_table():
+    """``python -m repro_torch.launch.dryrun --all`` in the background:
+    meta tensors only, so it sees no card (``CUDA_VISIBLE_DEVICES`` empty)
+    and one thread a worker; its log goes to ``build/``."""
+    DRYRUN_LOG.parent.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    log_f = open(DRYRUN_LOG, "w")
+    # its own process group, so that stopping it stops its workers too
+    proc = subprocess.Popen(
+        ["nice", "-n", "10", sys.executable, "-m",
+         "repro_torch.launch.dryrun", "--all", "--jobs", str(DRYRUN_JOBS),
+         "--out", str(DRYRUN_DIR)],
+        cwd=str(ROOT), env=env, stdout=log_f, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    proc.log_file = log_f
+    return proc
+
+
+def pause_dryrun_table(proc, pause: bool) -> None:
+    """Stop (``pause``) or continue the table's process group, workers
+    included; it may have ended already."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGSTOP if pause else signal.SIGCONT)
+        log(f"[dryrun] table {'stopped' if pause else 'continued'}")
+
+
+def stop_dryrun_table(proc) -> None:
+    """Kill the table's process group if it still runs (its workers with
+    it), and reap it."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        os.killpg(proc.pid, signal.SIGCONT)
+    proc.wait()
+    proc.log_file.close()
+
+
+def _dryrun_table(proc, timeout_s: float) -> dict:
+    """Wait for the table and check it: every cell ok, or skipped where
+    the JAX dry run skips it (the 500k decode of a pure full-attention
+    arch); count the cells one H100 holds."""
+    from repro_torch.config import SHAPES, get_arch, list_archs
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=timeout_s)
+    waited = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"[dryrun] the table exited {rc}; see "
+                           f"{DRYRUN_LOG}: "
+                           + DRYRUN_LOG.read_text()[-2000:])
+    recs, fits, dominant = [], [], Counter()
+    for arch in list_archs():
+        for shape in SHAPES:
+            for mesh in ("single_pod", "multi_pod"):
+                path = DRYRUN_DIR / f"{arch}__{shape}__{mesh}.json"
+                rec = json.loads(path.read_text())
+                skip = shape == "long_500k" and \
+                    not get_arch(arch).is_subquadratic()
+                if not rec["ok"] or rec["skipped"] != skip:
+                    raise RuntimeError(f"[dryrun] {path.name}: ok "
+                                       f"{rec['ok']}, skipped "
+                                       f"{rec['skipped']} (want {skip}): "
+                                       f"{rec.get('error')}")
+                recs.append(rec)
+                if skip:
+                    continue
+                mem, roof = rec["memory"], rec["roofline"]
+                dominant[roof["dominant"]] += 1
+                if mem["fits_h100_80gb"]:
+                    fits.append(f"{arch}/{shape}/{mesh}")
+                log(f"[dryrun-table] {arch} {shape} {mesh}: peak "
+                    f"{mem['peak_per_device'] / 1e9:.2f} GB a device "
+                    f"({'fits' if mem['fits_h100_80gb'] else 'over'} 80 "
+                    f"GB), {roof['dominant']}, bound "
+                    f"{roof['bound_step_s'] * 1e3:.3f} ms, traced in "
+                    f"{rec['trace_s']:.1f} s")
+    traced = sum(not r["skipped"] for r in recs)
+    log(f"[dryrun] table: {len(recs)} cells, {traced} traced and ok, "
+        f"{len(recs) - traced} skipped as the JAX dry run skips them; "
+        f"{len(fits)} of {traced} fit one H100's 80 GB a device; dominant "
+        f"terms {dict(dominant)}; waited {waited:.1f} s for it")
+    return {"cells": len(recs), "traced": traced,
+            "skipped": len(recs) - traced, "fit_one_h100": len(fits),
+            "dominant": dict(dominant), "wait_s": waited}
+
+
+def phase_dryrun(torch, card: str, table_proc, table_timeout_s: float):
+    """Phase 16; returns (launch counts by path, the ``dryrun`` summary)."""
+    from repro_torch.launch import dryrun as dr
+    t0 = time.perf_counter()
+    summary = {"table": _dryrun_table(table_proc, table_timeout_s),
+               "cells": {}}
+    paths, params = {}, None
+    for name, build in dr.CHECKS:
+        _free_card(torch)
+        reset_counts()
+        got = dr.check_cell(build, "cuda",
+                            params if build is dr._yi_pipe else None)
+        counts = read_counts()
+        made = got.pop("params")
+        params = made if build is dr._yi_prefill else None
+        del made
+        s = dr.check_summary(name, got)
+        bad = dr.gate(s)
+        if got["kernel_calls"] != got["predicted"]["kernel_calls"]:
+            bad.append(f"kernel calls {got['kernel_calls']} on the card, "
+                       f"{got['predicted']['kernel_calls']} predicted")
+        if counts["flash_attention"] != DRYRUN_FLASH[name]:
+            bad.append(f"flash launches {counts['flash_attention']}, want "
+                       f"{DRYRUN_FLASH[name]}")
+        a_pred, a_card = s["argument_bytes"]
+        p_pred, p_card = s["peak"]
+        log(f"[{name}] arguments predicted {a_pred:,} B, card "
+            f"memory_allocated {a_card:,} B ({s['argument_rel_err']:.4%}; "
+            f"the tensors asked for {s['argument_requested']:,} B); "
+            f"flops predicted {s['flops'][0]:,}, counted on the card "
+            f"{s['flops'][1]:,} ({'equal' if s['flops_equal'] else 'DIFFER'}"
+            f"); peak predicted {p_pred / 2 ** 30:.3f} GiB, card "
+            f"max_memory_allocated {p_card / 2 ** 30:.3f} GiB (ratio "
+            f"{s['peak_ratio']:.4f}); step {s['step_ms']:.2f} ms, roofline "
+            f"bound {s['bound_ms']:.2f} ms ({s['dominant']}), step / bound "
+            f"{s['step_over_bound']:.3f}; flash launches "
+            f"{counts['flash_attention']}; on {card}")
+        if bad:
+            raise RuntimeError(f"[{name}] " + "; ".join(bad))
+        summary["cells"][name] = s
+        paths[name] = counts
+    del params
+    _free_card(torch)
+    summary["wall_s"] = time.perf_counter() - t0
+    log(f"[dryrun] phase 16 wall time {summary['wall_s']:.1f} s")
+    return paths, summary
+
+
 def yi_params(torch):
     """Full-width, full-depth yi-9b weights in bf16 from the seed, shared by
     the yi-9b serve phases."""
@@ -5154,6 +5319,15 @@ def main() -> int:
         return 2
     import numpy as np
 
+    table = start_dryrun_table()
+    t_start = time.perf_counter()
+    try:
+        return run_phases(torch, np, table, t_start)
+    finally:
+        stop_dryrun_table(table)
+
+
+def run_phases(torch, np, table, t_start: float) -> int:
     smi_line, name = phase_card(torch)
     sass = phase_build()
     paged = phase_kernel_paged(torch, np)
@@ -5163,6 +5337,7 @@ def main() -> int:
     phase_parity(torch, np)
     phase_parity_resilience(torch, np)
     swap_order = phase_swap_order(torch, np, smi_line)
+    pause_dryrun_table(table, True)
     params = yi_params(torch)
     paths = {}
     paths["yi-9b"], serve_wall, serve_outs = phase_serve(torch, np,
@@ -5183,6 +5358,7 @@ def main() -> int:
         dict(outs=serve_outs, counts=paths["yi-9b"]), int8_outs,
         local_run, res_counts)
     paths.update(trace_counts)
+    pause_dryrun_table(table, False)
     fixed_counts, fixed_pipe = phase_fixed_pipeline(
         torch, np, smi_line, params, pipe_outs, local_run["outs"])
     paths.update(fixed_counts)
@@ -5202,6 +5378,12 @@ def main() -> int:
         paths.update(arch_counts)
     train_counts, train = phase_frontends_and_training(torch, np, smi_line)
     paths.update(train_counts)
+    # the table has had the whole run so far; it may take what is left of
+    # DRYRUN_TABLE_BUDGET_S from the script's start
+    dry_counts, dryrun = phase_dryrun(
+        torch, smi_line, table,
+        max(60.0, DRYRUN_TABLE_BUDGET_S - (time.perf_counter() - t_start)))
+    paths.update(dry_counts)
 
     def launches(kernel):
         by_path = {path: c[kernel] for path, c in paths.items()}
@@ -5238,6 +5420,7 @@ def main() -> int:
     print(json.dumps({"archs": archs}))
     print(json.dumps({"train": train}))
     print(json.dumps({"fixed_pipe": fixed_pipe}))
+    print(json.dumps({"dryrun": dryrun}))
     print(json.dumps({"kernels": entries}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,16 @@
 """Dispatch between the hand-written kernels and their plain versions.
 
-The route is decided by where the tensors lie, and nothing else: a CPU
-tensor goes to the plain PyTorch version in ``kernels.ref``; a CUDA tensor
-goes to the Hopper kernel, which raises on a shape or dtype it does not
-take.  No shape ever sends a CUDA tensor to the plain version.
+The route is decided by where the tensors lie, and nothing else
+(``route``): a CPU tensor goes to the plain PyTorch version in
+``kernels.ref``; a CUDA tensor goes to the Hopper kernel, which raises on a
+shape or dtype it does not take; a meta tensor (the dry run's allocation-
+free trace, ``launch.dryrun``) gets empty outputs of the kernel's shapes
+and dtypes.  No shape ever sends a CUDA tensor to the plain version or the
+meta route, and no failure falls through to either.  The meta and CUDA
+routes book the kernel's flops and bytes (``kernels.cost``) with the dry
+run's counter when one is open; with none open that is one list test.
+The paged kernel has no meta route: the dry run decodes over dense
+caches, as the JAX dry run does, and a meta pool raises in the wrapper.
 
 When a training step asks for gradients (grad mode on and an input that
 requires grad), the flash and scan calls go through the
@@ -17,12 +24,52 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import cost, ref
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_cuda
 from repro_torch.kernels.paged_attention import \
     paged_decode_attention as _paged_cuda
 from repro_torch.kernels.rglru_scan import rglru_scan as _rglru_cuda
+
+
+def route(device: torch.device) -> str:
+    """``"plain"`` for the CPU, ``"meta"`` for the meta device, else
+    ``"kernel"``: a CUDA tensor always goes to the hand-written kernel."""
+    if device.type == "cpu":
+        return "plain"
+    return "meta" if device.type == "meta" else "kernel"
+
+
+def _meta_only(name: str, *tensors) -> None:
+    """The meta route takes meta tensors only: a mix of devices raises,
+    as the kernel's own check would."""
+    for t in tensors:
+        if t is not None and t.device.type != "meta":
+            raise ValueError(f"{name}: the meta route got a tensor on "
+                             f"{t.device}; every input must be on meta")
+
+
+def _flash_meta(q, k, v, causal: bool, window: int, return_lse: bool):
+    """The kernel's outputs, empty, on meta: (B, Sq, H, Dh) in q's dtype
+    and with ``return_lse`` the (B, Hk, G, Sq) float32 log-sum-exp.  A
+    group size the kernel is not built for pads on the card
+    (``kernels.groups``); those copies are not traced."""
+    _meta_only("flash_attention", q, k, v)
+    cost.record_flash(q, k, causal, window, return_lse)
+    out = torch.empty_like(q)
+    if not return_lse:
+        return out
+    b, sq, h, _ = q.shape
+    hk = k.shape[2]
+    return out, torch.empty((b, hk, h // hk, sq), dtype=torch.float32,
+                            device=q.device)
+
+
+def _flash_kernel(q, k, v, causal: bool, window: int, return_lse: bool):
+    """The CUDA route: book the call, launch the kernel."""
+    cost.record_flash(q, k, causal, window, return_lse)
+    return _flash_cuda(q, k, v, causal=causal, window=window,
+                       return_lse=return_lse)
 
 
 def _wants_grad(*tensors) -> bool:
@@ -51,9 +98,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     With gradients wanted, ``FlashAttention``."""
     if _wants_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window)
-    if q.device.type == "cpu":
+    r = route(q.device)
+    if r == "plain":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    return _flash_cuda(q, k, v, causal=causal, window=window)
+    if r == "meta":
+        return _flash_meta(q, k, v, causal, window, False)
+    return _flash_kernel(q, k, v, causal, window, False)
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor,
@@ -71,8 +121,15 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
 
 
 def _scan(a, b, h0=None):
-    if a.device.type == "cpu":
+    r = route(a.device)
+    if r == "plain":
         return ref.rglru_scan_ref(a, b, h0)
+    if r == "meta":
+        # the kernel's output, empty: every h_t (B, S, Dr) float32
+        _meta_only("rglru_scan", a, b, h0)
+        cost.record_scan(a, h0)
+        return torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    cost.record_scan(a, h0)
     return _rglru_cuda(a, b, h0)
 
 
@@ -81,20 +138,23 @@ class FlashAttention(torch.autograd.Function):
     JAX package's (``repro.models.attention._flash_vjp``).
 
     The forward is the kernel with its log-sum-exp output on a CUDA
-    tensor, or ``ref.flash_attention_ref(return_lse=True)`` on the CPU; it
-    saves ``(q, k, v, out, lse)``.  The backward is
-    ``models.attention.flash_attention_bwd`` on both devices (the JAX
+    tensor, ``ref.flash_attention_ref(return_lse=True)`` on the CPU, or
+    the meta route's empty outputs on meta; it saves ``(q, k, v, out,
+    lse)``.  The backward is ``models.attention.flash_attention_bwd`` on
+    every device (the JAX
     backward is jnp, not Pallas), so the CPU tests hold the very code the
     card runs against ``jax.grad``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        if q.device.type == "cpu":
+        r = route(q.device)
+        if r == "plain":
             out, lse = ref.flash_attention_ref(q, k, v, causal=causal,
                                                window=window, return_lse=True)
+        elif r == "meta":
+            out, lse = _flash_meta(q, k, v, causal, window, True)
         else:
-            out, lse = _flash_cuda(q, k, v, causal=causal, window=window,
-                                   return_lse=True)
+            out, lse = _flash_kernel(q, k, v, causal, window, True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out

@@ -215,11 +215,15 @@ def patch_positions3(batch: int, n_patches: int, device=None) -> torch.Tensor:
 # Initialisation
 # ---------------------------------------------------------------------------
 
-def dense_init(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
-               device: torch.device, fan_in: Optional[int] = None):
+def dense_init(gen: Optional[torch.Generator], shape: tuple,
+               dtype: torch.dtype, device: torch.device,
+               fan_in: Optional[int] = None):
     """normal x 1/sqrt(fan_in), drawn in float32 and cast — the recipe of
     ``repro.models.common.dense_init``.  Only this one tensor's float32
-    copy is alive at a time."""
+    copy is alive at a time.  On the meta device it draws nothing (``gen``
+    may be None): an empty tensor of the shape and dtype."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     fan_in = fan_in if fan_in is not None else shape[0]
     scale = 1.0 / math.sqrt(max(fan_in, 1))
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)

@@ -109,10 +109,13 @@ def init_params(cfg: ModelConfig, seed: int, rt: Runtime = DEFAULT_RUNTIME,
     (``cuda`` unless asked, see ``resolve_device``) one tensor at a time in
     ``rt.param_dtype``.  The numbers differ from the JAX package's (another
     generator); tests that compare the two convert the JAX weights instead
-    (``models.convert``)."""
+    (``models.convert``).  On the meta device (the dry run's stand-ins)
+    every leaf has its shape and dtype and nothing is drawn."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     pd = rt.param_dtype
     D, F = cfg.d_model, cfg.d_ff
     H, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
