@@ -266,6 +266,35 @@ Phases, each of which raises on failure (the script then exits non-zero):
    within [0.8, 1.25], and a step (host clock, synchronised) no faster
    than the roofline bound; each is run twice (counted, then timed).
 
+17. pipeline stages placed by device (``EngineConfig(mesh=)``: each
+   stage's weights, pools and offloader on its device, the activation
+   handed card to card).  Phases 10, 11, 12 and 15 already ran through
+   this one placement path with every stage on ``cuda:0``
+   (``[multi-gpu-placement]``).  On any machine, ``[multi-gpu-mixed]``:
+   yi-9b's widths at 4 layers in float32 from the seed, 2 stages, N_B =
+   2, phase 6's parity requests, with ``mesh=["cuda:0", "cpu"]`` against
+   ``["cuda:0", "cuda:0"]``: greedy streams equal on the fp32 and the
+   int8 wire (the CPU stage takes the plain paged attention: the routing
+   rule for a CPU tensor), each stage's single-sequence decode time on
+   its device printed; and ``[multi-gpu-tied]``, gemma3-1b's widths at
+   12 layers across the same boundary, the exact prefill walking the
+   stages and the tied head's table a copy on the CPU, greedy streams
+   equal ``["cuda:0", "cuda:0"]``'s.  Where ``torch.cuda.device_count()
+   >= 2``: ``[multi-gpu-kernels]``, each kernel against its plain version
+   on ``cuda:1`` (one shape each from phases 3-5); elsewhere ``[multi-gpu]
+   1 card visible: the several-card runs did not run``.  The several-card
+   serving runs would take the whole script past its limit, so only
+   ``phase_multi_gpu_alone`` makes them: ``[multi-gpu-yi9b]``, phase 10's
+   20 requests over ``cuda:0, cuda:1`` with an offloader a stage, streams
+   equal the one-card pipe's on both wires; ``[multi-gpu-reshard]``, 2 ->
+   1 -> 2 stages across the cards mid-run, the same streams, the GiB
+   moved card to card and the seconds; ``[multi-gpu-fixed]``, phase 15's
+   passes over both cards equal one card's bit for bit;
+   ``[multi-gpu-phi3.5]``, full-depth phi3.5-moe (32 layers, 83.7 GB)
+   over two cards, 20/20 with finite log-probs, each card's peak; and
+   with four cards ``[multi-gpu-llama3]``, llama3-70b at full depth (141
+   GB) over four.
+
 Each serve phase sets every kernel's launch count to 0 just before it
 drives its path and reads them just after; the kernels line reports those
 counts by path.
@@ -276,8 +305,9 @@ numbers and wall times), a ``{"resilience": ...}`` line (phase 11's), a
 ``{"trace": ...}`` line (phase 12's), an ``{"archs": ...}`` line
 (phase 13's), a ``{"train": ...}`` line (phase 14's), a
 ``{"fixed_pipe": ...}`` line (phase 15's), a ``{"dryrun": ...}`` line
-(phase 16's), a ``{"kernels": [...]}`` line,
-the card's
+(phase 16's), a ``{"multi_gpu": ...}`` line (phase 17's: ``cards``,
+``several_card_runs``, ``serving_runs``), a ``{"kernels": [...]}``
+line, the card's
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  It exits non-zero without a
 result when no CUDA device is visible.
 """
@@ -630,7 +660,9 @@ def phase_card(torch):
     name = torch.cuda.get_device_name(0)
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"device 0: {name}; devices visible: {torch.cuda.device_count()}")
-    log(f"[card] nvidia-smi: {line}")
+    for d, card_line in enumerate(smi.strip().splitlines()):
+        log(f"[card] nvidia-smi: {card_line}" if d == 0 else
+            f"[card] nvidia-smi, card {d}: {card_line}")
     return line, name
 
 
@@ -2103,8 +2135,9 @@ def phase_plan(torch, np, card: str, params):
         m_kv *= 0.75
     log(f"[plan] on {card}: pinned copy rate H2D {h2d / 1e9:.2f} GB/s, D2H "
         f"{d2h / 1e9:.2f} GB/s ({PLAN_COPY_BYTES >> 20} MiB a copy); "
-        f"measured stage_time {t_s * 1e3:.2f} ms (one single-sequence "
-        f"decode step / {PLAN_STAGES} stages); latency "
+        f"measured stage_time {t_s * 1e3:.2f} ms (the slowest of "
+        f"{PLAN_STAGES} stages' single-sequence decode steps, each timed on "
+        f"its device); latency "
         f"{PLAN_LATENCY * 1e3:.0f} ms; m_kv_bytes {m_kv / 2 ** 30:.3f} GiB"
         f"{note}; implied pinned host store {host / 2 ** 30:.3f} GiB")
     econf = EngineConfig.plan(m_kv_bytes=m_kv, seed=SEED,
@@ -5291,6 +5324,549 @@ def phase_dryrun(torch, card: str, table_proc, table_timeout_s: float):
     return paths, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 17: pipeline stages placed by device
+# ---------------------------------------------------------------------------
+
+# the mixed drill: yi-9b's widths at 4 layers, float32, stage 0 on the card
+# and stage 1 on the CPU, phase 6's parity requests on both wires
+MIXED_LAYERS, MIXED_MESH = 4, ("cuda:0", "cpu")
+MIXED_NEW = 16
+# and a tied head across the boundary: gemma3-1b's widths at two periods
+# (12 layers, the exact prefill walking the stages), the first requests
+MIXED_TIED_LAYERS, MIXED_TIED_REQUESTS = 12, 6
+# the several-card runs: yi-9b over two cards (phase 10's engine), the
+# fixed-batch passes (phase 15's geometry), a 2 -> 1 -> 2 reshard after
+# these engine steps, full-depth phi3.5-moe over two cards and llama3-70b
+# over four
+MULTI_RESHARD_STEPS = (20, 40)
+LLAMA_MB, LLAMA_N_MB, LLAMA_STAGES = 4, 4, 4
+
+
+def _gib(nbytes) -> float:
+    return nbytes / 2 ** 30
+
+
+def phase_multi_gpu_mixed(torch, np, card: str):
+    """[multi-gpu-mixed]: a real device boundary on one card.  The same
+    weights through a 2-stage pipe with ``mesh=["cuda:0", "cuda:0"]`` and
+    with ``mesh=["cuda:0", "cpu"]``: the activation, the page tables, the
+    positions and the drained tokens cross between the card and the CPU,
+    whose stage takes the plain paged attention (the routing rule: the
+    plain version serves a CPU tensor).  Float32, as phases 6 and 6c hold
+    the CPU against the card: greedy streams equal token for token on the
+    fp32 and the int8 wire; then a tied head across the same boundary
+    (``_mixed_tied``).  Returns (launch counts by path: the mixed fp32 run
+    and the tied one, the summary)."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.launch.serve import stage_times
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import Runtime
+    from repro_torch.serving.backend import stage_devices
+    from repro_torch.serving.kv_cache import PoolConfig
+    from repro_torch.serving.llm import LLM, EngineConfig
+    from repro_torch.serving.request import SamplingParams
+
+    _free_card(torch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("yi-9b"), num_layers=MIXED_LAYERS)
+    rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
+    # phase 6's parity requests: 10 prompts of 20-199 tokens, 16 greedy
+    # tokens each, through 2 x 4 slots
+    rng = np.random.RandomState(SEED + 1)
+    lens = rng.randint(20, 200, 10)
+    prompts = [list(rng.randint(1, cfg.vocab_size, n)) for n in lens]
+    sp = SamplingParams(temperature=0.0, max_new_tokens=MIXED_NEW)
+    layout = dict(mb_size=4, num_microbatches=2, pool=PoolConfig(
+        page_size=16, n_local_pages=8 * 16 + 1, max_pages_per_seq=16),
+        backend="pipelined", n_stages=2, seed=SEED)
+    card_mesh = ["cuda:0", "cuda:0"]
+    params = model_lib.init_params(cfg, SEED, rt, "cuda:0")
+    out, counts = {"layers": MIXED_LAYERS, "requests": len(prompts)}, None
+    for wire in ("fp32", "int8"):
+        streams, launches = [], []
+        for mesh in (card_mesh, list(MIXED_MESH)):
+            name = "+".join(mesh)
+            llm = LLM(cfg, config=EngineConfig(mesh=mesh, wire_dtype=wire,
+                                               **layout),
+                      params=params, rt=rt, reduced=False, device="cuda:0")
+            be = llm.engine.backend
+            moved = llm.engine.moved_bytes
+            reset_counts()
+            t0 = time.perf_counter()
+            outs = llm.generate(prompts, sp)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            c = read_counts()
+            if not all(o.finished and len(o.token_ids) == MIXED_NEW
+                       for o in outs):
+                raise AssertionError(f"multi-gpu-mixed {name} {wire}: "
+                                     "unfinished requests")
+            streams.append([o.token_ids for o in outs])
+            launches.append(c["paged_attention"])
+            per_stage = stage_times(cfg, params, rt, 2, "cuda:0", mesh)
+            devs = [str(d) for d in be.stage_devices]
+            log(f"[multi-gpu-mixed] {wire} wire, stages on {devs} "
+                f"({_gib(moved):.3f} GiB of weights placed before the run): "
+                f"{len(outs)} greedy streams in {wall:.2f} s wall, "
+                f"{be.decode_ticks} decode ticks, paged launches "
+                f"{c['paged_attention']}; one single-sequence decode step "
+                "a stage, each on its device: "
+                + ", ".join(f"stage {s} ({d}) {t * 1e3:.2f} ms"
+                            for s, (d, t) in enumerate(zip(devs,
+                                                           per_stage))))
+            out[f"{wire} {name}"] = {"wall_s": wall,
+                                     "stage_ms": [t * 1e3 for t in
+                                                  per_stage],
+                                     "paged_launches": c["paged_attention"],
+                                     "decode_ticks": be.decode_ticks}
+            if mesh != card_mesh:
+                if be.stage_devices != stage_devices(mesh, 2, "cuda:0"):
+                    raise AssertionError(f"multi-gpu-mixed: stages on "
+                                         f"{be.stage_devices}")
+                if wire == "fp32":
+                    counts = c
+            del llm, be
+        a, b = streams
+        diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        if diff:
+            raise AssertionError(f"multi-gpu-mixed {wire}: streams {diff} "
+                                 "differ between cuda:0+cuda:0 and "
+                                 "cuda:0+cpu")
+        if not 0 < launches[1] < launches[0]:
+            raise AssertionError(f"multi-gpu-mixed {wire}: paged launches "
+                                 f"{launches[1]} with a CPU stage, "
+                                 f"{launches[0]} on the card alone")
+        log(f"[multi-gpu-mixed] {wire} wire on {card}: all {len(a)} greedy "
+            "streams equal token for token, cuda:0+cpu against "
+            "cuda:0+cuda:0 (the CPU stage runs the plain paged attention: "
+            "the routing rule for a CPU tensor, not a fallback)")
+    del params
+    out["tied"], tied_counts = _mixed_tied(torch, np, card, prompts,
+                                           layout, sp)
+    return {"yi-9b 4 layers cuda:0+cpu": counts,
+            "gemma3-1b 12 layers cuda:0+cpu": tied_counts}, out
+
+
+def _mixed_tied(torch, np, card: str, prompts, layout: dict, sp):
+    """[multi-gpu-tied]: a tied head across the mixed drill's boundary.
+    gemma3-1b's widths at 12 layers (two periods, one a stage), float32:
+    stage 0 embeds from ``embed["tok"]`` on the card, the last stage's
+    head reads its copy on the CPU (``models.model.tied_head``), and every
+    prompt takes the exact prefill through the stages.  Greedy streams
+    equal ``["cuda:0", "cuda:0"]``'s, where the head reads ``tok``
+    itself.  Returns (the summary, launch counts of the mixed run)."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import Runtime
+    from repro_torch.serving.llm import LLM, EngineConfig
+
+    _free_card(torch)
+    cfg = dataclasses.replace(get_arch("gemma3-1b"),
+                              num_layers=MIXED_TIED_LAYERS)
+    rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
+    params = model_lib.init_params(cfg, SEED, rt, "cuda:0")
+    prompts = prompts[:MIXED_TIED_REQUESTS]
+    streams, out, counts = [], {}, None
+    for mesh in (["cuda:0", "cuda:0"], list(MIXED_MESH)):
+        llm = LLM(cfg, config=EngineConfig(mesh=mesh, **layout),
+                  params=params, rt=rt, reduced=False, device="cuda:0")
+        head = llm.engine.backend.head
+        if (head is None) != (mesh[-1] == "cuda:0") or (
+                head is not None and head.device.type != "cpu"):
+            raise AssertionError(f"multi-gpu-tied {mesh}: head {head}")
+        reset_counts()
+        t0 = time.perf_counter()
+        outs = llm.generate(prompts, sp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = read_counts()
+        if not all(o.finished and len(o.token_ids) == MIXED_NEW
+                   for o in outs):
+            raise AssertionError(f"multi-gpu-tied {mesh}: unfinished")
+        streams.append([o.token_ids for o in outs])
+        mib = 0.0 if head is None else \
+            head.numel() * head.element_size() / 2 ** 20
+        name = "+".join(mesh)
+        log(f"[multi-gpu-tied] gemma3-1b widths, {MIXED_TIED_LAYERS} "
+            f"layers, stages on {name}: {len(outs)} greedy streams in "
+            f"{wall:.2f} s wall (exact prefill through the stages); the "
+            f"head's table a {mib:.1f} MiB copy on the last stage's device"
+            f"; launches {c}")
+        out[name] = {"wall_s": wall, "head_copy_mib": mib, "launches": c}
+        if head is not None:
+            counts = c
+        del llm, head
+    del params
+    diff = [i for i, (x, y) in enumerate(zip(*streams)) if x != y]
+    if diff:
+        raise AssertionError(f"multi-gpu-tied: streams {diff} differ "
+                             "between cuda:0+cuda:0 and cuda:0+cpu")
+    log(f"[multi-gpu-tied] on {card}: all {len(prompts)} greedy streams "
+        "equal token for token, cuda:0+cpu (the head's copy on the CPU) "
+        "against cuda:0+cuda:0")
+    return out, counts
+
+
+def _multi_gpu_kernels(torch, np, dev):
+    """Each kernel against its plain version on ``dev`` (a second card), at
+    one shape each from phases 3-5."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rs
+    rng = np.random.RandomState(SEED)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    errs = {}
+    with torch.cuda.device(dev):
+        lens = rng.randint(1, 128 * 16 + 1, 16)
+        args = paged_case(torch, np, rng, b=16, h=32, hk=4, dh=128, page=16,
+                          max_pages=128, lens=lens, dtype=torch.bfloat16,
+                          device=dev)
+        got = pa.paged_decode_attention(*args)
+        want = ref.paged_decode_attention_ref(*args)
+        atol, rtol = TOL["bfloat16"]
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+        errs["paged_attention"] = (got.float() - want.float()).abs().max()
+        q, k, v = (torch.randn((1, 1024, h, 256), generator=gen, device=dev
+                               ).to(torch.bfloat16) for h in (16, 8, 8))
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+        errs["flash_attention"] = (got.float() - want.float()).abs().max()
+        a = torch.sigmoid(torch.randn((1, 1024, 4096), generator=gen,
+                                      device=dev))
+        b = torch.randn((1, 1024, 4096), generator=gen, device=dev)
+        h0 = torch.randn((1, 4096), generator=gen, device=dev)
+        got = rs.rglru_scan(a, b, h0)
+        want = ref.rglru_scan_ref(a, b, h0)
+        torch.testing.assert_close(got, want, atol=SCAN_TOL, rtol=SCAN_TOL)
+        errs["rglru_scan"] = (got - want).abs().max()
+        torch.cuda.synchronize(dev)
+    if dev not in pa._workspace or torch.device("cuda", 0) \
+            not in pa._workspace:
+        raise AssertionError(f"multi-gpu: paged workspaces on "
+                             f"{list(pa._workspace)}, want one a card")
+    errs = {k: float(v) for k, v in errs.items()}
+    log(f"[multi-gpu-kernels] on {dev}: paged decode (yi-9b shapes, bf16) "
+        f"max |kernel - plain| {errs['paged_attention']:.3e}, flash (gemma3"
+        f"-12b prefill, S 1024, bf16) {errs['flash_attention']:.3e}, scan "
+        f"(S 1024, Dr 4096) {errs['rglru_scan']:.3e}; one paged workspace "
+        f"a card: {sorted(str(d) for d in pa._workspace)}")
+    return errs
+
+
+def _peaks(torch, n_cards: int) -> list:
+    return [_gib(torch.cuda.max_memory_allocated(d)) for d in range(n_cards)]
+
+
+def _reset_peaks(torch, n_cards: int) -> None:
+    for d in range(n_cards):
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def phase_multi_gpu_yi(torch, np, card: str, params, pipe_outs):
+    """[multi-gpu-yi9b], [multi-gpu-reshard], [multi-gpu-fixed]: full
+    yi-9b (the yi-9b phase's weights) over ``cuda:0, cuda:1``.  Phase 10's
+    offloaded 2-stage engine and requests: the fp32 streams (greedy and
+    sampled) equal phase 10's one-card run's, the int8 ones a one-card
+    int8 run's; a reshard 2 -> 1 -> 2 mid-run gives phase 10's streams;
+    phase 15's fixed-batch passes over both cards equal the one-card passes
+    bit for bit.  The weights go back to ``cuda:0`` at the end.  Returns
+    (launch counts by path, the summary)."""
+    from repro_torch.config import get_arch
+    from repro_torch.core import pipeline as PL
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import Runtime
+    from repro_torch.serving.kv_cache import PoolConfig
+    from repro_torch.serving.llm import LLM, EngineConfig
+
+    cfg = get_arch("yi-9b")
+    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    two = ["cuda:0", "cuda:1"]
+    info, counts = {}, {}
+
+    def engine(mesh, wire):
+        _free_card(torch)
+        return LLM(cfg, config=EngineConfig(
+            mb_size=PIPE_MB, num_microbatches=PIPE_N_MB,
+            pool=PoolConfig(page_size=SERVE_PAGE, n_local_pages=OFF_LOCAL,
+                            n_global_pages=OFF_GLOBAL,
+                            max_pages_per_seq=SERVE_MAX_PAGES),
+            seed=SEED, max_prefill_tokens_per_tick=256, backend="pipelined",
+            n_stages=2, mesh=mesh, wire_dtype=wire), params=params, rt=rt,
+            reduced=False, device="cuda:0")
+
+    def same(tag, outs, ref):
+        diff = [o.request_id for o, r in zip(outs, ref)
+                if o.token_ids != r.token_ids]
+        if diff:
+            raise AssertionError(f"{tag}: streams of requests {diff} differ "
+                                 "from the one-card run's")
+
+    one_int8 = None
+    for mesh, wire in ((["cuda:0", "cuda:0"], "int8"), (two, "fp32"),
+                       (two, "int8")):
+        llm = engine(mesh, wire)
+        be = llm.engine.backend
+        tag = f"multi-gpu-yi9b {'+'.join(mesh)} {wire}"
+        _reset_peaks(torch, 2)
+        outs, rep, c = _serve_yi(torch, np, llm, tag, card)
+        peaks = _peaks(torch, 2)
+        ref = pipe_outs if wire == "fp32" else one_int8
+        if ref is None:
+            one_int8 = outs
+        else:
+            same(tag, outs, ref)
+            counts[f"yi-9b two cards {wire}"] = c
+            info[wire] = {"decode_tok_per_s": rep["decode_tok_per_s"],
+                          "prefill_tok_per_s": rep["prefill_tok_per_s"],
+                          "wall_s": rep["generate_wall_s"],
+                          "swaps": be.swap_count, "peak_gib": peaks,
+                          "placed_gib": _gib(llm.engine.moved_bytes)}
+            log(f"[multi-gpu-yi9b] {wire} wire, stages on "
+                f"{[str(d) for d in be.stage_devices]}: all "
+                f"{len(outs)} streams (greedy and sampled) equal the "
+                "one-card run's token for token; "
+                f"{be.swap_count} swaps over 2 stage offloaders; "
+                f"{_gib(llm.engine.moved_bytes):.2f} GiB of weights moved "
+                "to place "
+                f"the stages; peak GiB a card {peaks[0]:.2f} / "
+                f"{peaks[1]:.2f}")
+        del llm, be
+
+    # a reshard 2 -> 1 -> 2 across the cards mid-run
+    llm = engine(two, "fp32")
+    eng = llm.engine
+    prompts, sps = _yi_requests(np, cfg.vocab_size, SERVE_REQUESTS,
+                                SERVE_PROMPTS, SERVE_NEW)
+    seqs = eng.submit(llm._make_requests(prompts, sps))
+    moves, step = [], 0
+    todo = dict(zip(MULTI_RESHARD_STEPS, (1, 2)))
+    while eng.step():
+        step += 1
+        if step in todo:
+            # the card-to-card copies run on the streams after the
+            # rebuild's host seconds: the wall, synchronised on both cards,
+            # holds them
+            for d in range(2):
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            plan = eng.reshard(n_stages=todo[step])
+            for d in range(2):
+                torch.cuda.synchronize(d)
+            moves.append({"to_stages": todo[step],
+                          "moved_gib": _gib(eng.moved_bytes),
+                          "rebuild_s": plan["seconds"]["rebuild"],
+                          "wall_s": time.perf_counter() - t0,
+                          "seconds": plan["seconds"]})
+            log(f"[multi-gpu-reshard] step {step}: -> {todo[step]} stage(s) "
+                f"on {[str(d) for d in eng.backend.stage_devices]}: "
+                f"{moves[-1]['moved_gib']:.2f} GiB of weights and caches "
+                f"moved card to card, issued in the rebuild's "
+                f"{moves[-1]['rebuild_s']:.3f} s; the whole reshard "
+                f"{moves[-1]['wall_s']:.3f} s to both cards' end (drain "
+                f"{plan['seconds']['drain']:.3f} s, export "
+                f"{plan['seconds']['export']:.3f} s of "
+                f"{_gib(plan['bytes_migrated']):.3f} GiB host stores)")
+    if len(moves) != 2:
+        raise AssertionError(f"multi-gpu-reshard: {len(moves)} reshards in "
+                             f"{step} steps")
+    from repro_torch.serving.llm import RequestOutput
+    same("multi-gpu-reshard", [RequestOutput.from_seq(s) for s in seqs],
+         pipe_outs)
+    log(f"[multi-gpu-reshard] 2 -> 1 -> 2 stages across the cards: all "
+        f"{len(seqs)} streams equal phase 10's one-card run's")
+    info["reshard"] = moves
+    del llm, eng, seqs
+
+    # phase 15's fixed-batch passes over both cards against one card
+    _free_card(torch)
+    pcfg = PL.PipelineConfig(FIXED_STAGES, FIXED_N_MB, FIXED_MB)
+    rng = np.random.RandomState(SEED)
+    tokens = torch.from_numpy(rng.randint(
+        1, cfg.vocab_size, (FIXED_N_MB, FIXED_MB, FIXED_S)).astype(
+            np.int32)).to("cuda:0")
+    cur = torch.full((FIXED_N_MB, FIXED_MB), FIXED_S, dtype=torch.int32,
+                     device="cuda:0")
+    runs = []
+    for mesh in (["cuda:0", "cuda:0"], two):
+        devs = [torch.device(d) for d in mesh]
+        model_lib.place_params(params, PL.layer_devices(cfg, devs))
+        caches = PL.init_pipeline_caches(cfg, pcfg, FIXED_CAP, rt,
+                                         devices=devs)
+        t0 = time.perf_counter()
+        logits, caches = PL.pipeline_prefill(params, tokens, caches, cfg,
+                                             rt, pcfg, devices=devs)
+        tok0 = logits.argmax(-1).to(torch.int32).to("cuda:0")
+        step_logits, _ = PL.pipeline_decode_step(
+            params, tok0, _clone_tree(caches), cur, cfg, rt, pcfg,
+            devices=devs)
+        rounds, _ = PL.pipeline_decode_rounds(
+            params, tok0, caches, cur, cfg, rt, pcfg, rounds=FIXED_R,
+            devices=devs)
+        for d in devs:
+            torch.cuda.synchronize(d)
+        runs.append((logits.cpu(), step_logits.cpu(), rounds.cpu(),
+                     time.perf_counter() - t0))
+        del caches
+    a, b = runs
+    if not all(torch.equal(x, y) for x, y in zip(a[:3], b[:3])):
+        raise AssertionError("multi-gpu-fixed: the passes over two cards "
+                             "differ from one card's")
+    log(f"[multi-gpu-fixed] phase 15's geometry ({FIXED_N_MB} x {FIXED_MB} "
+        f"rows of {FIXED_S}, {FIXED_R} rounds) over cuda:0+cuda:1: prefill "
+        "logits, the decode step's logits and every round's tokens equal "
+        f"the one-card passes bit for bit ({a[3]:.2f} s one card, "
+        f"{b[3]:.2f} s two, wall)")
+    info["fixed"] = {"equal": True, "one_card_s": a[3], "two_cards_s": b[3]}
+    model_lib.place_params(params, [torch.device("cuda", 0)]
+                           * cfg.num_layers)
+    return counts, info
+
+
+def phase_multi_gpu_full_depth(torch, np, card: str, arch: str,
+                               n_cards: int, mb: int, n_mb: int):
+    """A model no one card holds, served at full depth with one stage a
+    card: the weights drawn placed by stage (no card holds more than its
+    share and one layer), the yi-9b phase's 20 requests, every one at full
+    length with finite log-probs; each card's peak printed."""
+    from repro_torch.config import get_arch
+    from repro_torch.core import pipeline as PL
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.llm import EngineConfig
+
+    _free_card(torch)
+    cfg = get_arch(arch)
+    rt = _arch_rt(torch, torch.bfloat16)
+    mesh = [f"cuda:{d}" for d in range(n_cards)]
+    _reset_peaks(torch, n_cards)
+    t0 = time.perf_counter()
+    params = model_lib.init_params(
+        cfg, SEED, rt, "cuda:0", layer_devices=PL.layer_devices(
+            cfg, [torch.device(d) for d in mesh]))
+    for d in range(n_cards):
+        torch.cuda.synchronize(d)
+    init_s = time.perf_counter() - t0
+    init_peaks = _peaks(torch, n_cards)
+    tag = f"multi-gpu-{arch.split('-')[0]}"
+    log(f"[{tag}] {arch} at full depth ({cfg.num_layers} layers, "
+        f"{_param_bytes(params) / 1e9:.1f} GB of bf16 weights) drawn placed "
+        f"over {mesh} in {init_s:.1f} s; peak GiB a card while drawing "
+        + " / ".join(f"{p:.2f}" for p in init_peaks))
+    econf = EngineConfig(mb_size=mb, num_microbatches=n_mb,
+                         pool=_moe_pool(mb, n_mb), seed=SEED,
+                         max_prefill_tokens_per_tick=256,
+                         backend="pipelined", n_stages=n_cards, mesh=mesh)
+    llm, outs, counts, rep, wall = _arch_serve(
+        torch, np, tag, cfg, params, rt, econf, SERVE_REQUESTS,
+        SERVE_PROMPTS, SERVE_NEW)
+    peaks = _peaks(torch, n_cards)
+    be = llm.engine.backend
+    log(f"[{tag}] on {card}: {len(outs)}/{SERVE_REQUESTS} requests with "
+        f"finite log-probs over stages on "
+        f"{[str(d) for d in be.stage_devices]}; peak GiB a card "
+        + " / ".join(f"{p:.2f}" for p in peaks))
+    del llm, be, params
+    _free_card(torch)
+    return counts, {"layers": cfg.num_layers, "cards": n_cards,
+                    "decode_tok_per_s": rep["decode_tok_per_s"],
+                    "prefill_tok_per_s": rep["prefill_tok_per_s"],
+                    "wall_s": wall, "init_s": init_s,
+                    "peak_gib": peaks, "init_peak_gib": init_peaks}
+
+
+def phase_multi_gpu(torch, np, card: str, params, pipe_outs,
+                    serving: bool = True):
+    """Phase 17 while the yi-9b weights are alive: the mixed drill on any
+    machine; where two cards are visible, the kernels on ``cuda:1`` and,
+    with ``serving``, yi-9b over both.  Returns (launch counts by path,
+    the summary)."""
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    info = {"cards": cards, "several_card_runs": cards >= 2}
+    log("[multi-gpu-placement] phases 10, 11, 12 and 15 ran their pipes "
+        "through the placement path (each engine places its stages' "
+        "weights and caches, each backend builds its offloaders on them; "
+        "mesh=None is cuda:0 a stage) and gave the streams they are held to")
+    counts, info["mixed"] = phase_multi_gpu_mixed(torch, np, card)
+    if cards < 2:
+        log(f"[multi-gpu] {cards} card visible: the several-card runs did "
+            "not run")
+    else:
+        info["kernels_cuda1"] = _multi_gpu_kernels(
+            torch, np, torch.device("cuda", 1))
+    if cards >= 2 and serving:
+        yi_counts, info["yi-9b"] = phase_multi_gpu_yi(torch, np, card,
+                                                      params, pipe_outs)
+        counts.update(yi_counts)
+    info["serving_runs"] = cards >= 2 and serving
+    info["wall_s"] = time.perf_counter() - t0
+    log(f"[multi-gpu] phase 17 (with the yi-9b weights) wall time "
+        f"{info['wall_s']:.1f} s")
+    return counts, info
+
+
+def phase_multi_gpu_deep(torch, np, card: str, info: dict):
+    """Phase 17 once the yi-9b weights are gone, where the cards are
+    visible: full-depth phi3.5-moe over two cards, llama3-70b over four.
+    Returns the launch counts by path and fills ``info``."""
+    cards, counts = torch.cuda.device_count(), {}
+    if cards >= 2:
+        counts["phi3.5-moe full depth 2 cards"], info["phi3.5-moe"] = \
+            phase_multi_gpu_full_depth(torch, np, card,
+                                       "phi3.5-moe-42b-a6.6b", 2,
+                                       MOE_PIPE_MB, MOE_PIPE_N_MB)
+    if cards >= LLAMA_STAGES:
+        counts["llama3-70b full depth 4 cards"], info["llama3-70b"] = \
+            phase_multi_gpu_full_depth(torch, np, card, "llama3-70b",
+                                       LLAMA_STAGES, LLAMA_MB, LLAMA_N_MB)
+    elif cards >= 2:
+        log(f"[multi-gpu] {cards} cards visible: llama3-70b over four did "
+            "not run")
+    return counts
+
+
+def phase_multi_gpu_alone(torch, np) -> dict:
+    """Phase 17 by itself: the kernels built, the yi-9b weights made, and
+    phase 10's run 1 (2 stages on one card, no offload) served as the
+    several-card runs' reference.  Prints and returns the ``multi_gpu``
+    summary."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.common import Runtime
+    from repro_torch.serving.kv_cache import PoolConfig
+    from repro_torch.serving.llm import LLM, EngineConfig
+
+    smi_line, _ = phase_card(torch)
+    phase_build()
+    params = yi_params(torch)
+    llm = LLM(get_arch("yi-9b"), config=EngineConfig(
+        mb_size=PIPE_MB, num_microbatches=PIPE_N_MB,
+        pool=PoolConfig(page_size=SERVE_PAGE, n_local_pages=OFF_BASE_LOCAL,
+                        max_pages_per_seq=SERVE_MAX_PAGES),
+        seed=SEED, max_prefill_tokens_per_tick=256, backend="pipelined",
+        n_stages=PIPE_STAGES), params=params,
+        rt=Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16),
+        reduced=False, device="cuda")
+    pipe_outs, rep, _ = _serve_yi(torch, np, llm, "pipe", smi_line)
+    del llm
+    _, info = phase_multi_gpu(torch, np, smi_line, params, pipe_outs)
+    info["one_card_pipe"] = {"decode_tok_per_s": rep["decode_tok_per_s"],
+                             "prefill_tok_per_s": rep["prefill_tok_per_s"]}
+    del params
+    phase_multi_gpu_deep(torch, np, smi_line, info)
+    print(json.dumps({"multi_gpu": info}))
+    return info
+
+
 def yi_params(torch):
     """Full-width, full-depth yi-9b weights in bf16 from the seed, shared by
     the yi-9b serve phases."""
@@ -5362,7 +5938,17 @@ def run_phases(torch, np, table, t_start: float) -> int:
     fixed_counts, fixed_pipe = phase_fixed_pipeline(
         torch, np, smi_line, params, pipe_outs, local_run["outs"])
     paths.update(fixed_counts)
+    # the several-card serving runs (yi-9b, its reshard and passes over two
+    # cards, full-depth phi3.5-moe and llama3-70b: 261.4-279.8 s on four
+    # cards, chip runs 2 and 8 of PR 24) would take the whole script past
+    # its limit there: phase_multi_gpu_alone runs them
+    multi_counts, multi_gpu = phase_multi_gpu(torch, np, smi_line, params,
+                                              pipe_outs, serving=False)
+    paths.update(multi_counts)
     del params
+    if multi_gpu["several_card_runs"]:
+        log("[multi-gpu] the several-card serving runs are "
+            "phase_multi_gpu_alone's, not the whole script's")
     paths["gemma3-12b"], gemma_outs, gemma_params = phase_serve_gemma(
         torch, np, smi_line)
     paths["gemma3-12b traced"], trace["gemma"] = phase_trace_gemma(
@@ -5421,6 +6007,7 @@ def run_phases(torch, np, table, t_start: float) -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"fixed_pipe": fixed_pipe}))
     print(json.dumps({"dryrun": dryrun}))
+    print(json.dumps({"multi_gpu": multi_gpu}))
     print(json.dumps({"kernels": entries}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

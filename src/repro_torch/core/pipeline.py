@@ -13,19 +13,34 @@ the prefill plane (``pipeline_prefill_chunk_tick``) prompt chunks with their
 own page-table rows.
 
 The JAX package runs all stages inside one ``shard_map`` over a ``pod``
-mesh: one controller, one program.  Its eager counterpart here is one
-process that runs the occupied stages in turn, in stage order, on the
-device's current stream, with the pools and states written in place:
+mesh: one controller, one program, one device a stage.  Its eager
+counterpart here is one process that issues the occupied stages in turn,
+in stage order, each on its own device (``devices``, one torch device a
+stage; it may repeat one, and every stage is on the inputs' device when it
+is None), with the pools and states written in place:
 
+- stage ``s`` owns everything it reads and writes on ``devices[s]``: its
+  layers' weights and caches (``models.model.place_params``,
+  ``serving.kv_cache.build_paged_caches(layer_devices=)``), and its
+  positions, offsets and table rows, which the caller puts there;
 - a stage runs ``models.model.run_layers`` over its own layer range on its
-  entry's rows (``serving.kv_cache.slot_view``) or table rows;
+  entry's rows (``serving.kv_cache.slot_view``) or table rows, on its
+  device's current stream;
 - a bubble stage (no entry) does no work and writes nothing, where the
   JAX tick computes it and masks its writes (``jnp.where``);
 - the ``ppermute`` of the activation becomes the next stage's input for
-  the next tick: the tensor itself under ``wire_dtype="fp32"``, the per-row
-  int8 round trip (``distributed.compression``) under ``"int8"``, the
-  payload the transport books;
-- the ``psum`` of the last stage's output becomes that output.
+  the next tick, copied to the next stage's device (``_wire``): between
+  two cards a peer copy that orders itself on both devices' current
+  streams, so no stage waits on the host for another and stages on
+  different cards overlap; to or from the CPU a blocking copy.  Under
+  ``wire_dtype="int8"`` the sender compresses each row to int8 with a
+  float32 scale (``distributed.compression``), the payload and its scales
+  cross, and the receiver decompresses: the bytes that cross are the ones
+  the transport books;
+- the ``psum`` of the last stage's output becomes that output; the
+  epilogue, the final norm, the unembedding and sampling run on the last
+  stage's device (a tied model's table copied there by the caller,
+  ``models.model.tied_head``, and passed as ``head``).
 
 The host decides which stages are occupied (``mb_assign`` / ``occupied``,
 host integers), so a tick needs no device-to-host transfer of its own.
@@ -40,9 +55,10 @@ The fixed-batch passes (``pipeline_prefill``, ``pipeline_decode_step``,
 (``R·N_B + N_S - 1`` for ``R`` greedy rounds).  They own dense caches
 (``init_pipeline_caches``): each stage's layers a microbatch, the
 epilogue's layers over the global batch, as the JAX passes lay them out.
-The same rules hold as for the ticks: the stages run in turn, a bubble
-does no work, the activation itself is the next stage's input (the JAX
-passes ship it raw: no wire codec), and every cache is written in place.
+The same rules hold as for the ticks: the stages run in turn, each on its
+device, a bubble does no work, the activation itself is the next stage's
+input, copied to its device (the JAX passes ship it raw: no wire codec),
+and every cache is written in place.
 A stage call sees one microbatch and the epilogue of a prefill or a
 decode step the whole batch, the JAX passes' call boundaries, which an
 MoE layer's capacity follows.
@@ -108,14 +124,36 @@ def stage_ranges(cfg: ModelConfig, n_stages: int) -> List[Tuple[int, int]]:
     return ranges + [(n_stages * per, cfg.num_layers)]
 
 
-def _wire(y: torch.Tensor, wire_dtype: str) -> torch.Tensor:
-    """What the next stage receives: ``y`` itself (``"fp32"``), or its
-    per-row int8 round trip (``"int8"``: one float32 scale a row), as the
-    JAX ``_wire_permute`` ships it."""
+def layer_devices(cfg: ModelConfig, devices: Sequence) -> list:
+    """One device a layer for a pipe over ``devices`` (one a stage): each
+    stage's layers on its device, the epilogue's on the last stage's."""
+    ranges = stage_ranges(cfg, len(devices))
+    out = [devices[-1]] * cfg.num_layers
+    for (lo, hi), dev in zip(ranges, devices):
+        out[lo:hi] = [dev] * (hi - lo)
+    return out
+
+
+def _stage_devices(devices, default, n_stages: int) -> list:
+    """The tick's or pass's device list: ``devices``, or every stage on
+    ``default`` (the inputs' device)."""
+    if devices is None:
+        return [default] * n_stages
+    if len(devices) != n_stages:
+        raise ValueError(f"{len(devices)} device(s) for {n_stages} "
+                         "stage(s): one device a stage")
+    return list(devices)
+
+
+def _wire(y: torch.Tensor, wire_dtype: str, device) -> torch.Tensor:
+    """What the next stage receives, on its ``device``: ``y`` itself
+    (``"fp32"``), or its per-row int8 round trip (``"int8"``: one float32
+    scale a row), as the JAX ``_wire_permute`` ships it, compressed on the
+    sender's device and decompressed on the receiver's."""
     if wire_dtype == "int8":
         q, scale = int8_compress_rows(y)
-        return int8_decompress_rows(q, scale, y.dtype)
-    return y
+        return int8_decompress_rows(q.to(device), scale.to(device), y.dtype)
+    return y.to(device)
 
 
 def _validate_tick_args(name: str, *, n_stages: int, checks: dict) -> None:
@@ -142,40 +180,57 @@ def _epilogue(params: dict, x: torch.Tensor, cfg: ModelConfig, rt: Runtime,
                                 positions=positions, layers=layers)
 
 
+def _rows_shape(rows) -> tuple:
+    """``(n_stages,) + one row's shape`` of per-stage inputs: an
+    ``(n_stages, ...)`` tensor or a list of one tensor a stage."""
+    return (len(rows),) + tuple(rows[0].shape)
+
+
 def pipeline_decode_tick(params: dict, caches: dict, act: list,
-                         tokens: torch.Tensor, pos_stage: torch.Tensor, *,
+                         tokens: torch.Tensor, pos_stage, *,
                          mb_assign: Sequence[int], noise, temp, top_k, top_p,
                          sampled: bool, cfg: ModelConfig, rt: Runtime,
                          n_stages: int, mb_size: int,
-                         wire_dtype: str = "fp32"):
+                         wire_dtype: str = "fp32", devices=None, head=None):
     """Advance the persistent decode pipe by one tick.
 
     caches:    engine-format paged caches (``serving.kv_cache``), written
-               in place.
+               in place, each layer on its stage's device.
     act:       per-stage input activations (``n_stages`` entries, each
                ``(mb_size, 1, D)`` or ``None``): ``act[s]`` feeds stage
-               ``s``; stage 0 takes the embedded ``tokens`` instead.
-    tokens:    (mb_size,) int32 — last tokens of the injected microbatch.
-    pos_stage: (n_stages, mb_size) int32 absolute positions per stage.
+               ``s`` and lies on its device; stage 0 takes the embedded
+               ``tokens`` instead.
+    tokens:    (mb_size,) int32 — last tokens of the injected microbatch,
+               on stage 0's device.
+    pos_stage: (n_stages, mb_size) int32 absolute positions per stage, or
+               a list of one (mb_size,) row a stage on that stage's device.
     mb_assign: (n_stages,) host ints — the microbatch each stage processes
                this tick (-1 = bubble); ``mb_assign[-1]`` is the draining
                one.
     noise, temp, top_k, top_p: per-row sampling inputs of the *draining*
                microbatch (``serving.sampler.sample_batched``), captured at
-               its injection; ``sampled=False`` (every row greedy) skips the
-               truncation pass and ``noise`` may be ``None``.
+               its injection, on the last stage's device; ``sampled=False``
+               (every row greedy) skips the truncation pass and ``noise``
+               may be ``None``.
     wire_dtype: the stage-boundary codec, ``"fp32"`` or ``"int8"``.
+    devices:   one torch device a stage (None: every stage on ``tokens``'
+               device).
+    head:      the unembedding's table on the last stage's device where
+               ``params`` does not hold it there
+               (``models.model.tied_head``).
 
     Returns ``(tokens (mb_size,) int32, model logprobs (mb_size,) float32,
-    new act)``; the first two are ``None`` when no microbatch drains."""
+    new act)``, the first two on the last stage's device, or ``None`` when
+    no microbatch drains."""
     ranges = stage_ranges(cfg, n_stages)
     _validate_tick_args(
         "pipeline_decode_tick", n_stages=n_stages, checks={
             "act": ((len(act),), (n_stages,)),
             "tokens": (tokens.shape, (mb_size,)),
             "mb_assign": ((len(mb_assign),), (n_stages,)),
-            "pos_stage": (pos_stage.shape, (n_stages, mb_size)),
+            "pos_stage": (_rows_shape(pos_stage), (n_stages, mb_size)),
         })
+    devs = _stage_devices(devices, tokens.device, n_stages)
     new_act: List[Optional[torch.Tensor]] = [None] * n_stages
     y = None
     for s in range(n_stages):
@@ -185,64 +240,73 @@ def pipeline_decode_tick(params: dict, caches: dict, act: list,
         x_in = embed_lib.embed_tokens(params["embed"], tokens[:, None], cfg,
                                       rt.compute_dtype) if s == 0 \
             else act[s]
-        view = kvc.slot_view(caches, mb * mb_size, mb_size)
+        view = kvc.slot_view(caches, mb * mb_size, mb_size, devs[s])
         y = model_lib.run_layers(params, x_in, cfg, rt, mode="decode",
                                  caches=view, positions=pos_stage[s][:, None],
                                  layers=ranges[s])
         if s < n_stages - 1:
-            new_act[s + 1] = _wire(y, wire_dtype)
+            new_act[s + 1] = _wire(y, wire_dtype, devs[s + 1])
     out_mb = mb_assign[n_stages - 1]
     if out_mb < 0:
         return None, None, new_act
-    # the draining microbatch: epilogue, final norm, unembedding, sampling
-    view = kvc.slot_view(caches, out_mb * mb_size, mb_size)
+    # the draining microbatch, on the last stage's device: epilogue, final
+    # norm, unembedding, sampling
+    view = kvc.slot_view(caches, out_mb * mb_size, mb_size, devs[-1])
     xf = _epilogue(params, y, cfg, rt, mode="decode", caches=view,
                    positions=pos_stage[n_stages - 1][:, None],
                    layers=ranges[n_stages])
-    logits = model_lib.decode_logits(params, xf, cfg)
+    logits = model_lib.decode_logits(params, xf, cfg, head)
     toks = sample_batched(logits, noise, temp, top_k, top_p) if sampled \
         else greedy(logits)
     return toks, token_logprobs(logits, toks), new_act
 
 
 def pipeline_prefill_chunk_tick(params: dict, caches: dict, act: list,
-                                tokens: torch.Tensor,
-                                offs_stage: torch.Tensor,
-                                valid_stage: torch.Tensor,
-                                tables_stage: torch.Tensor,
+                                tokens: torch.Tensor, offs_stage,
+                                valid_stage, tables_stage,
                                 lasts: torch.Tensor, *,
                                 occupied: Sequence[bool], cfg: ModelConfig,
                                 rt: Runtime, n_stages: int,
-                                wire_dtype: str = "fp32"):
+                                wire_dtype: str = "fp32", devices=None,
+                                head=None):
     """Advance the persistent *prefill* pipe by one tick: a chunk injected
     at stage 0 overlaps the in-flight decode microbatches instead of
     pausing them.
 
     caches:       engine-format paged caches (every layer paged — the
-                  engine sends ring and recurrent archs to exact prefill).
-    act:          per-stage chunk activations (``(R, C, D)`` or ``None``).
-    tokens:       (R, C) int32 — the chunk injected at stage 0 this tick.
+                  engine sends ring and recurrent archs to exact prefill),
+                  each layer on its stage's device.
+    act:          per-stage chunk activations (``(R, C, D)`` or ``None``),
+                  each on its stage's device.
+    tokens:       (R, C) int32 — the chunk injected at stage 0 this tick,
+                  on stage 0's device.
     offs_stage:   (n_stages, R) int32 prefilled-token offsets per stage.
     valid_stage:  (n_stages, R) int32 real-token counts (0 = pad row).
     tables_stage: (n_stages, R, P) int32 per-row page-table rows (the
-                  device-wide table keeps prefilling slots parked).
+                  device-wide table keeps prefilling slots parked).  These
+                  three may also be lists of one row a stage, each on its
+                  stage's device.
     lasts:        (R,) int32 within-chunk final-token index of the
-                  *draining* chunk.
+                  *draining* chunk, on the last stage's device.
     occupied:     (n_stages,) host bools — which stages hold a chunk.
+    devices:      one torch device a stage (None: every stage on
+                  ``tokens``' device).
+    head:         as in :func:`pipeline_decode_tick`.
 
-    Returns ``(logits (R, V) float32 of the draining chunk, or None, new
-    act)``."""
+    Returns ``(logits (R, V) float32 of the draining chunk, on the last
+    stage's device, or None, new act)``."""
     ranges = stage_ranges(cfg, n_stages)
     R, C = tokens.shape
     _validate_tick_args(
         "pipeline_prefill_chunk_tick", n_stages=n_stages, checks={
             "act": ((len(act),), (n_stages,)),
             "occupied": ((len(occupied),), (n_stages,)),
-            "offs_stage": (offs_stage.shape, (n_stages, R)),
-            "valid_stage": (valid_stage.shape, (n_stages, R)),
-            "tables_stage": (tables_stage.shape[:2], (n_stages, R)),
+            "offs_stage": (_rows_shape(offs_stage), (n_stages, R)),
+            "valid_stage": (_rows_shape(valid_stage), (n_stages, R)),
+            "tables_stage": (_rows_shape(tables_stage)[:2], (n_stages, R)),
             "lasts": (lasts.shape, (R,)),
         })
+    devs = _stage_devices(devices, tokens.device, n_stages)
     new_act: List[Optional[torch.Tensor]] = [None] * n_stages
     y = None
     for s in range(n_stages):
@@ -259,7 +323,7 @@ def pipeline_prefill_chunk_tick(params: dict, caches: dict, act: list,
                                  caches=view, positions=pos,
                                  layers=ranges[s])
         if s < n_stages - 1:
-            new_act[s + 1] = _wire(y, wire_dtype)
+            new_act[s + 1] = _wire(y, wire_dtype, devs[s + 1])
     if not occupied[n_stages - 1]:
         return None, new_act
     tabs = tables_stage[n_stages - 1]
@@ -268,7 +332,7 @@ def pipeline_prefill_chunk_tick(params: dict, caches: dict, act: list,
     xf = _epilogue(params, y, cfg, rt, mode="chunk",
                    caches={"layers": caches["layers"], "page_table": tabs},
                    positions=pos, layers=ranges[n_stages])
-    return model_lib.chunk_logits(params, xf, lasts, cfg), new_act
+    return model_lib.chunk_logits(params, xf, lasts, cfg, head), new_act
 
 
 # ---------------------------------------------------------------------------
@@ -291,9 +355,12 @@ def split_scan_params(params: dict, cfg: ModelConfig, n_stages: int):
 
 
 def init_pipeline_caches(cfg: ModelConfig, pcfg: PipelineConfig,
-                         capacity: int, rt: Runtime, device=None) -> dict:
+                         capacity: int, rt: Runtime, device=None,
+                         devices=None) -> dict:
     """Dense caches (``models.model._kind_cache``) for the fixed-batch
-    passes, on ``device`` (``cuda`` unless asked)::
+    passes, on ``device`` (``cuda`` unless asked), or placed by stage over
+    ``devices`` (one device a stage: each stage's layers on its device, the
+    epilogue's on the last stage's)::
 
         {"stage": [{"layers": [...]} for each microbatch],
          "epilogue": {"layers": [...]}}
@@ -303,12 +370,15 @@ def init_pipeline_caches(cfg: ModelConfig, pcfg: PipelineConfig,
     (``None`` in the epilogue's places), the epilogue's list the epilogue
     layers over the global batch (``None`` in the stages' places), as the
     JAX passes lay them out."""
-    device = resolve_device(device)
+    per_layer = layer_devices(cfg, [resolve_device(d) for d in
+                                    _stage_devices(devices, device,
+                                                   pcfg.n_stages)])
     n_staged = stage_ranges(cfg, pcfg.n_stages)[-1][0]
     kinds = cfg.layer_kinds()
 
     def layers(staged: bool, batch: int) -> list:
-        return [model_lib._kind_cache(kind, cfg, batch, capacity, rt, device)
+        return [model_lib._kind_cache(kind, cfg, batch, capacity, rt,
+                                      per_layer[i])
                 if (i < n_staged) == staged else None
                 for i, kind in enumerate(kinds)]
 
@@ -326,23 +396,31 @@ def _rows(caches: dict, start: int, size: int) -> dict:
                        for c in caches["layers"]]}
 
 
+def _on_devices(t: torch.Tensor, devs: Sequence) -> dict:
+    """``t`` on each distinct device of ``devs``: one copy a device."""
+    return {d: t.to(d) for d in dict.fromkeys(devs)}
+
+
 def _pipeline_pass(params: dict, caches: dict, queue: torch.Tensor,
                    positions_q: torch.Tensor, *, cfg: ModelConfig,
-                   rt: Runtime, pcfg: PipelineConfig,
-                   mode: str) -> torch.Tensor:
+                   rt: Runtime, pcfg: PipelineConfig, mode: str,
+                   devices=None) -> torch.Tensor:
     """One fill and drain of the circular schedule over the stages (the
-    geometry and the mode are host values, keyword-only).
+    geometry, the mode and the devices are host values, keyword-only).
 
-    queue:       (n_mb, mb, S, D) embedded microbatch inputs.
+    queue:       (n_mb, mb, S, D) embedded microbatch inputs, on stage 0's
+                 device.
     positions_q: (n_mb, mb, S), or (n_mb, 3, mb, S) with M-RoPE.
-    Returns the last stage's outputs, (n_mb, mb, S, D); the stage caches
-    change in place."""
+    Returns the last stage's outputs, (n_mb, mb, S, D), on its device; the
+    stage caches change in place."""
     n_s, n_mb = pcfg.n_stages, pcfg.n_microbatches
     _validate_tick_args(
         "_pipeline_pass", n_stages=n_s, checks={
             "queue": (queue.shape[:2], (n_mb, pcfg.mb_size)),
             "stage caches": ((len(caches["stage"]),), (n_mb,)),
         })
+    devs = _stage_devices(devices, queue.device, n_s)
+    pos_on = _on_devices(positions_q, devs)
     stages, _ = split_scan_params(params, cfg, n_s)
     act: List[Optional[torch.Tensor]] = [None] * n_s
     outs: List[Optional[torch.Tensor]] = [None] * n_mb
@@ -354,10 +432,10 @@ def _pipeline_pass(params: dict, caches: dict, queue: torch.Tensor,
                 continue                # a bubble does no work
             y = model_lib.run_layers(
                 params, queue[m] if s == 0 else act[s], cfg, rt, mode=mode,
-                caches=caches["stage"][m], positions=positions_q[m],
+                caches=caches["stage"][m], positions=pos_on[devs[s]][m],
                 layers=layers)
             if s < n_s - 1:
-                nxt[s + 1] = y          # the ppermute downstream
+                nxt[s + 1] = y.to(devs[s + 1])  # the ppermute downstream
             else:
                 outs[m] = y             # the drained microbatch
         act = nxt
@@ -366,44 +444,56 @@ def _pipeline_pass(params: dict, caches: dict, queue: torch.Tensor,
 
 def pipeline_decode_step(params: dict, tokens: torch.Tensor, caches: dict,
                          cur_pos: torch.Tensor, cfg: ModelConfig,
-                         rt: Runtime, pcfg: PipelineConfig):
+                         rt: Runtime, pcfg: PipelineConfig, devices=None):
     """One pipelined decode token for every microbatch.
 
-    tokens (n_mb, mb) int32; cur_pos (n_mb, mb) int32 absolute positions.
-    Returns (logits (n_mb, mb, V) float32, caches)."""
+    tokens (n_mb, mb) int32; cur_pos (n_mb, mb) int32 absolute positions,
+    both on stage 0's device; ``devices`` one device a stage (None: all on
+    ``tokens``' device), the weights placed over them
+    (``models.model.place_params``) and the caches
+    (``init_pipeline_caches(devices=)``).  A tied model whose last stage is
+    not on stage 0's device copies its table there once a call
+    (``models.model.tied_head``).
+    Returns (logits (n_mb, mb, V) float32 on the last stage's device,
+    caches)."""
     n_mb, mb = tokens.shape
+    devs = _stage_devices(devices, tokens.device, pcfg.n_stages)
     queue = embed_lib.embed_tokens(params["embed"], tokens[..., None], cfg,
                                    rt.compute_dtype)       # (n_mb, mb, 1, D)
     positions_q = cur_pos[..., None]                       # (n_mb, mb, 1)
     if cfg.frontend == "vision_patches":
         positions_q = text_positions3(positions_q).transpose(0, 1)
     drained = _pipeline_pass(params, caches, queue, positions_q, cfg=cfg,
-                             rt=rt, pcfg=pcfg, mode="decode")
+                             rt=rt, pcfg=pcfg, mode="decode", devices=devs)
     xf = drained.reshape(pcfg.global_batch, 1, cfg.d_model)
-    pos = cur_pos.reshape(pcfg.global_batch, 1)
+    pos = cur_pos.reshape(pcfg.global_batch, 1).to(devs[-1])
     if cfg.frontend == "vision_patches":
         pos = text_positions3(pos)
     xf = _epilogue(params, xf, cfg, rt, mode="decode",
                    caches=caches["epilogue"], positions=pos,
                    layers=stage_ranges(cfg, pcfg.n_stages)[-1])
-    logits = model_lib.decode_logits(params, xf, cfg)
+    logits = model_lib.decode_logits(
+        params, xf, cfg, model_lib.tied_head(params, cfg, devs[-1]))
     return logits.reshape(n_mb, mb, -1), caches
 
 
 def pipeline_prefill(params: dict, inputs, caches: dict, cfg: ModelConfig,
-                     rt: Runtime, pcfg: PipelineConfig):
+                     rt: Runtime, pcfg: PipelineConfig, devices=None):
     """Pipelined exact-length prefill of whole prompts.
 
     ``inputs``: ``{"tokens": (n_mb, mb, S)}`` (or that tensor alone),
     ``{"frames": (n_mb, mb, S, D)}`` or ``{"tokens", "patches"}`` (vision),
     the (n_mb, mb) microbatch layout on the leading dims; every row is S
-    long.  Returns (last logits (n_mb, mb, V) float32, caches)."""
+    long; on stage 0's device.  ``devices`` as in
+    :func:`pipeline_decode_step`.  Returns (last logits (n_mb, mb, V)
+    float32 on the last stage's device, caches)."""
     if isinstance(inputs, torch.Tensor):
         inputs = {"tokens": inputs}
     n_mb, mb = next(iter(inputs.values())).shape[:2]
     flat = {k: v.reshape((n_mb * mb,) + tuple(v.shape[2:]))
             for k, v in inputs.items()}
     x, positions = model_lib.embed_inputs(params, flat, cfg, rt)
+    devs = _stage_devices(devices, x.device, pcfg.n_stages)
     S = x.shape[1]
     queue = x.reshape(n_mb, mb, S, cfg.d_model)
     if positions.dim() == 3:                # (3, B, S) M-RoPE
@@ -411,19 +501,20 @@ def pipeline_prefill(params: dict, inputs, caches: dict, cfg: ModelConfig,
     else:
         positions_q = positions.reshape(n_mb, mb, S)
     drained = _pipeline_pass(params, caches, queue, positions_q, cfg=cfg,
-                             rt=rt, pcfg=pcfg, mode="prefill")
+                             rt=rt, pcfg=pcfg, mode="prefill", devices=devs)
     xf = _epilogue(params, drained.reshape(pcfg.global_batch, S, cfg.d_model),
                    cfg, rt, mode="prefill", caches=caches["epilogue"],
-                   positions=positions,
+                   positions=positions.to(devs[-1]),
                    layers=stage_ranges(cfg, pcfg.n_stages)[-1])
-    logits = model_lib.decode_logits(params, xf[:, -1:], cfg)
+    logits = model_lib.decode_logits(
+        params, xf[:, -1:], cfg, model_lib.tied_head(params, cfg, devs[-1]))
     return logits.reshape(n_mb, mb, -1), caches
 
 
 def pipeline_decode_rounds(params: dict, tokens: torch.Tensor, caches: dict,
                            cur_pos: torch.Tensor, cfg: ModelConfig,
                            rt: Runtime, pcfg: PipelineConfig, *,
-                           rounds: int):
+                           rounds: int, devices=None):
     """Greedy-decode ``rounds`` tokens a microbatch in ONE circular pass.
 
     This is the schedule the paper runs in steady state: microbatch ``m``'s
@@ -431,11 +522,12 @@ def pipeline_decode_rounds(params: dict, tokens: torch.Tensor, caches: dict,
     round-``r−1`` drain (legal because N_B ≥ N_S), so the fill and drain
     bubbles amortise to (N_S−1)/(R·N_B + N_S − 1).  The epilogue, the
     greedy pick and the next embedding run on each drained microbatch's
-    rows (the return link carries the (mb,) token ids); its rows of the
-    epilogue caches are written in place.
+    rows (the return link carries the (mb,) token ids to stage 0's
+    device); its rows of the epilogue caches are written in place.
 
-    tokens / cur_pos (n_mb, mb) int32.  Returns (all tokens (rounds, n_mb,
-    mb) int32, caches).  Requires N_B ≥ N_S."""
+    tokens / cur_pos (n_mb, mb) int32 on stage 0's device; ``devices`` as
+    in :func:`pipeline_decode_step`.  Returns (all tokens (rounds, n_mb,
+    mb) int32 on stage 0's device, caches).  Requires N_B ≥ N_S."""
     n_s, n_mb, mb = pcfg.n_stages, pcfg.n_microbatches, pcfg.mb_size
     if n_mb < n_s:
         raise ValueError("multi-round circular decode needs N_B >= N_S")
@@ -445,10 +537,14 @@ def pipeline_decode_rounds(params: dict, tokens: torch.Tensor, caches: dict,
             "cur_pos": (cur_pos.shape, (n_mb, mb)),
             "stage caches": ((len(caches["stage"]),), (n_mb,)),
         })
+    devs = _stage_devices(devices, tokens.device, n_s)
     stages, _ = split_scan_params(params, cfg, n_s)
     epi_layers = stage_ranges(cfg, n_s)[-1]
+    head = model_lib.tied_head(params, cfg, devs[-1])
     vision = cfg.frontend == "vision_patches"
-    toks, pos = tokens.clone(), cur_pos.clone()
+    toks = tokens.clone()
+    # the positions, kept on every stage device and advanced on each
+    pos_on = {d: p.clone() for d, p in _on_devices(cur_pos, devs).items()}
     outs = torch.zeros((rounds, n_mb, mb), dtype=torch.int32,
                        device=tokens.device)
     act: List[Optional[torch.Tensor]] = [None] * n_s
@@ -463,25 +559,26 @@ def pipeline_decode_rounds(params: dict, tokens: torch.Tensor, caches: dict,
             x = embed_lib.embed_tokens(params["embed"], toks[m][:, None], cfg,
                                        rt.compute_dtype) if s == 0 \
                 else act[s]
-            p1 = pos[m][:, None]
+            p1 = pos_on[devs[s]][m][:, None]
             y = model_lib.run_layers(
                 params, x, cfg, rt, mode="decode", caches=caches["stage"][m],
                 positions=text_positions3(p1) if vision else p1,
                 layers=layers)
             if s < n_s - 1:
-                nxt[s + 1] = y
+                nxt[s + 1] = y.to(devs[s + 1])
         act = nxt
         out = t - (n_s - 1)
         if out < 0 or out // n_mb >= rounds:
             continue                    # nothing drains this tick
         m, r = out % n_mb, out // n_mb
-        p1 = pos[m][:, None]
+        p1 = pos_on[devs[-1]][m][:, None]
         xf = _epilogue(params, y, cfg, rt, mode="decode",
                        caches=_rows(caches["epilogue"], m * mb, mb),
                        positions=text_positions3(p1) if vision else p1,
                        layers=epi_layers)
-        new = greedy(model_lib.decode_logits(params, xf, cfg))
+        new = greedy(model_lib.decode_logits(params, xf, cfg, head))
         toks[m] = new
-        pos[m] += 1
+        for p in pos_on.values():
+            p[m] += 1
         outs[r, m] = new
     return outs, caches

@@ -5,9 +5,10 @@ DeServe's headline claim (6.7x–12.6x over baselines *in high-latency
 networks*) lives or dies on what happens at the stage boundary: every
 engine tick, the shift-register entries of both planes — decode
 microbatches and prefill chunks — cross one inter-stage link each.  The
-port's ``PipelinedBackend`` runs the stages in turn on one device, in one
-process (the JAX package runs them inside one ``shard_map``), with
-zero-latency boundaries, so this module makes the link a first-class,
+port's ``PipelinedBackend`` issues the stages in turn from one process,
+each on its own device (the JAX package runs them inside one
+``shard_map``), with boundaries that cost a card-to-card copy at most, so
+this module makes the link a first-class,
 *pluggable* object:
 
 ``InProcessTransport``

@@ -8,8 +8,8 @@ generation lengths, stats over the run, with a *mixed* sampling workload:
 greedy, temperature, top-k and top-p requests all ride the same
 continuously batched pipe, each under its own ``SamplingParams``.  Swap
 --arch for any registered architecture; --backend pipelined serves the
-same engine through the §4.3 circular pipeline, its stages in turn on one
-device.
+same engine through the §4.3 circular pipeline, every stage on the
+engine's device (``EngineConfig(mesh=)`` places them on others).
 
     PYTHONPATH=src python -m repro_torch.examples.offline_serving \\
         [--arch gemma3-1b] [--backend pipelined --stages 2] [--device cpu]

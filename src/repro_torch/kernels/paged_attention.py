@@ -195,7 +195,10 @@ def _launch(q, k_pages, v_pages, page_table, seq_lens, window: int
     b, h, dh = q.shape
     n_pool, page_size, hk, _ = k_pages.shape
     max_pages = page_table.shape[1]
-    dev = q.device
+    # the workspace and the SM count are kept per card, keyed by a device
+    # with its index (a tensor's always has one), so ``cuda`` and
+    # ``cuda:0`` never make two workspaces on one card
+    dev = torch.device("cuda", q.device.index)
     if dev not in _sms:
         _sms[dev] = torch.cuda.get_device_properties(
             dev).multi_processor_count

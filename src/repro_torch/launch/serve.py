@@ -22,7 +22,10 @@ depth in bf16 (random weights from ``--seed``); without it the arch is
 shrunk with ``reduced_config`` and runs in float32.
 
 ``--backend pipelined`` serves through DeServe's §4.3 circular pipeline of
-``--stages`` stages (one process, the stages in turn on one device), with
+``--stages`` stages (one process issuing the stages in turn, each on its
+own device: ``--mesh cuda:0,cuda:1`` puts stage ``s`` and its weights,
+caches and offloader on the ``s``-th device, the first being ``--device``'s;
+without it every stage is on ``--device``), with
 ``--schedule circular|round_flush`` (the vLLM-PP baseline drains the pipe
 every token round), ``--transport-compress int8`` (the per-row int8 wire
 on every stage boundary; ``topk`` is wire-byte accounting only), and
@@ -33,6 +36,12 @@ the decode tok/s on the virtual clock:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --backend pipelined --stages 2 --microbatches 3 --link-latency 0.064
+
+Full-depth phi3.5-moe (83.7 GB of bf16 weights) over two cards:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch phi3.5-moe-42b-a6.6b --full --backend pipelined --stages 2 \
+      --mesh cuda:0,cuda:1
 
 ``--plan`` derives (N_B, per-microbatch batch, pool split) through the
 §4.3 planner (``EngineConfig.plan``) from a measured stage time,
@@ -97,29 +106,72 @@ import argparse
 import time
 
 
-def measure_stage_time(cfg, params, rt, n_stages: int, device) -> float:
-    """Wall-time one single-sequence decode step (after a warm-up step,
-    with a card synchronisation on each side) and attribute 1/n_stages of
-    it to each stage: the measurement the §4.3 planner consumes."""
+def measure_stage_time(cfg, params, rt, n_stages: int, device,
+                       mesh=None) -> float:
+    """The slowest stage's single-sequence decode time
+    (:func:`stage_times`): the measurement the §4.3 planner consumes (the
+    pipe ticks at its slowest stage).  When the planner asks about more
+    stages than the model's layer plan can form (a reduced model, no
+    mesh), the whole model is timed as one stage and each of the
+    ``n_stages`` is given an even share."""
+    from repro_torch.models.common import make_layer_plan
+    if mesh is None and make_layer_plan(
+            cfg.num_layers, cfg.block_pattern).n_periods < n_stages:
+        return max(1e-4, stage_times(cfg, params, rt, 1, device)[0]
+                   / n_stages)
+    return max(1e-4, max(stage_times(cfg, params, rt, n_stages, device,
+                                     mesh)))
+
+
+def stage_times(cfg, params, rt, n_stages: int, device, mesh=None) -> list:
+    """Wall-time one single-sequence decode step of each stage on its own
+    device (``mesh``, one device a stage, or every stage on ``device``;
+    ``params`` placed over it), after a warm-up step, with a
+    synchronisation of the stage's card on each side: seconds a stage.
+    The embedding is made once outside; the epilogue and the head are
+    timed with the last stage."""
     import torch
 
+    from repro_torch.core import pipeline as PL
+    from repro_torch.models import embedding as embed_lib
     from repro_torch.models import model as model_lib
+    from repro_torch.serving.backend import stage_devices
 
-    dev = torch.device(device)
-    caches = model_lib.init_caches(cfg, 1, 64, rt, dev)
-    tok = torch.zeros((1,), dtype=torch.int32, device=dev)
-    cur = torch.ones((1,), dtype=torch.int32, device=dev)
+    devs = stage_devices(mesh, n_stages, device)
+    ranges = PL.stage_ranges(cfg, n_stages)
+    head = model_lib.tied_head(params, cfg, devs[-1])
+    caches = model_lib.init_caches(cfg, 1, 64, rt, devs[0])
+    for i, dev in enumerate(PL.layer_devices(cfg, devs)):
+        caches["layers"][i] = {k: t.to(dev)
+                               for k, t in caches["layers"][i].items()}
+    x0 = embed_lib.embed_tokens(
+        params["embed"], torch.zeros((1, 1), dtype=torch.int32,
+                                     device=devs[0]), cfg, rt.compute_dtype)
 
-    def sync():
+    def sync(dev):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    model_lib.decode_step(params, tok, caches, cur, cfg, rt)      # warm
-    sync()
-    t0 = time.perf_counter()
-    model_lib.decode_step(params, tok, caches, cur, cfg, rt)
-    sync()
-    return max(1e-4, (time.perf_counter() - t0) / n_stages)
+    def stage(s: int, dev) -> float:
+        x = x0.to(dev)
+        cur = torch.ones((1, 1), dtype=torch.int32, device=dev)
+        layers = [ranges[s]] + ([ranges[-1]] if s == n_stages - 1 else [])
+        for _ in range(2):                      # warm, then timed
+            sync(dev)
+            t0 = time.perf_counter()
+            y = x
+            for lo, hi in layers:
+                if hi > lo:
+                    y = model_lib.run_layers(params, y, cfg, rt,
+                                             mode="decode", caches=caches,
+                                             positions=cur, layers=(lo, hi))
+            if s == n_stages - 1:
+                model_lib.decode_logits(params, y, cfg, head)
+            sync(dev)
+            dt = time.perf_counter() - t0
+        return dt
+
+    return [stage(s, d) for s, d in enumerate(devs)]
 
 
 def pinned_copy_rate(device, nbytes: int = 256 << 20, iters: int = 5):
@@ -182,6 +234,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="one-way link latency (s) the planner assumes")
     ap.add_argument("--stages", type=int, default=2,
                     help="pipeline stages (pipelined backend / --plan)")
+    ap.add_argument("--mesh", default="", metavar="DEVICE[,DEVICE...]",
+                    help="one device a pipeline stage (e.g. cuda:0,cuda:1; "
+                         "pipelined backend): each stage's weights, caches "
+                         "and offloader on its device, the first being "
+                         "--device's (default: the first entry)")
     ap.add_argument("--backend", default="local",
                     choices=["local", "pipelined"])
     ap.add_argument("--link-latency", type=float, default=None,
@@ -346,7 +403,9 @@ def main(argv=None) -> None:
     from repro_torch.core.scheduler import optimal_microbatches
     from repro_torch.distributed.elastic import FailureDetector, FaultPlan
     from repro_torch.models import model as model_lib
+    from repro_torch.core import pipeline as PL
     from repro_torch.models.common import Runtime, resolve_device
+    from repro_torch.serving.backend import stage_devices
     from repro_torch.serving.engine import SLOConfig
     from repro_torch.serving.kv_cache import PoolConfig
     from repro_torch.serving.llm import LLM, EngineConfig, RequestOutput
@@ -359,8 +418,15 @@ def main(argv=None) -> None:
     else:
         cfg = reduced_config(cfg)
         rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
-    device = resolve_device(args.device)
-    params = model_lib.init_params(cfg, args.seed, rt, device)
+    mesh = args.mesh.split(",") if args.mesh else None
+    device = resolve_device(args.device if args.device or not mesh
+                            else mesh[0])
+    # with a mesh the weights are drawn placed by stage (no card holds
+    # more than its share and one layer)
+    layer_devices = None if mesh is None else PL.layer_devices(
+        cfg, stage_devices(mesh, args.stages, device))
+    params = model_lib.init_params(cfg, args.seed, rt, device,
+                                   layer_devices=layer_devices)
 
     # int8 is the real wire codec: EngineConfig(wire_dtype=) drives the
     # ticks and the backend's transport wrap, so the books equal the packed
@@ -393,13 +459,14 @@ def main(argv=None) -> None:
                         itl_target_s=args.slo_itl)
         print(f"SLO admission: ttft_target={args.slo_ttft:.3f}s "
               f"itl_target={args.slo_itl:.3f}s")
-    pipe = dict(backend=args.backend, transport=transport,
+    pipe = dict(backend=args.backend, transport=transport, mesh=mesh,
                 schedule=args.schedule, wire_dtype=wire_dtype,
                 fault_plan=fault_plan, prefix_cache=args.prefix_cache,
                 slo=slo, trace=bool(args.trace) or None,
                 strict=args.strict or None)
     if args.plan:
-        t_s = measure_stage_time(cfg, params, rt, args.stages, device)
+        t_s = measure_stage_time(cfg, params, rt, args.stages, device,
+                                 mesh)
         if device.type == "cuda":
             h2d, d2h = pinned_copy_rate(device)
             bandwidth = min(h2d, d2h)
@@ -450,9 +517,15 @@ def main(argv=None) -> None:
     if engine.backend.name == "pipelined":
         be = engine.backend
         print(f"pipeline: {be.n_stages} stages of layers "
-              f"{be.ranges[:-1]}, epilogue {be.ranges[-1]}; "
+              f"{be.ranges[:-1]} on {[str(d) for d in be.stage_devices]}, "
+              f"epilogue {be.ranges[-1]}; "
               f"{args.schedule} schedule, {wire_dtype} wire, "
               f"{be.transport.name} transport")
+        head = be.head
+        if head is not None:
+            mib = head.numel() * head.element_size() / 2 ** 20
+            print(f"tied unembedding: a {mib:.1f} MiB copy of the "
+                  f"embedding on {head.device}, the last stage's device")
     if args.plan:
         print(f"schedule: {engine.schedule_choice}; mb_size="
               f"{engine.mb_size} x N_B={engine.num_microbatches}; pool "

@@ -66,6 +66,22 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
     return dev
 
 
+def stage_device(device: Union[str, torch.device, None]) -> torch.device:
+    """``resolve_device``'s device with its index: a bare ``cuda`` is the
+    current card, so ``cuda`` and ``cuda:0`` name one device wherever
+    devices are compared or used as keys.  A card index at or past the
+    number of visible cards raises ``ValueError``: nothing falls back to
+    another device."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if index >= torch.cuda.device_count():
+        raise ValueError(f"{dev} names card {index}, but "
+                         f"{torch.cuda.device_count()} card(s) are visible")
+    return torch.device("cuda", index)
+
+
 # ---------------------------------------------------------------------------
 # Layer plan: scan periods + tail (the JAX package's parameter layout)
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ them into the residual stream with one ``(D, D)`` matrix.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -41,9 +42,14 @@ def embed_patches(params: dict, patches: torch.Tensor, cfg: ModelConfig,
     return patches.to(compute_dtype) @ params["patch_proj"].to(compute_dtype)
 
 
-def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """(..., D) -> (..., V) float32 logits (softcap applied if configured)."""
-    table = params["tok"] if cfg.tie_embeddings else params["untok"]
+def unembed(params: dict, x: torch.Tensor, cfg: ModelConfig,
+            table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(..., D) -> (..., V) float32 logits (softcap applied if configured).
+    ``table`` is the head's table where it is not in ``params``: a tied
+    model's copy of ``"tok"`` on the last pipeline stage's device
+    (``models.model.tied_head``)."""
+    if table is None:
+        table = params["tok"] if cfg.tie_embeddings else params["untok"]
     logits = (x @ table.to(x.dtype).t()).float()
     if cfg.logit_softcap > 0.0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)

@@ -103,14 +103,25 @@ def layer_theta(kind: str, cfg: ModelConfig) -> float:
 
 
 def init_params(cfg: ModelConfig, seed: int, rt: Runtime = DEFAULT_RUNTIME,
-                device=None) -> dict:
+                device=None, layer_devices=None) -> dict:
     """Random weights from ``seed`` with ``repro.models.common.dense_init``'s
     recipe (normal x 1/sqrt(fan_in), zero norm weights), made on ``device``
     (``cuda`` unless asked, see ``resolve_device``) one tensor at a time in
     ``rt.param_dtype``.  The numbers differ from the JAX package's (another
     generator); tests that compare the two convert the JAX weights instead
     (``models.convert``).  On the meta device (the dry run's stand-ins)
-    every leaf has its shape and dtype and nothing is drawn."""
+    every leaf has its shape and dtype and nothing is drawn.
+
+    ``layer_devices`` (one device a layer, ``core.pipeline.layer_devices``)
+    places the weights by pipeline stage, as :func:`place_params` lays them
+    out.  Every tensor is still drawn on ``device`` (``layer_devices[0]``
+    when not given) from the one generator, in the same order, and each
+    layer moves to its device as soon as it is made: the weights equal a
+    one-device init's bit for bit, and no device holds more than its share
+    and one layer.  A tied head's table stays ``embed["tok"]`` on the first
+    device (:func:`tied_head` copies it where the head is)."""
+    if layer_devices is not None and device is None:
+        device = layer_devices[0]
     device = resolve_device(device)
     gen = None
     if device.type != "meta":
@@ -119,6 +130,7 @@ def init_params(cfg: ModelConfig, seed: int, rt: Runtime = DEFAULT_RUNTIME,
     pd = rt.param_dtype
     D, F = cfg.d_model, cfg.d_ff
     H, Hk, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    last = device if layer_devices is None else layer_devices[-1]
 
     def dense(shape, fan_in=None, dtype=pd):
         return dense_init(gen, shape, dtype, device, fan_in)
@@ -132,29 +144,89 @@ def init_params(cfg: ModelConfig, seed: int, rt: Runtime = DEFAULT_RUNTIME,
     elif cfg.frontend == "vision_patches":
         embed["patch_proj"] = dense((D, D))
     if not cfg.tie_embeddings:
-        embed["untok"] = dense((cfg.vocab_size, D), fan_in=D)
+        embed["untok"] = dense((cfg.vocab_size, D), fan_in=D).to(last)
     layers = []
-    for kind in cfg.layer_kinds():
+    for i, kind in enumerate(cfg.layer_kinds()):
         if kind in _RECURRENT_INIT:
-            layers.append(_RECURRENT_INIT[kind](cfg, dense, zeros, device))
-            continue
-        w = {"ln1": zeros(D), "wq": dense((D, H * Dh)),
-             "wk": dense((D, Hk * Dh)), "wv": dense((D, Hk * Dh)),
-             "wo": dense((H * Dh, D), fan_in=H * Dh)}
-        if cfg.use_qk_norm:
-            w["q_norm"], w["k_norm"] = zeros(Dh), zeros(Dh)
-        if cfg.moe is not None:
-            E, dE = cfg.moe.num_experts, cfg.moe.d_expert
-            w["ln2"] = zeros(D)
-            w["moe"] = {"router": dense((D, E), dtype=torch.float32),
-                        "wg": dense((E, D, dE), fan_in=D),
-                        "wu": dense((E, D, dE), fan_in=D),
-                        "wd": dense((E, dE, D), fan_in=dE)}
-        elif F > 0:
-            w.update(ln2=zeros(D), wg=dense((D, F)), wu=dense((D, F)),
-                     wd=dense((F, D), fan_in=F))
+            w = _RECURRENT_INIT[kind](cfg, dense, zeros, device)
+        else:
+            w = {"ln1": zeros(D), "wq": dense((D, H * Dh)),
+                 "wk": dense((D, Hk * Dh)), "wv": dense((D, Hk * Dh)),
+                 "wo": dense((H * Dh, D), fan_in=H * Dh)}
+            if cfg.use_qk_norm:
+                w["q_norm"], w["k_norm"] = zeros(Dh), zeros(Dh)
+            if cfg.moe is not None:
+                E, dE = cfg.moe.num_experts, cfg.moe.d_expert
+                w["ln2"] = zeros(D)
+                w["moe"] = {"router": dense((D, E), dtype=torch.float32),
+                            "wg": dense((E, D, dE), fan_in=D),
+                            "wu": dense((E, D, dE), fan_in=D),
+                            "wd": dense((E, dE, D), fan_in=dE)}
+            elif F > 0:
+                w.update(ln2=zeros(D), wg=dense((D, F)), wu=dense((D, F)),
+                         wd=dense((F, D), fan_in=F))
+        if layer_devices is not None:
+            w = _tree_to(w, layer_devices[i])
         layers.append(w)
-    return {"embed": embed, "final_norm": zeros(D), "layers": layers}
+    return {"embed": embed, "final_norm": zeros(D).to(last),
+            "layers": layers}
+
+
+def _to(t: torch.Tensor, device: torch.device, on_move=None) -> torch.Tensor:
+    """``t`` on ``device`` (itself when it is there); ``on_move(t)`` is
+    called when it moves."""
+    if on_move is not None and t.device != device:
+        on_move(t)
+    return t.to(device)
+
+
+def _tree_to(tree: dict, device: torch.device, on_move=None) -> dict:
+    """A layer's weight dict (nested dicts included) with every tensor on
+    ``device`` (``_to``)."""
+    return {name: _tree_to(t, device, on_move) if isinstance(t, dict)
+            else _to(t, device, on_move) for name, t in tree.items()}
+
+
+def place_params(params: dict, layer_devices) -> int:
+    """Place the weights by pipeline stage, in place: layer ``i`` on
+    ``layer_devices[i]`` (``core.pipeline.layer_devices``: each stage's
+    layers on its device, the epilogue's on the last stage's), the
+    embedding on ``layer_devices[0]`` (stage 0 embeds; a tied head reads
+    it through :func:`tied_head`), and the head (the final norm and an
+    untied unembedding) on ``layer_devices[-1]``.  A layer that moves is
+    replaced in ``params["layers"]`` one at a time, so its old tensors can
+    be freed before the next moves (no device holds two copies of the
+    model).  Tensors already in place are not touched.  Returns the bytes
+    moved.
+
+    ``layer_devices`` must carry each card's index (``cuda:0``, not
+    ``cuda``; ``models.common.stage_device``)."""
+    moved = [0]
+
+    def count(t: torch.Tensor) -> None:
+        moved[0] += t.numel() * t.element_size()
+
+    first, last = layer_devices[0], layer_devices[-1]
+    emb = params["embed"]
+    for name in emb:
+        emb[name] = _to(emb[name], last if name == "untok" else first, count)
+    params["final_norm"] = _to(params["final_norm"], last, count)
+    for i, dev in enumerate(layer_devices):
+        params["layers"][i] = _tree_to(params["layers"][i], dev, count)
+    return moved[0]
+
+
+def tied_head(params: dict, cfg: ModelConfig,
+              device) -> Optional[torch.Tensor]:
+    """The head's table for a pipe whose last stage is on ``device``, where
+    ``params`` does not hold it there: with tied embeddings and
+    ``embed["tok"]`` on another device (stage 0's), a copy of it on
+    ``device``; else None (``embedding.unembed`` reads ``params``).  The
+    copy is the caller's, for the logits of the weights as they are now."""
+    tok = params["embed"]["tok"]
+    if cfg.tie_embeddings and tok.device != torch.device(device):
+        return tok.to(device)
+    return None
 
 
 def _init_rglru_layer(cfg: ModelConfig, dense, zeros, device) -> dict:
@@ -692,7 +764,7 @@ def train_loss(params: dict, batch: dict, cfg: ModelConfig,
 
 def prefill(params: dict, inputs: dict, cfg: ModelConfig,
             rt: Runtime = DEFAULT_RUNTIME, capacity: int = 0, caches=None,
-            last_index=None):
+            last_index=None, stages=None, head=None):
     """Exact-length prefill of whole prompts.  ``inputs`` is an input dict
     (``embed_inputs``: ``{"tokens"}``, ``{"frames"}`` or ``{"tokens",
     "patches"}``).  Returns (last_logits (B, V) float32, caches).
@@ -703,7 +775,15 @@ def prefill(params: dict, inputs: dict, cfg: ModelConfig,
     each row's true last position for the logits and marks the positions
     after it ``-1``, so the cache writes drop them.  The last position is
     taken before the final norm and the unembedding, so no (S, V) logits
-    are made."""
+    are made.
+
+    ``stages`` walks pipeline stages instead of running every layer on the
+    inputs' device: ``((lo, hi), device, caches)`` in order
+    (``core.pipeline.stage_ranges``' ranges, the epilogue's last), each
+    range run on its device against its caches (``caches`` is not read),
+    the activation and the positions copied there; the head runs on the
+    last stage's device, with ``head`` as its table where ``params`` does
+    not hold it there (``tied_head``)."""
     x, positions = embed_inputs(params, inputs, cfg, rt)
     B, S = x.shape[:2]
     dev = x.device
@@ -711,14 +791,19 @@ def prefill(params: dict, inputs: dict, cfg: ModelConfig,
         li = torch.as_tensor(last_index, device=dev).long().reshape(B)
         pad = torch.arange(S, device=dev)[None] > li[:, None]
         positions = torch.where(pad, -1, positions)
-    if caches is None:
-        caches = init_caches(cfg, B, capacity, rt, dev)
-    x = run_layers(params, x, cfg, rt, mode="prefill", caches=caches,
-                   positions=positions)
+    if stages is None:
+        if caches is None:
+            caches = init_caches(cfg, B, capacity, rt, dev)
+        stages = [((0, cfg.num_layers), dev, caches)]
+    for (lo, hi), d, c in stages:
+        if hi > lo:
+            x = run_layers(params, x.to(d), cfg, rt, mode="prefill",
+                           caches=c, positions=positions.to(d),
+                           layers=(lo, hi))
     x_last = x[:, -1] if last_index is None else \
-        x[torch.arange(B, device=dev), li]
+        x[torch.arange(B, device=x.device), li.to(x.device)]
     x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
-    return embed_lib.unembed(params["embed"], x_last, cfg), caches
+    return embed_lib.unembed(params["embed"], x_last, cfg, head), caches
 
 
 def prefill_chunk(params: dict, tokens: torch.Tensor, caches: dict,
@@ -753,22 +838,25 @@ def chunk_positions(offsets: torch.Tensor, n_valid: torch.Tensor,
 
 
 def chunk_logits(params: dict, x: torch.Tensor, last_in_chunk: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, head=None) -> torch.Tensor:
     """The final norm over a chunk's last-layer output (B, C, D), then the
-    logits (B, V) float32 at each row's ``last_in_chunk``."""
+    logits (B, V) float32 at each row's ``last_in_chunk``; ``head`` as in
+    :func:`decode_logits`."""
     B, C = x.shape[:2]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     idx = last_in_chunk.long().clamp(0, C - 1)
     x_last = x[torch.arange(B, device=x.device), idx]
-    return embed_lib.unembed(params["embed"], x_last, cfg)
+    return embed_lib.unembed(params["embed"], x_last, cfg, head)
 
 
-def decode_logits(params: dict, x: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+def decode_logits(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                  head=None) -> torch.Tensor:
     """The final norm over a decode step's last-layer output (B, 1, D),
-    then the logits (B, V) float32."""
+    then the logits (B, V) float32; ``head`` is the unembedding's table
+    where ``params`` does not hold it on ``x``'s device
+    (:func:`tied_head`)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return embed_lib.unembed(params["embed"], x[:, 0], cfg)
+    return embed_lib.unembed(params["embed"], x[:, 0], cfg, head)
 
 
 def decode_step(params: dict, tokens: torch.Tensor, caches: dict,

@@ -40,8 +40,12 @@ Two implementations:
     through the epilogue and the sampler ``N_S − 1`` ticks after its
     injection.  Every stage crossing travels a transport
     (:mod:`repro_torch.distributed.transport`): zero-cost in process, or a
-    simulated link on a virtual clock.  The stages run in turn, in one
-    process, on the device's current stream.
+    simulated link on a virtual clock.  The stage is the unit of
+    placement: stage ``s`` owns its layers' weights and caches, its
+    offloader and its tick inputs on ``mesh[s]`` (``stage_devices``), and
+    the activation moves to the next stage's device between ticks.  One
+    process issues the stages in turn, each on its device's current
+    stream; ``mesh=None`` puts every stage on the engine's device.
 
 The pipelined backend also takes a
 :class:`repro_torch.distributed.elastic.FaultPlan`: a ``drop`` at stage
@@ -95,7 +99,7 @@ from repro_torch.distributed.transport import (CompressedTransport,
                                                make_transport)
 from repro_torch.kernels import build as kernel_build
 from repro_torch.models import model as model_lib
-from repro_torch.models.common import Runtime
+from repro_torch.models.common import Runtime, stage_device
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.sampler import (RowSampling, greedy, gumbel_noise,
                                          sample_batched, token_logprobs)
@@ -142,29 +146,24 @@ class PrefillResult:
 
 def stage_devices(mesh, n_stages: int, device) -> List[torch.device]:
     """The device of each pipeline stage.  ``mesh`` is ``None`` (every stage
-    on ``device``) or a list of ``n_stages`` torch devices; one that names
-    two or more distinct devices asks for stages on several GPUs, which the
-    port does not run yet (ROADMAP Queue 1, "stages on several GPUs")."""
-    device = torch.device(device)
+    on ``device``) or a list of ``n_stages`` torch devices, which may repeat
+    one; stage 0 must be ``device``, the engine's, where its host-made
+    tensors land.  Each entry must exist: a CUDA entry raises
+    ``resolve_device``'s ``RuntimeError`` without a card and ``ValueError``
+    past the visible cards.  The devices come back with their card index
+    (``models.common.stage_device``)."""
+    device = stage_device(device)
     if mesh is None:
         return [device] * n_stages
-    devs = [torch.device(d) for d in mesh]
-
-    def key(d):
-        return (d.type, d.index or 0)
-    if len({key(d) for d in devs}) > 1:
-        raise NotImplementedError(
-            f"mesh {[str(d) for d in devs]} puts pipeline stages on "
-            "several devices, which is not ported yet: it comes with the "
-            "ROADMAP item 'stages on several GPUs' (every stage runs on "
-            "one device, in one process)")
+    devs = [stage_device(d) for d in mesh]
     if len(devs) != n_stages:
         raise ValueError(f"mesh has {len(devs)} device(s) for {n_stages} "
                          "stage(s): one device a stage")
-    if key(devs[0]) != key(device):
-        raise ValueError(f"mesh puts the stages on {devs[0]}, but the "
-                         f"engine runs on {device}")
-    return [device] * n_stages
+    if devs[0] != device:
+        raise ValueError(f"mesh puts stage 0 on {devs[0]}, but the engine "
+                         f"runs on {device}: stage 0 must be the engine's "
+                         "device")
+    return devs
 
 
 class _SlotCacheBackend:
@@ -176,7 +175,9 @@ class _SlotCacheBackend:
 
     def __init__(self, cfg: ModelConfig, params: dict, rt: Runtime, *,
                  mb_size: int, num_microbatches: int, pool: kvc.PoolConfig,
-                 device: torch.device, caches: Optional[dict] = None):
+                 device: torch.device, caches: Optional[dict] = None,
+                 devices: Optional[List[torch.device]] = None,
+                 ranges: Optional[list] = None):
         self.cfg = cfg
         self.params = params
         self.rt = rt
@@ -184,28 +185,57 @@ class _SlotCacheBackend:
         self.num_microbatches = num_microbatches
         self.batch = mb_size * num_microbatches
         self.pool = pool
-        self.device = device
-        # a reshard hands the old backend's caches over as they are
+        self.device = device = stage_device(device)     # stage 0's
+        # the stages' devices and layer ranges, then the epilogue's range
+        # (one stage holding every layer on a local backend)
+        self.stage_devices = devices or [device]
+        self.ranges = ranges or [(0, cfg.num_layers),
+                                 (cfg.num_layers, cfg.num_layers)]
+        self._devices = list(dict.fromkeys(self.stage_devices))
+        # a tied head's table where the last stage's device is not stage
+        # 0's (None: the head reads ``params``)
+        self.head = model_lib.tied_head(params, cfg, self.stage_devices[-1])
+        # a reshard hands the old backend's caches over; the engine has
+        # placed them, and the weights, by stage
         self.caches = caches if caches is not None else \
             kvc.build_paged_caches(cfg, self.batch, pool, rt, device)
-        self.noise_gen = torch.Generator(device=device)
+        self._noise_gen: Optional[torch.Generator] = None
         self.decode_ticks = 0           # decode-plane ticks
+
+    @property
+    def noise_gen(self) -> torch.Generator:
+        """The sampler's generator, on the last stage's device, where
+        sampling runs (reseeded by ``(seed, request_id, token_idx)`` for
+        every row, so the rows equal one card's)."""
+        if self._noise_gen is None:
+            self._noise_gen = torch.Generator(device=self.stage_devices[-1])
+        return self._noise_gen
 
     def set_page_table(self, table: np.ndarray) -> None:
         self.caches = kvc.set_page_table(self.caches, table)
 
     def reset_slot(self, slot: int) -> None:
         """Clear a reassigned slot's per-row state (ring positions,
-        recurrent states), in place."""
+        recurrent states), in place, on each layer's device."""
         self.caches = kvc.reset_slot(self.caches, slot)
 
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _tensor(self, a: np.ndarray, device=None) -> torch.Tensor:
+        """A host array on ``device`` (stage 0's when None)."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device if device is None else device)
+
+    def _per_stage(self, a: np.ndarray) -> List[torch.Tensor]:
+        """Row ``s`` of a host ``(n_stages, ...)`` array on stage ``s``'s
+        device: one copy of the array a distinct device."""
+        host = torch.from_numpy(np.ascontiguousarray(a))
+        on = {d: host.to(d) for d in self._devices}
+        return [on[d][s] for s, d in enumerate(self.stage_devices)]
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            # repro-torch-audit: allow(host-sync) — once a prefill phase (chunk or exact prefill) and a pipe tick that drains nothing, so the phase clocks and stage times measure the card
-            torch.cuda.synchronize(self.device)
+        for dev in self._devices:
+            if dev.type == "cuda":
+                # repro-torch-audit: allow(host-sync) — once a prefill phase (chunk or exact prefill) and a pipe tick that drains nothing, on every stage's card, so the phase clocks and stage times measure the cards
+                torch.cuda.synchronize(dev)
 
     # -- the pipe's state (a local backend has nothing in flight) ----------
 
@@ -249,29 +279,38 @@ class _SlotCacheBackend:
                 has_global_pages: bool = True) -> torch.Tensor:
         """Prefill one whole prompt, right-padded to ``len(tokens)``, into
         ``slot`` through the whole model; returns its logits (V,) at
-        ``last_index``, on the device."""
+        ``last_index``, on the last stage's device."""
         toks = self._tensor(tokens[None])
         if has_global_pages:
             self._prefill_residency(slot // self.mb_size)
         logits = self._prefill_fn(self.params, self.caches, toks, slot,
-                                  last_index, cfg=self.cfg, rt=self.rt)
+                                  last_index, cfg=self.cfg, rt=self.rt,
+                                  ranges=self.ranges,
+                                  devices=self.stage_devices, head=self.head)
         # as prefill_step: the prefill phase's clock measures the card
         self._sync()
         return logits
 
     @staticmethod
-    def _prefill_fn(params, caches, tokens, slot, last_idx, *, cfg, rt):
-        """One sequence into the batch-wide caches at ``slot``: a one-row
-        view of the rings, the recurrent states and the page table stands
-        in for the JAX package's slot_view / slot_merge (pools, rings and
-        states are written in place through it).  Ring positions past the
-        true last index are cleaned back to -1 afterwards."""
-        view = kvc.slot_view(caches, slot, 1)
+    def _prefill_fn(params, caches, tokens, slot, last_idx, *, cfg, rt,
+                    ranges, devices, head):
+        """One sequence into the batch-wide caches at ``slot``, through
+        ``models.model.prefill`` walking the stages: each stage's layer
+        range on its device against a one-row view of the rings, the
+        recurrent states and its device's page table (the JAX package's
+        slot_view / slot_merge: pools, rings and states are written in
+        place through it), the head on the last stage's device.  Ring
+        positions past the true last index are cleaned back to -1
+        afterwards."""
+        views = {d: kvc.slot_view(caches, slot, 1, d) for d in devices}
         last = torch.full((1,), last_idx, dtype=torch.int32,
                           device=tokens.device)
-        logits, _ = model_lib.prefill(params, {"tokens": tokens}, cfg, rt, 0,
-                                      caches=view, last_index=last)
-        for layer in view["layers"]:
+        stages = [(r, d, views[d])
+                  for r, d in zip(ranges, [*devices, devices[-1]])]
+        logits, _ = model_lib.prefill(params, {"tokens": tokens}, cfg, rt,
+                                      last_index=last, stages=stages,
+                                      head=head)
+        for layer in views[devices[0]]["layers"]:
             if "pos" in layer:
                 layer["pos"].masked_fill_(layer["pos"] > last_idx, -1)
         return logits[0]
@@ -429,10 +468,18 @@ class PipelinedBackend(_SlotCacheBackend):
                     f"fault plan targets stage(s) {bad} but the pipe has "
                     f"only {n_stages} stage(s) — fix the "
                     "kind@plane:tick:stage spec")
-        self.stage_devices = stage_devices(mesh, n_stages, device)
+        # stage s owns its layers' weights and caches on devs[s] (the
+        # epilogue's on the last stage's); the caller has placed the
+        # weights and any caches it hands over (OfflineEngine does)
+        devs = stage_devices(mesh, n_stages, device)
+        if caches is None:
+            caches = kvc.build_paged_caches(
+                cfg, mb_size * num_microbatches, pool, rt, devs[0],
+                layer_devices=PL.layer_devices(cfg, devs))
         super().__init__(cfg, params, rt, mb_size=mb_size,
                          num_microbatches=num_microbatches, pool=pool,
-                         device=device, caches=caches)
+                         device=devs[0], caches=caches, devices=devs,
+                         ranges=PL.stage_ranges(cfg, n_stages))
         self.fault_plan = fault_plan
         # plane ticks in which something was in flight, a tick whose only
         # entry a fault dropped included: the FaultPlan's tick indices
@@ -443,7 +490,6 @@ class PipelinedBackend(_SlotCacheBackend):
         self.n_stages = n_stages
         self.wire_dtype = wire_dtype
         self.schedule = schedule
-        self.ranges = PL.stage_ranges(cfg, n_stages)  # stages, epilogue
         self.act: list = [None] * n_stages
         self._entries: List[Optional[tuple]] = [None] * n_stages
         self._pf_act: list = [None] * n_stages
@@ -574,9 +620,13 @@ class PipelinedBackend(_SlotCacheBackend):
         drained = entries[-1]
         lasts = drained.lasts if drained is not None \
             else np.zeros((rows,), np.int32)
-        # host inputs go to the card before any swap is enqueued (see
-        # LocalBackend._residency)
-        inputs = [self._tensor(a) for a in (tokens, offs, nval, tabs, lasts)]
+        # host inputs go to the stages' devices before any swap is enqueued
+        # (see LocalBackend._residency): the chunk's tokens to stage 0's,
+        # each stage's offsets and table rows to its own, the draining
+        # chunk's last indices to the last stage's
+        inputs = [self._tensor(tokens), self._per_stage(offs),
+                  self._per_stage(nval), self._per_stage(tabs),
+                  self._tensor(lasts, self.stage_devices[-1])]
         for s, e in enumerate(entries):
             for mb in (e.residency_mbs if e is not None else ()):
                 self._ensure_stage_resident(s, mb)
@@ -587,7 +637,8 @@ class PipelinedBackend(_SlotCacheBackend):
         logits, self._pf_act = PL.pipeline_prefill_chunk_tick(
             self.params, self.caches, self._pf_act, *inputs,
             occupied=occupied, cfg=self.cfg, rt=self.rt,
-            n_stages=self.n_stages, wire_dtype=self.wire_dtype)
+            n_stages=self.n_stages, wire_dtype=self.wire_dtype,
+            devices=self.stage_devices, head=self.head)
         # the tick's device work ends inside the engine's prefill phase,
         # and the stage time the transport books is the card's
         self._sync()
@@ -666,15 +717,18 @@ class PipelinedBackend(_SlotCacheBackend):
         # *draining* microbatch with the RowSampling captured at injection
         dsamp = drained[2] if drained is not None else None
         sampled = dsamp is not None and dsamp.any_sampled
-        noise = gumbel_noise(dsamp, self.cfg.vocab_size, self.device,
+        last = self.stage_devices[-1]       # where the sampler runs
+        noise = gumbel_noise(dsamp, self.cfg.vocab_size, last,
                              self.noise_gen) if sampled else None
         samp_in = (dsamp.temp, dsamp.top_k, dsamp.top_p) \
             if dsamp is not None else (np.zeros((self.mb_size,), np.float32),
                                        np.zeros((self.mb_size,), np.int32),
                                        np.ones((self.mb_size,), np.float32))
-        # host inputs go to the card before any swap is enqueued
-        toks_in, pos_in, temp, top_k, top_p = [
-            self._tensor(a) for a in (tokens, pos_stage) + samp_in]
+        # host inputs go to the stages' devices before any swap is
+        # enqueued: the tokens to stage 0's, each stage's positions to its
+        # own, the draining rows' sampling to the last stage's
+        toks_in, pos_in = self._tensor(tokens), self._per_stage(pos_stage)
+        temp, top_k, top_p = [self._tensor(a, last) for a in samp_in]
         for s, e in enumerate(entries):
             if e is not None:
                 self._ensure_stage_resident(s, e[0])
@@ -686,7 +740,8 @@ class PipelinedBackend(_SlotCacheBackend):
             mb_assign=mb_assign, noise=noise, temp=temp, top_k=top_k,
             top_p=top_p, sampled=sampled, cfg=self.cfg, rt=self.rt,
             n_stages=self.n_stages, mb_size=self.mb_size,
-            wire_dtype=self.wire_dtype)
+            wire_dtype=self.wire_dtype, devices=self.stage_devices,
+            head=self.head)
         out = None
         if drained is not None:
             # §4.3 return link: the drained microbatch's token ids ride
@@ -834,8 +889,8 @@ class PipelinedBackend(_SlotCacheBackend):
 
         def dst_of(mb: int, a: int, b: int) -> torch.Tensor:
             if mb not in state:
-                state[mb] = torch.empty(
-                    n, dtype=dtype, pin_memory=self.device.type == "cuda")
+                state[mb] = torch.empty(n, dtype=dtype, pin_memory=any(
+                    d.type == "cuda" for d in self._devices))
                 filled[mb] = set()
             filled[mb].add((a, b))
             return state[mb][a:b]
@@ -853,11 +908,12 @@ class PipelinedBackend(_SlotCacheBackend):
 
     def import_offload_state(self, state: Dict[int, torch.Tensor]) -> None:
         """Hand ``export_offload_state``'s tensors (of a backend with any
-        stage count) to this backend's offloaders: each takes its layers'
-        range of every microbatch's tensor as that microbatch's host store
-        and buffer, without a copy.  Nothing is resident in the fresh
-        offloaders, so the first ``ensure_resident`` of each microbatch
-        swaps its store in, on the offloader's copy stream."""
+        stage count and placement) to this backend's offloaders: each takes
+        its layers' range of every microbatch's tensor as that microbatch's
+        host store and buffer, without a copy.  Nothing is resident in the
+        fresh offloaders, so the first ``ensure_resident`` of each
+        microbatch swaps its store in, on the copy stream of the offloader's
+        stage device, the device that now owns those layers."""
         if not state:
             return
         _, _, unit_range = self._store_layout()

@@ -68,6 +68,7 @@ being there, so neither adds a device sync or costs anything when off.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -80,16 +81,18 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import offload as offload_lib
+from repro_torch.core import pipeline as PL
 from repro_torch.core.scheduler import ScheduleChoice, plan_schedule
 from repro_torch.distributed.elastic import (ElasticPlanner, MeshPlan,
                                              StragglerMitigator)
+from repro_torch.models import model as model_lib
 from repro_torch.models.common import Runtime, make_layer_plan, \
-    resolve_device
+    stage_device
 from repro_torch.models.model import PAGED_KINDS
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.backend import (DecodeResult, PipelinedBackend,
                                          PrefillChunk, PrefillResult,
-                                         make_backend)
+                                         make_backend, stage_devices)
 from repro_torch.serving.request import (EngineStats, Request, SamplingParams,
                                          SequenceState, Status)
 from repro_torch.serving.sampler import (RowSampling, gumbel_noise,
@@ -226,7 +229,7 @@ class OfflineEngine:
         self.params = params
         self.rt = rt
         self.recorder = _resolve_trace(trace)
-        self.device = resolve_device(device)
+        self.device = stage_device(device)       # stage 0's
         self.mb_size = mb_size
         self.num_microbatches = num_microbatches
         self.batch = mb_size * num_microbatches
@@ -235,10 +238,14 @@ class OfflineEngine:
         self.seed = seed
         self.n_stages = n_stages
         self._offloader = offloader     # reshard builds the new pipe's own
-        # the stream the engine's work goes to: the caller's current one at
-        # build time (an online pump thread enters it before stepping)
-        self.stream = torch.cuda.current_stream(self.device) \
-            if self.device.type == "cuda" else None
+        # the engine owns the placement by stage: the weights it was given
+        # move in place to their stages' devices (nothing moves with
+        # mesh=None or when they were drawn placed); the bytes moved by
+        # the last placement, a reshard's caches included
+        self.moved_bytes = 0
+        if backend == "pipelined":
+            self.moved_bytes = self._place(
+                stage_devices(mesh, n_stages, self.device))
         self.backend = make_backend(
             backend, cfg, params, rt, mb_size=mb_size,
             num_microbatches=num_microbatches, pool=self.pool,
@@ -246,6 +253,14 @@ class OfflineEngine:
             mesh=mesh, transport=transport, schedule=schedule,
             wire_dtype=wire_dtype, fault_plan=fault_plan,
             recorder=self.recorder)
+        # the devices reshard() may place stages on (None: every stage on
+        # the engine's device), and the streams the engine's work goes to:
+        # each stage card's current one at build time (``step`` and an
+        # online pump thread enter them all)
+        self.mesh = None if mesh is None else \
+            list(self.backend.stage_devices)
+        self.streams: Dict[torch.device, torch.cuda.Stream] = {}
+        self._capture_streams()
 
         # the elastic control plane: per-stage EWMA tick times (they narrow
         # the admission budget) and the planner bookkeeping that reshard()
@@ -335,6 +350,33 @@ class OfflineEngine:
             self.auditor: Optional[EngineAuditor] = EngineAuditor(self)
         else:
             self.auditor = None
+
+    def _place(self, devs: List[torch.device], caches=None) -> int:
+        """Move the weights (and ``caches``, a reshard's) in place so that
+        each stage's layers sit on its device in ``devs``
+        (``models.model.place_params``, ``serving.kv_cache.place_caches``),
+        one layer at a time; returns the bytes moved."""
+        per_layer = PL.layer_devices(self.cfg, devs)
+        moved = model_lib.place_params(self.params, per_layer)
+        if caches is not None:
+            moved += kvc.place_caches(caches, per_layer)
+        return moved
+
+    def _capture_streams(self) -> None:
+        """Add the current stream of each stage card not seen before."""
+        for dev in self.backend.stage_devices:
+            if dev.type == "cuda" and dev not in self.streams:
+                self.streams[dev] = torch.cuda.current_stream(dev)
+
+    def stream_context(self):
+        """A context that makes the engine's stream current on every stage
+        card, stage 0's card last (so it is the current device): the
+        engine's work, kernel launches and offload swaps included, stays
+        in order on one stream a card whichever thread steps it."""
+        stack = contextlib.ExitStack()
+        for dev in sorted(self.streams, key=lambda d: d == self.device):
+            stack.enter_context(torch.cuda.stream(self.streams[dev]))
+        return stack
 
     # ------------------------------------------------------------------
     # planned construction (DeServe §4.3: N_B, batch, pools from the link)
@@ -513,28 +555,36 @@ class OfflineEngine:
         from the live-device count (given, or read from a
         :class:`~repro_torch.distributed.elastic.FailureDetector` at
         ``now``): the largest power of two that the live devices, ``N_B``
-        (N_B >= N_S) and the layer plan's periods admit.  The JAX engine
-        also bounds it by its local device count; here every stage runs on
-        the engine's one device (stages on several GPUs are ROADMAP item
-        9), so there is no device term.
+        (N_B >= N_S), the layer plan's periods and the engine's mesh
+        (``mesh=`` at build) admit.  The new stages take the mesh's first
+        ``n_stages`` entries, as the JAX engine takes the first of
+        ``jax.devices()``, and a target past its length raises.  With no
+        mesh every stage stays on the engine's device and there is no
+        device bound.
 
         Four steps: (1) drain both planes, so every tick in flight books
         as usual and nothing is computed twice; (2) export the
         offloaders' host stores (``export_offload_state``) into
         whole-model host tensors; (3) build the new ``PipelinedBackend``
-        through ``make_backend``, on the same caches (one tensor per layer
-        on the engine's device: they carry over as they are), with the
-        transport retargeted by ``for_stages``, the same schedule and wire
-        dtype, the plane tick counters carried (a FaultPlan tick keeps its
-        meaning) and pending fault events for stages that no longer exist
-        dropped; (4) import the stores into the new offloaders, push the
-        page table, and start a fresh :class:`StragglerMitigator`.  The
-        sequences' cursors are engine state, so no token is generated
-        twice.
+        through ``make_backend``, on the same weights and caches, placed
+        by the new stages first: a layer whose device changes moves
+        device to device with its caches, one layer at a time, so no card
+        holds two copies of the model (``moved_bytes`` counts them); with
+        the transport retargeted by ``for_stages``, the same schedule and
+        wire dtype, the plane tick counters carried (a FaultPlan tick
+        keeps its meaning) and pending fault events for stages that no
+        longer exist dropped; (4) import the stores into the
+        new offloaders, push the page table to every stage card, and start
+        a fresh :class:`StragglerMitigator`.  The sequences' cursors are
+        engine state, so no token is generated twice.
 
         Returns the planner's resharding plan, with the time of each step
         under ``"seconds"`` and the host-store bytes carried under
         ``"bytes_migrated"``; raises on the local backend."""
+        with self.stream_context():
+            return self._reshard(live_devices, n_stages, detector, now)
+
+    def _reshard(self, live_devices, n_stages, detector, now) -> dict:
         if not isinstance(self.backend, PipelinedBackend):
             raise ValueError(
                 "reshard: only the pipelined backend has stages to rebuild "
@@ -543,6 +593,7 @@ class OfflineEngine:
             if now is None:
                 now = time.monotonic()
             live_devices = len(detector.live(now))
+        mesh = self.mesh
         if n_stages is None:
             if live_devices is None:
                 raise ValueError(
@@ -551,11 +602,16 @@ class OfflineEngine:
             n_periods = make_layer_plan(self.cfg.num_layers,
                                         self.cfg.block_pattern).n_periods
             n_stages = max(1, min(plan.data, self.num_microbatches,
-                                  n_periods))
+                                  n_periods, *([] if mesh is None
+                                               else [len(mesh)])))
         if n_stages > self.num_microbatches:
             raise ValueError(
                 f"reshard: N_B >= N_S requires n_stages <= "
                 f"{self.num_microbatches}, got {n_stages}")
+        if mesh is not None and n_stages > len(mesh):
+            raise ValueError(
+                f"reshard: the engine's mesh has {len(mesh)} device(s), "
+                f"fewer than the {n_stages} stages asked for")
         new_plan = MeshPlan(shape=(n_stages, 1), axes=("data", "model"),
                             devices_used=n_stages,
                             devices_spare=max(0, (live_devices or n_stages)
@@ -596,14 +652,20 @@ class OfflineEngine:
         log.info("reshard: %d -> %d stages (%s)", old.n_stages, n_stages,
                  {k: v for k, v in reshard_plan.items()
                   if k not in ("old", "new")})
+        new_mesh = None if mesh is None else mesh[:n_stages]
+        old.head = None         # the drained pipe's tied copy, if any
+        self.moved_bytes = self._place(
+            stage_devices(new_mesh, n_stages, self.device), old.caches)
         self.backend = make_backend(
             "pipelined", self.cfg, self.params, self.rt,
             mb_size=self.mb_size, num_microbatches=self.num_microbatches,
             pool=self.pool, device=self.device, offloader=self._offloader,
-            n_stages=n_stages, transport=old.transport.for_stages(n_stages),
+            n_stages=n_stages, mesh=new_mesh,
+            transport=old.transport.for_stages(n_stages),
             schedule=old.schedule, wire_dtype=old.wire_dtype,
             fault_plan=fault_plan, caches=old.caches,
             recorder=self.recorder)
+        self._capture_streams()
         self.backend.decode_ticks = old.decode_ticks
         self.backend.prefill_ticks = old.prefill_ticks
         del old
@@ -646,7 +708,12 @@ class OfflineEngine:
         microbatch.  Returns False when fully drained.  It runs under
         ``torch.inference_mode``: serving records nothing for autograd,
         and each operation costs the host less there (an eager decode
-        tick is bound by the host's launches)."""
+        tick is bound by the host's launches); and on the engine's stream
+        of every stage card (``stream_context``)."""
+        with self.stream_context():
+            return self._step()
+
+    def _step(self) -> bool:
         t0 = time.perf_counter()
         self._reap()
         tp = time.perf_counter()
@@ -1024,7 +1091,7 @@ class OfflineEngine:
                            temp=self.samp_temp[slot:slot + 1].copy(),
                            top_k=self.samp_top_k[slot:slot + 1].copy(),
                            top_p=self.samp_top_p[slot:slot + 1].copy())
-        dev = self.device
+        dev = logits_row.device         # the last stage's
         logits = logits_row[None]
         noise = gumbel_noise(samp, logits.shape[-1], dev,
                              self.backend.noise_gen)

@@ -4,7 +4,8 @@ and the host-side page-table allocator (counterpart of
 
 Device state is one ``(P, page, Hk, Dh)`` K pool and V pool per paged
 attention layer (``"attn"``/``"global"``) plus one ``(batch, max_pages)``
-int32 page table shared by every paged layer, one ring of
+int32 page table shared by every paged layer (one copy a device when the
+layers are placed on several by pipeline stage), one ring of
 ``window_size`` slots per row for each sliding-window (``"local"``) layer,
 and one recurrent state per row for each recurrent layer (``"rglru"``:
 ``h`` and the conv's trailing inputs; ``"mlstm"``: ``c``, ``n``, ``m``;
@@ -319,36 +320,96 @@ class PrefixCache:
 
 
 def build_paged_caches(cfg: ModelConfig, batch: int, pool: PoolConfig,
-                       rt: Runtime, device=None) -> dict:
+                       rt: Runtime, device=None, layer_devices=None) -> dict:
     """Engine caches on ``device`` (``cuda`` unless asked): zeroed pools for
     the paged kinds, empty rings (``pos`` -1) of ``window_size`` slots for
     ``"local"``, zero recurrent states for the recurrent kinds, and a zero
-    (scratch-parked) table."""
+    (scratch-parked) table.
+
+    ``layer_devices`` (one device a layer, ``core.pipeline.layer_devices``,
+    carrying card indices) places them by pipeline stage: each layer's
+    pools, ring or state on its device, ``"page_table"`` on ``device``
+    (stage 0's), and, when the layers span several devices, one more copy
+    of the table on each under ``"page_tables"`` (device -> table, stage
+    0's included), which :func:`set_page_table` keeps equal."""
     device = resolve_device(device)
+    devs = [device] * cfg.num_layers if layer_devices is None \
+        else list(layer_devices)
     shape = (pool.n_pages, pool.page_size, cfg.num_kv_heads, cfg.head_dim)
 
-    def layer(kind: str) -> dict:
+    def layer(kind: str, dev) -> dict:
         if kind in PAGED_KINDS:
             return {"k_pages": torch.zeros(shape, dtype=rt.compute_dtype,
-                                           device=device),
+                                           device=dev),
                     "v_pages": torch.zeros(shape, dtype=rt.compute_dtype,
-                                           device=device)}
+                                           device=dev)}
         cap = cfg.window_size if kind == "local" and cfg.window_size else \
             pool.max_pages_per_seq * pool.page_size
-        return _kind_cache(kind, cfg, batch, cap, rt, device)
+        return _kind_cache(kind, cfg, batch, cap, rt, dev)
 
     table = torch.zeros((batch, pool.max_pages_per_seq), dtype=torch.int32,
                         device=device)
-    return {"layers": [layer(k) for k in cfg.layer_kinds()],
-            "page_table": table}
+    caches = {"layers": [layer(k, d) for k, d in zip(cfg.layer_kinds(),
+                                                     devs)],
+              "page_table": table}
+    _place_tables(caches, devs)
+    return caches
+
+
+def _place_tables(caches: dict, layer_devices) -> None:
+    """Keep one copy of the page table on every device the layers use: set
+    ``"page_tables"`` when there is more than one (a new device's copy is
+    made from stage 0's table), drop it when there is one."""
+    table = caches["page_table"]
+    devs = list(dict.fromkeys([table.device, *layer_devices]))
+    if len(devs) == 1:
+        caches.pop("page_tables", None)
+        return
+    old = caches.get("page_tables", {})
+    caches["page_tables"] = {d: old[d] if d in old else table.to(d)
+                             for d in devs}
+
+
+def page_tables(caches: dict) -> List[torch.Tensor]:
+    """Every copy of the device page table (one a device the layers use)."""
+    if "page_tables" in caches:
+        return list(caches["page_tables"].values())
+    return [caches["page_table"]]
+
+
+def page_table_on(caches: dict, device=None) -> torch.Tensor:
+    """The page table's copy on ``device`` (stage 0's when None)."""
+    table = caches["page_table"]
+    if device is None or table.device == device:
+        return table
+    return caches["page_tables"][device]
 
 
 def set_page_table(caches: dict, table: np.ndarray) -> dict:
-    """Copy the host page table (batch, max_pages) into the device table,
-    in place."""
-    caches["page_table"].copy_(torch.from_numpy(
-        np.ascontiguousarray(table, dtype=np.int32)))
+    """Copy the host page table (batch, max_pages) into every copy of the
+    device table, in place."""
+    host = torch.from_numpy(np.ascontiguousarray(table, dtype=np.int32))
+    for t in page_tables(caches):
+        t.copy_(host)
     return caches
+
+
+def place_caches(caches: dict, layer_devices) -> int:
+    """Move engine caches in place so that layer ``i``'s pools, ring or
+    state sit on ``layer_devices[i]``, one layer at a time, and keep a
+    copy of the page table on each device the layers use (stage 0's table
+    stays where it is).  Contents move with the tensors.  Returns the bytes
+    moved."""
+    moved = 0
+    for i, dev in enumerate(layer_devices):
+        layer = caches["layers"][i]
+        if all(t.device == dev for t in layer.values()):
+            continue
+        moved += sum(t.numel() * t.element_size() for t in layer.values()
+                     if t.device != dev)
+        caches["layers"][i] = {name: t.to(dev) for name, t in layer.items()}
+    _place_tables(caches, layer_devices)
+    return moved
 
 
 def reset_slot(caches: dict, slot: int) -> dict:
@@ -383,14 +444,15 @@ def global_slice(pool: PoolConfig, pool_id: int) -> slice:
     return slice(r.start, r.stop)
 
 
-def slot_view(caches: dict, start: int, size: int) -> dict:
+def slot_view(caches: dict, start: int, size: int, device=None) -> dict:
     """A ``size``-row view of the batch starting at ``start``: the page
-    table rows and each ring's and recurrent state's rows are views (no
-    copy), the shared pools pass through whole.  The model writes pools,
-    rings and states in place, so nothing is merged back."""
+    table rows (of the table's copy on ``device``, stage 0's when None) and
+    each ring's and recurrent state's rows are views (no copy), the shared
+    pools pass through whole.  The model writes pools, rings and states in
+    place, so nothing is merged back."""
     def rows(layer: dict) -> dict:
         if "k_pages" in layer:
             return layer
         return {name: t[start:start + size] for name, t in layer.items()}
     return {"layers": [rows(layer) for layer in caches["layers"]],
-            "page_table": caches["page_table"][start:start + size]}
+            "page_table": page_table_on(caches, device)[start:start + size]}

@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import torch
 
 from repro_torch.config import ModelConfig, get_arch, reduced_config
+from repro_torch.core import pipeline as PL
 from repro_torch.core.offload import DoubleBufferOffloader
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import Runtime, resolve_device
@@ -62,8 +63,10 @@ class EngineConfig:
     :class:`repro_torch.distributed.transport.Transport`, a latency in
     seconds for uniform simulated links, or a ``DeploymentPlan``),
     ``schedule`` (``"circular"`` or ``"round_flush"``), ``wire_dtype``
-    (``"fp32"`` or ``"int8"``) and ``mesh`` (one torch device a stage, all
-    the engine's own device: stages on several GPUs are not ported).
+    (``"fp32"`` or ``"int8"``) and ``mesh`` (one torch device a stage,
+    ``n_stages`` of them, stage 0 the engine's device; it may repeat one:
+    each stage's weights, caches and offloader go on its device, and
+    ``None`` puts every stage on the engine's device).
     ``fault_plan`` needs the pipelined backend, ``prefix_cache`` chunked
     prefill, and ``slo`` is an :class:`SLOConfig`.  ``trace`` is the
     flight recorder (None/False off, True a default-capacity
@@ -137,8 +140,13 @@ class EngineConfig:
                 "backend='pipelined' — the local backend has no stage "
                 "boundaries for a link to cross")
         if self.mesh is not None:
-            # stages on several devices raise NotImplementedError here
-            stage_devices(self.mesh, self.n_stages, self.mesh[0])
+            # the list's shape; whether its devices exist (and stage 0 is
+            # the engine's) is checked when the engine is built
+            self.mesh = [torch.device(d) for d in self.mesh]
+            if len(self.mesh) != self.n_stages:
+                raise ValueError(
+                    f"mesh has {len(self.mesh)} device(s) for "
+                    f"{self.n_stages} stage(s): one device a stage")
         if self.fault_plan is not None and self.backend != "pipelined":
             raise ValueError(
                 "fault_plan requires backend='pipelined' — the local "
@@ -313,8 +321,15 @@ class LLM:
         self.rt = rt or Runtime(param_dtype=torch.float32,
                                 compute_dtype=torch.float32)
         if params is None:
-            params = model_lib.init_params(cfg, self.config.seed, self.rt,
-                                           self.device)
+            # with a mesh the weights are drawn placed by stage, so no card
+            # ever holds more than its share and one layer
+            conf = self.config
+            layer_devices = None if conf.mesh is None else \
+                PL.layer_devices(cfg, stage_devices(conf.mesh, conf.n_stages,
+                                                    self.device))
+            params = model_lib.init_params(cfg, conf.seed, self.rt,
+                                           self.device,
+                                           layer_devices=layer_devices)
         self.params = params
         self.engine = self.config.build(cfg, params, self.rt, self.device)
         self._next_id = 0

@@ -22,9 +22,10 @@ Two pump modes, one delivery surface:
 
 The engine is stepped under one lock, so the cooperative path and the
 pump never step it at the same time, and always on the engine's own
-stream (``OfflineEngine.stream``, captured when it was built): a new
-thread starts on the device's default stream, and the engine's work,
-paged-attention launches included, must stay on one stream in order.
+streams (``OfflineEngine.stream_context``: one a stage card, captured when
+it was built): a new thread starts on each card's default stream, and the
+engine's work, paged-attention launches included, must stay on one stream
+a card, in order.
 
 Token streams equal offline ``LLM.generate``'s: every token is a function
 of ``(seed, request_id, token_idx)`` only, so arrival times, admission
@@ -36,14 +37,11 @@ time to first token and inter-token latency.
 
 from __future__ import annotations
 
-import contextlib
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Union
-
-import torch
 
 from repro_torch.serving.llm import LLM, EngineConfig, RequestOutput
 from repro_torch.serving.request import SamplingParams, SequenceState, Status
@@ -256,9 +254,7 @@ class OnlineLLM:
     # -- pump --------------------------------------------------------------
 
     def _engine_stream(self):
-        stream = self.engine.stream
-        return torch.cuda.stream(stream) if stream is not None \
-            else contextlib.nullcontext()
+        return self.engine.stream_context()
 
     def step(self) -> bool:
         """One pump iteration: admit queued submissions, advance the engine
