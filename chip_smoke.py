@@ -77,6 +77,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    pages, no allocation refused) and the planned serve (the card's pinned
    copy rate and a measured stage time through ``EngineConfig.plan``,
    Formula 1's per-microbatch capacity printed beside the allocator's);
+7g. the captured decode steps (``serving.step_graph``: every engine's
+   decode tick is a CUDA graph replay, one capture a key), held against
+   the eager steps they replace on full-width yi-9b (bf16, the yi-9b
+   phase's weights): the local step greedy and with sampled rows, the
+   pipelined stages (2 x 24 layers) and the drain greedy and sampled, two
+   ticks a key (the capturing one and a replay with new inputs), each run
+   eagerly on a copy of the caches and replayed on the live ones: tokens
+   equal, cache writes equal (bit-equal expected; a gap up to
+   ``GRAPH_CACHE_ATOL`` is reported as cuBLAS rounding otherwise under
+   capture), the largest log-prob and cache gaps printed
+   (``[graph-parity]``).  Every served path below prints a ``[graphs]``
+   line: its captures (each key once, or the phase fails), its replays
+   (equal to its decode ticks, or its stage runs and drains), the host ms
+   of a decode tick and the replays' device ms a tick (CUDA events);
 8. the gemma3 serve phase: full-width, full-depth gemma3-12b in bf16 (48
    layers, 5 local : 1 global), 20 requests of 256-2048 prompt tokens, 32
    new tokens each; ``prefill_mode="auto"`` must pick exact-length
@@ -297,7 +311,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 Each serve phase sets every kernel's launch count to 0 just before it
 drives its path and reads them just after; the kernels line reports those
-counts by path.
+counts by path.  A captured step's launches count at its replays (the
+graph adds what its capture launched), so the counts are an eager
+serve's.  Each phase prints ``[phase] <name>: start at <s>`` and its
+seconds.
 
 It prints an ``{"offload": ...}`` line (swap books, copy and wait times,
 the planner's inputs), a ``{"pipeline": ...}`` line (the pipeline phase's
@@ -306,7 +323,9 @@ numbers and wall times), a ``{"resilience": ...}`` line (phase 11's), a
 (phase 13's), a ``{"train": ...}`` line (phase 14's), a
 ``{"fixed_pipe": ...}`` line (phase 15's), a ``{"dryrun": ...}`` line
 (phase 16's), a ``{"multi_gpu": ...}`` line (phase 17's: ``cards``,
-``several_card_runs``, ``serving_runs``), a ``{"kernels": [...]}``
+``several_card_runs``, ``serving_runs``), a ``{"graphs": ...}`` line
+(phase 7g's parity, every path's graph books, each phase's seconds and
+the script's), a ``{"kernels": [...]}``
 line, the card's
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  It exits non-zero without a
 result when no CUDA device is visible.
@@ -411,6 +430,15 @@ PIPE_LINK = 0.064
 PIPE_PROFILE_TICKS, PIPE_PROFILE_CTX = 10, 700
 CURVE_MAX_NB, CURVE_PROMPTS, CURVE_NEW, CURVE_PAGES = 12, (16, 64), 64, 9
 CURVE_FLOOR = 3.0
+# the graph-parity phase: rows a microbatch, pages a row (of 16 tokens)
+# and the context of the captured steps' ticks; a cache gap the replay may
+# show against the eager step (bit-equal expected)
+GRAPH_MB, GRAPH_PAGES, GRAPH_CTX = 4, 48, 700
+GRAPH_CACHE_ATOL = 2 ** -5
+# every served path's graph books (graph_books) and each phase's seconds,
+# printed in the graphs line
+GRAPH_BOOKS: dict = {}
+PHASE_SECONDS: dict = {}
 # phase 11 (resilience and online serving): the fault storm's pipe, its
 # delayed ticks and its drops, the reshard steps (2 -> 4, then -> 1), the
 # detector drill's silenced step and timeout (in steps), the online runs'
@@ -571,12 +599,8 @@ def time_ms(torch, fn, iters: int, flush=None, spin: int = 0) -> float:
 
 def _counted():
     """Each kernel wrapper, by kernel; ``.launches`` is its count."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import rglru_scan as rs
-    return {"paged_attention": pa.paged_decode_attention,
-            "flash_attention": fa.flash_attention,
-            "rglru_scan": rs.rglru_scan}
+    from repro_torch.serving.step_graph import counted_kernels
+    return counted_kernels()
 
 
 def reset_counts() -> None:
@@ -1410,6 +1434,7 @@ def phase_serve(torch, np, card: str, params):
            SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
                           max_new_tokens=max_new, logprobs=True)
            for i in range(n_req)]
+    spans = time_replays(torch, llm.engine.backend)
     reset_counts()
     t1 = time.perf_counter()
     outs = llm.generate(prompts, sps)
@@ -1420,6 +1445,7 @@ def phase_serve(torch, np, card: str, params):
     flash_launches = counts["flash_attention"]
     rep = llm.stats()
     ticks = rep["decode_ticks"]
+    graph_books(torch, "serve", llm.engine.backend, rep, spans)
     bad = [o.request_id for o in outs
            if not o.finished or len(o.token_ids) != max_new
            or not all(math.isfinite(x) for x in o.logprobs)
@@ -1454,6 +1480,197 @@ def phase_serve(torch, np, card: str, params):
         f"ticks {ticks}, paged-kernel launches {launches} "
         f"(= {ticks} x {YI_LAYERS})")
     return counts, wall, outs
+
+
+def _clone_caches(caches) -> dict:
+    """A copy of engine caches: every layer's tensors and the page table
+    (its per-device copies too)."""
+    out = {"layers": [{k: t.clone() for k, t in layer.items()}
+                      for layer in caches["layers"]],
+           "page_table": caches["page_table"].clone()}
+    if "page_tables" in caches:
+        out["page_tables"] = {d: t.clone()
+                              for d, t in caches["page_tables"].items()}
+    return out
+
+
+def _cache_gap(torch, got, want) -> tuple:
+    """(leaves that differ, largest absolute gap) between two caches."""
+    n, gap = 0, 0.0
+    for g, w in zip(got["layers"], want["layers"]):
+        for name in g:
+            if not torch.equal(g[name], w[name]):
+                n += 1
+                gap = max(gap, (g[name].float() - w[name].float()).abs()
+                          .max().item())
+    return n, gap
+
+
+def _graph_samp(np, mb: int, step: int, sampled: bool):
+    """Every row greedy, or rows 1 and 3 sampled (the serve phases'
+    temperature 0.8, top-k 50, top-p 0.95) beside greedy rows 0 and 2."""
+    from repro_torch.serving.sampler import RowSampling
+    temp = np.zeros((mb,), np.float32)
+    if sampled:
+        temp[1::2] = 0.8
+    return RowSampling(keys=np.arange(mb, dtype=np.int64) + 11,
+                       steps=np.full((mb,), step, np.int32), temp=temp,
+                       top_k=np.where(temp > 0, 50, 0).astype(np.int32),
+                       top_p=np.where(temp > 0, 0.95, 1.0).astype(np.float32))
+
+
+def _graph_check(torch, tag, got_toks, got_lps, want_toks, want_lps, be,
+                 ref, gaps):
+    """Hold one replayed tick against the eager one: equal tokens, cache
+    writes equal (bit-equal expected; a gap within GRAPH_CACHE_ATOL is
+    reported as cuBLAS rounding otherwise under capture, beyond it fails);
+    the largest log-prob and cache gaps are kept in ``gaps``."""
+    want_toks = want_toks.cpu().numpy()
+    want_lps = want_lps.float().cpu().numpy()
+    if not (got_toks == want_toks).all():
+        raise AssertionError(f"graph-parity {tag}: replayed tokens "
+                             f"{got_toks.tolist()} != eager "
+                             f"{want_toks.tolist()}")
+    lp_gap = float(abs(got_lps - want_lps).max())
+    n, gap = _cache_gap(torch, be.caches, ref)
+    if gap > GRAPH_CACHE_ATOL:
+        raise AssertionError(f"graph-parity {tag}: {n} cache leaves differ "
+                             f"from the eager step's by up to {gap}")
+    gaps.append({"tick": tag, "logprob_gap": lp_gap, "cache_leaves": n,
+                 "cache_gap": gap})
+    note = "bit-equal" if n == 0 and lp_gap == 0 else \
+        "not bit-equal (cuBLAS rounds otherwise under capture)"
+    log(f"[graph-parity] {tag}: tokens equal; max |logprob gap| "
+        f"{lp_gap:.3e}; cache leaves differing {n}, max gap {gap:.3e}: "
+        f"{note}")
+
+
+def phase_graph_parity(torch, np, card: str, params, cfg=None,
+                       dev=None) -> dict:
+    """Each captured decode step of full-width yi-9b (bf16, 48 layers, the
+    serve phase's weights) held against the eager step it replaces: the
+    local step (greedy, then mixed greedy and sampled rows) and the
+    pipelined stages (2 x 24 layers) and drain (greedy and sampled), two
+    ticks a key (the capturing tick and a replay with new inputs), each
+    as an eager step on a copy of the caches and as a replay on the live
+    ones; ``GRAPH_MB`` rows a microbatch at about ``GRAPH_CTX`` tokens in
+    their own pages, random pools.  ``cfg`` and ``dev`` rehearse it at
+    another size or on the CPU (where both sides run eagerly)."""
+    from repro_torch.config import get_arch
+    from repro_torch.core import pipeline as PL
+    from repro_torch.models.common import Runtime
+    from repro_torch.serving import kv_cache as kvc
+    from repro_torch.serving.backend import LocalBackend, PipelinedBackend
+    from repro_torch.serving.sampler import gumbel_noise
+
+    cfg = cfg or get_arch("yi-9b")
+    dt = next(iter(params["embed"].values())).dtype
+    rt = Runtime(param_dtype=dt, compute_dtype=dt)
+    dev = dev or torch.device("cuda", 0)
+    mb, n_b = GRAPH_MB, 2
+    pool = kvc.PoolConfig(page_size=SERVE_PAGE,
+                          n_local_pages=mb * n_b * GRAPH_PAGES + 1,
+                          max_pages_per_seq=GRAPH_PAGES)
+    table = 1 + np.arange(mb * n_b * GRAPH_PAGES,
+                          dtype=np.int32).reshape(mb * n_b, GRAPH_PAGES)
+    rng = np.random.RandomState(SEED)
+    gen = torch.Generator(device=dev)
+    gaps: list = []
+    out = {}
+
+    def fresh(be):
+        kvc.set_page_table(be.caches, table)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        for layer in be.caches["layers"]:
+            for name in ("k_pages", "v_pages"):
+                layer[name].copy_(torch.randn(layer[name].shape, generator=g,
+                                              device=dev) * 0.5)
+        return be
+
+    def inputs(step):
+        toks = rng.randint(1, cfg.vocab_size, mb).astype(np.int32)
+        pos = (GRAPH_CTX - 40 + rng.randint(0, 40, mb) + step).astype(
+            np.int32)
+        return toks, pos
+
+    def samp_t(samp):
+        return [torch.from_numpy(a).to(dev)
+                for a in (samp.temp, samp.top_k, samp.top_p)]
+
+    with torch.inference_mode():
+        # the local step: (mb 0, greedy) and (mb 1, sampled), two ticks each
+        be = fresh(LocalBackend(cfg, params, rt, mb_size=mb,
+                                num_microbatches=n_b, pool=pool, device=dev))
+        ref = _clone_caches(be.caches)
+        for m, sampled in ((0, False), (1, True)):
+            for step in range(2):
+                toks, pos = inputs(step)
+                samp = _graph_samp(np, mb, step, sampled)
+                noise = gumbel_noise(samp, cfg.vocab_size, dev, gen) \
+                    if sampled else None
+                want = LocalBackend._decode_fn(
+                    params, ref, torch.from_numpy(toks).to(dev),
+                    torch.from_numpy(pos).to(dev), m * mb, noise,
+                    *samp_t(samp), cfg=cfg, rt=rt, mb_size=mb,
+                    sampled=sampled)
+                (res,) = be.decode(m, toks, pos, samp)
+                _graph_check(torch, f"local mb {m} "
+                             f"{'sampled' if sampled else 'greedy'} tick "
+                             f"{step}", res.tokens, res.logprobs, *want, be,
+                             ref, gaps)
+        out["local"] = be.graphs.stats()
+        del be, ref
+
+        # the pipelined steps: 2 stages, fill, steady state, drain
+        be = fresh(PipelinedBackend(cfg, params, rt, mb_size=mb,
+                                    num_microbatches=n_b, pool=pool,
+                                    device=dev, n_stages=2))
+        ref = _clone_caches(be.caches)
+        act, entries = [None, None], [None, None]
+        plan = [(0, False, True), (1, True, True), (0, False, True),
+                (1, True, True), (0, False, False)]
+        for t, (m, sampled, active) in enumerate(plan):
+            toks, pos = inputs(t // 2)
+            samp = _graph_samp(np, mb, t // 2, sampled)
+            res = be.decode(m, toks, pos, samp, active=active)
+            entries = [(m, pos, samp) if active else None] + entries[:-1]
+            drained = entries[-1]
+            dsamp = drained[2] if drained is not None else samp
+            noise = gumbel_noise(dsamp, cfg.vocab_size, dev, gen)
+            pos_stage = torch.from_numpy(np.stack(
+                [e[1] if e is not None else np.zeros(mb, np.int32)
+                 for e in entries])).to(dev)
+            wt, wl, act = PL.pipeline_decode_tick(
+                params, ref, act, torch.from_numpy(toks).to(dev), pos_stage,
+                mb_assign=[e[0] if e is not None else -1 for e in entries],
+                noise=noise, temp=torch.from_numpy(dsamp.temp).to(dev),
+                top_k=torch.from_numpy(dsamp.top_k).to(dev),
+                top_p=torch.from_numpy(dsamp.top_p).to(dev),
+                sampled=dsamp.any_sampled, cfg=cfg, rt=rt, n_stages=2,
+                mb_size=mb)
+            if drained is None:
+                n, gap = _cache_gap(torch, be.caches, ref)
+                if gap > GRAPH_CACHE_ATOL:
+                    raise AssertionError(f"graph-parity pipe tick {t}: "
+                                         f"cache gap {gap}")
+                log(f"[graph-parity] pipe tick {t} (stage 0 alone): cache "
+                    f"leaves differing {n}, max gap {gap:.3e}")
+                continue
+            (r,) = res
+            _graph_check(torch, f"pipe tick {t}, mb {drained[0]} drained "
+                         f"{'sampled' if dsamp.any_sampled else 'greedy'}",
+                         r.tokens, r.logprobs, wt, wl, be, ref, gaps)
+        out["pipe"] = be.graphs.stats()
+        del be, ref
+    out["ticks"] = gaps
+    out["bit_equal"] = all(g["cache_leaves"] == 0 and g["logprob_gap"] == 0
+                           for g in gaps)
+    log(f"[graph-parity] on {card}: {len(gaps)} drained ticks, every token "
+        f"equal; bit-equal {out['bit_equal']}; local captures "
+        f"{out['local']['captures']} replays {out['local']['replays']}; "
+        f"pipe captures {out['pipe']['captures']} replays "
+        f"{out['pipe']['replays']}")
+    return out
 
 
 def phase_serve_gemma(torch, np, card: str):
@@ -1501,6 +1718,7 @@ def phase_serve_gemma(torch, np, card: str):
            SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
                           max_new_tokens=GEMMA_NEW, logprobs=True)
            for i in range(GEMMA_REQUESTS)]
+    spans = time_replays(torch, llm.engine.backend)
     reset_counts()
     t1 = time.perf_counter()
     outs = llm.generate(prompts, sps)
@@ -1510,6 +1728,7 @@ def phase_serve_gemma(torch, np, card: str):
     paged = counts["paged_attention"]
     flash = counts["flash_attention"]
     rep = llm.stats()
+    graph_books(torch, "gemma3-12b", llm.engine.backend, rep, spans)
     ticks = rep["decode_ticks"]
     bad = [o.request_id for o in outs
            if not o.finished or len(o.token_ids) != GEMMA_NEW
@@ -1615,6 +1834,7 @@ def phase_serve_recurrentgemma(torch, np, card: str):
            SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
                           max_new_tokens=RG_NEW, logprobs=True)
            for i in range(RG_REQUESTS)]
+    spans = time_replays(torch, llm.engine.backend)
     reset_counts()
     t1 = time.perf_counter()
     outs = llm.generate(prompts, sps)
@@ -1622,6 +1842,7 @@ def phase_serve_recurrentgemma(torch, np, card: str):
     wall = time.perf_counter() - t1
     counts = read_counts()
     rep = llm.stats()
+    graph_books(torch, "recurrentgemma-9b", llm.engine.backend, rep, spans)
     ticks = rep["decode_ticks"]
     bad = [o.request_id for o in outs
            if not o.finished or len(o.token_ids) != RG_NEW
@@ -1951,6 +2172,7 @@ def _serve_yi(torch, np, llm, tag, card):
            SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
                           max_new_tokens=SERVE_NEW, logprobs=True)
            for i in range(SERVE_REQUESTS)]
+    spans = time_replays(torch, llm.engine.backend)
     reset_counts()
     t1 = time.perf_counter()
     outs = llm.generate(prompts, sps)
@@ -1959,6 +2181,7 @@ def _serve_yi(torch, np, llm, tag, card):
     counts = read_counts()
     rep = llm.stats()
     rep["generate_wall_s"] = wall
+    rep["graphs"] = graph_books(torch, tag, llm.engine.backend, rep, spans)
     bad = [o.request_id for o in outs
            if not o.finished or len(o.token_ids) != SERVE_NEW
            or not all(math.isfinite(x) for x in o.logprobs)
@@ -2189,6 +2412,68 @@ def _watch_transport(backend):
     return ticks
 
 
+def time_replays(torch, backend) -> list:
+    """Record CUDA events around each replay of ``backend``'s captured
+    steps (not around a key's first run, which warms up and captures);
+    returns the list of (start, end) event pairs it fills."""
+    graphs, spans = backend.graphs, []
+    run = graphs.run
+
+    def timed(key, device, step, state=None):
+        if not graphs.graphed(device) or key not in graphs.entries():
+            return run(key, device, step, state)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.device(device):
+            start.record()
+            run(key, device, step, state)
+            end.record()
+        spans.append((start, end))
+    graphs.run = timed
+    return spans
+
+
+def graph_books(torch, tag: str, backend, rep: dict, spans=None) -> dict:
+    """Check and log a served backend's captured decode steps: every key
+    captured once, and (every stage on a card) the replays equal the
+    ticks: decode ticks on the local backend, stage runs and drains on
+    the pipelined one.  Logs captures, replays, the host ms of a decode
+    tick (the engine's decode clock over its ticks) and, with ``spans``
+    from :func:`time_replays`, the replays' device ms a tick."""
+    st = backend.graphs.stats()
+    again = {k: n for k, n in backend.graphs.captures.items() if n != 1}
+    if again:
+        raise AssertionError(f"{tag}: keys captured more than once: {again}")
+    if all(d.type == "cuda" for d in backend.stage_devices):
+        want = {"local": backend.decode_ticks} if backend.name == "local" \
+            else {"stage": backend.decode_stage_runs,
+                  "drain": backend.epilogue_runs}
+        want = {k: v for k, v in want.items() if v}
+        if st["replays_by_kind"] != want:
+            raise AssertionError(f"{tag}: replays {st['replays_by_kind']} "
+                                 f"!= the ticks' {want}")
+    ticks = max(1, rep["decode_ticks"])
+    st["host_ms_a_tick"] = rep["decode_time_s"] / ticks * 1e3
+    line = (f"[graphs] {tag}: {st['captures']} captures ({st['keys']} keys, "
+            f"one each) in {st['capture_s']:.2f} s, {st['replays']} replays "
+            f"{st['replays_by_kind']} on {st['replays_by_device']} over "
+            f"{rep['decode_ticks']} decode ticks; host "
+            f"{st['host_ms_a_tick']:.2f} ms a tick")
+    if spans:
+        torch.cuda.synchronize()
+        dev_ms = sum(a.elapsed_time(b) for a, b in spans)
+        # a key's first run (its capture) is not timed: spread the timed
+        # replays' device time over the ticks they served
+        timed_ticks = ticks * len(spans) / max(1, st["replays"])
+        st["device_ms_a_tick"] = dev_ms / max(1e-9, timed_ticks)
+        st["timed_replays"] = len(spans)
+        line += (f", device {st['device_ms_a_tick']:.2f} ms a tick in "
+                 f"replays ({len(spans)} timed of {st['replays']})")
+    log(line)
+    GRAPH_BOOKS[tag] = st
+    return st
+
+
 def info_tick(rep) -> float:
     """Ms of an engine's decode tick: its decode phase over its ticks."""
     return rep["decode_time_s"] / rep["decode_ticks"] * 1e3
@@ -2205,15 +2490,40 @@ def _decode_stage_time(ticks) -> float:
     return sum(full) / len(full)
 
 
+def tick_split(torch, fn, iters: int) -> tuple:
+    """Host ms and device ms of ``fn``, one decode tick ending in its
+    device-to-host transfer, after 3 warm-up calls (which capture any key
+    not captured yet): host, the median of synchronised calls on the host
+    clock; device, the sum of the profiler's kernel rows a call
+    (``launch.profile_decode.profile``; it sees the kernels of a graph's
+    replay one by one)."""
+    from repro_torch.launch.profile_decode import profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    _, _, rows = profile(torch, fn, iters)
+    return sorted(host)[len(host) // 2] * 1e3, sum(r[0] for r in rows)
+
+
 def _tick_split_local_vs_pipe(torch, np, cfg, rt, params, backend):
-    """Host and device ms of one decode tick of ``mb_size`` rows at a
-    700-token context on ``backend``'s full-width caches: the local
-    backend's model call, and the pipelined tick with every stage
-    occupied (microbatch 1 entering, microbatch 0 draining), each ending
-    in its one device-to-host transfer."""
+    """Host and device ms (:func:`tick_split`) of one decode tick of
+    ``mb_size`` rows at a 700-token context on ``backend``'s full-width
+    caches, eager and replayed: the local backend's step, and the
+    pipelined tick with every stage occupied (one microbatch entering,
+    one draining).  The eager ticks call the step functions as the eager
+    backends did; the replayed ones go through the backends' ``decode``
+    (a ``LocalBackend`` over the same caches, and ``backend`` itself),
+    host inputs, replays and the one transfer included."""
     from repro_torch.core import pipeline as PL
     from repro_torch.serving import kv_cache as kvc
     from repro_torch.serving.backend import LocalBackend
+    from repro_torch.serving.sampler import RowSampling
     dev = torch.device("cuda")
     mb, n_s = backend.mb_size, backend.n_stages
     per_row = backend.pool.max_pages_per_seq
@@ -2228,8 +2538,19 @@ def _tick_split_local_vs_pipe(torch, np, cfg, rt, params, backend):
                                 device=dev) for _ in range(n_s - 1)]
     zeros = torch.zeros((mb,), device=dev)
     ints = torch.zeros((mb,), dtype=torch.int32, device=dev)
+    host_toks = tokens.cpu().numpy()
+    host_pos = np.full((mb,), PIPE_PROFILE_CTX, np.int32)
+    greedy = RowSampling(keys=np.zeros(mb, np.int64),
+                         steps=np.zeros(mb, np.int32),
+                         temp=np.zeros(mb, np.float32),
+                         top_k=np.zeros(mb, np.int32),
+                         top_p=np.ones(mb, np.float32))
+    local_be = LocalBackend(cfg, params, rt, mb_size=mb,
+                            num_microbatches=backend.num_microbatches,
+                            pool=backend.pool, device=dev,
+                            caches=backend.caches)
+    turn = [0]
 
-    # as the engine's step runs them
     @torch.inference_mode()
     def local():
         toks, lps = LocalBackend._decode_fn(
@@ -2245,24 +2566,27 @@ def _tick_split_local_vs_pipe(torch, np, cfg, rt, params, backend):
             top_k=ints, top_p=zeros + 1, sampled=False, cfg=cfg, rt=rt,
             n_stages=n_s, mb_size=mb)
         torch.stack([toks.float(), lps]).cpu()
-    # host clock: synchronised calls in turns (local, pipe, pipe, local,
-    # ...), the median of each; device time: the profiler's kernel rows
-    from repro_torch.launch.profile_decode import profile
-    fns = {"local": local, "pipelined": piped}
-    for fn in fns.values():
-        for _ in range(3):
-            fn()
-    host = {k: [] for k in fns}
-    for i in range(PIPE_PROFILE_TICKS):
-        for k in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
-            t0 = time.perf_counter()
-            fns[k]()
-            host[k].append(time.perf_counter() - t0)
-    split = {}
-    for k, fn in fns.items():
-        _, _, rows = profile(torch, fn, PIPE_PROFILE_TICKS)
-        split[k] = (sorted(host[k])[len(host[k]) // 2] * 1e3,
-                    sum(r[0] for r in rows))
+
+    @torch.inference_mode()
+    def local_replay():
+        local_be.decode(0, host_toks, host_pos, greedy)
+
+    @torch.inference_mode()
+    def piped_replay():
+        # microbatches in turn, so that after the fill every stage holds
+        # one and one drains
+        turn[0] += 1
+        backend.decode(turn[0] % backend.num_microbatches, host_toks,
+                       host_pos, greedy)
+
+    split = {name: tick_split(torch, fn, PIPE_PROFILE_TICKS)
+             for name, fn in (("local", local), ("local replayed",
+                                                 local_replay),
+                              ("pipelined", piped),
+                              ("pipelined replayed", piped_replay))}
+    with torch.inference_mode():
+        while backend.pending():
+            backend.decode(0, host_toks, host_pos, greedy, active=False)
     return split
 
 
@@ -2361,10 +2685,9 @@ def phase_pipeline(torch, np, card: str, params, local_run):
         f"{local_rep['prefill_tok_per_s']:.1f} tok/s, {local_tick:.2f} ms "
         f"a tick over {local_rep['decode_ticks']} ticks")
     log(f"[pipe] one decode tick of {PIPE_MB} rows at {PIPE_PROFILE_CTX} "
-        f"tokens on {card}: local host {split['local'][0]:.2f} ms, device "
-        f"{split['local'][1]:.2f} ms; pipelined (both stages) host "
-        f"{split['pipelined'][0]:.2f} ms, device "
-        f"{split['pipelined'][1]:.2f} ms")
+        f"tokens on {card}: " + "; ".join(
+            f"{k} host {h:.2f} ms, device {d:.2f} ms"
+            for k, (h, d) in split.items()))
     info["run1"] = {"decode_tok_per_s": rep1["decode_tok_per_s"],
                     "prefill_tok_per_s": rep1["prefill_tok_per_s"],
                     "tick_ms": info_tick(rep1),
@@ -2492,11 +2815,14 @@ def phase_pipeline(torch, np, card: str, params, local_run):
                      transport=SimulatedLinkTransport.uniform(PIPE_STAGES,
                                                               PIPE_LINK))
         ticks = _watch_transport(llm.engine.backend)
+        spans = time_replays(torch, llm.engine.backend)
         reset_counts()
         outs = llm.generate(prompts, SamplingParams(
             temperature=0.0, max_new_tokens=CURVE_NEW, logprobs=True))
         torch.cuda.synchronize()
         rep = llm.stats()
+        books = graph_books(torch, f"curve-{schedule}", llm.engine.backend,
+                            rep, spans)
         if not all(o.finished and len(o.token_ids) == CURVE_NEW
                    and all(math.isfinite(x) for x in o.logprobs)
                    for o in outs):
@@ -2519,12 +2845,16 @@ def phase_pipeline(torch, np, card: str, params, local_run):
                            "virtual_time_s":
                                rep["transport"]["virtual_time_s"],
                            "link_stall_s": rep["transport"]["link_stall_s"],
-                           "decode_tok_per_s": rep["decode_tok_per_s"]}
+                           "decode_tok_per_s": rep["decode_tok_per_s"],
+                           "host_ms_a_tick": books["host_ms_a_tick"],
+                           "device_ms_a_tick":
+                               books.get("device_ms_a_tick")}
         log(f"[curve] {schedule:11s} N_B {n_b:2d} x {PIPE_MB} rows, "
             f"{n_req} requests of {CURVE_PROMPTS[0]}-{CURVE_PROMPTS[1]} + "
             f"{CURVE_NEW} tokens, {PIPE_LINK * 1e3:.0f} ms links: "
             f"{vtps:.1f} virtual decode tok/s (the simulator's round time "
-            f"predicts {sim_tps:.1f} at the measured T_S {ts * 1e3:.2f} ms); "
+            f"predicts {sim_tps:.1f} at the measured T_S {ts * 1e3:.2f} ms: "
+            f"measured / predicted {vtps / sim_tps:.3f}); "
             f"{rep['decode_ticks']} decode ticks, wall decode "
             f"{rep['decode_tok_per_s']:.1f} tok/s")
         del llm
@@ -2535,9 +2865,17 @@ def phase_pipeline(torch, np, card: str, params, local_run):
                              "circular's")
     ratio = curve["circular"]["virtual_decode_tok_per_s"] / \
         curve["round_flush"]["virtual_decode_tok_per_s"]
+    sim_ratio = curve["circular"]["sim_tok_per_s"] / \
+        curve["round_flush"]["sim_tok_per_s"]
     log(f"[curve] circular / round_flush at {PIPE_LINK * 1e3:.0f} ms on "
         f"{card}: {ratio:.2f}x (floor {CURVE_FLOOR}x, the JAX latency "
-        "curve's)")
+        f"curve's); measured T_S circular "
+        f"{curve['circular']['stage_time_ms']:.3f} ms, round_flush "
+        f"{curve['round_flush']['stage_time_ms']:.3f} ms (run 1's "
+        f"{t_s * 1e3:.3f} ms set N_B {n_b_star}); the simulator at each "
+        f"measured T_S predicts {curve['circular']['sim_tok_per_s']:.1f} / "
+        f"{curve['round_flush']['sim_tok_per_s']:.1f} virtual tok/s, a "
+        f"ratio of {sim_ratio:.2f}x")
     if ratio < CURVE_FLOOR:
         raise AssertionError(f"curve: circular is {ratio:.2f}x round_flush, "
                              f"under the {CURVE_FLOOR}x floor")
@@ -2796,6 +3134,7 @@ def phase_resilience(torch, np, card: str, params, local_run, serve_wall,
     c = counts["yi-9b fault storm"] = read_counts()
     rep = llm.stats()
     be = eng.backend
+    graph_books(torch, "res-storm", be, rep)
     runs = _StageRuns()
     runs.add(be)
     split = runs.check("storm", c["paged_attention"])
@@ -2846,6 +3185,8 @@ def phase_resilience(torch, np, card: str, params, local_run, serve_wall,
         kw = dict(n_stages=4) if step == RES_RESHARD_STEPS[0] \
             else dict(live_devices=1)
         r = eng.reshard(**kw)
+        graph_books(torch, f"res-reshard, the {old.n_stages}-stage pipe",
+                    old, llm.stats())
         runs.add(old)
         resh.append(dict(step=step, stages=(old.n_stages,
                                             eng.backend.n_stages),
@@ -2857,6 +3198,7 @@ def phase_resilience(torch, np, card: str, params, local_run, serve_wall,
     split = runs.check("reshard", c["paged_attention"])
     _check_outs("reshard", outs, new, vocab, ref)
     rep = llm.stats()
+    graph_books(torch, "res-reshard, the last pipe", eng.backend, rep)
     want_tokens = sum(len(o.token_ids) for o in ref)
     if rep["reshards"] != 2 or rep["decode_tokens"] != want_tokens:
         raise AssertionError(f"reshard: {rep['reshards']} reshards, "
@@ -2911,6 +3253,8 @@ def phase_resilience(torch, np, card: str, params, local_run, serve_wall,
                          gib=r["bytes_migrated"] / 2 ** 30)
     outs, wall = drive(llm, drill_hook)
     c = counts["yi-9b detector drill"] = read_counts()
+    graph_books(torch, "res-drill, the pipe after the reshard",
+                eng.backend, llm.stats())
     runs.add(eng.backend)
     split = runs.check("drill", c["paged_attention"])
     _check_outs("drill", outs, new, vocab, ref)
@@ -3005,6 +3349,7 @@ def phase_resilience(torch, np, card: str, params, local_run, serve_wall,
         wall = time.perf_counter() - t0
         c = counts[f"yi-9b online {label}"] = read_counts()
         rep = llm.stats()
+        graph_books(torch, f"res-online {label}", eng.backend, rep)
         _check_outs(f"online {label}", outs, new, vocab, oref)
         if not closed or rep["prefix_hit_rate"] <= 0 or \
                 c["paged_attention"] != rep["decode_ticks"] * cfg.num_layers:
@@ -3560,6 +3905,7 @@ def _arch_serve(torch, np, tag, cfg, params, rt, econf, n_req, prompt_range,
            SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
                           max_new_tokens=max_new, logprobs=True)
            for i in range(n_req)]
+    spans = time_replays(torch, llm.engine.backend)
     reset_counts()
     t1 = time.perf_counter()
     outs = llm.generate(prompts, sps)
@@ -3567,6 +3913,7 @@ def _arch_serve(torch, np, tag, cfg, params, rt, econf, n_req, prompt_range,
     wall = time.perf_counter() - t1
     counts = read_counts()
     rep = llm.stats()
+    rep["graphs"] = graph_books(torch, tag, llm.engine.backend, rep, spans)
     bad = [o.request_id for o in outs
            if not o.finished or len(o.token_ids) != max_new
            or not all(math.isfinite(x) for x in o.logprobs)
@@ -3590,14 +3937,14 @@ def _arch_serve(torch, np, tag, cfg, params, rt, econf, n_req, prompt_range,
 
 
 def _arch_tick(torch, np, cfg, rt, params, backend):
-    """Host ms (untraced, the mean of synchronised calls), device ms (the
-    profiler's kernel rows) and the device's busy share of one local
-    decode tick of ``mb_size`` rows at an ``ARCH_TICK_CTX``-token context
-    on ``backend``'s full-width caches, ending in its one device-to-host
-    transfer, as the engine's step runs it."""
-    from repro_torch.launch.profile_decode import profile
+    """Host and device ms (:func:`tick_split`) and the device's busy share
+    of one local decode tick of ``mb_size`` rows at an
+    ``ARCH_TICK_CTX``-token context on ``backend``'s full-width caches,
+    ending in its one device-to-host transfer: replayed, as the engine's
+    step runs it (``backend.decode``), and the eager step beside it."""
     from repro_torch.serving import kv_cache as kvc
     from repro_torch.serving.backend import LocalBackend
+    from repro_torch.serving.sampler import RowSampling
     dev = torch.device("cuda")
     mb = backend.mb_size
     per_row = backend.pool.max_pages_per_seq
@@ -3609,6 +3956,13 @@ def _arch_tick(torch, np, cfg, rt, params, backend):
     pos = torch.full((mb,), ARCH_TICK_CTX, dtype=torch.int32, device=dev)
     zeros = torch.zeros((mb,), device=dev)
     ints = torch.zeros((mb,), dtype=torch.int32, device=dev)
+    host_toks = tokens.cpu().numpy()
+    host_pos = pos.cpu().numpy()
+    greedy = RowSampling(keys=np.zeros(mb, np.int64),
+                         steps=np.zeros(mb, np.int32),
+                         temp=np.zeros(mb, np.float32),
+                         top_k=np.zeros(mb, np.int32),
+                         top_p=np.ones(mb, np.float32))
 
     @torch.inference_mode()
     def tick():
@@ -3617,10 +3971,16 @@ def _arch_tick(torch, np, cfg, rt, params, backend):
             zeros + 1, cfg=cfg, rt=rt, mb_size=mb, sampled=False)
         torch.stack([toks.float(), lps]).cpu()
 
-    host_ms, _, rows = profile(torch, tick, ARCH_TICK_STEPS)
-    dev_ms = sum(r[0] for r in rows)
+    @torch.inference_mode()
+    def replay():
+        backend.decode(0, host_toks, host_pos, greedy)
+
+    host_ms, dev_ms = tick_split(torch, replay, ARCH_TICK_STEPS)
+    eager_host, eager_dev = tick_split(torch, tick, ARCH_TICK_STEPS)
     return {"tick_host_ms": host_ms, "tick_device_ms": dev_ms,
-            "device_busy": dev_ms / host_ms}
+            "device_busy": dev_ms / host_ms, "eager_host_ms": eager_host,
+            "eager_device_ms": eager_dev,
+            "eager_device_busy": eager_dev / eager_host}
 
 
 def _moe_tick_split(torch, cfg, params, rt, rows: int) -> dict:
@@ -3673,9 +4033,12 @@ def _moe_tick_split(torch, cfg, params, rt, rows: int) -> dict:
 
 def _log_tick(tag, card, tick, counts, rep, kernel_per_tick):
     log(f"[{tag}] on {card}: decode tick of {tick['rows']} rows at "
-        f"{ARCH_TICK_CTX} tokens: host {tick['tick_host_ms']:.3f} ms, "
-        f"device {tick['tick_device_ms']:.3f} ms, device busy "
-        f"{tick['device_busy']:.1%}; paged launches "
+        f"{ARCH_TICK_CTX} tokens, replayed: host {tick['tick_host_ms']:.3f} "
+        f"ms, device {tick['tick_device_ms']:.3f} ms, device busy "
+        f"{tick['device_busy']:.1%}; eager: host "
+        f"{tick['eager_host_ms']:.3f} ms, device "
+        f"{tick['eager_device_ms']:.3f} ms, device busy "
+        f"{tick['eager_device_busy']:.1%}; paged launches "
         f"{counts['paged_attention']} (= {rep['decode_ticks']} ticks x "
         f"{kernel_per_tick})")
 
@@ -5405,6 +5768,9 @@ def phase_multi_gpu_mixed(torch, np, card: str):
                        for o in outs):
                 raise AssertionError(f"multi-gpu-mixed {name} {wire}: "
                                      "unfinished requests")
+            # the CPU stage runs eagerly: only the card's steps replay
+            graph_books(torch, f"multi-gpu-mixed {wire} {name}", be,
+                        llm.stats())
             streams.append([o.token_ids for o in outs])
             launches.append(c["paged_attention"])
             per_stage = stage_times(cfg, params, rt, 2, "cuda:0", mesh)
@@ -5839,7 +6205,8 @@ def phase_multi_gpu_alone(torch, np) -> dict:
     """Phase 17 by itself: the kernels built, the yi-9b weights made, and
     phase 10's run 1 (2 stages on one card, no offload) served as the
     several-card runs' reference.  Prints and returns the ``multi_gpu``
-    summary."""
+    summary, with every served path's graph books (each stage's graphs
+    replay on its card)."""
     from repro_torch.config import get_arch
     from repro_torch.models.common import Runtime
     from repro_torch.serving.kv_cache import PoolConfig
@@ -5863,6 +6230,7 @@ def phase_multi_gpu_alone(torch, np) -> dict:
                              "prefill_tok_per_s": rep["prefill_tok_per_s"]}
     del params
     phase_multi_gpu_deep(torch, np, smi_line, info)
+    info["graphs"] = GRAPH_BOOKS
     print(json.dumps({"multi_gpu": info}))
     return info
 
@@ -5903,73 +6271,104 @@ def main() -> int:
         stop_dryrun_table(table)
 
 
+def timed(t_start: float, name: str, fn, *args, **kwargs):
+    """Run one phase, printing its start (seconds since the script began)
+    and its seconds."""
+    t0 = time.perf_counter()
+    log(f"[phase] {name}: start at {t0 - t_start:.1f} s")
+    out = fn(*args, **kwargs)
+    t1 = time.perf_counter()
+    PHASE_SECONDS[name] = t1 - t0
+    log(f"[phase] {name}: {t1 - t0:.1f} s (ends at {t1 - t_start:.1f} s)")
+    return out
+
+
 def run_phases(torch, np, table, t_start: float) -> int:
-    smi_line, name = phase_card(torch)
-    sass = phase_build()
-    paged = phase_kernel_paged(torch, np)
-    flash = phase_kernel_flash(torch, np)
-    scan = phase_kernel_scan(torch, np)
-    group_sizes = phase_group_sizes(torch, np)
-    phase_parity(torch, np)
-    phase_parity_resilience(torch, np)
-    swap_order = phase_swap_order(torch, np, smi_line)
+    def phase(name, fn, *args, **kwargs):
+        return timed(t_start, name, fn, *args, **kwargs)
+
+    smi_line, name = phase("1 card", phase_card, torch)
+    sass = phase("2 build", phase_build)
+    paged = phase("3 paged kernel", phase_kernel_paged, torch, np)
+    flash = phase("4 flash kernel", phase_kernel_flash, torch, np)
+    scan = phase("5 scan kernel", phase_kernel_scan, torch, np)
+    group_sizes = phase("5b group sizes", phase_group_sizes, torch, np)
+    phase("6 parity", phase_parity, torch, np)
+    phase("6c resilience parity", phase_parity_resilience, torch, np)
+    swap_order = phase("6b swap order", phase_swap_order, torch, np,
+                       smi_line)
     pause_dryrun_table(table, True)
-    params = yi_params(torch)
+    params = phase("7 yi-9b weights", yi_params, torch)
+    graphs = {"parity": phase("7g graph parity", phase_graph_parity, torch,
+                              np, smi_line, params)}
     paths = {}
-    paths["yi-9b"], serve_wall, serve_outs = phase_serve(torch, np,
-                                                         smi_line, params)
-    off_counts, offload, local_run = phase_serve_offload(torch, np,
-                                                         smi_line, params)
+    paths["yi-9b"], serve_wall, serve_outs = phase(
+        "7 yi-9b serve", phase_serve, torch, np, smi_line, params)
+    off_counts, offload, local_run = phase(
+        "7 yi-9b offload", phase_serve_offload, torch, np, smi_line, params)
     paths.update({f"yi-9b {tag}": c for tag, c in off_counts.items()})
-    paths["yi-9b planned"], plan = phase_plan(torch, np, smi_line, params)
-    pipe_counts, pipeline, int8_outs, pipe_outs = phase_pipeline(
-        torch, np, smi_line, params, local_run)
+    paths["yi-9b planned"], plan = phase("7 yi-9b planned", phase_plan,
+                                         torch, np, smi_line, params)
+    pipe_counts, pipeline, int8_outs, pipe_outs = phase(
+        "10 pipeline", phase_pipeline, torch, np, smi_line, params,
+        local_run)
     paths.update(pipe_counts)
-    res_counts, resilience = phase_resilience(
-        torch, np, smi_line, params, local_run, serve_wall,
-        pipeline["run2"])
+    res_counts, resilience = phase(
+        "11 resilience", phase_resilience, torch, np, smi_line, params,
+        local_run, serve_wall, pipeline["run2"])
     paths.update(res_counts)
-    trace_counts, trace = phase_trace(
-        torch, np, smi_line, params,
+    trace_counts, trace = phase(
+        "12 trace", phase_trace, torch, np, smi_line, params,
         dict(outs=serve_outs, counts=paths["yi-9b"]), int8_outs,
         local_run, res_counts)
     paths.update(trace_counts)
     pause_dryrun_table(table, False)
-    fixed_counts, fixed_pipe = phase_fixed_pipeline(
-        torch, np, smi_line, params, pipe_outs, local_run["outs"])
+    fixed_counts, fixed_pipe = phase(
+        "15 fixed-batch passes", phase_fixed_pipeline, torch, np, smi_line,
+        params, pipe_outs, local_run["outs"])
     paths.update(fixed_counts)
     # the several-card serving runs (yi-9b, its reshard and passes over two
     # cards, full-depth phi3.5-moe and llama3-70b: 261.4-279.8 s on four
     # cards, chip runs 2 and 8 of PR 24) would take the whole script past
     # its limit there: phase_multi_gpu_alone runs them
-    multi_counts, multi_gpu = phase_multi_gpu(torch, np, smi_line, params,
-                                              pipe_outs, serving=False)
+    multi_counts, multi_gpu = phase(
+        "17 multi-gpu", phase_multi_gpu, torch, np, smi_line, params,
+        pipe_outs, serving=False)
     paths.update(multi_counts)
     del params
     if multi_gpu["several_card_runs"]:
         log("[multi-gpu] the several-card serving runs are "
             "phase_multi_gpu_alone's, not the whole script's")
-    paths["gemma3-12b"], gemma_outs, gemma_params = phase_serve_gemma(
-        torch, np, smi_line)
-    paths["gemma3-12b traced"], trace["gemma"] = phase_trace_gemma(
-        torch, np, smi_line, gemma_params, gemma_outs, paths["gemma3-12b"])
+    paths["gemma3-12b"], gemma_outs, gemma_params = phase(
+        "8 gemma3-12b serve", phase_serve_gemma, torch, np, smi_line)
+    paths["gemma3-12b traced"], trace["gemma"] = phase(
+        "12 trace gemma3-12b", phase_trace_gemma, torch, np, smi_line,
+        gemma_params, gemma_outs, paths["gemma3-12b"])
     del gemma_params
-    paths["recurrentgemma-9b"] = phase_serve_recurrentgemma(torch, np,
-                                                            smi_line)
-    archs = {"parity": phase_arch_parity(torch, np)}
-    for tag, phase in (("minitron", phase_minitron), ("xlstm", phase_xlstm),
-                       ("moe-phi", phase_moe_phi),
-                       ("moe-qwen3", phase_moe_qwen3)):
-        arch_counts, archs[tag] = phase(torch, np, smi_line)
+    paths["recurrentgemma-9b"] = phase(
+        "9 recurrentgemma-9b serve", phase_serve_recurrentgemma, torch, np,
+        smi_line)
+    archs = {"parity": phase("13 arch parity", phase_arch_parity, torch,
+                             np)}
+    for tag, fn in (("minitron", phase_minitron), ("xlstm", phase_xlstm),
+                    ("moe-phi", phase_moe_phi),
+                    ("moe-qwen3", phase_moe_qwen3)):
+        arch_counts, archs[tag] = phase(f"13 {tag}", fn, torch, np,
+                                        smi_line)
         paths.update(arch_counts)
-    train_counts, train = phase_frontends_and_training(torch, np, smi_line)
+    train_counts, train = phase("14 front ends and training",
+                                phase_frontends_and_training, torch, np,
+                                smi_line)
     paths.update(train_counts)
     # the table has had the whole run so far; it may take what is left of
     # DRYRUN_TABLE_BUDGET_S from the script's start
-    dry_counts, dryrun = phase_dryrun(
-        torch, smi_line, table,
+    dry_counts, dryrun = phase(
+        "16 dry run", phase_dryrun, torch, smi_line, table,
         max(60.0, DRYRUN_TABLE_BUDGET_S - (time.perf_counter() - t_start)))
     paths.update(dry_counts)
+    graphs["paths"] = GRAPH_BOOKS
+    graphs["phase_seconds"] = PHASE_SECONDS
+    graphs["script_seconds"] = time.perf_counter() - t_start
 
     def launches(kernel):
         by_path = {path: c[kernel] for path, c in paths.items()}
@@ -6008,6 +6407,7 @@ def run_phases(torch, np, table, t_start: float) -> int:
     print(json.dumps({"fixed_pipe": fixed_pipe}))
     print(json.dumps({"dryrun": dryrun}))
     print(json.dumps({"multi_gpu": multi_gpu}))
+    print(json.dumps({"graphs": graphs}))
     print(json.dumps({"kernels": entries}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

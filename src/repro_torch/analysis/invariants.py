@@ -39,12 +39,22 @@ Checked invariants (the reference's, read from the port's own state):
   currently-resident microbatch, and its swap counters are monotone
   non-decreasing for the offloader's lifetime (reset only when reshard
   rebuilds the backend with fresh offloaders);
-* **kernel libraries** — the counterpart of the reference's jit
-  cache-size probes.  Eager PyTorch has no jit cache: a model call
-  launches the same hand-written kernels whatever the shapes, so a shape
-  leak or a weak-type flip cannot make a second compiled trace, and a
-  non-hashable static argument has nothing to defeat.  What *can*
-  happen mid-serve is a kernel library built or loaded again
+* **captured decode steps** — the counterpart of the reference's jit
+  cache-size probes (``jit_entries``: each tick jit compiled once for the
+  whole serve).  A backend captures each decode step as a CUDA graph
+  once a key (``serving.step_graph``) and exposes them through
+  ``graph_entries()`` (key -> (graph identity, captures)); the auditor
+  pins each key's graph at its first sighting and fails if a key was
+  captured twice or its graph changed — a second capture mid-serve costs
+  a warm-up and a capture, and would leave the old graph's replays
+  pointing at whatever it was captured over.  A reshard builds a new
+  backend, which captures anew: the pins start over.  Off the card
+  nothing is captured and nothing is checked;
+* **kernel libraries** — a model call launches the same hand-written
+  kernels whatever the shapes, so a shape leak or a weak-type flip cannot
+  make a second compiled kernel, and a non-hashable static argument has
+  nothing to defeat.  What *can* happen mid-serve is a kernel library
+  built or loaded again
   (``repro_torch.kernels.build``): a different source hash or a second
   ``ctypes`` load would stall the serve for an ``nvcc`` run and leave two
   copies of a kernel's device state.  The backend exposes the loaded
@@ -101,6 +111,9 @@ class EngineAuditor:
         self._off_books: Dict[str, Tuple[int, int]] = {}
         # kernel library name -> (path, handle) at its first sighting
         self._libraries: Dict[str, Tuple[str, int]] = {}
+        # captured decode step key -> graph identity, for one backend
+        self._graphs: Dict[object, int] = {}
+        self._graph_backend: Optional[int] = None
         self.checks = 0
 
     # ---- hooks the engine calls ------------------------------------
@@ -122,6 +135,7 @@ class EngineAuditor:
         self._audit_fsm(where)
         self._audit_transport(where, resharded=resharded)
         self._audit_offload(where, resharded=resharded)
+        self._audit_graphs(where, resharded=resharded)
         self._audit_kernels(where)
 
     def _audit_pages(self, where: str) -> None:
@@ -346,6 +360,26 @@ class EngineAuditor:
                              f"(swaps {prev[0]} -> {swaps}, bytes "
                              f"{prev[1]} -> {moved})")
             self._off_books[name] = (swaps, moved)
+
+    def _audit_graphs(self, where: str, *, resharded: bool) -> None:
+        backend = self._engine.backend
+        entries = getattr(backend, "graph_entries", None)
+        if entries is None:
+            return
+        if resharded or self._graph_backend != id(backend):
+            self._graphs = {}           # a new backend captures anew
+            self._graph_backend = id(backend)
+        for key, (ident, captures) in entries().items():
+            if captures > 1:
+                _fail(where, f"graphs: decode step {key!r} was captured "
+                             f"{captures} times — one key must be "
+                             "captured exactly once for the backend's "
+                             "life")
+            first = self._graphs.setdefault(key, ident)
+            if ident != first:
+                _fail(where, f"graphs: decode step {key!r} holds another "
+                             "graph than at its first sighting — it was "
+                             "captured again mid-serve")
 
     def _audit_kernels(self, where: str) -> None:
         entries = getattr(self._engine.backend, "kernel_libraries", None)

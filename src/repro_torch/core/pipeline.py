@@ -44,6 +44,11 @@ is None), with the pools and states written in place:
 
 The host decides which stages are occupied (``mb_assign`` / ``occupied``,
 host integers), so a tick needs no device-to-host transfer of its own.
+A decode tick is ``decode_stage`` for each occupied stage and
+``decode_drain`` for the microbatch leaving the last one; the pipelined
+backend captures each of them as a CUDA graph, one a (stage,
+microbatch) and one a drained microbatch (``serving.step_graph``), and
+hands the activation on between replays.
 The JAX ticks' fault seam (``drop_stage``, which masks a dropped stage's
 writes) has no counterpart: the backend drops a stage by emptying its
 entry, and a bubble writes nothing.
@@ -222,7 +227,6 @@ def pipeline_decode_tick(params: dict, caches: dict, act: list,
     Returns ``(tokens (mb_size,) int32, model logprobs (mb_size,) float32,
     new act)``, the first two on the last stage's device, or ``None`` when
     no microbatch drains."""
-    ranges = stage_ranges(cfg, n_stages)
     _validate_tick_args(
         "pipeline_decode_tick", n_stages=n_stages, checks={
             "act": ((len(act),), (n_stages,)),
@@ -237,28 +241,62 @@ def pipeline_decode_tick(params: dict, caches: dict, act: list,
         mb = mb_assign[s]
         if mb < 0:
             continue                    # a bubble does no work
-        x_in = embed_lib.embed_tokens(params["embed"], tokens[:, None], cfg,
-                                      rt.compute_dtype) if s == 0 \
+        x_in = embed_decode_tokens(params, tokens, cfg, rt) if s == 0 \
             else act[s]
-        view = kvc.slot_view(caches, mb * mb_size, mb_size, devs[s])
-        y = model_lib.run_layers(params, x_in, cfg, rt, mode="decode",
-                                 caches=view, positions=pos_stage[s][:, None],
-                                 layers=ranges[s])
+        y = decode_stage(params, caches, x_in, pos_stage[s], stage=s, mb=mb,
+                         cfg=cfg, rt=rt, n_stages=n_stages, mb_size=mb_size,
+                         device=devs[s])
         if s < n_stages - 1:
             new_act[s + 1] = _wire(y, wire_dtype, devs[s + 1])
     out_mb = mb_assign[n_stages - 1]
     if out_mb < 0:
         return None, None, new_act
-    # the draining microbatch, on the last stage's device: epilogue, final
-    # norm, unembedding, sampling
-    view = kvc.slot_view(caches, out_mb * mb_size, mb_size, devs[-1])
+    toks, lps = decode_drain(params, caches, y, pos_stage[n_stages - 1],
+                             mb=out_mb, noise=noise, temp=temp, top_k=top_k,
+                             top_p=top_p, sampled=sampled, cfg=cfg, rt=rt,
+                             n_stages=n_stages, mb_size=mb_size,
+                             device=devs[-1], head=head)
+    return toks, lps, new_act
+
+
+def embed_decode_tokens(params: dict, tokens: torch.Tensor,
+                        cfg: ModelConfig, rt: Runtime) -> torch.Tensor:
+    """Stage 0's input of a decode tick: the (mb_size,) tokens embedded,
+    (mb_size, 1, D)."""
+    return embed_lib.embed_tokens(params["embed"], tokens[:, None], cfg,
+                                  rt.compute_dtype)
+
+
+def decode_stage(params: dict, caches: dict, x: torch.Tensor,
+                 positions: torch.Tensor, *, stage: int, mb: int,
+                 cfg: ModelConfig, rt: Runtime, n_stages: int, mb_size: int,
+                 device=None) -> torch.Tensor:
+    """One stage of a decode tick: stage ``stage``'s layers over
+    microbatch ``mb``'s cache rows, with the page table's copy on
+    ``device`` (stage 0's when None), from ``x`` (mb_size, 1, D) at
+    ``positions`` (mb_size,) int32; returns the stage's output."""
+    view = kvc.slot_view(caches, mb * mb_size, mb_size, device)
+    return model_lib.run_layers(params, x, cfg, rt, mode="decode",
+                                caches=view, positions=positions[:, None],
+                                layers=stage_ranges(cfg, n_stages)[stage])
+
+
+def decode_drain(params: dict, caches: dict, y: torch.Tensor,
+                 positions: torch.Tensor, *, mb: int, noise, temp, top_k,
+                 top_p, sampled: bool, cfg: ModelConfig, rt: Runtime,
+                 n_stages: int, mb_size: int, device=None, head=None):
+    """The microbatch ``mb`` draining from the last stage's output ``y``,
+    on the last stage's ``device``: the epilogue, the final norm, the
+    unembedding and sampling (as in :func:`pipeline_decode_tick`).
+    Returns ``(tokens (mb_size,) int32, logprobs (mb_size,) float32)``."""
+    view = kvc.slot_view(caches, mb * mb_size, mb_size, device)
     xf = _epilogue(params, y, cfg, rt, mode="decode", caches=view,
-                   positions=pos_stage[n_stages - 1][:, None],
-                   layers=ranges[n_stages])
+                   positions=positions[:, None],
+                   layers=stage_ranges(cfg, n_stages)[n_stages])
     logits = model_lib.decode_logits(params, xf, cfg, head)
     toks = sample_batched(logits, noise, temp, top_k, top_p) if sampled \
         else greedy(logits)
-    return toks, token_logprobs(logits, toks), new_act
+    return toks, token_logprobs(logits, toks)
 
 
 def pipeline_prefill_chunk_tick(params: dict, caches: dict, act: list,

@@ -19,16 +19,21 @@ partials into the output, all in one launch.
 The wrapper takes CUDA tensors only: it checks them, allocates the output,
 owns the per-device workspace (partials and the ticket counters, which
 every launch leaves at zero), launches on the current stream and counts
-the launch.  The kernel is instantiated for G in ``GROUP_SIZES``; any
-other G goes through ``kernels.groups`` (zero query rows pad each group to
-a size the kernel takes, G above 8 is cut into launches of 8, and the pad
-rows are dropped), one counted launch each.  Anything the kernel does not
+the launch.  A captured decode step (``serving.step_graph``) sizes the
+workspace up front (:func:`reserve_workspace`), pins it while it
+captures (:func:`pinned`: a launch that would grow it raises) and keeps
+the tensors it captured, so no graph ever holds a freed pointer.  The
+kernel is instantiated for G in ``GROUP_SIZES``; any other G goes
+through ``kernels.groups`` (zero query rows pad each group to a size the
+kernel takes, G above 8 is cut into launches of 8, and the pad rows are
+dropped), one counted launch each.  Anything the kernel does not
 take raises — there is no fallback to the plain version.  ``_TUNED_PPB`` / ``tuned_pages_per_block``
 of the TPU kernel are keyed to TPU VMEM and have no counterpart here.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Dict, Tuple
@@ -53,6 +58,9 @@ _lib = None
 _sms: Dict[torch.device, int] = {}
 _workspace: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]] = {}
+# devices whose workspace must not grow: a CUDA graph is being captured
+# over it (``serving.step_graph``), and the graph keeps the pointers
+_pinned: set = set()
 
 
 def _library():
@@ -105,19 +113,100 @@ def split_token_range(seq_len: int, window: int, split: int,
     return max(lo, split * span), min(hi, (split + 1) * span)
 
 
+def workspace_sizes(batch: int, heads: int, kv_heads: int, head_dim: int,
+                    max_pages: int, page_size: int,
+                    n_sm: int) -> Tuple[int, int, int]:
+    """``(part_o, part_ml, tickets)`` elements that every launch of one
+    :func:`paged_decode_attention` call over these shapes needs: the
+    largest of its launches (one a launch of the group plan, each over
+    ``batch * kv_heads`` pairs split by :func:`split_plan`)."""
+    _, n_split = split_plan(max_pages, page_size, batch * kv_heads, n_sm)
+    g = max(padded for _, _, padded in
+            groups.group_plan(heads // kv_heads, GROUP_SIZES))
+    rows = batch * kv_heads * g * n_split       # (pair, split, head) rows
+    return rows * head_dim, rows * 2, batch * kv_heads
+
+
 def _scratch(device: torch.device, n_o: int, n_ml: int,
              pairs: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The device's workspace, grown to at least the sizes asked for.  The
-    tickets start at zero and every launch leaves them at zero."""
+    tickets start at zero and every launch leaves them at zero.  While the
+    device's workspace is pinned (:func:`pinned`: a CUDA graph is being
+    captured over it) a launch that needs more raises instead."""
     part_o, part_ml, tickets = _workspace.get(device, (None, None, None))
-    if part_o is None or part_o.numel() < n_o:
+    grow = (part_o is None or part_o.numel() < n_o,
+            part_ml is None or part_ml.numel() < n_ml,
+            tickets is None or tickets.numel() < pairs)
+    if any(grow) and device in _pinned:
+        raise RuntimeError(
+            f"paged_decode_attention: a launch needs a workspace of "
+            f"({n_o}, {n_ml}, {pairs}) elements on {device}, more than the "
+            f"pinned one ({_sizes(part_o, part_ml, tickets)}); a captured "
+            "graph would keep the old pointers, so reserve_workspace must "
+            "size it before the capture")
+    if grow[0]:
         part_o = torch.empty(n_o, dtype=torch.float32, device=device)
-    if part_ml is None or part_ml.numel() < n_ml:
+    if grow[1]:
         part_ml = torch.empty(n_ml, dtype=torch.float32, device=device)
-    if tickets is None or tickets.numel() < pairs:
+    if grow[2]:
         tickets = torch.zeros(pairs, dtype=torch.int32, device=device)
     _workspace[device] = (part_o, part_ml, tickets)
     return part_o, part_ml, tickets
+
+
+def _sizes(*tensors) -> Tuple[int, ...]:
+    return tuple(0 if t is None else t.numel() for t in tensors)
+
+
+def _card(device) -> torch.device:
+    """The workspace key of ``device``: a CUDA device with its index (the
+    current card's for a bare ``cuda``), so ``cuda`` and ``cuda:0`` never
+    make two workspaces on one card; another device as it is."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def reserve_workspace(device, *, batch: int, heads: int, kv_heads: int,
+                      head_dim: int, max_pages: int, page_size: int,
+                      n_sm: int = 0) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """Grow ``device``'s workspace to what every launch over these shapes
+    needs (:func:`workspace_sizes`, with the card's SM count unless
+    ``n_sm`` is given) and return it.  A caller that captures launches in
+    a CUDA graph calls this before the capture and keeps the returned
+    tensors as long as the graph: a later growth puts new tensors in the
+    device's slot and never frees the ones a graph holds."""
+    dev = _card(device)
+    if not n_sm:
+        if dev not in _sms:
+            _sms[dev] = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+        n_sm = _sms[dev]
+    return _scratch(dev, *workspace_sizes(batch, heads, kv_heads, head_dim,
+                                          max_pages, page_size, n_sm))
+
+
+def workspace(device) -> Tuple[torch.Tensor, ...]:
+    """``device``'s workspace tensors as they are now (empty if none)."""
+    return tuple(t for t in _workspace.get(_card(device), ())
+                 if t is not None)
+
+
+@contextlib.contextmanager
+def pinned(device):
+    """Within the block, no launch on ``device`` may grow its workspace: a
+    launch that needs more raises (see :func:`_scratch`)."""
+    dev = _card(device)
+    if dev in _pinned:
+        yield
+        return
+    _pinned.add(dev)
+    try:
+        yield
+    finally:
+        _pinned.discard(dev)
 
 
 def check_inputs(q, k_pages, v_pages, page_table, seq_lens, window: int):
@@ -198,7 +287,7 @@ def _launch(q, k_pages, v_pages, page_table, seq_lens, window: int
     # the workspace and the SM count are kept per card, keyed by a device
     # with its index (a tensor's always has one), so ``cuda`` and
     # ``cuda:0`` never make two workspaces on one card
-    dev = torch.device("cuda", q.device.index)
+    dev = _card(q.device)
     if dev not in _sms:
         _sms[dev] = torch.cuda.get_device_properties(
             dev).multi_processor_count

@@ -1,13 +1,14 @@
 """Where a serving step's time goes: full-width decode steps (and one
-exact-length prefill) of the port, timed on the host clock and traced with
-``torch.profiler``.
+exact-length prefill) of the port, eager and replayed from a captured CUDA
+graph, timed on the host clock and on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
-      [--arch yi-9b|gemma3-12b|recurrentgemma-9b ...]
+      [--arch yi-9b|gemma3-12b|recurrentgemma-9b|xlstm-1.3b|
+              phi3.5-moe-42b-a6.6b ...]
 
-One case an arch (all three without ``--arch``), each built at full width
-and depth in bf16 (random weights from seed 0) and run through
-``models.model`` directly (no engine):
+One case an arch (all five without ``--arch``), each built at full width
+in bf16 (random weights from seed 0) and run through ``models.model``
+directly (no engine):
 
 * yi-9b decode: 16 rows of 700 tokens in their own pages (the yi-9b serve
   phase of ``chip_smoke.py``: its batch, page size and about its context);
@@ -19,26 +20,38 @@ and depth in bf16 (random weights from seed 0) and run through
   phase's mean context), local layers on rings of 2,048 slots holding
   every position, recurrent states per row; then one exact-length prefill
   of a 1,664-token prompt (about the serve phase's mean) padded to its
-  power-of-two bucket, 2,048, as the engine pads it.
+  power-of-two bucket, 2,048, as the engine pads it;
+* xlstm-1.3b decode: 16 rows at 512 tokens (``chip_smoke.py``'s tick
+  context; its recurrent states hold no positions), full depth;
+* phi3.5-moe decode: 16 rows of 512 tokens at 24 of its 32 layers (the
+  full model's 83.7 GB of weights do not fit one card; ``chip_smoke.py``
+  serves the same depth).
 
-For each it prints the step time (host clock around synchronised steps,
-untraced and traced), the device time inside a step by kernel (profiler),
-the device's busy share of the untraced step (the traced step is slower:
-the profiler adds host work), and the hand-written kernels' shares.
-Needs a CUDA device.
+For each decode it prints the eager step (host clock around synchronised
+steps, untraced and traced; the device time inside a step by kernel, from
+the profiler) and the same step captured once as a CUDA graph
+(``serving.step_graph``) and replayed (host clock; the profiler's kernel
+rows, which it sees one by one inside a replay, and CUDA events around a
+replay issued behind a spin of the card), with each one's device busy
+share: the counterpart of the engine's replayed decode tick.  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import time
 
 BATCH, STEPS, PAGE, SEED = 16, 10, 16, 0
-# arch -> (decode context, prefill prompt length or 0)
-CASES = {"yi-9b": (700, 0), "gemma3-12b": (1300, 1328),
-         "recurrentgemma-9b": (1700, 1664)}
+# arch -> (decode context, prefill prompt length or 0, layers or 0 = all)
+CASES = {"yi-9b": (700, 0, 0), "gemma3-12b": (1300, 1328, 0),
+         "recurrentgemma-9b": (1700, 1664, 0), "xlstm-1.3b": (512, 0, 0),
+         "phi3.5-moe-42b-a6.6b": (512, 0, 24)}
+# torch.cuda._sleep cycles a ms at the H100's top SM clock (1.98 GHz)
+SPIN_CYCLES_PER_MS = 1_980_000
 
 
 def profile(torch, fn, steps: int):
@@ -71,7 +84,27 @@ def profile(torch, fn, steps: int):
     return step_ms, traced_ms, rows
 
 
-def report(label: str, cfg, step_ms, traced_ms, rows, launches) -> None:
+def device_span(torch, fn, steps: int, host_ms: float) -> float:
+    """Median ms between CUDA events around one call of ``fn`` issued
+    while the card spins for twice ``host_ms``: the card's work alone for
+    a replay (one graph launch).  Not for an eager step: its couple of
+    thousand launches fill the launch queue behind the spin, and the host
+    then issues the rest while the card runs, gaps and all."""
+    spans = []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2 * host_ms * SPIN_CYCLES_PER_MS))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    return sorted(spans)[len(spans) // 2]
+
+
+def report(label: str, cfg, step_ms, traced_ms, rows, launches,
+           **extra) -> None:
     device_ms = sum(r[0] for r in rows)
     paged_ms = sum(r[0] for r in rows if "paged_split" in r[2])
     flash_ms = sum(r[0] for r in rows if "flash_fwd" in r[2])
@@ -84,18 +117,30 @@ def report(label: str, cfg, step_ms, traced_ms, rows, launches) -> None:
           f"{scan_ms:.3f} ms a step; launches a step {launches}")
     for ms, n, key in rows[:12]:
         print(f"  {ms:8.4f} ms  x{n:<5d} {key[:90]}")
+    if "replay_step_ms" in extra:
+        print(f"{label}, replayed from its CUDA graph: step "
+              f"{extra['replay_step_ms']:.3f} ms (host clock), device "
+              f"kernels {extra['replay_device_ms']:.3f} ms a step = "
+              f"{extra['replay_device_busy']:.1%} busy (CUDA events around "
+              f"a replay: {extra['replay_span_ms']:.3f} ms); kernels "
+              f"{extra['replay_kernel_rows']} rows in the profiler's trace")
+        for ms, n, key in extra["replay_rows"][:6]:
+            print(f"  {ms:8.4f} ms  x{n:<5d} {key[:90]}")
+        extra = {k: v for k, v in extra.items() if k != "replay_rows"}
     print(json.dumps({"case": label, "step_ms": step_ms,
                       "traced_step_ms": traced_ms, "device_ms": device_ms,
                       "paged_ms": paged_ms, "flash_ms": flash_ms,
                       "scan_ms": scan_ms,
                       "device_busy": device_ms / step_ms,
                       "device_busy_traced": device_ms / traced_ms,
-                      "weight_bytes_ms": cfg.param_count() * 2 / 3.35e9}))
+                      "weight_bytes_ms": cfg.param_count() * 2 / 3.35e9,
+                      **extra}))
 
 
-def build(torch, np, arch: str, ctx: int):
+def build(torch, np, arch: str, ctx: int, layers: int = 0):
     """Weights and engine caches for 16 rows of ``ctx`` tokens: each row
-    owns its pages, and every ring holds the window's last positions."""
+    owns its pages, and every ring holds the window's last positions;
+    ``layers`` cuts the depth (0: every layer)."""
     from repro_torch.config import get_arch
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import Runtime, resolve_device
@@ -103,9 +148,11 @@ def build(torch, np, arch: str, ctx: int):
 
     dev = resolve_device("cuda")
     cfg = get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
     params = model_lib.init_params(cfg, SEED, rt, dev)
-    per_row = -(-(ctx + 3 * STEPS + 8) // PAGE)
+    per_row = -(-(ctx + 4 * STEPS + 8) // PAGE)
     pool = kvc.PoolConfig(page_size=PAGE,
                           n_local_pages=BATCH * per_row + 1,
                           max_pages_per_seq=per_row)
@@ -118,7 +165,33 @@ def build(torch, np, arch: str, ctx: int):
             c = layer["pos"].shape[1]
             p = torch.arange(max(ctx - c, 0), ctx, device=dev)
             layer["pos"][:, p % c] = p.to(torch.int32)
-    return cfg, rt, params, caches, dev
+    return cfg, rt, params, caches, dev, pool
+
+
+def replayed(torch, cfg, rt, params, caches, dev, pool, tokens, pos):
+    """``decode_step`` over the whole batch captured once as a CUDA graph
+    (``serving.step_graph.StepGraphs``) and replayed: the step's
+    positions in a static tensor, set before each replay, its logits
+    copied into a static output.  Returns a function of one step."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving.backend import reserve_paged_workspace
+    from repro_torch.serving.step_graph import StepGraphs
+
+    graphs = StepGraphs(prepare=lambda device: reserve_paged_workspace(
+        cfg, pool, BATCH, device))
+    cur = torch.zeros((BATCH,), dtype=torch.int32, device=dev)
+    logits = torch.zeros((BATCH, cfg.vocab_size), dtype=torch.float32,
+                         device=dev)
+
+    def body():
+        out, _ = model_lib.decode_step(params, tokens, caches, cur, cfg, rt)
+        logits.copy_(out)
+
+    def step():
+        cur.fill_(pos[0])
+        graphs.run("decode", dev, body)
+        pos[0] += 1
+    return step
 
 
 def run_case(torch, np, arch: str) -> None:
@@ -128,11 +201,13 @@ def run_case(torch, np, arch: str) -> None:
     from repro_torch.models import model as model_lib
     from repro_torch.serving import kv_cache as kvc
 
-    ctx, n_prompt = CASES[arch]
-    cfg, rt, params, caches, dev = build(torch, np, arch, ctx)
-    tokens = torch.randint(1, cfg.vocab_size, (BATCH,), device=dev)
+    ctx, n_prompt, layers = CASES[arch]
+    cfg, rt, params, caches, dev, pool = build(torch, np, arch, ctx, layers)
+    tokens = torch.randint(1, cfg.vocab_size, (BATCH,), dtype=torch.int32,
+                           device=dev)
     pos = [ctx]
 
+    @torch.inference_mode()
     def step():
         cur = torch.full((BATCH,), pos[0], dtype=torch.int32, device=dev)
         model_lib.decode_step(params, tokens, caches, cur, cfg, rt)
@@ -140,9 +215,22 @@ def run_case(torch, np, arch: str) -> None:
 
     pa.paged_decode_attention.launches = 0
     step_ms, traced_ms, rows = profile(torch, step, STEPS)
-    report(f"{cfg.name} decode B={BATCH} ctx={ctx} bf16", cfg, step_ms,
-           traced_ms, rows,
-           {"paged": pa.paged_decode_attention.launches // (2 * STEPS + 3)})
+    launches = {"paged": pa.paged_decode_attention.launches //
+                (2 * STEPS + 3)}
+    # the same step, replayed: positions restart at the context (the
+    # writes land where the eager steps' did)
+    pos[0] = ctx
+    replay = torch.inference_mode()(
+        replayed(torch, cfg, rt, params, caches, dev, pool, tokens, pos))
+    replay_ms, _, replay_rows = profile(torch, replay, STEPS)
+    replay_dev = sum(r[0] for r in replay_rows)
+    span = device_span(torch, replay, STEPS, replay_ms)
+    report(f"{cfg.name} decode B={BATCH} ctx={ctx} bf16"
+           + (f", {layers} of {get_layers(arch)} layers" if layers
+              else ""), cfg, step_ms, traced_ms, rows, launches,
+           replay_step_ms=replay_ms, replay_device_ms=replay_dev,
+           replay_device_busy=replay_dev / replay_ms, replay_span_ms=span,
+           replay_kernel_rows=len(replay_rows), replay_rows=replay_rows)
     if not n_prompt:
         return
     # the engine's bucket: the next power of two with recurrent layers,
@@ -161,6 +249,11 @@ def run_case(torch, np, arch: str) -> None:
            f"S={S} bf16", cfg, step_ms, traced_ms, rows,
            {"flash": fa.flash_attention.launches // 9,
             "scan": rs.rglru_scan.launches // 9})
+
+
+def get_layers(arch: str) -> int:
+    from repro_torch.config import get_arch
+    return get_arch(arch).num_layers
 
 
 def main(argv=None) -> None:

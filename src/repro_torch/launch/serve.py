@@ -126,16 +126,19 @@ def measure_stage_time(cfg, params, rt, n_stages: int, device,
 def stage_times(cfg, params, rt, n_stages: int, device, mesh=None) -> list:
     """Wall-time one single-sequence decode step of each stage on its own
     device (``mesh``, one device a stage, or every stage on ``device``;
-    ``params`` placed over it), after a warm-up step, with a
-    synchronisation of the stage's card on each side: seconds a stage.
-    The embedding is made once outside; the epilogue and the head are
-    timed with the last stage."""
+    ``params`` placed over it), with a synchronisation of the stage's card
+    on each side: seconds a stage.  On a card the step is captured as a
+    CUDA graph at its first run and the replay is timed, as the engine
+    runs its stages (``serving.step_graph``); on the CPU the second of
+    two eager steps is.  The embedding is made once outside; the epilogue
+    and the head are timed with the last stage."""
     import torch
 
     from repro_torch.core import pipeline as PL
     from repro_torch.models import embedding as embed_lib
     from repro_torch.models import model as model_lib
     from repro_torch.serving.backend import stage_devices
+    from repro_torch.serving.step_graph import StepGraphs
 
     devs = stage_devices(mesh, n_stages, device)
     ranges = PL.stage_ranges(cfg, n_stages)
@@ -152,13 +155,16 @@ def stage_times(cfg, params, rt, n_stages: int, device, mesh=None) -> list:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    # the steps leave nothing behind (no output outlives a replay), so
+    # their graphs may share one pool
+    graphs = StepGraphs()
+
     def stage(s: int, dev) -> float:
         x = x0.to(dev)
         cur = torch.ones((1, 1), dtype=torch.int32, device=dev)
         layers = [ranges[s]] + ([ranges[-1]] if s == n_stages - 1 else [])
-        for _ in range(2):                      # warm, then timed
-            sync(dev)
-            t0 = time.perf_counter()
+
+        def step():
             y = x
             for lo, hi in layers:
                 if hi > lo:
@@ -167,6 +173,11 @@ def stage_times(cfg, params, rt, n_stages: int, device, mesh=None) -> list:
                                              positions=cur, layers=(lo, hi))
             if s == n_stages - 1:
                 model_lib.decode_logits(params, y, cfg, head)
+
+        for _ in range(2):                      # warm (capture), then timed
+            sync(dev)
+            t0 = time.perf_counter()
+            graphs.run(("stage", s), dev, step)
             sync(dev)
             dt = time.perf_counter() - t0
         return dt

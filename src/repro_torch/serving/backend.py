@@ -67,13 +67,28 @@ stage's layers, and one for the epilogue when it holds paged layers.  Swap
 copies go on the offloaders' copy streams; every model call, attention
 kernels included, stays on the compute stream.
 
-PyTorch runs eagerly, so ``_chunk_fn`` / ``_prefill_fn`` / ``_decode_fn``
-are plain methods where the JAX package jits, and the JAX pipelined
-backend's sharding-layout machinery (``_commit``, ``_probe_layout``,
-``_cache_shardings``), which keeps its jit caches steady, has nothing to
-do here.  The JAX backends' ``jit_entries`` seam (the strict auditor's
-jit cache probes) becomes ``kernel_libraries``: the loaded kernel
-libraries, which must not be built or loaded again mid-serve.
+Where the JAX package jits its decode step (``_decode_jit``) and its pipe
+tick (``_tick_jit``), a backend here captures each decode step once as a
+CUDA graph and replays it every tick (:mod:`repro_torch.serving.
+step_graph`): the local backend one graph a microbatch, the pipelined
+backend one a (stage, microbatch) and one a drained microbatch's epilogue
+and sampler, each in a greedy and a sampled variant where it samples.
+The tick's host inputs go into static tensors the backend owns (one
+packed int32 copy a device: tokens, positions, top-k, and the float32
+bits of temperature and top-p; the Gumbel noise drawn into its own), and
+the steps' outputs come back in static tensors (tokens and log-probs,
+each stage's activation).  The offloader's swaps, the noise draw, the
+fault plan, the transport and the activation's hand-off between stages
+(``core.pipeline._wire``) stay outside the graphs, between replays.  On
+a CPU device the same steps run eagerly.  ``_chunk_fn`` / ``_prefill_fn``
+stay eager: their shapes change with the chunk and the prompt bucket.
+The JAX pipelined backend's sharding-layout machinery (``_commit``,
+``_probe_layout``, ``_cache_shardings``), which keeps its jit caches
+steady, has nothing to do here.  The JAX backends' ``jit_entries`` seam
+(the strict auditor's jit cache probes) becomes ``graph_entries`` (each
+key's graph, captured once for the backend's life) and
+``kernel_libraries`` (the loaded kernel libraries, which must not be
+built or loaded again mid-serve).
 
 A flight recorder (``recorder=``, :mod:`repro_torch.obs`) rides on the
 backend's offloaders and, on the pipelined backend, on the outer
@@ -86,6 +101,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from functools import partial
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -98,9 +114,11 @@ from repro_torch.distributed.transport import (CompressedTransport,
                                                InProcessTransport,
                                                make_transport)
 from repro_torch.kernels import build as kernel_build
+from repro_torch.kernels import paged_attention as paged_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import Runtime, stage_device
 from repro_torch.serving import kv_cache as kvc
+from repro_torch.serving.step_graph import StepGraphs
 from repro_torch.serving.sampler import (RowSampling, greedy, gumbel_noise,
                                          sample_batched, token_logprobs)
 
@@ -166,6 +184,20 @@ def stage_devices(mesh, n_stages: int, device) -> List[torch.device]:
     return devs
 
 
+def reserve_paged_workspace(cfg: ModelConfig, pool: kvc.PoolConfig,
+                            batch: int, device: torch.device) -> None:
+    """Size the paged kernel's workspace on ``device`` for every launch a
+    decode step over ``batch`` rows of ``pool``'s table width makes
+    (``kernels.paged_attention.reserve_workspace``).  An arch with no
+    paged layer, and the CPU (the plain paged attention), need none."""
+    if device.type == "cuda" and \
+            any(k in model_lib.PAGED_KINDS for k in cfg.layer_kinds()):
+        paged_lib.reserve_workspace(
+            device, batch=batch, heads=cfg.num_heads,
+            kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            max_pages=pool.max_pages_per_seq, page_size=pool.page_size)
+
+
 class _SlotCacheBackend:
     """Shared plumbing over engine-format paged caches: the device caches,
     page-table pushes, slot resets and the exact-length prefill; the
@@ -201,6 +233,12 @@ class _SlotCacheBackend:
             kvc.build_paged_caches(cfg, self.batch, pool, rt, device)
         self._noise_gen: Optional[torch.Generator] = None
         self.decode_ticks = 0           # decode-plane ticks
+        # the captured decode steps, and their static inputs and outputs
+        # (built at the first decode tick, by the subclass)
+        self.graphs = StepGraphs(prepare=self._reserve_workspace)
+        self._inp: Optional[Dict[torch.device, torch.Tensor]] = None
+        self._noise: Optional[torch.Tensor] = None
+        self._out: Optional[torch.Tensor] = None
 
     @property
     def noise_gen(self) -> torch.Generator:
@@ -261,6 +299,57 @@ class _SlotCacheBackend:
         """The inter-stage transport's books (virtual clock, wire bytes,
         link stalls); empty where there are no stages or no books."""
         return {}
+
+    def graph_entries(self) -> Dict[object, tuple]:
+        """Each captured decode step's key and its ``(graph identity,
+        captures)``, for the strict auditor: a key is captured once for the
+        backend's life (the counterpart of the JAX backends'
+        ``jit_entries``).  Empty off the card."""
+        return self.graphs.entries()
+
+    def _reserve_workspace(self, device: torch.device) -> None:
+        """Size the paged kernel's workspace on ``device`` for every launch
+        a captured step makes there before its first capture."""
+        reserve_paged_workspace(self.cfg, self.pool, self.mb_size, device)
+
+    def _statics(self, n_ints: int) -> None:
+        """Build the static tensors of the decode steps once: one packed
+        int32 input a device (``n_ints`` rows, then top-k, temperature and
+        top-p), the sampler's noise and the (tokens, log-probs) output on
+        the last stage's device."""
+        if self._inp is None:
+            last = self.stage_devices[-1]
+            self._inp = {d: torch.zeros((n_ints + 3, self.mb_size),
+                                        dtype=torch.int32, device=d)
+                         for d in self._devices}
+            self._noise = torch.zeros((self.mb_size, self.cfg.vocab_size),
+                                      dtype=torch.float32, device=last)
+            self._out = torch.zeros((2, self.mb_size), dtype=torch.float32,
+                                    device=last)
+
+    def _load_inputs(self, ints: Sequence[np.ndarray],
+                     samp: Optional[RowSampling]) -> None:
+        """Copy the tick's host inputs into the static inputs: one copy a
+        device.  Callers do this before any swap is enqueued (see
+        ``LocalBackend._residency``)."""
+        host = np.zeros((len(ints) + 3, self.mb_size), np.int32)
+        for i, a in enumerate(ints):
+            host[i] = a
+        if samp is not None:
+            host[-3] = samp.top_k
+            host[-2] = np.asarray(samp.temp, np.float32).view(np.int32)
+            host[-1] = np.asarray(samp.top_p, np.float32).view(np.int32)
+        src = torch.from_numpy(host)
+        for buf in self._inp.values():
+            buf.copy_(src)
+
+    def _read_out(self, mb: int) -> DecodeResult:
+        """The tick's one device-to-host transfer: the drained tokens and
+        log-probs, which the engine books on the host."""
+        # repro-torch-audit: allow(host-sync) — the tick's one device-to-host transfer (tokens and log-probs in one copy)
+        out = self._out.cpu().numpy()
+        return DecodeResult(mb=mb, tokens=out[0].astype(np.int32),
+                            logprobs=out[1].copy())
 
     def kernel_libraries(self) -> Dict[str, object]:
         """The kernel libraries loaded so far, by name, for the strict
@@ -387,24 +476,32 @@ class LocalBackend(_SlotCacheBackend):
                samp: RowSampling, active: bool = True) -> List[DecodeResult]:
         if not active:
             return []
-        dev = self.device
         sampled = samp.any_sampled
-        noise = gumbel_noise(samp, self.cfg.vocab_size, dev, self.noise_gen) \
-            if sampled else None
-        inputs = [self._tensor(a) for a in (tokens, cur_pos, samp.temp,
-                                            samp.top_k, samp.top_p)]
+        self._statics(2)
+        self._load_inputs((tokens, cur_pos), samp)
+        if sampled:
+            gumbel_noise(samp, self.cfg.vocab_size, self.device,
+                         self.noise_gen, out=self._noise)
         self._residency(mb)
-        toks, lps = self._decode_fn(
-            self.params, self.caches, inputs[0], inputs[1],
-            mb * self.mb_size, noise, *inputs[2:], cfg=self.cfg, rt=self.rt,
-            mb_size=self.mb_size, sampled=sampled)
+        row0 = mb * self.mb_size
+        self.graphs.run(("local", mb, sampled), self.device,
+                        partial(self._decode_step, row0, sampled),
+                        state=partial(kvc.state_rows, self.caches, row0,
+                                      self.mb_size))
         self.decode_ticks += 1
-        # the tick's one device-to-host transfer: the engine books the
-        # microbatch's tokens on the host
-        # repro-torch-audit: allow(host-sync) — the tick's one device-to-host transfer (tokens and log-probs in one copy)
-        out = torch.stack([toks.float(), lps]).cpu().numpy()
-        return [DecodeResult(mb=mb, tokens=out[0].astype(np.int32),
-                             logprobs=out[1])]
+        return [self._read_out(mb)]
+
+    def _decode_step(self, row0: int, sampled: bool) -> None:
+        """The captured step: ``_decode_fn`` over the static inputs into
+        the static output."""
+        inp = self._inp[self.device]
+        toks, lps = self._decode_fn(
+            self.params, self.caches, inp[0], inp[1], row0,
+            self._noise if sampled else None, inp[-2].view(torch.float32),
+            inp[-3], inp[-1].view(torch.float32), cfg=self.cfg, rt=self.rt,
+            mb_size=self.mb_size, sampled=sampled)
+        self._out[0].copy_(toks)
+        self._out[1].copy_(lps)
 
     @staticmethod
     def _decode_fn(params, caches, tokens, cur_pos, row0, noise, temp, top_k,
@@ -490,7 +587,8 @@ class PipelinedBackend(_SlotCacheBackend):
         self.n_stages = n_stages
         self.wire_dtype = wire_dtype
         self.schedule = schedule
-        self.act: list = [None] * n_stages
+        self._act_in: Optional[list] = None     # static stage inputs and
+        self._act_out: Optional[list] = None    # outputs (_pipe_statics)
         self._entries: List[Optional[tuple]] = [None] * n_stages
         self._pf_act: list = [None] * n_stages
         self._pf_entries: List[Optional[PrefillChunk]] = [None] * n_stages
@@ -708,51 +806,58 @@ class PipelinedBackend(_SlotCacheBackend):
             self._entries = [None] * self.n_stages
             return results
         mb_assign = [e[0] if e is not None else -1 for e in entries]
-        pos_stage = np.zeros((self.n_stages, self.mb_size), np.int32)
-        for s, e in enumerate(entries):
-            if e is not None:
-                pos_stage[s] = e[1]
+        n, devs = self.n_stages, self.stage_devices
         drained = entries[-1]
         # sampling travels with the microbatch: the tick samples the
         # *draining* microbatch with the RowSampling captured at injection
         dsamp = drained[2] if drained is not None else None
         sampled = dsamp is not None and dsamp.any_sampled
-        last = self.stage_devices[-1]       # where the sampler runs
-        noise = gumbel_noise(dsamp, self.cfg.vocab_size, last,
-                             self.noise_gen) if sampled else None
-        samp_in = (dsamp.temp, dsamp.top_k, dsamp.top_p) \
-            if dsamp is not None else (np.zeros((self.mb_size,), np.float32),
-                                       np.zeros((self.mb_size,), np.int32),
-                                       np.ones((self.mb_size,), np.float32))
+        self._statics(n + 1)
+        self._pipe_statics()
         # host inputs go to the stages' devices before any swap is
-        # enqueued: the tokens to stage 0's, each stage's positions to its
-        # own, the draining rows' sampling to the last stage's
-        toks_in, pos_in = self._tensor(tokens), self._per_stage(pos_stage)
-        temp, top_k, top_p = [self._tensor(a, last) for a in samp_in]
+        # enqueued: the tokens, each stage's positions and the draining
+        # rows' sampling, one packed copy a device
+        idle = np.zeros((self.mb_size,), np.int32)
+        self._load_inputs([tokens] + [e[1] if e is not None else idle
+                                      for e in entries], dsamp)
+        if sampled:
+            gumbel_noise(dsamp, self.cfg.vocab_size, devs[-1],
+                         self.noise_gen, out=self._noise)
         for s, e in enumerate(entries):
             if e is not None:
                 self._ensure_stage_resident(s, e[0])
         if drained is not None:
             self._ensure_epi_resident(drained[0])
+        captured = self.graphs.capture_s
         t0 = time.perf_counter()
-        toks, lps, self.act = PL.pipeline_decode_tick(
-            self.params, self.caches, self.act, toks_in, pos_in,
-            mb_assign=mb_assign, noise=noise, temp=temp, top_k=top_k,
-            top_p=top_p, sampled=sampled, cfg=self.cfg, rt=self.rt,
-            n_stages=self.n_stages, mb_size=self.mb_size,
-            wire_dtype=self.wire_dtype, devices=self.stage_devices,
-            head=self.head)
+        for s, m in enumerate(mb_assign):
+            if m >= 0:                  # a bubble does no work
+                self.graphs.run(("stage", s, m), devs[s],
+                                partial(self._stage_step, s, m),
+                                state=partial(self._state_rows, s, m))
         out = None
+        if drained is not None:
+            self.graphs.run(("drain", drained[0], sampled), devs[-1],
+                            partial(self._drain_step, drained[0], sampled),
+                            state=partial(self._state_rows, n, drained[0]))
+        # each stage's output becomes the next stage's input for the next
+        # tick (the ppermute), after this tick's stages read theirs
+        for s in range(n - 1):
+            if mb_assign[s] >= 0:
+                self._act_in[s + 1].copy_(PL._wire(
+                    self._act_out[s], self.wire_dtype, devs[s + 1]))
         if drained is not None:
             # §4.3 return link: the drained microbatch's token ids ride
             # back to the host injector — the tick's one device-to-host
             # transfer, which also ends its device work
-            # repro-torch-audit: allow(host-sync) — §4.3 return link: one batched copy a drained tick
-            out = torch.stack([toks.float(), lps]).cpu().numpy()
+            out = self._read_out(drained[0])
         else:
             self._sync()            # the stage times below are the card's
         t1 = time.perf_counter()
-        dt = t1 - t0
+        # a key's first tick warms up and captures its step, a one-off
+        # that is no stage's compute: the stage times leave it out (the
+        # straggler mitigation would read it as a slow stage)
+        dt = t1 - t0 - (self.graphs.capture_s - captured)
         occupied = [e is not None for e in entries]
         self.decode_stage_runs += sum(occupied)
         # the (mb_size, 1, D) activation crosses each occupied boundary;
@@ -773,9 +878,55 @@ class PipelinedBackend(_SlotCacheBackend):
             return results
         self.epilogue_runs += 1
         self._ret_ready[drained[0]] = obs.return_ready
-        return results + [DecodeResult(mb=drained[0],
-                                       tokens=out[0].astype(np.int32),
-                                       logprobs=out[1])]
+        return results + [out]
+
+    def _pipe_statics(self) -> None:
+        """Each stage's static output activation and, past stage 0, its
+        static input (the previous stage's output of the last tick), on
+        the stage's device; built once."""
+        if self._act_out is None:
+            shape = (self.mb_size, 1, self.cfg.d_model)
+            dt = self.rt.compute_dtype
+            self._act_out = [torch.zeros(shape, dtype=dt, device=d)
+                             for d in self.stage_devices]
+            self._act_in = [None] + [torch.zeros(shape, dtype=dt, device=d)
+                                     for d in self.stage_devices[1:]]
+
+    def _state_rows(self, unit: int, mb: int) -> List[torch.Tensor]:
+        """The recurrent-state rows of microbatch ``mb`` in stage
+        ``unit``'s layers (``unit == n_stages``: the epilogue's)."""
+        return kvc.state_rows(self.caches, mb * self.mb_size, self.mb_size,
+                              self.ranges[unit])
+
+    def _stage_step(self, s: int, mb: int) -> None:
+        """The captured step of stage ``s`` on microbatch ``mb``: its
+        layers from the embedded tokens (stage 0) or its static input,
+        into its static output."""
+        dev = self.stage_devices[s]
+        inp = self._inp[dev]
+        x = PL.embed_decode_tokens(self.params, inp[0], self.cfg, self.rt) \
+            if s == 0 else self._act_in[s]
+        y = PL.decode_stage(self.params, self.caches, x, inp[1 + s],
+                            stage=s, mb=mb, cfg=self.cfg, rt=self.rt,
+                            n_stages=self.n_stages, mb_size=self.mb_size,
+                            device=dev)
+        self._act_out[s].copy_(y)
+
+    def _drain_step(self, mb: int, sampled: bool) -> None:
+        """The captured step of the drained microbatch ``mb``: the
+        epilogue, the head and the sampler on the last stage's output,
+        into the static (tokens, log-probs)."""
+        n, last = self.n_stages, self.stage_devices[-1]
+        inp = self._inp[last]
+        toks, lps = PL.decode_drain(
+            self.params, self.caches, self._act_out[n - 1], inp[n], mb=mb,
+            noise=self._noise if sampled else None,
+            temp=inp[-2].view(torch.float32), top_k=inp[-3],
+            top_p=inp[-1].view(torch.float32), sampled=sampled,
+            cfg=self.cfg, rt=self.rt, n_stages=n, mb_size=self.mb_size,
+            device=last, head=self.head)
+        self._out[0].copy_(toks)
+        self._out[1].copy_(lps)
 
     def transport_stats(self) -> Dict:
         return self.transport.stats()

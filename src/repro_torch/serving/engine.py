@@ -654,6 +654,9 @@ class OfflineEngine:
                   if k not in ("old", "new")})
         new_mesh = None if mesh is None else mesh[:n_stages]
         old.head = None         # the drained pipe's tied copy, if any
+        # the drained pipe's graphs point at caches the placement below
+        # may move: the new backend captures its own
+        old.graphs.clear()
         self.moved_bytes = self._place(
             stage_devices(new_mesh, n_stages, self.device), old.caches)
         self.backend = make_backend(

@@ -444,6 +444,19 @@ def global_slice(pool: PoolConfig, pool_id: int) -> slice:
     return slice(r.start, r.stop)
 
 
+def state_rows(caches: dict, start: int, size: int,
+               layers: Optional[tuple] = None) -> List[torch.Tensor]:
+    """Rows ``[start, start + size)`` of every recurrent-state leaf of the
+    layers ``layers = (lo, hi)`` (every layer when None), as views: what a
+    decode step over those rows changes that a second step at the same
+    positions would step again.  Pools and rings are written by position
+    (a second step writes the same slots), so they are not listed."""
+    lo, hi = layers or (0, len(caches["layers"]))
+    return [t[start:start + size] for layer in caches["layers"][lo:hi]
+            if "k_pages" not in layer and "pos" not in layer
+            for t in layer.values()]
+
+
 def slot_view(caches: dict, start: int, size: int, device=None) -> dict:
     """A ``size``-row view of the batch starting at ``start``: the page
     table rows (of the table's copy on ``device``, stage 0's when None) and

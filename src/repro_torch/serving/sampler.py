@@ -64,12 +64,16 @@ class RowSampling:
 
 
 def gumbel_noise(samp: RowSampling, vocab: int, device,
-                 gen: torch.Generator) -> torch.Tensor:
+                 gen: torch.Generator, out=None) -> torch.Tensor:
     """(mb, V) float32 standard Gumbel noise: row ``i`` drawn from ``gen``
     reseeded with ``token_seed(keys[i], steps[i])``; greedy rows get zeros
-    (their draw is never used)."""
-    noise = torch.zeros((len(samp.temp), vocab), dtype=torch.float32,
-                        device=device)
+    (their draw is never used).  With ``out`` (a captured decode step's
+    static noise tensor) the noise is written there and ``out`` returned."""
+    if out is None:
+        noise = torch.zeros((len(samp.temp), vocab), dtype=torch.float32,
+                            device=device)
+    else:
+        noise = out.zero_()
     tiny = torch.finfo(torch.float32).tiny
     for i in np.flatnonzero(samp.temp > 0):
         gen.manual_seed(token_seed(int(samp.keys[i]), int(samp.steps[i])))

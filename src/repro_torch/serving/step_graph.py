@@ -1,0 +1,219 @@
+"""Decode steps captured as CUDA graphs: the port's counterpart of the JAX
+package's jitted decode and pipe ticks (``repro.serving.backend``'s
+``LocalBackend._decode_jit`` and ``PipelinedBackend._tick_jit``, each
+compiled once for the whole serve).
+
+An eager decode tick issues a couple of thousand launches from one host
+thread, and the host takes longer to issue them than the card takes to
+run them.  A decode step has fixed shapes for a given key (the local
+backend's microbatch, a pipeline stage and the microbatch it holds, the
+drained microbatch's epilogue), and its cache rows, pools and page table
+sit at fixed addresses for the backend's lifetime (swaps, page-table
+pushes and slot resets copy in place).  So a backend captures each step
+once as a CUDA graph and replays it once a tick; the host only copies the
+tick's inputs into the step's static tensors and launches the graph.
+
+:class:`StepGraphs` holds a backend's graphs, one a key:
+
+- A step is a function of no arguments that reads the backend's static
+  input tensors and writes its static output tensors (allocated outside
+  any capture, by the backend).
+- At a key's first run on a card the step runs once eagerly on the
+  current stream, the engine's (the warm-up: it loads kernel libraries,
+  sets their attributes and fills the lazily built tables outside the
+  capture).  The recurrent-state rows the step updates (``state``) are
+  copied aside before and back after it; pools and rings are written by
+  position, so the replay writes the same slots again.  Then the step is
+  captured on a side stream with the paged kernel's workspace pinned, and
+  replayed: every tick, the first included, is a replay.
+- Launch counts stay what an eager serve counts.  The wrappers' counters
+  (``.launches``) move while a step is captured; the graph keeps those
+  counts and adds them at every replay, and the counters are put back
+  after the capture.  The warm-up's launches belong to the capture, not
+  to a tick: they are booked in ``warmup_launches`` and put back too.
+- All of a backend's graphs on a card share one memory pool
+  (``torch.cuda.graph_pool_handle``).  That is safe in any replay order
+  only because no graph's output lives in the pool: every tensor a step
+  leaves behind is a static tensor written by a copy inside the graph,
+  so what a graph takes from the pool is dead when its replay ends, and
+  the next replay of any graph may reuse it.  A card's replays never
+  overlap: they go to one stream, in the engine's order.
+- A graph keeps the paged workspace tensors it was captured over
+  (``kernels.paged_attention.reserve_workspace``), so a later growth of
+  the card's workspace never frees a buffer a graph points at.
+- Off the card (a CPU device, the CPU stage of a mixed pipeline) the step
+  is called as it is, every time: the routing rule.  A capture or replay
+  that fails raises; nothing falls back to the eager step on the card.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from collections import Counter
+from dataclasses import dataclass
+from typing import Callable, Dict, Hashable, List, Optional
+
+import torch
+
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import rglru_scan as _scan
+
+
+def counted_kernels() -> Dict[str, Callable]:
+    """Each kernel wrapper, by kernel; ``.launches`` is its count."""
+    return {"paged_attention": _paged.paged_decode_attention,
+            "flash_attention": _flash.flash_attention,
+            "rglru_scan": _scan.rglru_scan}
+
+
+def _counts() -> Counter:
+    return Counter({name: fn.launches
+                    for name, fn in counted_kernels().items()})
+
+
+def _set_counts(counts: Counter) -> None:
+    for name, fn in counted_kernels().items():
+        fn.launches = counts[name]
+
+
+def _restore(rows: List[torch.Tensor], saved: List[torch.Tensor]) -> None:
+    for t, s in zip(rows, saved):
+        t.copy_(s)
+
+
+def _on(device: torch.device):
+    """The context of a capture or a replay on ``device``: the card made
+    current (its current stream is the engine's); none off the card."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+@dataclass
+class _Entry:
+    graph: object                   # torch.cuda.CUDAGraph (or a test's)
+    launches: Counter               # kernel launches captured, by kernel
+    keep: tuple                     # the paged workspace it was captured over
+
+
+class StepGraphs:
+    """One backend's captured decode steps, one a key (see the module
+    docstring).  ``prepare(device)`` runs once a card before its first
+    capture (the backend sizes the paged workspace there)."""
+
+    def __init__(self, prepare: Optional[Callable] = None):
+        self._prepare = prepare
+        self._entries: Dict[Hashable, _Entry] = {}
+        self._pools: Dict[torch.device, tuple] = {}
+        self._streams: Dict[torch.device, torch.cuda.Stream] = {}
+        self._prepared: set = set()
+        self.captures: Counter = Counter()      # key -> captures made
+        self.replays: Counter = Counter()       # key -> replays
+        self.replays_by_device: Counter = Counter()
+        self.warmup_launches: Counter = Counter()
+        self.capture_s = 0.0        # host seconds spent warming up and
+                                    # capturing (a one-off, like a compile)
+
+    def graphed(self, device: torch.device) -> bool:
+        """Whether a step on ``device`` is captured and replayed (a card)
+        or called as it is (the CPU)."""
+        return device.type == "cuda"
+
+    def entries(self) -> Dict[Hashable, tuple]:
+        """Each captured key's ``(graph identity, captures made)``, for the
+        strict auditor: a key must keep one graph for the whole serve."""
+        return {key: (id(e.graph), self.captures[key])
+                for key, e in self._entries.items()}
+
+    def run(self, key: Hashable, device: torch.device, step: Callable,
+            state: Optional[Callable] = None) -> None:
+        """Run ``step`` for ``key`` on ``device``: replay the key's graph,
+        capturing it first at its first run, or call ``step`` off the card.
+        ``state()`` lists the recurrent-state rows the step updates."""
+        if not self.graphed(device):
+            step()
+            return
+        entry = self._entries.get(key)
+        if entry is None:
+            t0 = time.perf_counter()
+            entry = self._entries[key] = self._capture(key, device, step,
+                                                       state)
+            self.capture_s += time.perf_counter() - t0
+        with _on(device):
+            entry.graph.replay()
+        for name, fn in counted_kernels().items():
+            fn.launches += entry.launches[name]
+        self.replays[key] += 1
+        self.replays_by_device[str(device)] += 1
+
+    def _new_graph(self, device: torch.device, step: Callable):
+        """Capture ``step`` into a new graph on a side stream of
+        ``device`` (the current device), in the backend's pool."""
+        stream = self._streams.get(device)
+        if stream is None:
+            stream = self._streams[device] = torch.cuda.Stream(device)
+            self._pools[device] = torch.cuda.graph_pool_handle()
+        stream.wait_stream(torch.cuda.current_stream(device))
+        # repro-torch-audit: allow(retrace-jit) — memoised by key in run(): one capture a key for the backend's lifetime (the strict auditor pins each key's graph)
+        graph = torch.cuda.CUDAGraph()
+        with _paged.pinned(device), torch.cuda.stream(stream):
+            graph.capture_begin(pool=self._pools[device],
+                                capture_error_mode="thread_local")
+            try:
+                step()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        return graph
+
+    def _capture(self, key: Hashable, device: torch.device, step: Callable,
+                 state: Optional[Callable]) -> _Entry:
+        with _on(device):
+            if self._prepare is not None and device not in self._prepared:
+                self._prepare(device)
+                self._prepared.add(device)
+            rows: List[torch.Tensor] = state() if state is not None else []
+            saved = [t.clone() for t in rows]
+            before = _counts()
+            step()                          # the warm-up, eagerly
+            _restore(rows, saved)
+            self.warmup_launches.update(_counts() - before)
+            _set_counts(before)
+            graph = self._new_graph(device, step)
+            # a CUDA capture runs nothing; a stand-in that runs the step
+            # while it records (the CPU tests') must leave no trace either
+            _restore(rows, saved)
+            launches = _counts() - before
+            _set_counts(before)
+        self.captures[key] += 1
+        return _Entry(graph, launches, _paged.workspace(device))
+
+    def clear(self) -> None:
+        """Drop every graph (a reshard's old backend).  Each card is
+        synchronised first: a replay still running must not see its pool
+        handed to other tensors."""
+        for dev in self._pools:
+            if dev.type != "cuda":
+                continue
+            # repro-torch-audit: allow(host-sync) — once a backend's life, when a reshard drops the drained pipe's graphs
+            torch.cuda.synchronize(dev)
+        self._entries.clear()
+        self._pools.clear()
+        self._streams.clear()
+        self._prepared.clear()
+
+    def stats(self) -> dict:
+        """Captures and replays, in total and by key kind (the key's first
+        element), and the warm-ups' launches."""
+        kinds = Counter()
+        for key, n in self.replays.items():
+            kinds[key[0] if isinstance(key, tuple) else key] += n
+        return {"captures": sum(self.captures.values()),
+                "keys": len(self.captures),
+                "capture_s": self.capture_s,
+                "replays": sum(self.replays.values()),
+                "replays_by_kind": dict(kinds),
+                "replays_by_device": dict(self.replays_by_device),
+                "warmup_launches": dict(self.warmup_launches)}
