@@ -77,20 +77,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    pages, no allocation refused) and the planned serve (the card's pinned
    copy rate and a measured stage time through ``EngineConfig.plan``,
    Formula 1's per-microbatch capacity printed beside the allocator's);
-7g. the captured decode steps (``serving.step_graph``: every engine's
-   decode tick is a CUDA graph replay, one capture a key), held against
-   the eager steps they replace on full-width yi-9b (bf16, the yi-9b
-   phase's weights): the local step greedy and with sampled rows, the
-   pipelined stages (2 x 24 layers) and the drain greedy and sampled, two
-   ticks a key (the capturing one and a replay with new inputs), each run
-   eagerly on a copy of the caches and replayed on the live ones: tokens
-   equal, cache writes equal (bit-equal expected; a gap up to
+7g. the captured steps (``serving.step_graph``: every engine's decode
+   tick and prefill call is a CUDA graph replay, one capture a key; an
+   exact-prefill bucket's first call runs eagerly), held against the
+   eager steps they replace on full-width yi-9b (bf16, the yi-9b phase's
+   weights): the local decode step greedy and with sampled rows, the
+   pipelined stages (2 x 24 layers) and the drain greedy and sampled, the
+   local prefill chunk (8 rows x 32 tokens, the serve phase's) and the
+   pipe's prefill stages and drain, two calls a key or more (the
+   capturing one and replays with new inputs), each run eagerly on a copy
+   of the caches and replayed on the live ones: tokens equal, logits and
+   cache writes equal (bit-equal expected; a gap up to
    ``GRAPH_CACHE_ATOL`` is reported as cuBLAS rounding otherwise under
-   capture), the largest log-prob and cache gaps printed
-   (``[graph-parity]``).  Every served path below prints a ``[graphs]``
-   line: its captures (each key once, or the phase fails), its replays
-   (equal to its decode ticks, or its stage runs and drains), the host ms
-   of a decode tick and the replays' device ms a tick (CUDA events);
+   capture), the largest log-prob, logit and cache gaps printed
+   (``[graph-parity]``).  Phases 8 and 9 add one exact-prefill bucket
+   each on their weights: three prompts of one bucket into three slots
+   (the eager first call, the capturing call, a replay).  Every served
+   path below prints a ``[graphs]`` line: its captures (each key once, or
+   the phase fails; decode and prefill, the seconds spent capturing and
+   instantiating), its replays (equal to its decode ticks, or its stage
+   runs and drains; its prefill chunks, or prefill stage runs and
+   drains, or exact prefills times stages less each bucket's eager first
+   call), the host ms of a decode tick and of a prefill call (the
+   engine's clocks), the replays' device ms a tick and a prefill replay
+   (CUDA events), and the graphs' pool bytes;
 8. the gemma3 serve phase: full-width, full-depth gemma3-12b in bf16 (48
    layers, 5 local : 1 global), 20 requests of 256-2048 prompt tokens, 32
    new tokens each; ``prefill_mode="auto"`` must pick exact-length
@@ -438,6 +448,11 @@ GRAPH_CACHE_ATOL = 2 ** -5
 # every served path's graph books (graph_books) and each phase's seconds,
 # printed in the graphs line
 GRAPH_BOOKS: dict = {}
+# the exact-prefill buckets held against the eager step in phases 8 and 9
+# (three prompts of one bucket each), also in the graphs line
+EXACT_PARITY: dict = {}
+GEMMA_PARITY_LENGTHS = (1328, 1321, 1325)       # bucket 1,328
+RG_PARITY_LENGTHS = (1664, 1500, 1900)          # bucket 2,048
 PHASE_SECONDS: dict = {}
 # phase 11 (resilience and online serving): the fault storm's pipe, its
 # delayed ticks and its drops, the reshard steps (2 -> 4, then -> 1), the
@@ -1662,15 +1677,185 @@ def phase_graph_parity(torch, np, card: str, params, cfg=None,
                          r.tokens, r.logprobs, wt, wl, be, ref, gaps)
         out["pipe"] = be.graphs.stats()
         del be, ref
+        out.update(_prefill_graph_parity(torch, np, cfg, params, rt, dev,
+                                         pool, table, fresh, gaps))
     out["ticks"] = gaps
     out["bit_equal"] = all(g["cache_leaves"] == 0 and g["logprob_gap"] == 0
                            for g in gaps)
-    log(f"[graph-parity] on {card}: {len(gaps)} drained ticks, every token "
-        f"equal; bit-equal {out['bit_equal']}; local captures "
-        f"{out['local']['captures']} replays {out['local']['replays']}; "
-        f"pipe captures {out['pipe']['captures']} replays "
-        f"{out['pipe']['replays']}")
+    log(f"[graph-parity] on {card}: {len(gaps)} drained ticks and prefill "
+        f"calls, every token equal; bit-equal {out['bit_equal']}; local "
+        f"captures {out['local']['captures']} replays "
+        f"{out['local']['replays']}; pipe captures "
+        f"{out['pipe']['captures']} replays {out['pipe']['replays']}; "
+        f"chunk captures {out['chunk']['captures']} replays "
+        f"{out['chunk']['replays']}; pipe prefill captures "
+        f"{out['pipe_prefill']['captures']} replays "
+        f"{out['pipe_prefill']['replays']}")
     return out
+
+
+def _prefill_check(torch, tag, got, want, be, ref, gaps):
+    """Hold one replayed prefill call against the eager step: logits and
+    cache writes equal (bit-equal expected; a gap within GRAPH_CACHE_ATOL
+    is reported as cuBLAS rounding otherwise under capture, beyond it
+    fails); the first tokens (the logits' argmax) equal."""
+    gap = float((got.float() - want.float()).abs().max())
+    n, cache_gap = _cache_gap(torch, be.caches, ref)
+    if max(gap, cache_gap) > GRAPH_CACHE_ATOL or not torch.equal(
+            got.argmax(-1), want.argmax(-1)):
+        raise AssertionError(f"graph-parity {tag}: logits differ by {gap}, "
+                             f"{n} cache leaves by up to {cache_gap}")
+    gaps.append({"tick": tag, "logprob_gap": gap, "cache_leaves": n,
+                 "cache_gap": cache_gap})
+    note = "bit-equal" if n == 0 and gap == 0 else \
+        "not bit-equal (cuBLAS rounds otherwise under capture)"
+    log(f"[graph-parity] {tag}: first tokens equal; max |logit gap| "
+        f"{gap:.3e}; cache leaves differing {n}, max gap {cache_gap:.3e}: "
+        f"{note}")
+
+
+def _graph_chunk(np, cfg, table, rng, rows: int, clen: int):
+    """A prefill chunk of ``rows`` rows of ``clen`` tokens (the serve
+    phase's shape) over the first rows' pages: random offsets, a row that
+    ends inside the chunk, and a pad row."""
+    from repro_torch.serving.backend import PrefillChunk
+    n_valid = np.full((rows,), clen, np.int32)
+    n_valid[1] = clen // 2
+    n_valid[-1] = 0
+    lasts = np.where(n_valid < clen, n_valid - 1, -1).astype(np.int32)
+    lasts[-1] = -1
+    offsets = (rng.randint(0, (GRAPH_CTX - clen) // clen, rows)
+               * clen).astype(np.int32)
+    offsets[-1] = 0
+    return PrefillChunk(
+        tokens=rng.randint(1, cfg.vocab_size, (rows, clen)).astype(np.int32),
+        offsets=offsets, n_valid=n_valid, lasts=lasts,
+        tables=table[:rows].astype(np.int32), seqs=[None] * rows)
+
+
+def _prefill_graph_parity(torch, np, cfg, params, rt, dev, pool, table,
+                          fresh, gaps) -> dict:
+    """Phase 7g's prefill half: the local chunk step (8 rows x 32 tokens,
+    the serve phase's chunk) and the pipe's prefill stages (2 x 24 layers)
+    and drain, each a capturing call then replays with new inputs, held
+    against ``_chunk_fn`` / ``pipeline_prefill_chunk_tick`` on a copy of
+    the caches."""
+    from repro_torch.core import pipeline as PL
+    from repro_torch.serving.backend import LocalBackend, PipelinedBackend
+
+    rows, clen = 2 * GRAPH_MB, 32
+    rng = np.random.RandomState(SEED + 1)
+    out = {}
+
+    def dev_t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    be = fresh(LocalBackend(cfg, params, rt, mb_size=GRAPH_MB,
+                            num_microbatches=2, pool=pool, device=dev))
+    ref = _clone_caches(be.caches)
+    for step in range(2):
+        chunk = _graph_chunk(np, cfg, table, rng, rows, clen)
+        want = LocalBackend._chunk_fn(
+            params, ref, dev_t(chunk.tokens), dev_t(chunk.offsets),
+            dev_t(chunk.n_valid), dev_t(chunk.lasts), dev_t(chunk.tables),
+            cfg=cfg, rt=rt)
+        (res,) = be.prefill_step(chunk)
+        _prefill_check(torch, f"local chunk {rows}x{clen} call {step}",
+                       res.logits, want, be, ref, gaps)
+    out["chunk"] = be.graphs.stats()
+    del be, ref
+
+    be = fresh(PipelinedBackend(cfg, params, rt, mb_size=GRAPH_MB,
+                                num_microbatches=2, pool=pool, device=dev,
+                                n_stages=2))
+    ref = _clone_caches(be.caches)
+    entries, act = [None, None], [None, None]
+    for t, chunk in enumerate([_graph_chunk(np, cfg, table, rng, rows, clen)
+                               for _ in range(3)] + [None]):
+        got = be.prefill_step(chunk)
+        entries = [chunk] + entries[:-1]
+        zero = np.zeros((rows,), np.int32)
+        stage = lambda name: dev_t(np.stack(
+            [getattr(e, name) if e is not None else
+             (zero if name != "tables" else np.zeros_like(table[:rows]))
+             for e in entries]))
+        drained = entries[-1]
+        logits, act = PL.pipeline_prefill_chunk_tick(
+            params, ref, act,
+            dev_t(entries[0].tokens if entries[0] is not None
+                  else np.zeros((rows, clen), np.int32)),
+            stage("offsets"), stage("n_valid"), stage("tables"),
+            dev_t(drained.lasts if drained is not None else zero),
+            occupied=[e is not None for e in entries], cfg=cfg, rt=rt,
+            n_stages=2)
+        if drained is None:
+            continue
+        (res,) = got
+        _prefill_check(torch, f"pipe prefill tick {t} (stages "
+                       f"{[e is not None for e in entries]}) drained",
+                       res.logits, logits, be, ref, gaps)
+    out["pipe_prefill"] = be.graphs.stats()
+    del be, ref
+    return out
+
+
+def exact_graph_parity(torch, np, tag: str, cfg, params, rt, lengths,
+                       max_pages: int, dev=None) -> dict:
+    """An exact-prefill bucket of ``cfg`` (full width, the serve phase's
+    weights) held against ``_prefill_fn``: three prompts of ``lengths``,
+    one bucket, into slots 1, 3 and 0 of a 4-slot local backend; the
+    first call runs eagerly, the second captures and replays, the third
+    replays.  Each is also run eagerly on a copy of the caches; logits
+    and cache writes must be equal (``_prefill_check``).  Logs each call's
+    host ms and the capture's seconds.  ``dev`` rehearses it on the CPU
+    (where the bucket runs eagerly every time)."""
+    from repro_torch.serving import kv_cache as kvc
+    from repro_torch.serving.backend import LocalBackend
+
+    dev = dev or torch.device("cuda", 0)
+    pool = kvc.PoolConfig(page_size=16, n_local_pages=4 * max_pages + 1,
+                          max_pages_per_seq=max_pages)
+    be = LocalBackend(cfg, params, rt, mb_size=2, num_microbatches=2,
+                      pool=pool, device=dev)
+    be.set_page_table(1 + np.arange(4 * max_pages, dtype=np.int32)
+                      .reshape(4, max_pages))
+    ref = _clone_caches(be.caches)
+    rng = np.random.RandomState(SEED + 2)
+    gaps, host_ms = [], []
+    for slot, n in zip((1, 3, 0), lengths):
+        bucket = max(8, 1 << (n - 1).bit_length()) \
+            if cfg.recurrent_layer_count() else max(8, -(-n // 8) * 8)
+        toks = np.zeros((bucket,), np.int32)
+        toks[:n] = rng.randint(1, cfg.vocab_size, n)
+        be.reset_slot(slot)
+        kvc.reset_slot(ref, slot)
+        with torch.inference_mode():
+            want = LocalBackend._prefill_fn(
+                params, ref, torch.from_numpy(toks[None]).to(dev), slot,
+                n - 1, cfg=cfg, rt=rt, ranges=be.ranges,
+                devices=be.stage_devices, head=be.head)
+            t0 = time.perf_counter()
+            got = be.prefill(toks, slot, n - 1)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        _prefill_check(torch, f"{tag} exact {n} tokens (bucket {bucket}) "
+                       f"into slot {slot}", got, want, be, ref, gaps)
+    st = be.graphs.stats()
+    if st["captures"] != 1 or st["replays"] != 2 or \
+            st["eager_by_kind"] != {"exact": 1}:
+        raise AssertionError(f"graph-parity {tag}: the bucket ran "
+                             f"{st['eager_by_kind']} eagerly, captured "
+                             f"{st['captures']} and replayed "
+                             f"{st['replays']} times, want 1 / 1 / 2")
+    log(f"[graph-parity] {tag} exact bucket {bucket}: host ms a call "
+        f"eager {host_ms[0]:.1f}, capture and replay {host_ms[1]:.1f} "
+        f"(capture {st['capture_s'] * 1e3:.1f} ms, of which "
+        f"instantiation {st['instantiate_s'] * 1e3:.1f}), replay "
+        f"{host_ms[2]:.1f}")
+    del be, ref
+    return {"ticks": gaps, "host_ms": host_ms, "capture_s": st["capture_s"],
+            "instantiate_s": st["instantiate_s"],
+            "bit_equal": all(g["cache_leaves"] == 0 and g["logprob_gap"] == 0
+                             for g in gaps)}
 
 
 def phase_serve_gemma(torch, np, card: str):
@@ -1700,6 +1885,9 @@ def phase_serve_gemma(torch, np, card: str):
         f"({kinds.count('local')} local, window {cfg.window_size}; "
         f"{n_global} global), {n_params / 1e9:.3f}B params bf16 from seed "
         f"{SEED} in {time.perf_counter() - t0:.1f}s")
+    EXACT_PARITY["gemma3-12b"] = exact_graph_parity(
+        torch, np, "gemma3-12b", cfg, params, rt, GEMMA_PARITY_LENGTHS,
+        GEMMA_MAX_PAGES)
     econf = EngineConfig(
         mb_size=GEMMA_MB, num_microbatches=1,
         pool=PoolConfig(page_size=GEMMA_PAGE, n_local_pages=GEMMA_POOL_PAGES,
@@ -1815,6 +2003,9 @@ def phase_serve_recurrentgemma(torch, np, card: str):
         f"over {cfg.num_kv_heads}), {n_params / 1e9:.3f}B params bf16 "
         f"({n_f32} float32 gate biases and Lambda) from seed {SEED} in "
         f"{time.perf_counter() - t0:.1f}s")
+    EXACT_PARITY["recurrentgemma-9b"] = exact_graph_parity(
+        torch, np, "recurrentgemma-9b", cfg, params, rt, RG_PARITY_LENGTHS,
+        RG_MAX_PAGES)
     econf = EngineConfig(
         mb_size=RG_MB, num_microbatches=1,
         pool=PoolConfig(page_size=RG_PAGE, n_local_pages=RG_POOL_PAGES,
@@ -2414,64 +2605,136 @@ def _watch_transport(backend):
 
 def time_replays(torch, backend) -> list:
     """Record CUDA events around each replay of ``backend``'s captured
-    steps (not around a key's first run, which warms up and captures);
-    returns the list of (start, end) event pairs it fills."""
+    steps (not around a key's first run, which warms up and captures, nor
+    around a deferred key's eager first run); returns the list of (key
+    kind, start, end) it fills."""
     graphs, spans = backend.graphs, []
     run = graphs.run
 
-    def timed(key, device, step, state=None):
+    def timed(key, device, step, state=None, defer=False):
         if not graphs.graphed(device) or key not in graphs.entries():
-            return run(key, device, step, state)
+            return run(key, device, step, state, defer)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         with torch.cuda.device(device):
             start.record()
-            run(key, device, step, state)
+            run(key, device, step, state, defer)
             end.record()
-        spans.append((start, end))
+        spans.append((key[0], start, end))
     graphs.run = timed
     return spans
 
 
+def _prefill_calls(backend) -> dict:
+    """The prefill calls a backend made, by the key kind that serves them:
+    chunks (local), stage runs and drains (pipe), and exact prefills times
+    their stages (a bucket's eager first call included)."""
+    calls = {"exact": backend.exact_prefills * len(backend.stage_devices)}
+    if backend.name == "local":
+        calls["chunk"] = backend.prefill_chunks
+    else:
+        calls.update({"pf-stage": backend.prefill_stage_runs,
+                      "pf-drain": backend.prefill_drains})
+    return {k: v for k, v in calls.items() if v}
+
+
 def graph_books(torch, tag: str, backend, rep: dict, spans=None) -> dict:
-    """Check and log a served backend's captured decode steps: every key
-    captured once, and (every stage on a card) the replays equal the
-    ticks: decode ticks on the local backend, stage runs and drains on
-    the pipelined one.  Logs captures, replays, the host ms of a decode
-    tick (the engine's decode clock over its ticks) and, with ``spans``
-    from :func:`time_replays`, the replays' device ms a tick."""
+    """Check and log a served backend's captured steps: every key captured
+    once, and (every stage on a card) the replays account for every call:
+    decode ticks on the local backend, stage runs and drains on the
+    pipelined one; prefill chunks, prefill stage runs and drains, and an
+    exact prefill's stages (each bucket's eager first call aside).  Logs
+    captures, replays, the host ms of a decode tick and of a prefill call
+    (the engine's decode and prefill clocks over their calls) and, with
+    ``spans`` from :func:`time_replays`, the replays' device ms a decode
+    tick and a replay of each prefill kind."""
+    from repro_torch.serving.step_graph import PREFILL_KINDS
     st = backend.graphs.stats()
     again = {k: n for k, n in backend.graphs.captures.items() if n != 1}
     if again:
         raise AssertionError(f"{tag}: keys captured more than once: {again}")
+    kinds = st["replays_by_kind"]
+    decode = {k: n for k, n in kinds.items() if k not in PREFILL_KINDS}
+    prefill = {k: n + st["eager_by_kind"].get(k, 0)
+               for k, n in kinds.items() if k in PREFILL_KINDS}
+    prefill.update({k: n for k, n in st["eager_by_kind"].items()
+                    if k not in prefill})
     if all(d.type == "cuda" for d in backend.stage_devices):
         want = {"local": backend.decode_ticks} if backend.name == "local" \
             else {"stage": backend.decode_stage_runs,
                   "drain": backend.epilogue_runs}
         want = {k: v for k, v in want.items() if v}
-        if st["replays_by_kind"] != want:
-            raise AssertionError(f"{tag}: replays {st['replays_by_kind']} "
-                                 f"!= the ticks' {want}")
+        if decode != want:
+            raise AssertionError(f"{tag}: decode replays {decode} != the "
+                                 f"ticks' {want}")
+        if prefill != _prefill_calls(backend):
+            raise AssertionError(f"{tag}: prefill replays and eager first "
+                                 f"calls {prefill} != the calls' "
+                                 f"{_prefill_calls(backend)}")
     ticks = max(1, rep["decode_ticks"])
     st["host_ms_a_tick"] = rep["decode_time_s"] / ticks * 1e3
+    n_pf = backend.exact_prefills or getattr(backend, "prefill_chunks", 0) \
+        or getattr(backend, "prefill_ticks", 0)
+    st["prefill_calls"] = n_pf
+    st["host_ms_a_prefill"] = rep["prefill_time_s"] / max(1, n_pf) * 1e3
+    cap_s = {k: round(v, 3) for k, v in st["capture_s_by_kind"].items()}
     line = (f"[graphs] {tag}: {st['captures']} captures ({st['keys']} keys, "
-            f"one each) in {st['capture_s']:.2f} s, {st['replays']} replays "
-            f"{st['replays_by_kind']} on {st['replays_by_device']} over "
-            f"{rep['decode_ticks']} decode ticks; host "
-            f"{st['host_ms_a_tick']:.2f} ms a tick")
+            f"one each; decode {st['decode_captures']}, prefill "
+            f"{st['prefill_captures']}) in {st['capture_s']:.2f} s "
+            f"({st['instantiate_s']:.2f} s instantiating; by kind "
+            f"{cap_s}), "
+            f"{st['replays']} replays {kinds} on "
+            f"{st['replays_by_device']} over {rep['decode_ticks']} decode "
+            f"ticks and {n_pf} prefill calls (eager first calls "
+            f"{st['eager_by_kind']}); host {st['host_ms_a_tick']:.2f} ms a "
+            f"tick, {st['host_ms_a_prefill']:.2f} ms a prefill call")
     if spans:
         torch.cuda.synchronize()
-        dev_ms = sum(a.elapsed_time(b) for a, b in spans)
+        dec = [(a, b) for k, a, b in spans if k not in PREFILL_KINDS]
+        dev_ms = sum(a.elapsed_time(b) for a, b in dec)
         # a key's first run (its capture) is not timed: spread the timed
         # replays' device time over the ticks they served
-        timed_ticks = ticks * len(spans) / max(1, st["replays"])
+        timed_ticks = ticks * len(dec) / max(1, st["decode_replays"])
         st["device_ms_a_tick"] = dev_ms / max(1e-9, timed_ticks)
-        st["timed_replays"] = len(spans)
-        line += (f", device {st['device_ms_a_tick']:.2f} ms a tick in "
-                 f"replays ({len(spans)} timed of {st['replays']})")
+        st["timed_replays"] = len(dec)
+        by_kind: dict = {}
+        for k, a, b in spans:
+            if k in PREFILL_KINDS:
+                by_kind.setdefault(k, []).append(a.elapsed_time(b))
+        st["prefill_device_ms_a_replay"] = {
+            k: sum(v) / len(v) for k, v in by_kind.items()}
+        line += (f"; device {st['device_ms_a_tick']:.2f} ms a tick in "
+                 f"replays ({len(dec)} timed of {st['decode_replays']})")
+        if by_kind:
+            line += ", prefill " + ", ".join(
+                f"{k} {sum(v) / len(v):.2f} ms a replay ({len(v)} timed)"
+                for k, v in by_kind.items())
+    pool = graph_pool_bytes(torch, backend)
+    if pool is not None:
+        st["pool_bytes"] = pool
+        line += f"; graph pool {pool / 2 ** 30:.3f} GiB reserved"
     log(line)
     GRAPH_BOOKS[tag] = st
     return st
+
+
+def graph_pool_bytes(torch, backend):
+    """Bytes the card's allocator has reserved for ``backend``'s graph pool
+    (the segments ``torch.cuda.memory_snapshot`` tags with its id), or
+    None where the snapshot carries no pool ids."""
+    pools = {tuple(p) for d, p in backend.graphs._pools.items()
+             if d.type == "cuda"}
+    if not pools:
+        return 0
+    total, tagged = 0, False
+    for seg in torch.cuda.memory_snapshot():
+        pid = seg.get("segment_pool_id")
+        if pid is None:
+            continue
+        tagged = True
+        if tuple(pid) in pools:
+            total += seg["total_size"]
+    return total if tagged else None
 
 
 def info_tick(rep) -> float:
@@ -6367,6 +6630,7 @@ def run_phases(torch, np, table, t_start: float) -> int:
         max(60.0, DRYRUN_TABLE_BUDGET_S - (time.perf_counter() - t_start)))
     paths.update(dry_counts)
     graphs["paths"] = GRAPH_BOOKS
+    graphs["exact_parity"] = EXACT_PARITY
     graphs["phase_seconds"] = PHASE_SECONDS
     graphs["script_seconds"] = time.perf_counter() - t_start
 

@@ -111,7 +111,8 @@ class EngineAuditor:
         self._off_books: Dict[str, Tuple[int, int]] = {}
         # kernel library name -> (path, handle) at its first sighting
         self._libraries: Dict[str, Tuple[str, int]] = {}
-        # captured decode step key -> graph identity, for one backend
+        # captured step key (decode and prefill) -> graph identity, for
+        # one backend
         self._graphs: Dict[object, int] = {}
         self._graph_backend: Optional[int] = None
         self.checks = 0
@@ -371,13 +372,13 @@ class EngineAuditor:
             self._graph_backend = id(backend)
         for key, (ident, captures) in entries().items():
             if captures > 1:
-                _fail(where, f"graphs: decode step {key!r} was captured "
+                _fail(where, f"graphs: step {key!r} was captured "
                              f"{captures} times — one key must be "
                              "captured exactly once for the backend's "
                              "life")
             first = self._graphs.setdefault(key, ident)
             if ident != first:
-                _fail(where, f"graphs: decode step {key!r} holds another "
+                _fail(where, f"graphs: step {key!r} holds another "
                              "graph than at its first sighting — it was "
                              "captured again mid-serve")
 

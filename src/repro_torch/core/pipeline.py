@@ -45,10 +45,12 @@ is None), with the pools and states written in place:
 The host decides which stages are occupied (``mb_assign`` / ``occupied``,
 host integers), so a tick needs no device-to-host transfer of its own.
 A decode tick is ``decode_stage`` for each occupied stage and
-``decode_drain`` for the microbatch leaving the last one; the pipelined
-backend captures each of them as a CUDA graph, one a (stage,
-microbatch) and one a drained microbatch (``serving.step_graph``), and
-hands the activation on between replays.
+``decode_drain`` for the microbatch leaving the last one, a prefill tick
+``chunk_stage`` (after ``embed_chunk_tokens`` at stage 0) and
+``chunk_drain``; the pipelined backend captures each of them as a CUDA
+graph, one a (stage, microbatch) and one a drained microbatch for
+decode, one a stage and one for the drain for prefill
+(``serving.step_graph``), and hands the activation on between replays.
 The JAX ticks' fault seam (``drop_stage``, which masks a dropped stage's
 writes) has no counterpart: the backend drops a stage by emptying its
 entry, and a bubble writes nothing.
@@ -333,8 +335,7 @@ def pipeline_prefill_chunk_tick(params: dict, caches: dict, act: list,
 
     Returns ``(logits (R, V) float32 of the draining chunk, on the last
     stage's device, or None, new act)``."""
-    ranges = stage_ranges(cfg, n_stages)
-    R, C = tokens.shape
+    R = tokens.shape[0]
     _validate_tick_args(
         "pipeline_prefill_chunk_tick", n_stages=n_stages, checks={
             "act": ((len(act),), (n_stages,)),
@@ -350,27 +351,62 @@ def pipeline_prefill_chunk_tick(params: dict, caches: dict, act: list,
     for s in range(n_stages):
         if not occupied[s]:
             continue
-        x_in = embed_lib.embed_tokens(params["embed"], tokens, cfg,
-                                      rt.compute_dtype) if s == 0 \
+        x_in = embed_chunk_tokens(params, tokens, cfg, rt) if s == 0 \
             else act[s]
-        # the chunk's rows are arbitrary slots: the stage sees the chunk's
-        # own table rows; the pools are shared and written in place
-        view = {"layers": caches["layers"], "page_table": tables_stage[s]}
-        pos = model_lib.chunk_positions(offs_stage[s], valid_stage[s], C)
-        y = model_lib.run_layers(params, x_in, cfg, rt, mode="chunk",
-                                 caches=view, positions=pos,
-                                 layers=ranges[s])
+        y = chunk_stage(params, caches, x_in, offs_stage[s], valid_stage[s],
+                        tables_stage[s], stage=s, cfg=cfg, rt=rt,
+                        n_stages=n_stages)
         if s < n_stages - 1:
             new_act[s + 1] = _wire(y, wire_dtype, devs[s + 1])
     if not occupied[n_stages - 1]:
         return None, new_act
-    tabs = tables_stage[n_stages - 1]
-    pos = model_lib.chunk_positions(offs_stage[n_stages - 1],
-                                    valid_stage[n_stages - 1], C)
+    last = n_stages - 1
+    return chunk_drain(params, caches, y, offs_stage[last],
+                       valid_stage[last], tables_stage[last], lasts,
+                       cfg=cfg, rt=rt, n_stages=n_stages,
+                       head=head), new_act
+
+
+def embed_chunk_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                       rt: Runtime) -> torch.Tensor:
+    """Stage 0's input of a prefill tick: the (R, C) chunk embedded, (R, C,
+    D)."""
+    return embed_lib.embed_tokens(params["embed"], tokens, cfg,
+                                  rt.compute_dtype)
+
+
+def chunk_stage(params: dict, caches: dict, x: torch.Tensor,
+                offsets: torch.Tensor, n_valid: torch.Tensor,
+                tables: torch.Tensor, *, stage: int, cfg: ModelConfig,
+                rt: Runtime, n_stages: int) -> torch.Tensor:
+    """One stage of a prefill tick: stage ``stage``'s layers over the chunk
+    ``x`` (R, C, D) at its ``offsets`` / ``n_valid`` (R,), through the
+    chunk's own table rows ``tables`` (R, P), all on the stage's device;
+    returns the stage's output."""
+    # the chunk's rows are arbitrary slots: the stage sees the chunk's own
+    # table rows; the pools are shared and written in place
+    view = {"layers": caches["layers"], "page_table": tables}
+    pos = model_lib.chunk_positions(offsets, n_valid, x.shape[1])
+    return model_lib.run_layers(params, x, cfg, rt, mode="chunk",
+                                caches=view, positions=pos,
+                                layers=stage_ranges(cfg, n_stages)[stage])
+
+
+def chunk_drain(params: dict, caches: dict, y: torch.Tensor,
+                offsets: torch.Tensor, n_valid: torch.Tensor,
+                tables: torch.Tensor, lasts: torch.Tensor, *,
+                cfg: ModelConfig, rt: Runtime, n_stages: int,
+                head=None) -> torch.Tensor:
+    """The chunk draining from the last stage's output ``y``, on the last
+    stage's device: the epilogue at the chunk's positions and table rows,
+    then the logits (R, V) float32 at ``lasts`` (as in
+    :func:`pipeline_prefill_chunk_tick`)."""
+    pos = model_lib.chunk_positions(offsets, n_valid, y.shape[1])
     xf = _epilogue(params, y, cfg, rt, mode="chunk",
-                   caches={"layers": caches["layers"], "page_table": tabs},
-                   positions=pos, layers=ranges[n_stages])
-    return model_lib.chunk_logits(params, xf, lasts, cfg, head), new_act
+                   caches={"layers": caches["layers"], "page_table": tables},
+                   positions=pos,
+                   layers=stage_ranges(cfg, n_stages)[n_stages])
+    return model_lib.chunk_logits(params, xf, lasts, cfg, head)
 
 
 # ---------------------------------------------------------------------------

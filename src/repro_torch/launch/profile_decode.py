@@ -1,6 +1,6 @@
-"""Where a serving step's time goes: full-width decode steps (and one
-exact-length prefill) of the port, eager and replayed from a captured CUDA
-graph, timed on the host clock and on the card.
+"""Where a serving step's time goes: full-width decode steps, exact-length
+prefills and a prefill chunk of the port, eager and replayed from a
+captured CUDA graph, timed on the host clock and on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       [--arch yi-9b|gemma3-12b|recurrentgemma-9b|xlstm-1.3b|
@@ -12,6 +12,8 @@ directly (no engine):
 
 * yi-9b decode: 16 rows of 700 tokens in their own pages (the yi-9b serve
   phase of ``chip_smoke.py``: its batch, page size and about its context);
+  then one prefill chunk of 8 rows x 32 tokens (that phase's chunk) at
+  offsets up to 640 in those rows' pages;
 * gemma3-12b decode: 16 rows of 1,300 tokens (about the gemma3 serve
   phase's mean context), global layers on pages, local layers on full
   rings of 1,024 slots; then one exact-length prefill of 1,328 tokens
@@ -33,8 +35,13 @@ the profiler) and the same step captured once as a CUDA graph
 (``serving.step_graph``) and replayed (host clock; the profiler's kernel
 rows, which it sees one by one inside a replay, and CUDA events around a
 replay issued behind a spin of the card), with each one's device busy
-share: the counterpart of the engine's replayed decode tick.  Needs a
-CUDA device.
+share: the counterpart of the engine's replayed decode tick.  Each
+prefill is timed the same two ways: eager (``models.model.prefill`` over
+a one-row view, or the chunk's ``_chunk_fn`` after its inputs' copies)
+and replayed through a ``serving.backend.LocalBackend`` over the same
+caches (``prefill`` / ``prefill_step``: the inputs packed into the static
+input, the replay, the logits copied out, the card synchronised), with
+the capture's and the instantiation's seconds.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -50,6 +57,8 @@ BATCH, STEPS, PAGE, SEED = 16, 10, 16, 0
 CASES = {"yi-9b": (700, 0, 0), "gemma3-12b": (1300, 1328, 0),
          "recurrentgemma-9b": (1700, 1664, 0), "xlstm-1.3b": (512, 0, 0),
          "phi3.5-moe-42b-a6.6b": (512, 0, 24)}
+# arch -> (rows, tokens) of a profiled prefill chunk
+CHUNKS = {"yi-9b": (8, 32)}
 # torch.cuda._sleep cycles a ms at the H100's top SM clock (1.98 GHz)
 SPIN_CYCLES_PER_MS = 1_980_000
 
@@ -231,6 +240,12 @@ def run_case(torch, np, arch: str) -> None:
            replay_step_ms=replay_ms, replay_device_ms=replay_dev,
            replay_device_busy=replay_dev / replay_ms, replay_span_ms=span,
            replay_kernel_rows=len(replay_rows), replay_rows=replay_rows)
+    from repro_torch.serving.backend import LocalBackend
+    be = LocalBackend(cfg, params, rt, mb_size=BATCH, num_microbatches=1,
+                      pool=pool, device=dev, caches=caches)
+    if arch in CHUNKS:
+        prefill_chunk_case(torch, np, cfg, rt, params, caches, be, dev,
+                           *CHUNKS[arch])
     if not n_prompt:
         return
     # the engine's bucket: the next power of two with recurrent layers,
@@ -245,10 +260,64 @@ def run_case(torch, np, arch: str) -> None:
     step_ms, traced_ms, rows = profile(
         torch, lambda: model_lib.prefill(params, {"tokens": prompt}, cfg, rt,
                                          0, caches=view, last_index=last), 3)
-    report(f"{cfg.name} exact prefill of {n_prompt} tokens padded to "
-           f"S={S} bf16", cfg, step_ms, traced_ms, rows,
-           {"flash": fa.flash_attention.launches // 9,
-            "scan": rs.rglru_scan.launches // 9})
+    label = f"{cfg.name} exact prefill of {n_prompt} tokens padded to S={S}"
+    launches = {"flash": fa.flash_attention.launches // 9,
+                "scan": rs.rglru_scan.launches // 9}
+    # the same prefill through the backend's captured step: its first call
+    # runs eagerly, its second captures (profile's warm-up calls)
+    toks = prompt[0].cpu().numpy().astype(np.int32)
+    replay = torch.inference_mode()(
+        lambda: be.prefill(toks, 0, n_prompt - 1))
+    report(label + " bf16", cfg, step_ms, traced_ms, rows, launches,
+           **replay_extra(torch, be, replay, 3))
+
+
+def replay_extra(torch, be, replay, steps: int) -> dict:
+    """``report``'s replay fields for a backend's captured prefill call
+    ``replay`` (each call synchronises the card), and the capture's and
+    the instantiation's seconds."""
+    replay_ms, _, replay_rows = profile(torch, replay, steps)
+    replay_dev = sum(r[0] for r in replay_rows)
+    st = be.graphs.stats()
+    return dict(replay_step_ms=replay_ms, replay_device_ms=replay_dev,
+                replay_device_busy=replay_dev / replay_ms,
+                replay_span_ms=device_span(torch, replay, steps, replay_ms),
+                replay_kernel_rows=len(replay_rows), replay_rows=replay_rows,
+                capture_s=st["capture_s"], instantiate_s=st["instantiate_s"],
+                captures=st["captures"], eager_first_calls=st["eager_by_kind"])
+
+
+def prefill_chunk_case(torch, np, cfg, rt, params, caches, be, dev,
+                       rows: int, clen: int) -> None:
+    """One prefill chunk of ``rows`` x ``clen`` tokens over the first rows'
+    pages, eager (the inputs copied to the card, then ``_chunk_fn``) and
+    replayed (``LocalBackend.prefill_step``, captured at its first
+    call)."""
+    from repro_torch.serving.backend import LocalBackend, PrefillChunk
+
+    rng = np.random.RandomState(SEED)
+    table = caches["page_table"][:rows].cpu().numpy()
+    n_valid = np.full((rows,), clen, np.int32)
+    n_valid[rows // 2:] = clen // 2             # half the rows end here
+    chunk = PrefillChunk(
+        tokens=rng.randint(1, cfg.vocab_size, (rows, clen)).astype(np.int32),
+        offsets=(rng.randint(0, 21, rows) * clen).astype(np.int32),
+        n_valid=n_valid,
+        lasts=np.where(n_valid < clen, n_valid - 1, -1).astype(np.int32),
+        tables=table.astype(np.int32), seqs=[None] * rows)
+
+    @torch.inference_mode()
+    def eager():
+        inputs = [torch.from_numpy(a).to(dev) for a in (
+            chunk.tokens, chunk.offsets, chunk.n_valid, chunk.lasts,
+            chunk.tables)]
+        LocalBackend._chunk_fn(params, caches, *inputs, cfg=cfg, rt=rt)
+
+    step_ms, traced_ms, prof_rows = profile(torch, eager, STEPS)
+    replay = torch.inference_mode()(lambda: be.prefill_step(chunk))
+    report(f"{cfg.name} prefill chunk {rows} x {clen} tokens bf16", cfg,
+           step_ms, traced_ms, prof_rows, {},
+           **replay_extra(torch, be, replay, STEPS))
 
 
 def get_layers(arch: str) -> int:

@@ -691,11 +691,42 @@ def embed_inputs(params: dict, inputs: dict, cfg: ModelConfig, rt: Runtime):
         return torch.cat([xp, xt], dim=1), positions
     tokens = inputs["tokens"]
     x = embed_lib.embed_tokens(params["embed"], tokens, cfg, cd)
-    B, S = tokens.shape
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    return x, token_positions(*tokens.shape, cfg, x.device)
+
+
+def token_positions(B: int, S: int, cfg: ModelConfig,
+                    device) -> torch.Tensor:
+    """The positions of ``B`` rows of ``S`` text tokens from 0: (B, S), or
+    the (3, B, S) text M-RoPE positions on a vision arch."""
+    positions = torch.arange(S, device=device)[None].expand(B, S)
     if cfg.frontend == "vision_patches":
         positions = text_positions3(positions)
-    return x, positions
+    return positions
+
+
+def mark_padding(positions: torch.Tensor, last_index: torch.Tensor):
+    """``(positions, li)``: every position past its row's ``last_index``
+    (B,) marked -1 (the right padding of a bucketed prompt: its cache
+    writes are dropped and the recurrences step over it), and
+    ``last_index`` as (B,) int64 on the positions' device."""
+    B, S = positions.shape[-2:]
+    dev = positions.device
+    li = last_index.to(dev).long().reshape(B)
+    pad = torch.arange(S, device=dev)[None] > li[:, None]
+    return torch.where(pad, -1, positions), li
+
+
+def prefill_head(params: dict, x: torch.Tensor, li, cfg: ModelConfig,
+                 head=None) -> torch.Tensor:
+    """A prefill's logits (B, V) float32: the last layer's output (B, S,
+    D) at each row's last index ``li`` (B,) int64, or at the last
+    position when None, then the final norm and the unembedding (``head``
+    as in :func:`decode_logits`).  No (S, V) logits are made."""
+    B = x.shape[0]
+    x_last = x[:, -1] if li is None else \
+        x[torch.arange(B, device=x.device), li.to(x.device)]
+    x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
+    return embed_lib.unembed(params["embed"], x_last, cfg, head)
 
 
 # ---------------------------------------------------------------------------
@@ -785,12 +816,12 @@ def prefill(params: dict, inputs: dict, cfg: ModelConfig,
     last stage's device, with ``head`` as its table where ``params`` does
     not hold it there (``tied_head``)."""
     x, positions = embed_inputs(params, inputs, cfg, rt)
-    B, S = x.shape[:2]
+    B = x.shape[0]
     dev = x.device
+    li = None
     if last_index is not None:
-        li = torch.as_tensor(last_index, device=dev).long().reshape(B)
-        pad = torch.arange(S, device=dev)[None] > li[:, None]
-        positions = torch.where(pad, -1, positions)
+        positions, li = mark_padding(
+            positions, torch.as_tensor(last_index, device=dev))
     if stages is None:
         if caches is None:
             caches = init_caches(cfg, B, capacity, rt, dev)
@@ -800,10 +831,7 @@ def prefill(params: dict, inputs: dict, cfg: ModelConfig,
             x = run_layers(params, x.to(d), cfg, rt, mode="prefill",
                            caches=c, positions=positions.to(d),
                            layers=(lo, hi))
-    x_last = x[:, -1] if last_index is None else \
-        x[torch.arange(B, device=x.device), li.to(x.device)]
-    x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
-    return embed_lib.unembed(params["embed"], x_last, cfg, head), caches
+    return prefill_head(params, x, li, cfg, head), caches
 
 
 def prefill_chunk(params: dict, tokens: torch.Tensor, caches: dict,

@@ -67,28 +67,37 @@ stage's layers, and one for the epilogue when it holds paged layers.  Swap
 copies go on the offloaders' copy streams; every model call, attention
 kernels included, stays on the compute stream.
 
-Where the JAX package jits its decode step (``_decode_jit``) and its pipe
-tick (``_tick_jit``), a backend here captures each decode step once as a
-CUDA graph and replays it every tick (:mod:`repro_torch.serving.
-step_graph`): the local backend one graph a microbatch, the pipelined
-backend one a (stage, microbatch) and one a drained microbatch's epilogue
-and sampler, each in a greedy and a sampled variant where it samples.
-The tick's host inputs go into static tensors the backend owns (one
-packed int32 copy a device: tokens, positions, top-k, and the float32
-bits of temperature and top-p; the Gumbel noise drawn into its own), and
-the steps' outputs come back in static tensors (tokens and log-probs,
-each stage's activation).  The offloader's swaps, the noise draw, the
-fault plan, the transport and the activation's hand-off between stages
-(``core.pipeline._wire``) stay outside the graphs, between replays.  On
-a CPU device the same steps run eagerly.  ``_chunk_fn`` / ``_prefill_fn``
-stay eager: their shapes change with the chunk and the prompt bucket.
-The JAX pipelined backend's sharding-layout machinery (``_commit``,
-``_probe_layout``, ``_cache_shardings``), which keeps its jit caches
-steady, has nothing to do here.  The JAX backends' ``jit_entries`` seam
-(the strict auditor's jit cache probes) becomes ``graph_entries`` (each
-key's graph, captured once for the backend's life) and
-``kernel_libraries`` (the loaded kernel libraries, which must not be
-built or loaded again mid-serve).
+Where the JAX package jits its decode step (``_decode_jit``), its pipe
+tick (``_tick_jit``), its prefill chunk (``_chunk_jit``), its pipe's
+prefill tick (``_pf_tick_jit``) and its exact prefill (one
+``_prefill_jits`` wrapper a bucketed length), a backend here captures
+each step once as a CUDA graph and replays it (:mod:`repro_torch.serving.
+step_graph`): the local backend one graph a decode microbatch and one for
+its prefill chunk's shape, the pipelined backend one a (stage,
+microbatch) and one a drained microbatch's epilogue and sampler for
+decode (each in a greedy and a sampled variant where it samples), and
+one a stage and one for the drain for prefill; both one a (bucketed
+length, stage) for exact prefill, captured at the bucket's second call
+(its first runs eagerly).  The host inputs go into static tensors the
+backend owns, one packed int32 copy a device (a decode tick's tokens,
+positions, top-k, and the float32 bits of temperature and top-p, the
+Gumbel noise drawn into its own; a chunk's tokens, offsets, valid
+counts, last indices and table rows; an exact prefill's slot, last
+index and tokens), and the steps' outputs come back in static tensors
+(tokens and log-probs, logits, each stage's activation); a prefill's
+logits are copied out of theirs, so a result outlives the next replay.
+The offloader's swaps, the noise draw, the fault plan, the transport and
+the activation's hand-off between stages (``core.pipeline._wire``, or a
+plain copy between an exact prefill's stages) stay outside the graphs,
+between replays.  On a CPU device the same steps run eagerly;
+``_decode_fn``, ``_chunk_fn`` and ``_prefill_fn`` are the eager steps
+they are held against.  The JAX pipelined backend's sharding-layout
+machinery (``_commit``, ``_probe_layout``, ``_cache_shardings``), which
+keeps its jit caches steady, has nothing to do here.  The JAX backends'
+``jit_entries`` seam (the strict auditor's jit cache probes) becomes
+``graph_entries`` (each key's graph, captured once for the backend's
+life) and ``kernel_libraries`` (the loaded kernel libraries, which must
+not be built or loaded again mid-serve).
 
 A flight recorder (``recorder=``, :mod:`repro_torch.obs`) rides on the
 backend's offloaders and, on the pipelined backend, on the outer
@@ -162,6 +171,42 @@ class PrefillResult:
     lost: bool = False
 
 
+def _chunk_layout(rows: int, clen: int, n_pages: int, n_stages: int):
+    """The packed int32 input of a prefill tick: ``(name, shape)`` of its
+    pieces, in order; offsets, valid counts and table rows have one row a
+    stage (one on the local backend), the last indices are the draining
+    chunk's."""
+    return [("tokens", (rows, clen)), ("offsets", (n_stages, rows)),
+            ("n_valid", (n_stages, rows)), ("lasts", (rows,)),
+            ("tables", (n_stages, rows, n_pages))]
+
+
+def _layout_size(layout) -> int:
+    """The int32 elements of a packed input (``_chunk_layout``)."""
+    return sum(int(np.prod(shape)) for _, shape in layout)
+
+
+def _unpack(buf: torch.Tensor, layout) -> Dict[str, torch.Tensor]:
+    """Views of a packed input's pieces (``_chunk_layout``)."""
+    out, at = {}, 0
+    for name, shape in layout:
+        n = int(np.prod(shape))
+        out[name] = buf[at:at + n].view(shape)
+        at += n
+    return out
+
+
+@dataclass
+class _PrefillStatics:
+    """The static tensors of one prefill shape: the packed input, one copy
+    a device; each stage's output activation and, past stage 0, its input
+    (pipe chunks and exact prefills over several stages); the logits."""
+    inp: Dict[torch.device, torch.Tensor]
+    act_in: list
+    act_out: list
+    out: torch.Tensor
+
+
 def stage_devices(mesh, n_stages: int, device) -> List[torch.device]:
     """The device of each pipeline stage.  ``mesh`` is ``None`` (every stage
     on ``device``) or a list of ``n_stages`` torch devices, which may repeat
@@ -233,12 +278,15 @@ class _SlotCacheBackend:
             kvc.build_paged_caches(cfg, self.batch, pool, rt, device)
         self._noise_gen: Optional[torch.Generator] = None
         self.decode_ticks = 0           # decode-plane ticks
-        # the captured decode steps, and their static inputs and outputs
-        # (built at the first decode tick, by the subclass)
+        # the captured steps, and the decode steps' static inputs and
+        # outputs (built at the first decode tick, by the subclass)
         self.graphs = StepGraphs(prepare=self._reserve_workspace)
         self._inp: Optional[Dict[torch.device, torch.Tensor]] = None
         self._noise: Optional[torch.Tensor] = None
         self._out: Optional[torch.Tensor] = None
+        # the captured prefill steps' statics, by chunk shape or bucket
+        self._pf: Dict[tuple, _PrefillStatics] = {}
+        self.exact_prefills = 0         # exact-length prefill calls
 
     @property
     def noise_gen(self) -> torch.Generator:
@@ -256,18 +304,6 @@ class _SlotCacheBackend:
         """Clear a reassigned slot's per-row state (ring positions,
         recurrent states), in place, on each layer's device."""
         self.caches = kvc.reset_slot(self.caches, slot)
-
-    def _tensor(self, a: np.ndarray, device=None) -> torch.Tensor:
-        """A host array on ``device`` (stage 0's when None)."""
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
-            self.device if device is None else device)
-
-    def _per_stage(self, a: np.ndarray) -> List[torch.Tensor]:
-        """Row ``s`` of a host ``(n_stages, ...)`` array on stage ``s``'s
-        device: one copy of the array a distinct device."""
-        host = torch.from_numpy(np.ascontiguousarray(a))
-        on = {d: host.to(d) for d in self._devices}
-        return [on[d][s] for s, d in enumerate(self.stage_devices)]
 
     def _sync(self) -> None:
         for dev in self._devices:
@@ -301,9 +337,9 @@ class _SlotCacheBackend:
         return {}
 
     def graph_entries(self) -> Dict[object, tuple]:
-        """Each captured decode step's key and its ``(graph identity,
-        captures)``, for the strict auditor: a key is captured once for the
-        backend's life (the counterpart of the JAX backends'
+        """Each captured step's key (decode and prefill) and its ``(graph
+        identity, captures)``, for the strict auditor: a key is captured
+        once for the backend's life (the counterpart of the JAX backends'
         ``jit_entries``).  Empty off the card."""
         return self.graphs.entries()
 
@@ -351,6 +387,38 @@ class _SlotCacheBackend:
         return DecodeResult(mb=mb, tokens=out[0].astype(np.int32),
                             logprobs=out[1].copy())
 
+    def _prefill_statics(self, key: tuple, n_ints: int, act_shape: tuple,
+                         rows: int, last_out: bool) -> _PrefillStatics:
+        """The statics of prefill shape ``key``, built at its first call:
+        an ``n_ints`` int32 input on each device, ``act_shape`` activations
+        between the stages (the last stage's output too with
+        ``last_out``: a pipe drain reads it), and the (``rows``, V) float32
+        logits on the last stage's device."""
+        st = self._pf.get(key)
+        if st is None:
+            devs, dt = self.stage_devices, self.rt.compute_dtype
+            outs = devs if last_out else devs[:-1]
+            st = self._pf[key] = _PrefillStatics(
+                inp={d: torch.zeros((n_ints,), dtype=torch.int32, device=d)
+                     for d in self._devices},
+                act_in=[None] + [torch.zeros(act_shape, dtype=dt, device=d)
+                                 for d in devs[1:]],
+                act_out=[torch.zeros(act_shape, dtype=dt, device=d)
+                         for d in outs] + [None] * (len(devs) - len(outs)),
+                out=torch.zeros((rows, self.cfg.vocab_size),
+                                dtype=torch.float32, device=devs[-1]))
+        return st
+
+    @staticmethod
+    def _load(st: _PrefillStatics, arrays: Sequence[np.ndarray]) -> None:
+        """Copy a prefill call's host arrays, packed, into its static input
+        on every device (before any swap is enqueued: see
+        ``LocalBackend._residency``)."""
+        src = torch.from_numpy(np.concatenate(
+            [np.asarray(a, np.int32).ravel() for a in arrays]))
+        for buf in st.inp.values():
+            buf.copy_(src)
+
     def kernel_libraries(self) -> Dict[str, object]:
         """The kernel libraries loaded so far, by name, for the strict
         auditor: each must stay the one library of its name for the whole
@@ -368,17 +436,72 @@ class _SlotCacheBackend:
                 has_global_pages: bool = True) -> torch.Tensor:
         """Prefill one whole prompt, right-padded to ``len(tokens)``, into
         ``slot`` through the whole model; returns its logits (V,) at
-        ``last_index``, on the last stage's device."""
-        toks = self._tensor(tokens[None])
+        ``last_index``, on the last stage's device.  Each stage is the
+        captured step of key ``("exact", len(tokens), s)``, captured at
+        the bucket's second call (its first runs the step eagerly); the
+        activation is copied to the next stage's static input between
+        them."""
+        n, L = len(self.stage_devices), len(tokens)
+        st = self._prefill_statics(("exact", L), 2 + L,
+                                   (1, L, self.cfg.d_model), 1, False)
+        self._load(st, [[slot, last_index], tokens])
         if has_global_pages:
             self._prefill_residency(slot // self.mb_size)
-        logits = self._prefill_fn(self.params, self.caches, toks, slot,
-                                  last_index, cfg=self.cfg, rt=self.rt,
-                                  ranges=self.ranges,
-                                  devices=self.stage_devices, head=self.head)
+        for s, dev in enumerate(self.stage_devices):
+            self.graphs.run(("exact", L, s), dev,
+                            partial(self._exact_step, st, s),
+                            state=partial(kvc.state_rows, self.caches, slot,
+                                          1, self._exact_range(s)),
+                            defer=True)
+            if s < n - 1:
+                st.act_in[s + 1].copy_(st.act_out[s])
+        self.exact_prefills += 1
+        logits = st.out[0].clone()
         # as prefill_step: the prefill phase's clock measures the card
         self._sync()
         return logits
+
+    def _exact_range(self, s: int) -> tuple:
+        """Stage ``s``'s layers in an exact prefill: its range, and on the
+        last stage the epilogue's too (it runs on that stage's device)."""
+        lo, hi = self.ranges[s]
+        if s == len(self.stage_devices) - 1:
+            hi = self.ranges[-1][1]
+        return lo, hi
+
+    def _exact_step(self, st: _PrefillStatics, s: int) -> None:
+        """The captured step of stage ``s`` of an exact prefill: the slot's
+        rows gathered by the device slot index (``kvc.slot_take``), the
+        stage's layers from the embedded tokens (stage 0) or its static
+        input, the ring positions past the last index cleaned back to -1,
+        the rows written back; then the stage's static output, or on the
+        last stage the logits at the last index."""
+        dev = self.stage_devices[s]
+        inp = st.inp[dev]
+        slot, last = inp[0:1].long(), inp[1:2]
+        lo, hi = self._exact_range(s)
+        L = inp.shape[0] - 2
+        if s == 0:
+            x, pos = model_lib.embed_inputs(self.params,
+                                            {"tokens": inp[None, 2:]},
+                                            self.cfg, self.rt)
+        else:
+            x = st.act_in[s]
+            pos = model_lib.token_positions(1, L, self.cfg, dev)
+        pos, li = model_lib.mark_padding(pos, last)
+        view = kvc.slot_take(self.caches, slot, (lo, hi), dev)
+        y = model_lib.run_layers(self.params, x, self.cfg, self.rt,
+                                 mode="prefill", caches=view, positions=pos,
+                                 layers=(lo, hi))
+        for layer in view["layers"][lo:hi]:
+            if "pos" in layer:
+                layer["pos"].masked_fill_(layer["pos"] > last, -1)
+        kvc.slot_put(self.caches, slot, view)
+        if s < len(self.stage_devices) - 1:
+            st.act_out[s].copy_(y)
+        else:
+            st.out.copy_(model_lib.prefill_head(self.params, y, li,
+                                                self.cfg, self.head))
 
     @staticmethod
     def _prefill_fn(params, caches, tokens, slot, last_idx, *, cfg, rt,
@@ -422,6 +545,7 @@ class LocalBackend(_SlotCacheBackend):
         self.recorder = recorder
         if offloader is not None:
             offloader.recorder = recorder
+        self.prefill_chunks = 0         # prefill chunks run
 
     def _residency(self, mb: int) -> None:
         """Make ``mb``'s global-pool parity resident before the model
@@ -447,17 +571,32 @@ class LocalBackend(_SlotCacheBackend):
                      ) -> List[PrefillResult]:
         if chunk is None:
             return []
-        inputs = [self._tensor(a) for a in (chunk.tokens, chunk.offsets,
-                                            chunk.n_valid, chunk.lasts,
-                                            chunk.tables)]
+        rows, clen = chunk.tokens.shape
+        key = ("chunk", rows, clen, chunk.tables.shape[1])
+        layout = _chunk_layout(*key[1:], 1)
+        st = self._prefill_statics(key, _layout_size(layout), (), rows,
+                                   False)
+        self._load(st, (chunk.tokens, chunk.offsets, chunk.n_valid,
+                        chunk.lasts, chunk.tables))
         for mb in chunk.residency_mbs:
             self._residency(mb)
-        logits = self._chunk_fn(self.params, self.caches, *inputs,
-                                cfg=self.cfg, rt=self.rt)
+        self.graphs.run(key, self.device,
+                        partial(self._chunk_step, st, layout))
+        self.prefill_chunks += 1
+        logits = st.out.clone()
         # the chunk's work ends inside the engine's prefill phase, so its
         # prefill/decode time split measures the card, not the queue
         self._sync()
         return [PrefillResult(chunk=chunk, logits=logits)]
+
+    def _chunk_step(self, st: _PrefillStatics, layout) -> None:
+        """The captured step: ``_chunk_fn`` over the static input into the
+        static logits."""
+        v = _unpack(st.inp[self.device], layout)
+        st.out.copy_(self._chunk_fn(
+            self.params, self.caches, v["tokens"], v["offsets"][0],
+            v["n_valid"][0], v["lasts"], v["tables"][0], cfg=self.cfg,
+            rt=self.rt))
 
     @staticmethod
     def _chunk_fn(params, caches, tokens, offsets, n_valid, lasts, tables,
@@ -528,7 +667,8 @@ class PipelinedBackend(_SlotCacheBackend):
     Two shift registers hold what sits at each stage: ``_entries`` for the
     decode plane (``(mb, positions, RowSampling)`` captured at injection)
     and ``_pf_entries`` for the prefill plane (:class:`PrefillChunk`), with
-    ``act`` / ``_pf_act`` the activations waiting at each stage's input.
+    ``_act_in`` and the prefill statics' ``act_in`` the activations waiting
+    at each stage's input.
     ``schedule="round_flush"`` reproduces the vLLM-PP baseline: the pipe is
     drained every token round (when the microbatch counter wraps), with
     the same ticks, so outputs are unchanged and only the virtual clock
@@ -590,12 +730,14 @@ class PipelinedBackend(_SlotCacheBackend):
         self._act_in: Optional[list] = None     # static stage inputs and
         self._act_out: Optional[list] = None    # outputs (_pipe_statics)
         self._entries: List[Optional[tuple]] = [None] * n_stages
-        self._pf_act: list = [None] * n_stages
         self._pf_entries: List[Optional[PrefillChunk]] = [None] * n_stages
         self.decode_stage_runs = 0      # occupied stages summed over the
                                         # decode ticks (a stage run is one
                                         # pass over the stage's layers)
         self.epilogue_runs = 0          # decode ticks that drained
+        self.prefill_stage_runs = 0     # occupied stages summed over the
+                                        # prefill ticks
+        self.prefill_drains = 0         # prefill ticks that drained
         self._last_inject_mb = -1       # round boundary detector
         self._ret_ready: Dict[int, float] = {}  # mb -> virtual time its
                                                 # drained return payload
@@ -719,29 +861,46 @@ class PipelinedBackend(_SlotCacheBackend):
         lasts = drained.lasts if drained is not None \
             else np.zeros((rows,), np.int32)
         # host inputs go to the stages' devices before any swap is enqueued
-        # (see LocalBackend._residency): the chunk's tokens to stage 0's,
-        # each stage's offsets and table rows to its own, the draining
-        # chunk's last indices to the last stage's
-        inputs = [self._tensor(tokens), self._per_stage(offs),
-                  self._per_stage(nval), self._per_stage(tabs),
-                  self._tensor(lasts, self.stage_devices[-1])]
+        # (see LocalBackend._residency): one packed copy a device
+        shape = (rows, clen, n_pages_row)
+        layout = _chunk_layout(*shape, self.n_stages)
+        st = self._prefill_statics(("pf",) + shape, _layout_size(layout),
+                                   (rows, clen, self.cfg.d_model), rows,
+                                   True)
+        self._load(st, (tokens, offs, nval, lasts, tabs))
         for s, e in enumerate(entries):
             for mb in (e.residency_mbs if e is not None else ()):
                 self._ensure_stage_resident(s, mb)
         for mb in (drained.residency_mbs if drained is not None else ()):
             self._ensure_epi_resident(mb)
         occupied = [e is not None for e in entries]
+        devs, n = self.stage_devices, self.n_stages
+        captured = self.graphs.capture_s
         t0 = time.perf_counter()
-        logits, self._pf_act = PL.pipeline_prefill_chunk_tick(
-            self.params, self.caches, self._pf_act, *inputs,
-            occupied=occupied, cfg=self.cfg, rt=self.rt,
-            n_stages=self.n_stages, wire_dtype=self.wire_dtype,
-            devices=self.stage_devices, head=self.head)
+        for s in range(n):
+            if occupied[s]:             # a bubble does no work
+                self.graphs.run(("pf-stage", s) + shape, devs[s],
+                                partial(self._pf_stage_step, st, layout, s))
+        logits = None
+        if drained is not None:
+            self.graphs.run(("pf-drain",) + shape, devs[-1],
+                            partial(self._pf_drain_step, st, layout))
+            logits = st.out.clone()
+        # each stage's output becomes the next stage's input for the next
+        # tick, after this tick's stages read theirs
+        for s in range(n - 1):
+            if occupied[s]:
+                st.act_in[s + 1].copy_(PL._wire(st.act_out[s],
+                                                self.wire_dtype, devs[s + 1]))
+        self.prefill_stage_runs += sum(occupied)
+        self.prefill_drains += drained is not None
         # the tick's device work ends inside the engine's prefill phase,
         # and the stage time the transport books is the card's
         self._sync()
         t1 = time.perf_counter()
-        dt = t1 - t0
+        # a key's first tick warms up and captures its step: the stage
+        # times leave it out, as the decode tick's do
+        dt = t1 - t0 - (self.graphs.capture_s - captured)
         # the chunk activation (R, C, D) crosses each occupied boundary
         obs = self.transport.tick(
             occupied, rows * clen * self.cfg.d_model * self._dtype_bytes,
@@ -758,6 +917,29 @@ class PipelinedBackend(_SlotCacheBackend):
         if drained is None:
             return results
         return results + [PrefillResult(chunk=drained, logits=logits)]
+
+    def _pf_stage_step(self, st: _PrefillStatics, layout, s: int) -> None:
+        """The captured step of prefill stage ``s``: its layers from the
+        embedded tokens (stage 0) or its static input, into its static
+        output."""
+        v = _unpack(st.inp[self.stage_devices[s]], layout)
+        x = PL.embed_chunk_tokens(self.params, v["tokens"], self.cfg,
+                                  self.rt) if s == 0 else st.act_in[s]
+        st.act_out[s].copy_(PL.chunk_stage(
+            self.params, self.caches, x, v["offsets"][s], v["n_valid"][s],
+            v["tables"][s], stage=s, cfg=self.cfg, rt=self.rt,
+            n_stages=self.n_stages))
+
+    def _pf_drain_step(self, st: _PrefillStatics, layout) -> None:
+        """The captured step of the drained chunk: the epilogue and the
+        logits at its last indices from the last stage's output, into the
+        static logits."""
+        n = self.n_stages
+        v = _unpack(st.inp[self.stage_devices[-1]], layout)
+        st.out.copy_(PL.chunk_drain(
+            self.params, self.caches, st.act_out[n - 1], v["offsets"][n - 1],
+            v["n_valid"][n - 1], v["tables"][n - 1], v["lasts"],
+            cfg=self.cfg, rt=self.rt, n_stages=n, head=self.head))
 
     # -- the decode stepper ----------------------------------------------------
 

@@ -1053,9 +1053,12 @@ class OfflineEngine:
         arch with recurrent layers, to the next power of two (at least 8),
         as the JAX engine pads them.  The pad positions are marked -1, so
         the rings drop their writes and the recurrences step over them
-        (``model.prefill``).  The port compiles nothing per shape; it pads
-        as the JAX package does so that both write the same rings (the
-        padded-ring behaviour of ROADMAP Queue 3 included)."""
+        (``model.prefill``).  The bucket is the key of the backend's
+        captured exact-prefill steps (``serving.step_graph``: one graph a
+        bucket and stage, captured at the bucket's second call), as it is
+        of the JAX package's ``_prefill_jits``; the padding is the JAX
+        package's, so that both write the same rings (the padded-ring
+        behaviour of ROADMAP Queue 3 included)."""
         if self.cfg.recurrent_layer_count() > 0:
             return max(8, 1 << (n - 1).bit_length())
         return max(8, (n + 7) // 8 * 8)
@@ -1221,7 +1224,10 @@ class OfflineEngine:
     def throughput_report(self) -> dict:
         """The run's books; a pipelined engine whose transport keeps books
         adds them under ``"transport"`` and, on a virtual clock, the decode
-        tok/s on that clock (``"virtual_decode_tok_per_s"``)."""
+        tok/s on that clock (``"virtual_decode_tok_per_s"``).  ``"graphs"``
+        holds the backend's captured steps: captures and replays, decode
+        and prefill, by key kind, the exact-prefill buckets run eagerly at
+        their first call, and the seconds spent capturing."""
         lat_steps = [s.latency_steps for s in self.finished
                      if s.latency_steps is not None]
         lat_s = [s.latency_s for s in self.finished
@@ -1254,6 +1260,11 @@ class OfflineEngine:
             "mean_latency_s": float(np.mean(lat_s)) if lat_s else 0.0,
             "mean_ttft_s": float(np.mean(ttft)) if ttft else 0.0,
         }
+        g = self.backend.graphs.stats()
+        rep["graphs"] = {k: g[k] for k in (
+            "decode_captures", "decode_replays", "prefill_captures",
+            "prefill_replays", "captures_by_kind", "replays_by_kind",
+            "eager_by_kind", "capture_s", "instantiate_s")}
         if self.prefix_cache is not None:
             rep["prefix_hits"] = self.stats.prefix_hits
             rep["prefix_hit_tokens"] = self.stats.prefix_hit_tokens

@@ -469,3 +469,37 @@ def slot_view(caches: dict, start: int, size: int, device=None) -> dict:
         return {name: t[start:start + size] for name, t in layer.items()}
     return {"layers": [rows(layer) for layer in caches["layers"]],
             "page_table": page_table_on(caches, device)[start:start + size]}
+
+
+def slot_take(caches: dict, slot: torch.Tensor, layers: tuple,
+              device=None) -> dict:
+    """A one-row copy of the row a device tensor ``slot`` (1,) int64 names,
+    for the layers ``layers = (lo, hi)``: each ring's and recurrent state's
+    row gathered into a new tensor, the page table's row of its copy on
+    ``device`` (stage 0's when None) likewise; the shared pools pass
+    through whole, and the layers outside the range are None.  The
+    counterpart of :func:`slot_view` for a slot the host does not name, so
+    that one captured exact-prefill step serves every slot: the model
+    writes the copy (and the pools in place), and :func:`slot_put` writes
+    the copy back."""
+    lo, hi = layers
+
+    def rows(i: int, layer: dict):
+        if not lo <= i < hi:
+            return None
+        if "k_pages" in layer:
+            return layer
+        return {name: t.index_select(0, slot) for name, t in layer.items()}
+    return {"layers": [rows(i, layer)
+                       for i, layer in enumerate(caches["layers"])],
+            "page_table": page_table_on(caches, device).index_select(0, slot)}
+
+
+def slot_put(caches: dict, slot: torch.Tensor, view: dict) -> None:
+    """Write :func:`slot_take`'s copy back into row ``slot`` of each ring
+    and recurrent state, in place (the pools were written in place)."""
+    for layer, rows in zip(caches["layers"], view["layers"]):
+        if rows is None or "k_pages" in layer:
+            continue
+        for name, t in layer.items():
+            t.index_copy_(0, slot, rows[name])

@@ -1,46 +1,70 @@
-"""Decode steps captured as CUDA graphs: the port's counterpart of the JAX
-package's jitted decode and pipe ticks (``repro.serving.backend``'s
-``LocalBackend._decode_jit`` and ``PipelinedBackend._tick_jit``, each
-compiled once for the whole serve).
+"""Serving steps captured as CUDA graphs: the port's counterpart of the
+JAX package's jitted decode, pipe and prefill steps
+(``repro.serving.backend``'s ``LocalBackend._decode_jit`` and
+``_chunk_jit``, ``PipelinedBackend._tick_jit`` and ``_pf_tick_jit``, and
+``_prefill_jits``, one a bucketed prompt length).
 
-An eager decode tick issues a couple of thousand launches from one host
-thread, and the host takes longer to issue them than the card takes to
-run them.  A decode step has fixed shapes for a given key (the local
-backend's microbatch, a pipeline stage and the microbatch it holds, the
-drained microbatch's epilogue), and its cache rows, pools and page table
-sit at fixed addresses for the backend's lifetime (swaps, page-table
-pushes and slot resets copy in place).  So a backend captures each step
-once as a CUDA graph and replays it once a tick; the host only copies the
-tick's inputs into the step's static tensors and launches the graph.
+An eager step issues thousands of launches from one host thread, and the
+host takes longer to issue them than the card takes to run them.  A step
+has fixed shapes for a given key, and its cache rows, pools and page
+table sit at fixed addresses for the backend's lifetime (swaps,
+page-table pushes and slot resets copy in place).  So a backend captures
+each step once as a CUDA graph and replays it; the host only copies the
+call's inputs into the step's static tensors and launches the graph.
+The keys, by their first element (the key's kind):
+
+- ``("local", mb, sampled)``: the local backend's decode tick;
+  ``("stage", s, mb)`` and ``("drain", mb, sampled)``: a pipe stage's
+  and the drained microbatch's decode work;
+- ``("chunk", R, C, P)``: the local backend's prefill chunk of ``R`` rows
+  of ``C`` tokens over ``P`` table columns (the engine fixes the shape,
+  so one key a backend); ``("pf-stage", s, R, C, P)`` and ``("pf-drain",
+  R, C, P)``: a pipe stage's and the drained chunk's prefill work;
+- ``("exact", L, s)``: stage ``s`` of an exact prefill of a prompt padded
+  to ``L`` tokens (``OfflineEngine._prefill_len``'s bucket); the slot and
+  the last index are read from device tensors, so one graph serves every
+  slot, and the last stage also runs the epilogue and the head.
 
 :class:`StepGraphs` holds a backend's graphs, one a key:
 
 - A step is a function of no arguments that reads the backend's static
   input tensors and writes its static output tensors (allocated outside
   any capture, by the backend).
-- At a key's first run on a card the step runs once eagerly on the
-  current stream, the engine's (the warm-up: it loads kernel libraries,
-  sets their attributes and fills the lazily built tables outside the
-  capture).  The recurrent-state rows the step updates (``state``) are
-  copied aside before and back after it; pools and rings are written by
-  position, so the replay writes the same slots again.  Then the step is
-  captured on a side stream with the paged kernel's workspace pinned, and
-  replayed: every tick, the first included, is a replay.
+- A key is captured at its first run, or at its second with ``defer``
+  (the exact-prefill keys: a serve may meet a bucket once, and a capture
+  costs about an eager run of host time, so a bucket seen once runs
+  eagerly; its first run is the step called as it is, the call's
+  result).  A key captured at its first run first runs once eagerly on
+  the current stream, the engine's (the warm-up: it loads kernel
+  libraries, sets their attributes, resolves the driver's entry points
+  and fills the lazily built tables outside the capture), with the
+  recurrent-state rows the step updates (``state``) copied aside before
+  and back after it; pools and rings are written by position, so the
+  replay writes the same slots again.  A deferred key's eager first run
+  did all that already.  Then the step is captured on a side stream with
+  the paged kernel's workspace pinned, and replayed: from its capture
+  on, every run of the key is a replay.
 - Launch counts stay what an eager serve counts.  The wrappers' counters
   (``.launches``) move while a step is captured; the graph keeps those
   counts and adds them at every replay, and the counters are put back
-  after the capture.  The warm-up's launches belong to the capture, not
-  to a tick: they are booked in ``warmup_launches`` and put back too.
+  after the capture.  A warm-up's launches belong to the capture, not to
+  a call: they are booked in ``warmup_launches`` and put back too.  A
+  deferred key's eager first run counts as the eager call it is.
 - All of a backend's graphs on a card share one memory pool
   (``torch.cuda.graph_pool_handle``).  That is safe in any replay order
   only because no graph's output lives in the pool: every tensor a step
-  leaves behind is a static tensor written by a copy inside the graph,
-  so what a graph takes from the pool is dead when its replay ends, and
-  the next replay of any graph may reuse it.  A card's replays never
+  leaves behind is a static tensor written by a copy inside the graph
+  (a prefill's logits are copied out of theirs before they are handed
+  on), so what a graph takes from the pool is dead when its replay ends,
+  and the next replay of any graph may reuse it.  A card's replays never
   overlap: they go to one stream, in the engine's order.
 - A graph keeps the paged workspace tensors it was captured over
   (``kernels.paged_attention.reserve_workspace``), so a later growth of
-  the card's workspace never frees a buffer a graph points at.
+  the card's workspace never frees a buffer a graph points at.  The
+  flash and scan kernels encode their TMA maps on the host at launch, so
+  a captured launch keeps the addresses it was captured with: what they
+  read is made inside the step (in the graph's pool) or is a static
+  tensor, never a tensor made outside the graph per call.
 - Off the card (a CPU device, the CPU stage of a mixed pipeline) the step
   is called as it is, every time: the routing rule.  A capture or replay
   that fails raises; nothing falls back to the eager step on the card.
@@ -59,6 +83,9 @@ import torch
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import rglru_scan as _scan
+
+# the kinds of the prefill keys (the others are decode keys)
+PREFILL_KINDS = ("chunk", "pf-stage", "pf-drain", "exact")
 
 
 def counted_kernels() -> Dict[str, Callable]:
@@ -91,6 +118,10 @@ def _on(device: torch.device):
     return contextlib.nullcontext()
 
 
+def _kind(key: Hashable):
+    return key[0] if isinstance(key, tuple) else key
+
+
 @dataclass
 class _Entry:
     graph: object                   # torch.cuda.CUDAGraph (or a test's)
@@ -99,9 +130,9 @@ class _Entry:
 
 
 class StepGraphs:
-    """One backend's captured decode steps, one a key (see the module
-    docstring).  ``prepare(device)`` runs once a card before its first
-    capture (the backend sizes the paged workspace there)."""
+    """One backend's captured steps, one a key (see the module docstring).
+    ``prepare(device)`` runs once a card before its first capture (the
+    backend sizes the paged workspace there)."""
 
     def __init__(self, prepare: Optional[Callable] = None):
         self._prepare = prepare
@@ -111,10 +142,13 @@ class StepGraphs:
         self._prepared: set = set()
         self.captures: Counter = Counter()      # key -> captures made
         self.replays: Counter = Counter()       # key -> replays
+        self.eager_runs: Counter = Counter()    # key -> deferred first runs
         self.replays_by_device: Counter = Counter()
         self.warmup_launches: Counter = Counter()
         self.capture_s = 0.0        # host seconds spent warming up and
                                     # capturing (a one-off, like a compile)
+        self.capture_s_by_kind: Counter = Counter()
+        self.instantiate_s = 0.0    # of which in capture_end (instantiation)
 
     def graphed(self, device: torch.device) -> bool:
         """Whether a step on ``device`` is captured and replayed (a card)
@@ -128,19 +162,28 @@ class StepGraphs:
                 for key, e in self._entries.items()}
 
     def run(self, key: Hashable, device: torch.device, step: Callable,
-            state: Optional[Callable] = None) -> None:
+            state: Optional[Callable] = None, defer: bool = False) -> None:
         """Run ``step`` for ``key`` on ``device``: replay the key's graph,
-        capturing it first at its first run, or call ``step`` off the card.
-        ``state()`` lists the recurrent-state rows the step updates."""
+        capturing it first at its first run (at its second with
+        ``defer``, the first calling ``step`` as it is), or call ``step``
+        off the card.  ``state()`` lists the recurrent-state rows the step
+        updates."""
         if not self.graphed(device):
             step()
             return
         entry = self._entries.get(key)
         if entry is None:
+            if defer and not self.eager_runs[key]:
+                with _on(device):
+                    step()
+                self.eager_runs[key] += 1
+                return
             t0 = time.perf_counter()
-            entry = self._entries[key] = self._capture(key, device, step,
-                                                       state)
-            self.capture_s += time.perf_counter() - t0
+            entry = self._entries[key] = self._capture(
+                key, device, step, state, warm=not defer)
+            dt = time.perf_counter() - t0
+            self.capture_s += dt
+            self.capture_s_by_kind[_kind(key)] += dt
         with _on(device):
             entry.graph.replay()
         for name, fn in counted_kernels().items():
@@ -164,12 +207,14 @@ class StepGraphs:
             try:
                 step()
             finally:
+                t0 = time.perf_counter()
                 graph.capture_end()
+                self.instantiate_s += time.perf_counter() - t0
         torch.cuda.current_stream(device).wait_stream(stream)
         return graph
 
     def _capture(self, key: Hashable, device: torch.device, step: Callable,
-                 state: Optional[Callable]) -> _Entry:
+                 state: Optional[Callable], warm: bool = True) -> _Entry:
         with _on(device):
             if self._prepare is not None and device not in self._prepared:
                 self._prepare(device)
@@ -177,10 +222,11 @@ class StepGraphs:
             rows: List[torch.Tensor] = state() if state is not None else []
             saved = [t.clone() for t in rows]
             before = _counts()
-            step()                          # the warm-up, eagerly
-            _restore(rows, saved)
-            self.warmup_launches.update(_counts() - before)
-            _set_counts(before)
+            if warm:
+                step()                      # the warm-up, eagerly
+                _restore(rows, saved)
+                self.warmup_launches.update(_counts() - before)
+                _set_counts(before)
             graph = self._new_graph(device, step)
             # a CUDA capture runs nothing; a stand-in that runs the step
             # while it records (the CPU tests') must leave no trace either
@@ -205,15 +251,32 @@ class StepGraphs:
         self._prepared.clear()
 
     def stats(self) -> dict:
-        """Captures and replays, in total and by key kind (the key's first
-        element), and the warm-ups' launches."""
-        kinds = Counter()
-        for key, n in self.replays.items():
-            kinds[key[0] if isinstance(key, tuple) else key] += n
+        """Captures, replays and deferred eager first runs, in total and by
+        key kind (the key's first element), the capture seconds (of which
+        instantiation), the warm-ups' launches, and the same split into
+        the decode and the prefill keys."""
+        def by_kind(counts: Counter) -> dict:
+            kinds = Counter()
+            for key, n in counts.items():
+                kinds[_kind(key)] += n
+            return dict(kinds)
+
+        def part(kinds: dict, prefill: bool) -> int:
+            return sum(n for k, n in kinds.items()
+                       if (k in PREFILL_KINDS) == prefill)
+        replays, captures = by_kind(self.replays), by_kind(self.captures)
         return {"captures": sum(self.captures.values()),
                 "keys": len(self.captures),
                 "capture_s": self.capture_s,
+                "instantiate_s": self.instantiate_s,
                 "replays": sum(self.replays.values()),
-                "replays_by_kind": dict(kinds),
+                "replays_by_kind": replays,
+                "captures_by_kind": captures,
+                "eager_by_kind": by_kind(self.eager_runs),
+                "capture_s_by_kind": dict(self.capture_s_by_kind),
+                "decode_captures": part(captures, False),
+                "decode_replays": part(replays, False),
+                "prefill_captures": part(captures, True),
+                "prefill_replays": part(replays, True),
                 "replays_by_device": dict(self.replays_by_device),
                 "warmup_launches": dict(self.warmup_launches)}

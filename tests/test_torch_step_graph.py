@@ -264,7 +264,7 @@ def test_stand_in_graphs_serve_repro_greedy_streams(arch, stand_in):
     """``LocalBackend`` at N_B = 2 (yi-9b with global pools swapped by the
     offloader) through stand-in graphs: the greedy streams equal
     ``repro``'s token for token, every decode tick is a replay, and each
-    key is captured once."""
+    key is captured once (the prefill keys beside the two decode ones)."""
     kw = {}
     if arch == "yi-9b":
         kw = dict(page_size=8, n_local_pages=6, n_global_pages=12,
@@ -276,8 +276,9 @@ def test_stand_in_graphs_serve_repro_greedy_streams(arch, stand_in):
     tl = _serve_both(arch, jconf, tconf)
     be = tl.engine.backend
     st = be.graphs.stats()
-    assert st["replays"] == be.decode_ticks > 0
-    assert st["captures"] == st["keys"] == len(be.graph_entries()) == 2
+    assert st["decode_replays"] == be.decode_ticks > 0
+    assert st["decode_captures"] == 2
+    assert st["captures"] == st["keys"] == len(be.graph_entries())
     if arch == "yi-9b":
         assert be.swap_count > 0
 
