@@ -534,6 +534,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 30
 TRAIN_RESUME_STEPS, TRAIN_CKPT_EVERY, TRAIN_RESUME_TOL = 20, 10, 1e-4
 TRAIN_COMPRESS_STEPS = 20
 TRAIN_CKPT_DIR = ROOT / "build" / "ckpt"
+# each graphed run (step 1 eager, then replays) is held to this many steps
+# of the functional step run eagerly on the same weights and batches
+TRAIN_EAGER_STEPS = 3
 # [train-rgemma]: recurrentgemma-9b at full width, its first 3 layers
 # (rglru, rglru, local), float32, batch 2 x 2048
 RG_TRAIN_LAYERS, RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_TRAIN_STEPS = 3, 2, 2048, 10
@@ -4940,12 +4943,15 @@ def phase_scan_grad(torch, np):
 
 def _train_run(torch, tag, cfg, rt, ocfg, dcfg, steps, **kw):
     """``train_loop.train`` from fresh weights (seed 0, on the card) over
-    the synthetic stream; returns (params, opt_state, result, launches,
-    peak GiB)."""
+    the synthetic stream: step 1 eager, step 2 captured and replayed, the
+    rest replays (gated: one capture, replays = steps - 1); returns
+    (params, opt_state, result, launches, peak allocated GiB); the peak
+    reserved GiB and the ms of the replayed steps go into
+    ``result.graphs``."""
     from repro_torch.data.pipeline import batches
     from repro_torch.models import model as model_lib
     from repro_torch.training import train_loop
-    _free_card(torch)
+    held = _private_pools(torch)
     torch.cuda.reset_peak_memory_stats()
     params = kw.pop("params", None)
     if params is None:
@@ -4957,11 +4963,100 @@ def _train_run(torch, tag, cfg, rt, ocfg, dcfg, steps, **kw):
     torch.cuda.synchronize()
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+    st = res.graphs
+    if st["eager_by_kind"] != {"train": 1} or st["captures"] != 1 or \
+            st["replays"] != steps - 1:
+        raise AssertionError(f"{tag}: graph books {st}, want step 1 eager, "
+                             f"one capture and {steps - 1} replays")
+    secs = res.step_seconds
+    replay_ms = sorted(secs[2:])[len(secs[2:]) // 2] * 1e3 \
+        if steps > 2 else float("nan")
+    st.update(peak_reserved_gib=reserved, replay_ms=replay_ms,
+              step1_ms=secs[0] * 1e3,
+              step2_ms=secs[1] * 1e3 if steps > 1 else float("nan"),
+              graph_pools_before=held)
     log(f"[{tag}] {steps} steps: loss {res.losses[0]:.4f} -> "
         f"{res.losses[-1]:.4f}; {res.tokens_per_second:.1f} tok/s, "
-        f"{res.seconds / steps * 1e3:.1f} ms a step; peak {peak:.2f} GiB; "
-        f"launches {counts}")
+        f"{res.seconds / steps * 1e3:.1f} ms a step (step 1 eager "
+        f"{st['step1_ms']:.1f}, step 2 captured and replayed "
+        f"{st['step2_ms']:.1f}, replays median {replay_ms:.1f}; capture "
+        f"{st['capture_s']:.2f} s, {st['instantiate_s']:.2f} instantiating)"
+        f"; peak {peak:.2f} GiB allocated, {reserved:.2f} reserved (graph "
+        f"pools held at the start {held['reserved_gib']:.3f}); launches "
+        f"{counts}")
     return params, opt, res, counts, peak
+
+
+def _private_pools(torch) -> dict:
+    """GiB reserved and allocated in the card's private (graph) pools,
+    after a collection and an empty cache: what a graphed run leaves."""
+    _free_card(torch)
+    reserved = allocated = 0
+    for seg in torch.cuda.memory_snapshot():
+        if tuple(seg.get("segment_pool_id", (0, 0))) == (0, 0):
+            continue
+        reserved += seg["total_size"]
+        allocated += seg["allocated_size"]
+    return {"reserved_gib": reserved / 2 ** 30,
+            "allocated_gib": allocated / 2 ** 30}
+
+
+def _eager_train(torch, tag, cfg, rt, ocfg, dcfg, steps) -> dict:
+    """``make_train_step`` (the functional step, the eager form: new
+    weights and moments each step) applied ``steps`` times from fresh
+    weights (seed 0) over the synthetic stream, as the graphed run starts.
+    Returns the losses, ms a step (the median after the first), peak
+    allocated and reserved GiB."""
+    from repro_torch.data.pipeline import batches
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_loop
+    _free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = model_lib.init_params(cfg, SEED, rt, "cuda")
+    opt = opt_lib.init(ocfg, params)
+    step = train_loop.make_train_step(cfg, rt, ocfg)
+    data, losses, secs = batches(dcfg), [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, next(data))
+        losses.append(float(met["loss"]))
+        secs.append(time.perf_counter() - t0)
+    del params, opt, met
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+    ms = sorted(secs[1:])[len(secs[1:]) // 2] * 1e3
+    log(f"[{tag}] eager (make_train_step, functional update) {steps} steps "
+        f"from the same weights and batches: {ms:.1f} ms a step (median "
+        f"after the first), peak {peak:.2f} GiB allocated, {reserved:.2f} "
+        "reserved")
+    return {"losses": losses, "ms_per_step": ms, "peak_gib": peak,
+            "peak_reserved_gib": reserved}
+
+
+def _same_losses(torch, tag, eager: dict, graphed) -> None:
+    """Gate: the eager run's losses equal the graphed run's first steps
+    within ``TRAIN_RESUME_TOL`` relative (the CUDA embedding backward
+    accumulates with atomics); logs how many are bit-equal and what the
+    graphed run left in the graph pools."""
+    steps = len(eager["losses"])
+    want = graphed.losses[:steps]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(eager["losses"], want))
+    if rel > TRAIN_RESUME_TOL:
+        raise AssertionError(f"{tag}: eager losses {eager['losses']} "
+                             f"against the graphed run's {want}: {rel:.2e} "
+                             "relative")
+    same = sum(a == b for a, b in zip(eager["losses"], want))
+    left = _private_pools(torch)
+    eager.update(max_rel_loss_diff=rel, bit_equal_losses=same,
+                 graph_pools_after=left)
+    log(f"[{tag}] the graphed run's first {steps} losses within {rel:.2e} "
+        f"relative of the eager run's (tol {TRAIN_RESUME_TOL:g}), {same} "
+        f"of {steps} bit-equal; replays {graphed.graphs['replay_ms']:.1f} "
+        f"ms a step against eager {eager['ms_per_step']:.1f}; left in the "
+        f"graph pools after the run: {left['reserved_gib']:.3f} GiB "
+        f"reserved, {left['allocated_gib']:.3f} allocated")
 
 
 def _falls(tag, losses, n):
@@ -4999,8 +5094,11 @@ def phase_train_gemma(torch, np, card: str):
         f"{cfg.param_count() / 1e9:.3f}B params float32, batch "
         f"{TRAIN_BATCH} x {TRAIN_SEQ}, AdamW lr {ocfg.lr:g} (warmup "
         f"{ocfg.warmup_steps}, cosine over {ocfg.total_steps}), on {card}")
+    eager = _eager_train(torch, "train-gemma3-1b", cfg, rt, ocfg, dcfg,
+                         TRAIN_EAGER_STEPS)
     _, _, res, counts, peak = _train_run(torch, "train-gemma3-1b", cfg, rt,
                                          ocfg, dcfg, TRAIN_STEPS)
+    _same_losses(torch, "train-gemma3-1b", eager, res)
     first, last = _falls("train-gemma3-1b", res.losses, 5)
     want = TRAIN_STEPS * cfg.num_layers
     if counts != {"paged_attention": 0, "flash_attention": want,
@@ -5011,7 +5109,8 @@ def phase_train_gemma(torch, np, card: str):
                "first5": first, "last5": last,
                "tok_per_s": res.tokens_per_second,
                "ms_per_step": res.seconds / TRAIN_STEPS * 1e3,
-               "peak_gib": peak, "flash_launches": counts["flash_attention"]}
+               "peak_gib": peak, "flash_launches": counts["flash_attention"],
+               "graphs": res.graphs, "eager": eager}
     paths = {"gemma3-1b train": counts}
 
     # crash and resume: 20 steps with a checkpoint every 10; a fresh
@@ -5103,8 +5202,11 @@ def phase_train_rgemma(torch, np, card: str):
     log(f"[train-rgemma] recurrentgemma-9b full width, layers {kinds}, "
         f"{cfg.param_count() / 1e9:.3f}B params float32, batch "
         f"{RG_TRAIN_BATCH} x {RG_TRAIN_SEQ}, on {card}")
+    eager = _eager_train(torch, "train-rgemma", cfg, rt, ocfg, dcfg,
+                         TRAIN_EAGER_STEPS)
     _, _, res, counts, peak = _train_run(torch, "train-rgemma", cfg, rt,
                                          ocfg, dcfg, RG_TRAIN_STEPS)
+    _same_losses(torch, "train-rgemma", eager, res)
     first, last = _falls("train-rgemma", res.losses, 3)
     n_rg = kinds.count("rglru")
     want = {"paged_attention": 0,
@@ -5117,7 +5219,8 @@ def phase_train_rgemma(torch, np, card: str):
     return {"recurrentgemma-9b train": counts}, {
         "losses": res.losses, "first3": first, "last3": last,
         "tok_per_s": res.tokens_per_second,
-        "ms_per_step": res.seconds / RG_TRAIN_STEPS * 1e3, "peak_gib": peak}
+        "ms_per_step": res.seconds / RG_TRAIN_STEPS * 1e3, "peak_gib": peak,
+        "graphs": res.graphs, "eager": eager}
 
 
 def phase_frontend_serve(torch, np, card: str, arch: str, tag: str):
@@ -5321,21 +5424,53 @@ def _clone_tree(tree):
     return None if tree is None else tree.clone()
 
 
+def _cache_leaves(caches) -> list:
+    """Every tensor of a cache tree, in a fixed order."""
+    if isinstance(caches, dict):
+        return [t for k in sorted(caches) for t in _cache_leaves(caches[k])]
+    if isinstance(caches, list):
+        return [t for c in caches for t in _cache_leaves(c)]
+    return [] if caches is None else [caches]
+
+
+def _put_tree(dst, src) -> None:
+    """Copy a cache tree's values into another of its shape, in place."""
+    for a, b in zip(_cache_leaves(dst), _cache_leaves(src)):
+        a.copy_(b)
+
+
+def _tree_gap(torch, got, want) -> float:
+    """Largest |difference| between two cache trees' leaves (0.0 when
+    equal; positions and ints compared as floats)."""
+    gap = 0.0
+    for a, b in zip(_cache_leaves(got), _cache_leaves(want)):
+        if not torch.equal(a, b):
+            gap = max(gap, (a.float() - b.float()).abs().max().item())
+    return gap
+
+
 def _fixed_run(torch, cfg, rt, params, pcfg, inputs, cap, rounds, dev):
-    """The three fixed-batch passes on ``inputs`` (B, S) tokens beside two
-    runs of the plain model on the same weights and tokens:
+    """The three fixed-batch passes on ``inputs`` (B, S) tokens through
+    ``core.pipeline.FixedPasses`` (on the card every stage call, head and
+    drain a replayed CUDA graph), beside the functional passes (the eager
+    form) on caches of their own and two runs of the plain model on the
+    same weights and tokens:
 
     - ``mb``: a microbatch at a time (``model.prefill`` and ``decode_step``
       on its ``mb_size`` rows and caches of its own), so every layer sees
       the rows the pipeline's stage calls see;
     - ``batch``: the whole batch in one call.
 
-    Each gives a prefill, a decode step of the pipe's greedy tokens (on a
-    copy of the caches) and ``rounds`` sequential greedy decode steps.  The
-    pipelined prefill is timed on its second call, on fresh caches (launch
-    counts of that call on ``cuda``), the rounds and the sequential decodes
-    are timed too.  Returns (numbers, the prefill's launch counts, the
-    rounds')."""
+    Each gives a prefill, a decode step of the pipe's greedy tokens (the
+    holder's caches put back after it, the functional step on a copy) and
+    ``rounds`` greedy rounds (sequential greedy decode steps for the plain
+    model).  The holder's first prefill captures its prefill keys (after
+    it ``reset`` clears the states it stepped), its decode step the decode
+    keys and the head, a one-round pass the drains (caches put back), so
+    the timed prefill and rounds are replays (launch counts of those two
+    on ``cuda``).  ``graph_parity`` holds each replayed kind against the
+    functional passes: logits, tokens and every cache leaf.  Returns (the
+    numbers, the prefill's launch counts, the rounds')."""
     from repro_torch.core import pipeline as PL
     from repro_torch.models import model as model_lib
     from repro_torch.serving.sampler import greedy
@@ -5356,6 +5491,7 @@ def _fixed_run(torch, cfg, rt, params, pcfg, inputs, cap, rounds, dev):
     n_mb, mb, B = pcfg.n_microbatches, pcfg.mb_size, pcfg.global_batch
     S = inputs.shape[1]
     cur = torch.full((B,), S, dtype=torch.int32, device=dev)
+    cur2 = cur.reshape(n_mb, mb)
 
     def plain(rows):
         """The plain model on ``rows``: prefill logits, caches, seconds."""
@@ -5381,35 +5517,63 @@ def _fixed_run(torch, cfg, rt, params, pcfg, inputs, cap, rounds, dev):
         seq, secs = clock(steps)
         return step, seq, secs
 
+    def parity(kind, got, want, got_c, want_c):
+        exact = torch.equal(got, want)
+        gap = _tree_gap(torch, got_c, want_c)
+        return {"kind": kind, "equal": exact,
+                "max_abs_err": 0.0 if exact else
+                (got.float() - want.float()).abs().max().item(),
+                "cache_gap": gap}
+
     queue = inputs.reshape(n_mb, mb, S)
-    # a warm-up call on caches of its own: a prefill starts the recurrent
-    # layers from the states it finds
-    PL.pipeline_prefill(params, queue, PL.init_pipeline_caches(
-        cfg, pcfg, cap, rt, device=dev), cfg, rt, pcfg)
-    caches = PL.init_pipeline_caches(cfg, pcfg, cap, rt, device=dev)
+    fp = PL.FixedPasses(params, cfg, rt, pcfg, cap, device=dev)
+    # the first prefill captures the prefill keys; a prefill starts the
+    # recurrent layers from the states it finds, so reset before the next
+    _, capture_prefill_s = clock(lambda: fp.prefill(queue))
+    fp.reset()
     if on_card:
         reset_counts()
-    (logits, caches), prefill_s = clock(lambda: PL.pipeline_prefill(
-        params, queue, caches, cfg, rt, pcfg))
+    logits, prefill_s = clock(lambda: fp.prefill(queue))
     prefill_counts = read_counts() if on_card else None
-    logits = logits.reshape(B, -1)
-    tok0 = greedy(logits)
-    step, _ = PL.pipeline_decode_step(
-        params, tok0.reshape(n_mb, mb), _clone_tree(caches),
-        cur.reshape(n_mb, mb), cfg, rt, pcfg)
+    eager_c = PL.init_pipeline_caches(cfg, pcfg, cap, rt, device=dev)
+    (e_logits, eager_c), eager_prefill_s = clock(
+        lambda: PL.pipeline_prefill(params, queue, eager_c, cfg, rt, pcfg))
+    checks = [parity("prefill stages, embed, head", logits, e_logits,
+                     fp.caches, eager_c)]
+    tok0 = greedy(logits.reshape(B, -1)).reshape(n_mb, mb)
+    saved = _clone_tree(fp.caches)
+    step = fp.decode_step(tok0, cur2)
+    e_step, e_step_c = PL.pipeline_decode_step(
+        params, tok0, _clone_tree(eager_c), cur2, cfg, rt, pcfg)
+    checks.append(parity("decode stages, head", step, e_step, fp.caches,
+                         e_step_c))
+    del e_step_c
+    _put_tree(fp.caches, saved)
+    fp.decode_rounds(tok0, cur2, rounds=1)          # captures the drains
+    _put_tree(fp.caches, saved)
+    del saved
     if on_card:
         reset_counts()
-    (outs, _), rounds_s = clock(lambda: PL.pipeline_decode_rounds(
-        params, tok0.reshape(n_mb, mb), caches, cur.reshape(n_mb, mb), cfg,
-        rt, pcfg, rounds=rounds))
+    outs, rounds_s = clock(lambda: fp.decode_rounds(tok0, cur2,
+                                                    rounds=rounds))
     rounds_counts = read_counts() if on_card else None
-    del caches
-    run = {"logits": logits, "step": step.reshape(B, -1),
+    (e_outs, eager_c), eager_rounds_s = clock(
+        lambda: PL.pipeline_decode_rounds(params, tok0, eager_c, cur2, cfg,
+                                          rt, pcfg, rounds=rounds))
+    checks.append(parity("rounds: decode stages, drains", outs, e_outs,
+                         fp.caches, eager_c))
+    del eager_c
+    run = {"logits": logits.reshape(B, -1), "step": step.reshape(B, -1),
            "rounds": outs.reshape(rounds, B), "prefill_s": prefill_s,
-           "rounds_s": rounds_s}
+           "rounds_s": rounds_s, "eager_prefill_s": eager_prefill_s,
+           "eager_rounds_s": eager_rounds_s,
+           "capture_prefill_s": capture_prefill_s,
+           "graph_parity": checks, "graphs": fp.graphs.stats()}
+    del fp
 
     # the plain model, a microbatch at a time
     parts = []
+    tok0 = tok0.reshape(B)
     for m in range(n_mb):
         rows = slice(m * mb, (m + 1) * mb)
         lg, c, t = plain(rows)
@@ -5431,6 +5595,46 @@ def _fixed_run(torch, cfg, rt, params, pcfg, inputs, cap, rounds, dev):
             part[name] = part[name].float().cpu() if name != "rounds" \
                 else part[name].cpu()
     return run, prefill_counts, rounds_counts
+
+
+def _fixed_graphs(tag, run, pcfg, rounds, card) -> dict:
+    """Gate and log the holder's graph books after ``_fixed_run`` on the
+    card: each replayed kind bit-equal to the functional passes (caches
+    within ``GRAPH_CACHE_ATOL``, cuBLAS rounding under capture), one
+    capture a key, and replays equal to the calls of each kind (two
+    prefills; a decode step, a one-round and an R-round pass)."""
+    for c in run["graph_parity"]:
+        if not c["equal"] or c["cache_gap"] > GRAPH_CACHE_ATOL:
+            raise AssertionError(f"{tag}: replayed {c['kind']} against the "
+                                 f"functional pass: {c}")
+        log(f"[graph-parity] {tag} {c['kind']}: replayed == eager "
+            f"(functional pass on its own caches) bit for bit, cache gap "
+            f"{c['cache_gap']:.3e} (tol {GRAPH_CACHE_ATOL:g})")
+    st = run["graphs"]
+    n_s, n_mb = pcfg.n_stages, pcfg.n_microbatches
+    stage_calls = n_s * n_mb
+    want_caps = {"fixed-embed": 1, "fixed-prefill": stage_calls,
+                 "fixed-prefill-head": 1, "fixed-decode": stage_calls,
+                 "fixed-decode-head": 1, "fixed-drain": n_mb}
+    want_reps = {"fixed-embed": 2, "fixed-prefill": 2 * stage_calls,
+                 "fixed-prefill-head": 2,
+                 "fixed-decode": (2 + rounds) * stage_calls,
+                 "fixed-decode-head": 1, "fixed-drain": (1 + rounds) * n_mb}
+    if st["captures_by_kind"] != want_caps or st["keys"] != \
+            st["captures"] or st["replays_by_kind"] != want_reps or \
+            st["eager_by_kind"]:
+        raise AssertionError(f"{tag}: graph books {st}, want captures "
+                             f"{want_caps} (one a key), replays {want_reps}")
+    log(f"[graphs] {tag} on {card}: {st['captures']} keys captured once "
+        f"each in {st['capture_s']:.2f} s ({st['instantiate_s']:.2f} "
+        f"instantiating; by kind "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    st["capture_s_by_kind"].items())
+        + f"); {st['replays']} replays = every stage call, head and drain "
+        f"from its capture on ({st['replays_by_kind']}); the first prefill "
+        f"(warm-ups and captures) {run['capture_prefill_s'] * 1e3:.1f} ms")
+    GRAPH_BOOKS[tag] = st
+    return st
 
 
 def _fixed_check(tag, run, bound_rel, card, pcfg, rounds, tokens):
@@ -5478,10 +5682,12 @@ def _fixed_check(tag, run, bound_rel, card, pcfg, rounds, tokens):
     agree = (got == whole["rounds"]).float().mean().item()
     out.update(
         prefill_ms=run["prefill_s"] * 1e3,
+        eager_prefill_ms=run["eager_prefill_s"] * 1e3,
         plain_prefill_ms=whole["prefill_s"] * 1e3,
         plain_mb_prefill_ms=ref["prefill_s"] * 1e3,
         prefill_tok_per_s=B * tokens / run["prefill_s"],
         rounds_tok_per_s=rounds * B / run["rounds_s"],
+        eager_rounds_tok_per_s=rounds * B / run["eager_rounds_s"],
         sequential_tok_per_s=rounds * B / whole["seq_s"],
         sequential_mb_tok_per_s=rounds * B / ref["seq_s"],
         whole_batch_rounds_share_equal=agree,
@@ -5499,11 +5705,13 @@ def _fixed_check(tag, run, bound_rel, card, pcfg, rounds, tokens):
         f"{out['step']['whole_batch_max_abs_logit_err']:.3e}; rounds "
         f"{agree:.1%} of tokens equal")
     log(f"[{tag}] {n_s} stages, N_B {n_mb} x {pcfg.mb_size} rows, "
-        f"{tokens}-token prompts on {card}: prefill "
+        f"{tokens}-token prompts on {card}: prefill replayed "
         f"{out['prefill_ms']:.1f} ms ({out['prefill_tok_per_s']:.0f} tok/s; "
-        f"plain over the batch {out['plain_prefill_ms']:.1f} ms, a "
-        f"microbatch at a time {out['plain_mb_prefill_ms']:.1f} ms); rounds "
-        f"decode {out['rounds_tok_per_s']:.1f} tok/s beside "
+        f"eager {out['eager_prefill_ms']:.1f} ms; plain over the batch "
+        f"{out['plain_prefill_ms']:.1f} ms, a microbatch at a time "
+        f"{out['plain_mb_prefill_ms']:.1f} ms); rounds decode replayed "
+        f"{out['rounds_tok_per_s']:.1f} tok/s, eager "
+        f"{out['eager_rounds_tok_per_s']:.1f} tok/s, beside "
         f"{out['sequential_tok_per_s']:.1f} tok/s of {rounds} sequential "
         f"plain decode steps over the batch "
         f"({out['sequential_mb_tok_per_s']:.1f} a microbatch at a time); "
@@ -5539,12 +5747,15 @@ def phase_fixed_pipe_yi(torch, np, card: str, params):
     if pc != want or any(rc.values()):
         raise AssertionError(f"fixed-pipe: prefill launches {pc}, want "
                              f"{want}; rounds launches {rc}, want none")
-    log(f"[fixed-pipe] one pipeline_prefill: {pc['flash_attention']} flash "
-        f"launches = N_B {FIXED_N_MB} x {YI_LAYERS} layers; the decode "
-        "passes launch no kernel (dense caches, the plain decode attention, "
-        "as in the JAX passes)")
+    log(f"[fixed-pipe] one replayed FixedPasses.prefill: "
+        f"{pc['flash_attention']} flash launches = N_B {FIXED_N_MB} x "
+        f"{YI_LAYERS} layers (each stage call's graph adds its 24); the "
+        "decode passes launch no kernel (dense caches, the plain decode "
+        "attention, as in the JAX passes)")
     info = _fixed_check("fixed-pipe", run, FIXED_LOGIT_BOUND, card, pcfg,
                         FIXED_R, FIXED_S)
+    info["graphs"] = _fixed_graphs("fixed-pipe", run, pcfg, FIXED_R, card)
+    info["graph_parity"] = run["graph_parity"]
     info["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[fixed-pipe] peak {info['peak_gib']:.2f} GiB allocated (weights "
         "included)")
@@ -5588,11 +5799,15 @@ def phase_fixed_pipe_rgemma(torch, np, card: str):
         raise AssertionError(f"fixed-pipe-rgemma: prefill launches {pc}, "
                              f"want {want}; rounds launches {rc}")
     log(f"[fixed-pipe-rgemma] {cfg.num_layers} layers {kinds}: one "
-        f"pipeline_prefill launches the scan {pc['rglru_scan']} times "
+        f"replayed FixedPasses.prefill launches the scan "
+        f"{pc['rglru_scan']} times "
         f"(N_B {RG_FIXED_N_MB} x 4 stage layers + 2 epilogue layers over "
         f"the batch) and flash {pc['flash_attention']} times (N_B x 2)")
     info = _fixed_check("fixed-pipe-rgemma", run, FIXED_LOGIT_BOUND, card,
                         pcfg, RG_FIXED_R, RG_FIXED_S)
+    info["graphs"] = _fixed_graphs("fixed-pipe-rgemma", run, pcfg,
+                                   RG_FIXED_R, card)
+    info["graph_parity"] = run["graph_parity"]
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5600,7 +5815,7 @@ def phase_fixed_pipe_rgemma(torch, np, card: str):
             "recurrentgemma-9b fixed-pipe rounds": rc}, info
 
 
-def phase_fixed_pipe_parity(torch, np):
+def phase_fixed_pipe_parity(torch, np, card_name: str = "the card"):
     """[fixed-pipe-parity]: phase 6's models, float32, through the
     fixed-batch passes on the CPU (the plain versions) and on the card
     (the kernels), identical weights: logits within ``FP_TOL``, greedy
@@ -5645,6 +5860,8 @@ def phase_fixed_pipe_parity(torch, np):
                 torch.from_numpy(tokens).to(dev), FP_CAP, FP_R, dev)
             if dev == "cuda":
                 counts[f"{label} fixed-pipe parity"] = pc
+                _fixed_graphs(f"fixed-pipe-parity {label}", runs[dev], pcfg,
+                              FP_R, card_name)
         cpu, card = runs["cpu"], runs["cuda"]
         errs = {name: (card[name] - cpu[name]).abs().max().item()
                 for name in ("logits", "step")}
@@ -5785,7 +6002,7 @@ def phase_fixed_pipeline(torch, np, card: str, params, miner_outs,
     counts, summary["recurrentgemma-9b"] = phase_fixed_pipe_rgemma(
         torch, np, card)
     paths.update(counts)
-    counts, summary["parity"] = phase_fixed_pipe_parity(torch, np)
+    counts, summary["parity"] = phase_fixed_pipe_parity(torch, np, card)
     paths.update(counts)
     from repro_torch.config import get_arch
     summary["market"] = phase_market(miner_outs, owner_outs,
@@ -6073,11 +6290,80 @@ def phase_multi_gpu_mixed(torch, np, card: str):
             "streams equal token for token, cuda:0+cpu against "
             "cuda:0+cuda:0 (the CPU stage runs the plain paged attention: "
             "the routing rule for a CPU tensor, not a fallback)")
+    out["fixed"], fixed_counts = _mixed_fixed(torch, np, card, cfg, rt,
+                                              params)
     del params
     out["tied"], tied_counts = _mixed_tied(torch, np, card, prompts,
                                            layout, sp)
     return {"yi-9b 4 layers cuda:0+cpu": counts,
+            "yi-9b 4 layers fixed-pipe cuda:0+cpu": fixed_counts,
             "gemma3-1b 12 layers cuda:0+cpu": tied_counts}, out
+
+
+def _mixed_fixed(torch, np, card: str, cfg, rt, params):
+    """[multi-gpu-mixed] through ``FixedPasses``: the mixed drill's model
+    (float32) through the fixed-batch passes over ``cuda:0 + cpu`` against
+    ``cuda:0 + cuda:0``, at the card-vs-CPU parity geometry of phase 15.
+    The card's stage calls and the prefill's embedding replay their
+    graphs, the CPU stage, its head and drains run eagerly (the routing
+    rule), and the activation and the drained tokens cross between
+    replays.  Greedy prefill, step and rounds tokens equal, logits within
+    ``FP_TOL`` (float32 sums in other orders on the CPU).  Returns (the
+    summary, the mixed run's launch counts)."""
+    from repro_torch.core import pipeline as PL
+    from repro_torch.models import model as model_lib
+
+    pcfg = PL.PipelineConfig(2, FP_N_MB, FP_MB)
+    tokens = torch.from_numpy(np.random.RandomState(SEED + 3).randint(
+        1, cfg.vocab_size, (FP_N_MB, FP_MB, FP_S)).astype(np.int32)).to(
+            "cuda:0")
+    cur = torch.full((FP_N_MB, FP_MB), FP_S, dtype=torch.int32,
+                     device="cuda:0")
+    runs = {}
+    for mesh in (["cuda:0", "cuda:0"], list(MIXED_MESH)):
+        devs = [torch.device(d) for d in mesh]
+        model_lib.place_params(params, PL.layer_devices(cfg, devs))
+        fp = PL.FixedPasses(params, cfg, rt, pcfg, FP_CAP, devices=devs)
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = fp.prefill(tokens)
+        tok0 = logits.argmax(-1).to(torch.int32)
+        saved = _clone_tree(fp.caches)
+        step = fp.decode_step(tok0, cur)
+        _put_tree(fp.caches, saved)
+        del saved
+        rounds = fp.decode_rounds(tok0, cur, rounds=FP_R)
+        torch.cuda.synchronize()
+        runs["+".join(mesh)] = (logits.cpu(), step.cpu(), rounds.cpu(),
+                                fp.graphs.stats(), read_counts(),
+                                time.perf_counter() - t0)
+        del fp
+    (a, b), names = runs.values(), list(runs)
+    errs = [(x - y).abs().max().item() for x, y in zip(a[:2], b[:2])]
+    same = [bool((x.argmax(-1) == y.argmax(-1)).all())
+            for x, y in zip(a[:2], b[:2])] + [torch.equal(a[2], b[2])]
+    if max(errs) > FP_TOL or not all(same):
+        raise AssertionError(f"multi-gpu-mixed fixed passes: {names[1]} "
+                             f"against {names[0]}: max |logit difference| "
+                             f"{errs} (tol {FP_TOL}), greedy equal {same}")
+    st = b[3]
+    card_kinds = {"fixed-embed": 1, "fixed-prefill": FP_N_MB,
+                  "fixed-decode": FP_N_MB}
+    if st["captures_by_kind"] != card_kinds or \
+            set(st["replays_by_device"]) != {"cuda:0"} or \
+            a[3]["keys"] != 5 * FP_N_MB + 3:      # stages, heads, drains
+        raise AssertionError(f"multi-gpu-mixed fixed passes: graph books "
+                             f"{st} ({names[1]}), {a[3]} ({names[0]})")
+    log(f"[multi-gpu-mixed] fixed-batch passes through FixedPasses, "
+        f"{FP_N_MB} x {FP_MB} rows of {FP_S}, {FP_R} rounds on {card}: "
+        f"{names[1]} against {names[0]}: greedy prefill, step and round "
+        f"tokens equal, max |logit difference| prefill {errs[0]:.3e}, step "
+        f"{errs[1]:.3e} (tol {FP_TOL:g}); the card's {st['captures']} keys "
+        f"(stage 0 and the embedding) captured once and replayed "
+        f"{st['replays']} times, the CPU stage, heads and drains eager; "
+        f"{b[5]:.2f} s wall against {a[5]:.2f} s")
+    return {"equal_greedy": True, "max_abs_logit_err": errs,
+            "graphs": st, "wall_s": b[5], "card_only_wall_s": a[5]}, b[4]
 
 
 def _mixed_tied(torch, np, card: str, prompts, layout: dict, sp):
@@ -6209,10 +6495,10 @@ def phase_multi_gpu_yi(torch, np, card: str, params, pipe_outs):
     sampled) equal phase 10's one-card run's, the int8 ones a one-card
     int8 run's; a reshard 2 -> 1 -> 2 mid-run gives phase 10's streams;
     phase 15's fixed-batch passes over both cards equal the one-card passes
-    bit for bit.  The weights go back to ``cuda:0`` at the end.  Returns
-    (launch counts by path, the summary)."""
+    bit for bit (``multi_gpu_fixed``).  The weights go back to
+    ``cuda:0`` at the end.  Returns (launch counts by path, the
+    summary)."""
     from repro_torch.config import get_arch
-    from repro_torch.core import pipeline as PL
     from repro_torch.models import model as model_lib
     from repro_torch.models.common import Runtime
     from repro_torch.serving.kv_cache import PoolConfig
@@ -6318,6 +6604,27 @@ def phase_multi_gpu_yi(torch, np, card: str, params, pipe_outs):
     del llm, eng, seqs
 
     # phase 15's fixed-batch passes over both cards against one card
+    info["fixed"] = multi_gpu_fixed(torch, np, params)
+    model_lib.place_params(params, [torch.device("cuda", 0)]
+                           * cfg.num_layers)
+    return counts, info
+
+
+def multi_gpu_fixed(torch, np, params) -> dict:
+    """[multi-gpu-fixed]: phase 15's fixed-batch passes through
+    ``FixedPasses`` over ``cuda:0, cuda:1`` against ``cuda:0, cuda:0``,
+    full yi-9b (``params``, placed by stage for each; the caller puts them
+    back): prefill logits, the decode step's logits and every round's
+    tokens equal bit for bit, and each card replays its own graphs, one
+    capture a key (no graph spans two cards).  Returns the summary."""
+    from repro_torch.config import get_arch
+    from repro_torch.core import pipeline as PL
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import Runtime
+
+    cfg = get_arch("yi-9b")
+    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    two = ["cuda:0", "cuda:1"]
     _free_card(torch)
     pcfg = PL.PipelineConfig(FIXED_STAGES, FIXED_N_MB, FIXED_MB)
     rng = np.random.RandomState(SEED)
@@ -6330,36 +6637,40 @@ def phase_multi_gpu_yi(torch, np, card: str, params, pipe_outs):
     for mesh in (["cuda:0", "cuda:0"], two):
         devs = [torch.device(d) for d in mesh]
         model_lib.place_params(params, PL.layer_devices(cfg, devs))
-        caches = PL.init_pipeline_caches(cfg, pcfg, FIXED_CAP, rt,
-                                         devices=devs)
+        fp = PL.FixedPasses(params, cfg, rt, pcfg, FIXED_CAP, devices=devs)
         t0 = time.perf_counter()
-        logits, caches = PL.pipeline_prefill(params, tokens, caches, cfg,
-                                             rt, pcfg, devices=devs)
+        logits = fp.prefill(tokens)
         tok0 = logits.argmax(-1).to(torch.int32).to("cuda:0")
-        step_logits, _ = PL.pipeline_decode_step(
-            params, tok0, _clone_tree(caches), cur, cfg, rt, pcfg,
-            devices=devs)
-        rounds, _ = PL.pipeline_decode_rounds(
-            params, tok0, caches, cur, cfg, rt, pcfg, rounds=FIXED_R,
-            devices=devs)
+        saved = _clone_tree(fp.caches)
+        step_logits = fp.decode_step(tok0, cur)
+        _put_tree(fp.caches, saved)
+        del saved
+        rounds = fp.decode_rounds(tok0, cur, rounds=FIXED_R)
         for d in devs:
             torch.cuda.synchronize(d)
-        runs.append((logits.cpu(), step_logits.cpu(), rounds.cpu(),
-                     time.perf_counter() - t0))
-        del caches
+        wall = time.perf_counter() - t0
+        st = fp.graphs.stats()
+        # every stage call, head and drain replays a graph of its own
+        # card's (none spans two): one capture a key, replays on each card
+        if set(fp.graphs.captures.values()) != {1} or \
+                set(st["replays_by_device"]) != {str(d) for d in devs}:
+            raise AssertionError(f"multi-gpu-fixed {mesh}: graph books {st}")
+        runs.append((logits.cpu(), step_logits.cpu(), rounds.cpu(), wall,
+                     st))
+        del fp
     a, b = runs
     if not all(torch.equal(x, y) for x, y in zip(a[:3], b[:3])):
         raise AssertionError("multi-gpu-fixed: the passes over two cards "
                              "differ from one card's")
     log(f"[multi-gpu-fixed] phase 15's geometry ({FIXED_N_MB} x {FIXED_MB} "
-        f"rows of {FIXED_S}, {FIXED_R} rounds) over cuda:0+cuda:1: prefill "
-        "logits, the decode step's logits and every round's tokens equal "
-        f"the one-card passes bit for bit ({a[3]:.2f} s one card, "
-        f"{b[3]:.2f} s two, wall)")
-    info["fixed"] = {"equal": True, "one_card_s": a[3], "two_cards_s": b[3]}
-    model_lib.place_params(params, [torch.device("cuda", 0)]
-                           * cfg.num_layers)
-    return counts, info
+        f"rows of {FIXED_S}, {FIXED_R} rounds) through FixedPasses over "
+        "cuda:0+cuda:1: prefill logits, the decode step's logits and every "
+        "round's tokens equal the one-card passes bit for bit; each card "
+        f"replays its own stage graphs ({b[4]['replays_by_device']} "
+        f"replays, {b[4]['captures']} keys captured once each); "
+        f"{a[3]:.2f} s one card, {b[3]:.2f} s two, wall, captures included")
+    return {"equal": True, "one_card_s": a[3], "two_cards_s": b[3],
+            "graphs": b[4]}
 
 
 def phase_multi_gpu_full_depth(torch, np, card: str, arch: str,

@@ -68,12 +68,16 @@ input, copied to its device (the JAX passes ship it raw: no wire codec),
 and every cache is written in place.
 A stage call sees one microbatch and the epilogue of a prefill or a
 decode step the whole batch, the JAX passes' call boundaries, which an
-MoE layer's capacity follows.
+MoE layer's capacity follows.  These three functions are the eager form.
+:class:`FixedPasses` runs the same passes as the counterpart of the JAX
+package's jitted ones: it owns the caches and static inputs and outputs
+a device, and replays a CUDA graph a stage call (``serving.step_graph``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -84,9 +88,11 @@ from repro_torch.distributed.compression import (int8_compress_rows,
 from repro_torch.models import embedding as embed_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import (Runtime, make_layer_plan,
-                                       resolve_device, text_positions3)
+                                       resolve_device, stage_device,
+                                       text_positions3)
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.sampler import greedy, sample_batched, token_logprobs
+from repro_torch.serving.step_graph import StepGraphs
 
 WIRE_DTYPES = ("fp32", "int8")
 
@@ -656,3 +662,371 @@ def pipeline_decode_rounds(params: dict, tokens: torch.Tensor, caches: dict,
             p[m] += 1
         outs[r, m] = new
     return outs, caches
+
+
+# ---------------------------------------------------------------------------
+# The fixed-batch passes, captured
+# ---------------------------------------------------------------------------
+
+
+def clear_pipeline_caches(caches: dict) -> dict:
+    """Dense pipeline caches (``init_pipeline_caches``) back to their
+    initial values, in place: attention and ring positions -1, their keys
+    and values 0, every recurrent state 0 except an sLSTM layer's
+    normaliser ``n`` (the one 2-D ``n``), 1e-6."""
+    for part in caches["stage"] + [caches["epilogue"]]:
+        for layer in part["layers"]:
+            for name, t in (layer or {}).items():
+                if name == "pos":
+                    t.fill_(-1)
+                elif name == "n" and t.dim() == 2:
+                    t.fill_(1e-6)
+                else:
+                    t.zero_()
+    return caches
+
+
+def _state_leaves(part: dict, layers: Tuple[int, int],
+                  rows: Optional[slice] = None) -> List[torch.Tensor]:
+    """The recurrent-state leaves of dense caches ``part`` in the layer
+    range ``layers`` (``rows`` of each, as views): what a stage call
+    changes that a second call would step again.  Attention caches and
+    rings are written by position (``kv_cache.state_rows``' rule)."""
+    lo, hi = layers
+    return [t if rows is None else t[rows]
+            for c in part["layers"][lo:hi] if c is not None and "pos" not in c
+            for t in c.values()]
+
+
+class FixedPasses:
+    """The fixed-batch passes with every stage call replayed from a CUDA
+    graph: the counterpart of the JAX package's jitted
+    ``pipeline_prefill``, ``pipeline_decode_step`` and
+    ``pipeline_decode_rounds``, giving the functional passes' results bit
+    for bit.
+
+    Built over the weights (placed by stage with
+    ``models.model.place_params`` where ``devices`` holds several), it
+    owns the dense caches (``init_pipeline_caches``, :attr:`caches`), the
+    tied head's copy (``models.model.tied_head``, once), the static
+    inputs and outputs on each device, and one
+    ``serving.step_graph.StepGraphs`` (:attr:`graphs`).  Each step reads
+    and writes only those, on one device:
+
+    - ``("fixed-decode", s, m)`` / ``("fixed-prefill", s, m, S)``: stage
+      ``s``'s layers over microbatch ``m``'s cache rows, from the static
+      tokens (stage 0 of a decode, embedded in the step), the static
+      embedded prompts (stage 0 of a prefill) or the stage's static input,
+      at the static positions on its device, into its static output (the
+      last stage's into the drained microbatch's rows);
+    - ``("fixed-embed", inputs)``: a prefill's whole-batch embedding and
+      positions;
+    - ``("fixed-prefill-head", S)`` / ``("fixed-decode-head",)``: the
+      whole-batch epilogue and head of a prefill and a decode step;
+    - ``("fixed-drain", m)``: a greedy round's drain of microbatch ``m``
+      (the epilogue on its rows, the head, the greedy pick into the static
+      token slot, its positions advanced).
+
+    The Python tick loop stays: it replays the steps and hands each
+    stage's output to the next stage's static input between replays (a
+    copy, across devices where the stages' differ), and puts a drained
+    token where stage 0 and the result read it.  A key is captured at its
+    first call, after a warm-up whose recurrent-state rows are copied
+    aside and back; on the CPU the same steps run eagerly.  A prefill
+    starts the recurrent layers from the states it finds: :meth:`reset`
+    clears the caches in place before a new batch."""
+
+    def __init__(self, params: dict, cfg: ModelConfig, rt: Runtime,
+                 pcfg: PipelineConfig, capacity: int, devices=None,
+                 device=None):
+        self.params, self.cfg, self.rt, self.pcfg = params, cfg, rt, pcfg
+        self.devices = [stage_device(d) for d in _stage_devices(
+            devices, device, pcfg.n_stages)]
+        self.caches = init_pipeline_caches(cfg, pcfg, capacity, rt,
+                                           devices=self.devices)
+        self.head = model_lib.tied_head(params, cfg, self.devices[-1])
+        self.graphs = StepGraphs()
+        self._ranges = stage_ranges(cfg, pcfg.n_stages)
+        self._vision = cfg.frontend == "vision_patches"
+        first, last = self.devices[0], self.devices[-1]
+        i32 = dict(dtype=torch.int32)
+        shape = (pcfg.n_microbatches, pcfg.mb_size)
+        # stage 0's tokens and the drained ones (one tensor on one device)
+        self._tok = {d: torch.zeros(shape, device=d, **i32)
+                     for d in dict.fromkeys((first, last))}
+        # a decode's positions, one copy a device
+        self._pos = {d: torch.zeros(shape, device=d, **i32)
+                     for d in dict.fromkeys(self.devices)}
+        self._seqs: dict = {}           # "decode" / S -> activations, logits
+        self._raw: dict = {}            # prefill input signature -> inputs
+
+    # -- static tensors -----------------------------------------------------
+
+    def _seq(self, S):
+        """The static activations, positions and logits of a decode
+        (``S == "decode"``) or of ``S``-token prefills, made at first
+        use."""
+        if S in self._seqs:
+            return self._seqs[S]
+        cfg, pcfg, devs = self.cfg, self.pcfg, self.devices
+        n_mb, mb = pcfg.n_microbatches, pcfg.mb_size
+        L = 1 if S == "decode" else S
+        act = dict(dtype=self.rt.compute_dtype)
+        seq = {"out": [torch.zeros((mb, L, cfg.d_model), device=d, **act)
+                       for d in devs[:-1]],
+               "in": [None] + [torch.zeros((mb, L, cfg.d_model), device=d,
+                                           **act) for d in devs[1:]],
+               "drained": torch.zeros((n_mb, mb, L, cfg.d_model),
+                                      device=devs[-1], **act),
+               "logits": torch.zeros((n_mb, mb, cfg.vocab_size),
+                                     dtype=torch.float32, device=devs[-1])}
+        if S != "decode":
+            pos = (n_mb, 3, mb, S) if self._vision else (n_mb, mb, S)
+            seq["queue"] = torch.zeros((n_mb, mb, S, cfg.d_model),
+                                       device=devs[0], **act)
+            seq["pos"] = {d: torch.zeros(pos, dtype=torch.int64, device=d)
+                          for d in dict.fromkeys(devs)}
+        self._seqs[S] = seq
+        return seq
+
+    def _prompt_len(self, inputs: dict) -> int:
+        """The embedded length of ``inputs`` (``models.model.embed_inputs``'
+        branches)."""
+        if self.cfg.frontend == "audio_frames" and "frames" in inputs:
+            return inputs["frames"].shape[2]
+        if self._vision and "patches" in inputs:
+            return inputs["patches"].shape[2] + inputs["tokens"].shape[2]
+        return inputs["tokens"].shape[2]
+
+    # -- the steps ------------------------------------------------------------
+
+    def _stage(self, s: int, m: int, S) -> None:
+        """Stage ``s`` over microbatch ``m`` of a decode or an S-token
+        prefill (a graph a key)."""
+        dev, seq = self.devices[s], self._seq(S)
+        decode = S == "decode"
+        if s > 0:
+            x = seq["in"][s]
+        elif decode:
+            x = embed_decode_tokens(self.params, self._tok[dev][m], self.cfg,
+                                    self.rt)
+        else:
+            x = seq["queue"][m]
+        if decode:
+            p1 = self._pos[dev][m][:, None]
+            positions = text_positions3(p1) if self._vision else p1
+        else:
+            positions = seq["pos"][dev][m]
+        y = model_lib.run_layers(
+            self.params, x, self.cfg, self.rt,
+            mode="decode" if decode else "prefill",
+            caches=self.caches["stage"][m], positions=positions,
+            layers=self._ranges[s])
+        (seq["drained"][m] if s == self.pcfg.n_stages - 1
+         else seq["out"][s]).copy_(y)
+
+    def _embed(self, sig: tuple, S: int) -> None:
+        """A prefill's embedding and positions over the whole batch into
+        stage 0's static queue and positions."""
+        n_mb, mb = self.pcfg.n_microbatches, self.pcfg.mb_size
+        seq = self._seq(S)
+        x, positions = model_lib.embed_inputs(self.params, self._raw[sig],
+                                              self.cfg, self.rt)
+        seq["queue"].copy_(x.reshape(n_mb, mb, S, self.cfg.d_model))
+        if positions.dim() == 3:            # (3, B, S) M-RoPE
+            pq = positions.reshape(3, n_mb, mb, S).transpose(0, 1)
+        else:
+            pq = positions.reshape(n_mb, mb, S)
+        seq["pos"][self.devices[0]].copy_(pq)
+
+    def _prefill_head(self, S: int) -> None:
+        """The whole-batch epilogue and head of an S-token prefill."""
+        B, D = self.pcfg.global_batch, self.cfg.d_model
+        seq = self._seq(S)
+        pq = seq["pos"][self.devices[-1]]
+        positions = pq.transpose(0, 1).reshape(3, B, S) if pq.dim() == 4 \
+            else pq.reshape(B, S)
+        xf = _epilogue(self.params, seq["drained"].reshape(B, S, D),
+                       self.cfg, self.rt, mode="prefill",
+                       caches=self.caches["epilogue"], positions=positions,
+                       layers=self._ranges[-1])
+        logits = model_lib.decode_logits(self.params, xf[:, -1:], self.cfg,
+                                         self.head)
+        seq["logits"].copy_(logits.reshape(seq["logits"].shape))
+
+    def _decode_head(self) -> None:
+        """The whole-batch epilogue and head of a decode step."""
+        B, D = self.pcfg.global_batch, self.cfg.d_model
+        seq = self._seq("decode")
+        pos = self._pos[self.devices[-1]].reshape(B, 1)
+        if self._vision:
+            pos = text_positions3(pos)
+        xf = _epilogue(self.params, seq["drained"].reshape(B, 1, D),
+                       self.cfg, self.rt, mode="decode",
+                       caches=self.caches["epilogue"], positions=pos,
+                       layers=self._ranges[-1])
+        logits = model_lib.decode_logits(self.params, xf, self.cfg,
+                                         self.head)
+        seq["logits"].copy_(logits.reshape(seq["logits"].shape))
+
+    def _drain(self, m: int) -> None:
+        """A greedy round's drain of microbatch ``m``: the epilogue on its
+        rows, the head, the greedy token into the static slot the result
+        and stage 0 read, its positions on this device advanced."""
+        dev, mb = self.devices[-1], self.pcfg.mb_size
+        p1 = self._pos[dev][m][:, None]
+        xf = _epilogue(self.params, self._seq("decode")["drained"][m],
+                       self.cfg, self.rt, mode="decode",
+                       caches=_rows(self.caches["epilogue"], m * mb, mb),
+                       positions=text_positions3(p1) if self._vision else p1,
+                       layers=self._ranges[-1])
+        new = greedy(model_lib.decode_logits(self.params, xf, self.cfg,
+                                             self.head))
+        self._tok[dev][m].copy_(new)
+        self._pos[dev][m] += 1
+
+    # -- what each step steps again (for the warm-up's restore) --------------
+
+    def _stage_state(self, s: int, m: int) -> list:
+        return _state_leaves(self.caches["stage"][m], self._ranges[s])
+
+    def _head_state(self) -> list:
+        return _state_leaves(self.caches["epilogue"], self._ranges[-1])
+
+    def _drain_state(self, m: int) -> list:
+        mb = self.pcfg.mb_size
+        return _state_leaves(self.caches["epilogue"], self._ranges[-1],
+                             slice(m * mb, (m + 1) * mb)) + \
+            [self._pos[self.devices[-1]][m]]
+
+    # -- the passes -------------------------------------------------------------
+
+    def stage_call(self, s: int, m: int, S="decode") -> None:
+        """Stage ``s`` over microbatch ``m`` of a decode (or of an
+        ``S``-token prefill), replayed from its graph on a card (captured
+        at its first call): what each tick of a pass runs."""
+        key = ("fixed-decode", s, m) if S == "decode" else \
+            ("fixed-prefill", s, m, S)
+        self.graphs.run(key, self.devices[s], partial(self._stage, s, m, S),
+                        state=partial(self._stage_state, s, m))
+
+    def drain_call(self, m: int) -> None:
+        """A greedy round's drain of microbatch ``m``, replayed from its
+        graph on a card (captured at its first call)."""
+        self.graphs.run(("fixed-drain", m), self.devices[-1],
+                        partial(self._drain, m),
+                        state=partial(self._drain_state, m))
+
+    def _hand_on(self, seq: dict, ran: Sequence[int]) -> None:
+        """Each stage that ran hands its output to the next stage's static
+        input for the next tick (the ppermute), after every stage of the
+        tick read its own."""
+        for s in ran:
+            if s < self.pcfg.n_stages - 1:
+                seq["in"][s + 1].copy_(seq["out"][s])
+
+    def _pass(self, S) -> None:
+        """One fill and drain of the schedule (``_pipeline_pass``): at tick
+        ``t`` stage ``s`` calls microbatch ``t - s``, a decode's (``S ==
+        "decode"``) or an S-token prefill's; the last stage's outputs land
+        in the drained rows."""
+        pcfg, seq = self.pcfg, self._seq(S)
+        for t in range(pcfg.n_ticks):
+            ran = [s for s in range(pcfg.n_stages)
+                   if 0 <= t - s < pcfg.n_microbatches]
+            for s in ran:
+                self.stage_call(s, t - s, S)
+            self._hand_on(seq, ran)
+
+    def _load_decode(self, tokens: torch.Tensor,
+                     cur_pos: torch.Tensor) -> None:
+        shape = (self.pcfg.n_microbatches, self.pcfg.mb_size)
+        _validate_tick_args("FixedPasses", n_stages=self.pcfg.n_stages,
+                            checks={"tokens": (tokens.shape, shape),
+                                    "cur_pos": (cur_pos.shape, shape)})
+        self._tok[self.devices[0]].copy_(tokens)
+        for p in self._pos.values():
+            p.copy_(cur_pos)
+
+    def reset(self) -> None:
+        """Clear the caches in place (``clear_pipeline_caches``), before a
+        new batch's prefill."""
+        clear_pipeline_caches(self.caches)
+
+    def prefill(self, inputs) -> torch.Tensor:
+        """``pipeline_prefill`` on the held caches: ``inputs`` as there
+        (``{"tokens"}``, ``{"frames"}`` or ``{"tokens", "patches"}``, or a
+        tokens tensor, (n_mb, mb, ...) leading).  Returns the last logits
+        (n_mb, mb, V) float32 on the last stage's device (a copy)."""
+        if isinstance(inputs, torch.Tensor):
+            inputs = {"tokens": inputs}
+        pcfg, devs = self.pcfg, self.devices
+        S = self._prompt_len(inputs)
+        sig = tuple((k, tuple(v.shape), v.dtype)
+                    for k, v in sorted(inputs.items()))
+        raw = self._raw.get(sig)
+        if raw is None:
+            raw = self._raw[sig] = {
+                k: torch.zeros((pcfg.global_batch,) + tuple(v.shape[2:]),
+                               dtype=v.dtype, device=devs[0])
+                for k, v in inputs.items()}
+        for k, v in inputs.items():
+            raw[k].copy_(v.reshape(raw[k].shape))
+        seq = self._seq(S)
+        self.graphs.run(("fixed-embed", sig), devs[0],
+                        partial(self._embed, sig, S))
+        for d, p in seq["pos"].items():
+            if d != devs[0]:
+                p.copy_(seq["pos"][devs[0]])
+        self._pass(S)
+        self.graphs.run(("fixed-prefill-head", S), devs[-1],
+                        partial(self._prefill_head, S),
+                        state=self._head_state)
+        return seq["logits"].clone()
+
+    def decode_step(self, tokens: torch.Tensor,
+                    cur_pos: torch.Tensor) -> torch.Tensor:
+        """``pipeline_decode_step`` on the held caches: tokens / cur_pos
+        (n_mb, mb) int32.  Returns the logits (n_mb, mb, V) float32 on the
+        last stage's device (a copy)."""
+        self._load_decode(tokens, cur_pos)
+        self._pass("decode")
+        self.graphs.run(("fixed-decode-head",), self.devices[-1],
+                        self._decode_head, state=self._head_state)
+        return self._seq("decode")["logits"].clone()
+
+    def decode_rounds(self, tokens: torch.Tensor, cur_pos: torch.Tensor, *,
+                      rounds: int) -> torch.Tensor:
+        """``pipeline_decode_rounds`` on the held caches: ``rounds`` greedy
+        tokens a microbatch in one circular pass.  Returns every token
+        (rounds, n_mb, mb) int32 on stage 0's device.  Requires N_B >=
+        N_S."""
+        pcfg, devs = self.pcfg, self.devices
+        n_s, n_mb = pcfg.n_stages, pcfg.n_microbatches
+        if n_mb < n_s:
+            raise ValueError("multi-round circular decode needs N_B >= N_S")
+        self._load_decode(tokens, cur_pos)
+        seq = self._seq("decode")
+        tok_in, tok_out = self._tok[devs[0]], self._tok[devs[-1]]
+        outs = torch.zeros((rounds, n_mb, pcfg.mb_size), dtype=torch.int32,
+                           device=devs[0])
+        for t in range(rounds * n_mb + n_s - 1):
+            ran = [s for s in range(n_s)
+                   if t - s >= 0 and (t - s) // n_mb < rounds]
+            for s in ran:
+                self.stage_call(s, (t - s) % n_mb, "decode")
+            self._hand_on(seq, ran)
+            k = t - (n_s - 1)
+            if k < 0 or k // n_mb >= rounds:
+                continue                    # nothing drains this tick
+            m = k % n_mb
+            self.drain_call(m)
+            # the return link: the token to the result and to stage 0, the
+            # positions advanced on the other devices
+            outs[k // n_mb, m].copy_(tok_out[m])
+            if tok_in is not tok_out:
+                tok_in[m].copy_(tok_out[m])
+            for d, p in self._pos.items():
+                if d != devs[-1]:
+                    p[m] += 1
+        return outs

@@ -15,7 +15,11 @@ indices; ``Compressor`` runs either over a gradient tree with error
 feedback (each step's residual is added back the next step, so the
 compression noise stays O(1) over training), and prices the wire
 (``wire_bytes``, ``compression_ratio``).  ``roundtrip`` is compress ->
-decompress, what the training step applies before the optimizer.
+decompress, what the training step applies before the optimizer.  The
+residual is allocated once (``prime``, or the first round) and each
+round writes the new one into it, so a captured training step, which
+reads and writes fixed addresses, carries the error feedback from one
+replay to the next as the eager loop does.
 """
 
 from __future__ import annotations
@@ -113,16 +117,24 @@ class Compressor:
                 total += n * leaf.element_size()
         return total
 
-    def roundtrip(self, grads):
-        """compress -> decompress of every leaf, the residual of the
-        previous round added first (error feedback) and the new residual
-        kept; the outputs in each gradient's dtype."""
-        if self.method == "none":
-            return grads
-        if self._residual is None and self.error_feedback:
+    def prime(self, grads) -> None:
+        """Allocate the zero residual like ``grads`` (a tree of their
+        shapes and devices) if there is none yet: before a training step
+        is captured, so the graph reads and writes this residual."""
+        if self._residual is None and self.error_feedback and \
+                self.method != "none":
             self._residual = tree_map(
                 lambda g: torch.zeros(g.shape, dtype=torch.float32,
                                       device=g.device), grads)
+
+    def roundtrip(self, grads):
+        """compress -> decompress of every leaf, the residual of the
+        previous round added first (error feedback) and the new residual
+        written into the residual's own tensors, a leaf at a time; the
+        outputs in each gradient's dtype."""
+        if self.method == "none":
+            return grads
+        self.prime(grads)
 
         def one(g, r):
             gf = g.float() + (r if r is not None else 0.0)
@@ -134,10 +146,12 @@ class Compressor:
 
         if not self.error_feedback:
             return tree_map(lambda g: one(g, None)[0], grads)
-        pairs = [one(g, r) for g, r in zip(leaves(grads),
-                                           leaves(self._residual))]
-        self._residual = unflatten_like(grads, [p[1] for p in pairs])
-        return unflatten_like(grads, [p[0] for p in pairs])
+        outs = []
+        for g, r in zip(leaves(grads), leaves(self._residual)):
+            out, new_r = one(g, r)
+            r.copy_(new_r)
+            outs.append(out)
+        return unflatten_like(grads, outs)
 
     def compression_ratio(self, grads) -> float:
         """float32 bytes of ``grads`` over its wire bytes."""

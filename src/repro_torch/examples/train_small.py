@@ -1,7 +1,10 @@
 """End-to-end training: train a reduced model for a few hundred
 steps on the synthetic pipeline with checkpointing (counterpart of the JAX
-package's ``examples/train_small.py``).  The checkpoints go to a temporary
-directory under the checkout's git-ignored ``build/``, removed at exit.
+package's ``examples/train_small.py``).  The steps go through
+``training.train_loop.train``: on a card the first runs eagerly and every
+later one replays the captured step, which updates the weights and
+moments in place.  The checkpoints go to a temporary directory under the
+checkout's git-ignored ``build/``, removed at exit.
 
     PYTHONPATH=src python -m repro_torch.examples.train_small \\
         [--steps 300] [--device cpu]

@@ -4,7 +4,7 @@ captured CUDA graph, timed on the host clock and on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode \
       [--arch yi-9b|gemma3-12b|recurrentgemma-9b|xlstm-1.3b|
-              phi3.5-moe-42b-a6.6b ...]
+              phi3.5-moe-42b-a6.6b ...] [--pass fixed|train ...]
 
 One case an arch (all five without ``--arch``), each built at full width
 in bf16 (random weights from seed 0) and run through ``models.model``
@@ -28,6 +28,18 @@ directly (no engine):
 * phi3.5-moe decode: 16 rows of 512 tokens at 24 of its 32 layers (the
   full model's 83.7 GB of weights do not fit one card; ``chip_smoke.py``
   serves the same depth).
+
+Two more cases (``--pass``; both run when neither flag is given):
+
+* ``fixed``: full yi-9b through ``core.pipeline.FixedPasses`` at
+  ``chip_smoke.py``'s ``[fixed-pipe]`` geometry (2 stages of 24 layers, 4
+  microbatches of 4 rows, 512-token prompts): one decode stage call (4
+  rows, 24 layers) and one greedy round's drain (the head and the pick
+  over 4 rows), each eager and replayed from its graph, at position 512;
+* ``train``: full gemma3-1b training steps in float32 at batch 4 x 1024
+  (``chip_smoke.py``'s ``[train-gemma3-1b]``): the training loop's step
+  (``training.train_loop``'s static step, the update in place) eager, and
+  replayed from the graph ``train`` captures at its second step.
 
 For each decode it prints the eager step (host clock around synchronised
 steps, untraced and traced; the device time inside a step by kernel, from
@@ -61,6 +73,11 @@ CASES = {"yi-9b": (700, 0, 0), "gemma3-12b": (1300, 1328, 0),
 CHUNKS = {"yi-9b": (8, 32)}
 # torch.cuda._sleep cycles a ms at the H100's top SM clock (1.98 GHz)
 SPIN_CYCLES_PER_MS = 1_980_000
+# --pass fixed: (stages, microbatches, rows, prompt, capacity), yi-9b
+FIXED = (2, 4, 4, 512, 576)
+# --pass train: gemma3-1b, (batch, sequence), float32; steps a timing
+TRAIN, TRAIN_STEPS = (4, 1024), 3
+PASSES = ("fixed", "train")
 
 
 def profile(torch, fn, steps: int):
@@ -320,6 +337,100 @@ def prefill_chunk_case(torch, np, cfg, rt, params, caches, be, dev,
            **replay_extra(torch, be, replay, STEPS))
 
 
+def fixed_case(torch, np) -> None:
+    """``--pass fixed``: a yi-9b decode stage call and a rounds drain of
+    ``FixedPasses``, eager (the step's body) and replayed."""
+    from repro_torch.config import get_arch
+    from repro_torch.core import pipeline as PL
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import Runtime, resolve_device
+
+    dev = resolve_device("cuda")
+    cfg = get_arch("yi-9b")
+    rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    params = model_lib.init_params(cfg, SEED, rt, dev)
+    n_s, n_mb, mb, S, cap = FIXED
+    fp = PL.FixedPasses(params, cfg, rt, PL.PipelineConfig(n_s, n_mb, mb),
+                        cap, device=dev)
+    prompts = torch.randint(1, cfg.vocab_size, (n_mb, mb, S),
+                            dtype=torch.int32, device=dev)
+    tok = fp.prefill(prompts).argmax(-1).to(torch.int32)
+    cur = torch.full((n_mb, mb), S, dtype=torch.int32, device=dev)
+    fp.decode_rounds(tok, cur, rounds=1)    # captures the stages, drains
+    # each call starts from position S (a drain advances it)
+    pos = fp._pos[fp.devices[-1]]
+    calls = {"stage": (lambda: fp._stage(0, 0, "decode"),
+                       lambda: fp.stage_call(0, 0)),
+             "drain": (lambda: fp._drain(0), lambda: fp.drain_call(0))}
+    for name, (eager, replay) in calls.items():
+        def at(fn):
+            def call():
+                pos.fill_(S)
+                fn()
+            return call
+        step_ms, traced_ms, rows = profile(torch, at(eager), STEPS)
+        replay_ms, _, replay_rows = profile(torch, at(replay), STEPS)
+        replay_dev = sum(r[0] for r in replay_rows)
+        label = (f"yi-9b fixed-pass decode stage call ({mb} rows, "
+                 f"{cfg.num_layers // n_s} layers)" if name == "stage" else
+                 f"yi-9b fixed-pass rounds drain ({mb} rows: head and "
+                 "greedy pick)")
+        report(label + " bf16", cfg, step_ms, traced_ms, rows, {},
+               replay_step_ms=replay_ms, replay_device_ms=replay_dev,
+               replay_device_busy=replay_dev / replay_ms,
+               replay_span_ms=device_span(torch, at(replay), STEPS,
+                                          replay_ms),
+               replay_kernel_rows=len(replay_rows), replay_rows=replay_rows)
+
+
+def train_case(torch, np) -> None:
+    """``--pass train``: a gemma3-1b float32 training step at batch 4 x
+    1024, the loop's static step called eagerly and replayed."""
+    from functools import partial
+
+    from repro_torch.config import get_arch
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import Runtime, resolve_device
+    from repro_torch.serving.step_graph import StepGraphs
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_loop
+
+    dev = resolve_device("cuda")
+    cfg = get_arch("gemma3-1b")
+    rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
+    ocfg = opt_lib.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=100)
+    params = model_lib.init_params(cfg, SEED, rt, dev)
+    opt = opt_lib.init(ocfg, params)
+    B, S = TRAIN
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in next(batches(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B,
+                   seed=SEED))).items()}
+    metrics = {n: torch.zeros((), dtype=torch.float32, device=dev)
+               for n in ("loss", "lr", "grad_norm")}
+    step = partial(train_loop._static_step, params, opt, batch, metrics,
+                   cfg=cfg, rt=rt, ocfg=ocfg, accum_steps=1,
+                   compressor=None)
+    graphs = StepGraphs(release_cache=True)
+    step_ms, traced_ms, rows = profile(torch, step, TRAIN_STEPS)
+    # profile's warm-up calls: the eager first run, the capture, a replay
+    replay = partial(graphs.run, ("train",), dev, step, defer=True)
+    replay_ms, _, replay_rows = profile(torch, replay, TRAIN_STEPS)
+    replay_dev = sum(r[0] for r in replay_rows)
+    st = graphs.stats()
+    report(f"gemma3-1b training step B={B} S={S} float32", cfg, step_ms,
+           traced_ms, rows, {},
+           replay_step_ms=replay_ms, replay_device_ms=replay_dev,
+           replay_device_busy=replay_dev / replay_ms,
+           replay_span_ms=device_span(torch, replay, TRAIN_STEPS,
+                                      replay_ms),
+           replay_kernel_rows=len(replay_rows), replay_rows=replay_rows,
+           capture_s=st["capture_s"], instantiate_s=st["instantiate_s"],
+           peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+           peak_reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30)
+    graphs.clear()
+
+
 def get_layers(arch: str) -> int:
     from repro_torch.config import get_arch
     return get_arch(arch).num_layers
@@ -329,12 +440,21 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", action="append", choices=sorted(CASES),
                     help="profile this arch (repeatable; default: all)")
+    ap.add_argument("--pass", dest="passes", action="append",
+                    choices=PASSES, help="profile a fixed-pass stage call "
+                    "and drain, or a training step (repeatable; default: "
+                    "both, when --arch is not given either)")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
 
-    for arch in args.arch or list(CASES):
-        run_case(torch, np, arch)
+    everything = not args.arch and not args.passes
+    cases = [(run_case, arch) for arch in
+             (list(CASES) if everything else args.arch or [])]
+    cases += [({"fixed": fixed_case, "train": train_case}[p],) for p in
+              (PASSES if everything else args.passes or [])]
+    for fn, *arg in cases:
+        fn(torch, np, *arg)
         gc.collect()                    # this case's weights and caches
         torch.cuda.empty_cache()
 

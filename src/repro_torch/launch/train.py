@@ -6,9 +6,13 @@ float32, with checkpoint / restart fault tolerance.
       --arch gemma3-1b --steps 4 --batch 2 --seq 16 [--resume] \\
       [--compress int8]
 
-It runs on ``cuda`` unless ``--device`` names another device.  As in the
-JAX driver, ``--resume`` restores the latest checkpoint's parameters and
-optimizer state and then draws batches from the start of the data stream.
+It runs on ``cuda`` unless ``--device`` names another device, through
+``training.train_loop.train``: on a card the first step runs eagerly and
+every later one replays the captured step (the weights and moments
+updated in place, as the JAX driver's jitted step donates them).  As in
+the JAX driver, ``--resume`` restores the latest checkpoint's parameters
+and optimizer state and then draws batches from the start of the data
+stream.
 """
 
 from __future__ import annotations

@@ -23,7 +23,18 @@ The keys, by their first element (the key's kind):
 - ``("exact", L, s)``: stage ``s`` of an exact prefill of a prompt padded
   to ``L`` tokens (``OfflineEngine._prefill_len``'s bucket); the slot and
   the last index are read from device tensors, so one graph serves every
-  slot, and the last stage also runs the epilogue and the head.
+  slot, and the last stage also runs the epilogue and the head;
+- ``("fixed-decode", s, m)`` and ``("fixed-prefill", s, m, S)``: stage
+  ``s`` of a fixed-batch pass over microbatch ``m`` (S-token prompts for
+  a prefill), ``("fixed-embed", inputs)``, ``("fixed-prefill-head", S)``,
+  ``("fixed-decode-head",)`` and ``("fixed-drain", m)``: the prefill's
+  embedding, the whole-batch epilogue and head of a prefill and of a
+  decode step, and a greedy round's drain of microbatch ``m``
+  (``core.pipeline.FixedPasses``, the counterpart of the jitted passes);
+- ``("train", batch shapes, accum_steps)``: a training step
+  (``training.train_loop.train``, the counterpart of its
+  ``jax.jit(step_fn, donate_argnums=(0, 1))``), captured at its second
+  step, its first run eagerly.
 
 :class:`StepGraphs` holds a backend's graphs, one a key:
 
@@ -33,23 +44,35 @@ The keys, by their first element (the key's kind):
 - A key is captured at its first run, or at its second with ``defer``
   (the exact-prefill keys: a serve may meet a bucket once, and a capture
   costs about an eager run of host time, so a bucket seen once runs
-  eagerly; its first run is the step called as it is, the call's
-  result).  A key captured at its first run first runs once eagerly on
-  the current stream, the engine's (the warm-up: it loads kernel
-  libraries, sets their attributes, resolves the driver's entry points
-  and fills the lazily built tables outside the capture), with the
-  recurrent-state rows the step updates (``state``) copied aside before
-  and back after it; pools and rings are written by position, so the
-  replay writes the same slots again.  A deferred key's eager first run
-  did all that already.  Then the step is captured on a side stream with
-  the paged kernel's workspace pinned, and replayed: from its capture
-  on, every run of the key is a replay.
+  eagerly; its first run is the step called as it is, the call's result;
+  and the training step, whose eager first step is step 1).  A key
+  captured at its first run first runs once eagerly on the current
+  stream, the engine's (the warm-up: it loads kernel libraries, sets
+  their attributes, resolves the driver's entry points and fills the
+  lazily built tables outside the capture), with the recurrent-state
+  rows the step updates (``state``) copied aside before and back after
+  it; pools and rings are written by position, so the replay writes the
+  same slots again.  A deferred key's eager first run did all that
+  already, and its rows are not copied: a CUDA capture runs nothing
+  (``capture_runs_step`` is false; a stand-in whose capture runs the
+  step sets it, and the rows are then copied aside and back around the
+  capture too).  Then the step is captured on the card's capture stream
+  with the paged kernel's workspace pinned, and replayed: from its
+  capture on, every run of the key is a replay.  With ``release_cache``
+  the card's cached free blocks are released first
+  (``torch.cuda.empty_cache``): a capture cannot take blocks from the
+  default pool, where a large eager first run, a training step's, left
+  its activations' blocks.
 - Launch counts stay what an eager serve counts.  The wrappers' counters
   (``.launches``) move while a step is captured; the graph keeps those
   counts and adds them at every replay, and the counters are put back
   after the capture.  A warm-up's launches belong to the capture, not to
   a call: they are booked in ``warmup_launches`` and put back too.  A
   deferred key's eager first run counts as the eager call it is.
+- Every capture on a card runs on one stream made for it
+  (``_capture_stream``), whose cuBLAS workspaces are made before the
+  first capture: a workspace made inside a capture would pin a segment
+  of that graph's pool for the process's life.
 - All of a backend's graphs on a card share one memory pool
   (``torch.cuda.graph_pool_handle``).  That is safe in any replay order
   only because no graph's output lives in the pool: every tensor a step
@@ -65,6 +88,9 @@ The keys, by their first element (the key's kind):
   a captured launch keeps the addresses it was captured with: what they
   read is made inside the step (in the graph's pool) or is a static
   tensor, never a tensor made outside the graph per call.
+- The cyclic garbage collector is off while a step is recorded: a
+  dropped backend's graphs freed by a collection during another capture
+  would invalidate it.
 - Off the card (a CPU device, the CPU stage of a mixed pipeline) the step
   is called as it is, every time: the routing rule.  A capture or replay
   that fails raises; nothing falls back to the eager step on the card.
@@ -73,6 +99,7 @@ The keys, by their first element (the key's kind):
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from collections import Counter
 from dataclasses import dataclass
@@ -84,7 +111,9 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import rglru_scan as _scan
 
-# the kinds of the prefill keys (the others are decode keys)
+# the kinds of the serving keys, decode and prefill (the fixed passes' and
+# the training step's are in neither)
+DECODE_KINDS = ("local", "stage", "drain")
 PREFILL_KINDS = ("chunk", "pf-stage", "pf-drain", "exact")
 
 
@@ -122,6 +151,31 @@ def _kind(key: Hashable):
     return key[0] if isinstance(key, tuple) else key
 
 
+# one capture stream a card for the process.  cuBLAS keeps a workspace a
+# (handle, stream) for the process's life, made at the stream's first
+# GEMM: made inside a capture, it would sit in that graph's pool and keep
+# the pool segment it was cut from (4 GiB of a gemma3-1b training step's)
+# reserved after the graph is gone.  So the stream's first GEMMs run
+# here, before any capture, and every capture uses the stream.
+_CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """``device``'s capture stream, its cuBLAS and cuBLASLt workspaces
+    made at its creation (a product and a product with a bias, float32
+    and bf16)."""
+    stream = _CAPTURE_STREAMS.get(device)
+    if stream is None:
+        stream = torch.cuda.Stream(device)
+        with torch.cuda.stream(stream):
+            for dtype in (torch.float32, torch.bfloat16):
+                a = torch.ones((64, 64), dtype=dtype, device=device)
+                torch.addmm(a[0], a, a)
+                torch.mm(a, a)
+        _CAPTURE_STREAMS[device] = stream
+    return stream
+
+
 @dataclass
 class _Entry:
     graph: object                   # torch.cuda.CUDAGraph (or a test's)
@@ -132,13 +186,19 @@ class _Entry:
 class StepGraphs:
     """One backend's captured steps, one a key (see the module docstring).
     ``prepare(device)`` runs once a card before its first capture (the
-    backend sizes the paged workspace there)."""
+    backend sizes the paged workspace there); ``release_cache`` empties
+    the card's cache before each capture."""
 
-    def __init__(self, prepare: Optional[Callable] = None):
+    # whether ``_new_graph`` runs the step while it records (a CUDA
+    # capture does not; the CPU tests' stand-in does)
+    capture_runs_step = False
+
+    def __init__(self, prepare: Optional[Callable] = None,
+                 release_cache: bool = False):
         self._prepare = prepare
+        self._release_cache = release_cache
         self._entries: Dict[Hashable, _Entry] = {}
         self._pools: Dict[torch.device, tuple] = {}
-        self._streams: Dict[torch.device, torch.cuda.Stream] = {}
         self._prepared: set = set()
         self.captures: Counter = Counter()      # key -> captures made
         self.replays: Counter = Counter()       # key -> replays
@@ -192,24 +252,32 @@ class StepGraphs:
         self.replays_by_device[str(device)] += 1
 
     def _new_graph(self, device: torch.device, step: Callable):
-        """Capture ``step`` into a new graph on a side stream of
-        ``device`` (the current device), in the backend's pool."""
-        stream = self._streams.get(device)
-        if stream is None:
-            stream = self._streams[device] = torch.cuda.Stream(device)
+        """Capture ``step`` into a new graph on ``device``'s capture stream
+        (``device`` is the current device), in the backend's pool."""
+        stream = _capture_stream(device)
+        if device not in self._pools:
             self._pools[device] = torch.cuda.graph_pool_handle()
         stream.wait_stream(torch.cuda.current_stream(device))
         # repro-torch-audit: allow(retrace-jit) — memoised by key in run(): one capture a key for the backend's lifetime (the strict auditor pins each key's graph)
         graph = torch.cuda.CUDAGraph()
-        with _paged.pinned(device), torch.cuda.stream(stream):
-            graph.capture_begin(pool=self._pools[device],
-                                capture_error_mode="thread_local")
-            try:
-                step()
-            finally:
-                t0 = time.perf_counter()
-                graph.capture_end()
-                self.instantiate_s += time.perf_counter() - t0
+        # no collection while the step is recorded: one could destroy an
+        # unreachable graph (a dropped backend's), and that call, made
+        # during a capture, invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with _paged.pinned(device), torch.cuda.stream(stream):
+                graph.capture_begin(pool=self._pools[device],
+                                    capture_error_mode="thread_local")
+                try:
+                    step()
+                finally:
+                    t0 = time.perf_counter()
+                    graph.capture_end()
+                    self.instantiate_s += time.perf_counter() - t0
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.current_stream(device).wait_stream(stream)
         return graph
 
@@ -220,17 +288,23 @@ class StepGraphs:
                 self._prepare(device)
                 self._prepared.add(device)
             rows: List[torch.Tensor] = state() if state is not None else []
-            saved = [t.clone() for t in rows]
+            # copied aside only where a run would step them again: a
+            # deferred key's capture runs nothing on a card
+            saved = [t.clone() for t in rows] \
+                if warm or self.capture_runs_step else []
             before = _counts()
             if warm:
                 step()                      # the warm-up, eagerly
                 _restore(rows, saved)
                 self.warmup_launches.update(_counts() - before)
                 _set_counts(before)
+            if self._release_cache and device.type == "cuda":
+                torch.cuda.empty_cache()
             graph = self._new_graph(device, step)
-            # a CUDA capture runs nothing; a stand-in that runs the step
-            # while it records (the CPU tests') must leave no trace either
-            _restore(rows, saved)
+            if self.capture_runs_step:
+                # a stand-in that runs the step while it records (the CPU
+                # tests') must leave no trace either
+                _restore(rows, saved)
             launches = _counts() - before
             _set_counts(before)
         self.captures[key] += 1
@@ -247,14 +321,14 @@ class StepGraphs:
             torch.cuda.synchronize(dev)
         self._entries.clear()
         self._pools.clear()
-        self._streams.clear()
         self._prepared.clear()
 
     def stats(self) -> dict:
         """Captures, replays and deferred eager first runs, in total and by
         key kind (the key's first element), the capture seconds (of which
         instantiation), the warm-ups' launches, and the same split into
-        the decode and the prefill keys."""
+        the serving decode and prefill keys (the fixed passes' and the
+        training step's kinds are in neither)."""
         def by_kind(counts: Counter) -> dict:
             kinds = Counter()
             for key, n in counts.items():
@@ -263,7 +337,7 @@ class StepGraphs:
 
         def part(kinds: dict, prefill: bool) -> int:
             return sum(n for k, n in kinds.items()
-                       if (k in PREFILL_KINDS) == prefill)
+                       if k in (PREFILL_KINDS if prefill else DECODE_KINDS))
         replays, captures = by_kind(self.replays), by_kind(self.captures)
         return {"captures": sum(self.captures.values()),
                 "keys": len(self.captures),

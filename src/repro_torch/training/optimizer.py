@@ -2,10 +2,14 @@
 (counterpart of ``repro.training.optimizer``).
 
 Parameters, gradients and moments are trees of tensors (``repro_torch.
-tree``): the model's parameter dict.  The update is functional, as in the
-JAX package: ``apply`` returns new tensors and leaves its inputs alone.
-The moments are kept in ``moment_dtype`` (float32 by default) and the
-arithmetic is float32 whatever the parameter dtype.
+tree``): the model's parameter dict.  ``apply`` is functional, as in the
+JAX package: it returns new tensors and leaves its inputs alone.
+``apply_`` is the same update written into the tensors it is given, the
+counterpart of the JAX loop's buffer donation: the training loop's
+captured step keeps its weights and moments at fixed addresses, and no
+second copy of them exists while it runs.  The moments are kept in
+``moment_dtype`` (float32 by default) and the arithmetic is float32
+whatever the parameter dtype.
 """
 
 from __future__ import annotations
@@ -73,11 +77,36 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(l.float().square().sum() for l in leaves(tree)))
 
 
+def _clip_scale(max_norm: float, norm: torch.Tensor) -> torch.Tensor:
+    """The clip's factor ``min(1, max_norm / norm)``."""
+    return (max_norm / norm.clamp(min=1e-12)).clamp(max=1.0)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled by ``min(1, max_norm / norm)``, the norm)."""
     norm = global_norm(grads)
-    scale = (max_norm / norm.clamp(min=1e-12)).clamp(max=1.0)
+    scale = _clip_scale(max_norm, norm)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+
+
+def _factors(cfg: AdamWConfig, step: torch.Tensor) -> tuple:
+    """(lr, c1, c2) at the new ``step``: the learning rate and the two
+    bias corrections."""
+    return (schedule_lr(cfg, step), 1.0 - cfg.beta1 ** step.float(),
+            1.0 - cfg.beta2 ** step.float())
+
+
+def _update(cfg: AdamWConfig, p, g, m, v, lr, c1, c2) -> tuple:
+    """One leaf's AdamW update: (new p, new m, new v) in their dtypes."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    gf = g.float()
+    m_new = b1 * m.float() + (1 - b1) * gf
+    v_new = b2 * v.float() + (1 - b2) * gf * gf
+    delta = (m_new / c1) / (torch.sqrt(v_new / c2) + cfg.eps)
+    pf = p.float()
+    pf = pf - lr * (delta + cfg.weight_decay * pf)
+    return (pf.to(p.dtype), m_new.to(cfg.moment_dtype),
+            v_new.to(cfg.moment_dtype))
 
 
 def apply(cfg: AdamWConfig, params, grads, state: AdamWState) -> tuple:
@@ -88,24 +117,32 @@ def apply(cfg: AdamWConfig, params, grads, state: AdamWState) -> tuple:
     if cfg.grad_clip > 0:
         grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
     step = state.step + 1
-    lr = schedule_lr(cfg, step)
-    b1, b2 = cfg.beta1, cfg.beta2
-    c1 = 1.0 - b1 ** step.float()
-    c2 = 1.0 - b2 ** step.float()
-
-    def upd(p, g, m, v):
-        gf = g.float()
-        m_new = b1 * m.float() + (1 - b1) * gf
-        v_new = b2 * v.float() + (1 - b2) * gf * gf
-        delta = (m_new / c1) / (torch.sqrt(v_new / c2) + cfg.eps)
-        pf = p.float()
-        pf = pf - lr * (delta + cfg.weight_decay * pf)
-        return (pf.to(p.dtype), m_new.to(cfg.moment_dtype),
-                v_new.to(cfg.moment_dtype))
-
-    out = [upd(*t) for t in zip(leaves(params), leaves(grads),
-                                leaves(state.m), leaves(state.v))]
+    lr, c1, c2 = _factors(cfg, step)
+    out = [_update(cfg, *t, lr, c1, c2)
+           for t in zip(leaves(params), leaves(grads), leaves(state.m),
+                        leaves(state.v))]
     new_p, new_m, new_v = (unflatten_like(params, [o[i] for o in out])
                            for i in range(3))
     return new_p, AdamWState(step, new_m, new_v), {
         "lr": lr, "grad_norm": gnorm}
+
+
+def apply_(cfg: AdamWConfig, params, grads, state: AdamWState) -> tuple:
+    """:func:`apply` in place: the new parameters, moments and step are
+    written into ``params`` and ``state``'s own tensors, bit for bit what
+    ``apply`` returns, one leaf at a time (the clip too, so no second copy
+    of the gradients, weights or moments is made).  Returns ``(lr,
+    grad_norm)``, as ``apply``'s metrics."""
+    gnorm = global_norm(grads)
+    scale = _clip_scale(cfg.grad_clip, gnorm) if cfg.grad_clip > 0 \
+        else None
+    state.step.add_(1)
+    lr, c1, c2 = _factors(cfg, state.step)
+    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m),
+                          leaves(state.v)):
+        if scale is not None:
+            g = (g.float() * scale).to(g.dtype)
+        new = _update(cfg, p, g, m, v, lr, c1, c2)
+        for t, n in zip((p, m, v), new):
+            t.copy_(n)
+    return lr, gnorm

@@ -13,6 +13,9 @@ tested directly.  On the card ``chip_smoke.py`` holds real replays
 against the eager step (``[graph-parity]``).
 """
 
+import contextlib
+import gc
+
 import numpy as np
 import pytest
 
@@ -65,6 +68,8 @@ class CPUGraphs(step_graph.StepGraphs):
     """The card's graphs stood in on the CPU: a capture runs the step once
     (the caller then restores the recurrent rows, as after the warm-up)
     and a replay runs it again."""
+
+    capture_runs_step = True
 
     def graphed(self, device):
         return True
@@ -357,6 +362,50 @@ def test_eager_path_counts_every_launch():
                                              fn.launches + 2))
     assert fn.launches - before == 6
     assert not graphs.entries() and not graphs.captures
+
+
+def test_no_collection_while_a_step_is_captured(monkeypatch):
+    """A collection during a capture could free another backend's dropped
+    graph, and that call invalidates the capture: the cyclic collector is
+    off while the step is recorded (capture_begin to capture_end) and on
+    again after, also when the step raises.  The card's calls are faked
+    here; the capture itself is the card's."""
+    seen = []
+
+    class Recorder:
+        def capture_begin(self, **kw):
+            seen.append(("begin", gc.isenabled()))
+
+        def capture_end(self):
+            seen.append(("end", gc.isenabled()))
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Recorder)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: Stream())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 1))
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: Stream())
+    monkeypatch.setattr(step_graph, "_CAPTURE_STREAMS", {})
+    graphs = step_graph.StepGraphs()
+    assert gc.isenabled()
+    graphs._new_graph(CPU, lambda: seen.append(("step", gc.isenabled())))
+    assert seen == [("begin", False), ("step", False), ("end", False)]
+    assert gc.isenabled()
+    # every capture on a device records on the one stream made for it
+    stream = step_graph._CAPTURE_STREAMS[CPU]
+    graphs._new_graph(CPU, lambda: None)
+    assert step_graph._CAPTURE_STREAMS == {CPU: stream}
+
+    def fails():
+        raise RuntimeError("a step that cannot be captured")
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        graphs._new_graph(CPU, fails)
+    assert gc.isenabled()
 
 
 def test_warmup_restores_the_recurrent_rows():

@@ -315,6 +315,81 @@ def test_training_converges_with_compression():
     assert res.losses[-1] < res.losses[0] - 0.2
 
 
+def _off_share(got, want) -> float:
+    """The share of parameter elements more than 1e-4 relative (+ 1e-6)
+    from ``want``'s."""
+    off = total = 0
+    for a, b in zip(leaves(got), leaves(want)):
+        off += int(((a - b).abs() > 1e-4 * b.abs() + 1e-6).sum())
+        total += a.numel()
+    return off / total
+
+
+def test_reference_train_freezes_error_feedback(monkeypatch):
+    """Reference defect that the port does not reproduce (ROADMAP Queue 3):
+    ``repro``'s ``train`` jits a step whose ``Compressor.roundtrip`` keeps
+    its residual on ``self``, so the trace freezes a zero residual into
+    the compiled step and leaves ``_residual`` holding the trace's
+    tracers: a jitted roundtrip returns the same output at every call,
+    where the eager one carries the residual.  The port's graphed
+    ``train`` writes its residual in place, so its step 2 equals its eager
+    loop's bit for bit and JAX's eager (unjitted) loop's at
+    ``test_train_step_matches_jax``'s tolerance, and lies far from JAX's
+    ``train``."""
+    from test_torch_step_graph import CPUGraphs
+    monkeypatch.setattr(TL, "StepGraphs", CPUGraphs)
+    jcfg = jax_reduced(jax_get_arch("gemma3-1b"))
+    cfg = tiny("gemma3-1b")
+    kw = dict(lr=5e-3, warmup_steps=2, total_steps=40)
+    ocfg, jocfg = O.AdamWConfig(**kw), JO.AdamWConfig(**kw)
+    jparams = jax_model.init_params(jcfg, jax.random.PRNGKey(0), JRT)
+    params = from_jax_params(jax.tree.map(np.asarray, jparams), cfg, RT,
+                             device="cpu")
+    dk = dict(vocab_size=cfg.vocab_size, seq_len=12, batch_size=4, seed=3)
+    jcomp = jax_comp.Compressor("int8")
+    JTL.train(jcfg, JRT, jocfg, jax_data.batches(
+        jax_data.DataConfig(**dk)), steps=3, params=jparams,
+        compressor=jcomp, donate=False)
+    assert all(isinstance(r, jax.core.Tracer)
+               for r in jax.tree.leaves(jcomp._residual))
+    g = {"w": jnp.asarray(np.random.RandomState(0).randn(50).astype(
+        np.float32))}
+    jitted = jax.jit(jax_comp.Compressor("int8").roundtrip)
+    outs = [np.asarray(jitted(g)["w"]) for _ in range(3)]
+    assert all(np.array_equal(outs[0], o) for o in outs[1:])
+    eager = jax_comp.Compressor("int8")
+    outs = [np.asarray(eager.roundtrip(g)["w"]) for _ in range(3)]
+    assert not any(np.array_equal(outs[0], o) for o in outs[1:])
+
+    # two steps on each side: the port's graphed loop (step 2 a replay),
+    # its functional loop, JAX's eager loop and JAX's train
+    p, _, res = TL.train(cfg, RT, ocfg, batches(DataConfig(**dk)), steps=2,
+                         params=params, compressor=Compressor("int8"),
+                         donate=False)
+    assert res.graphs["replays"] == 1
+    step = TL.make_train_step(cfg, RT, ocfg, compressor=Compressor("int8"))
+    ep, eo, data = params, O.init(ocfg, params), batches(DataConfig(**dk))
+    jstep = JTL.make_train_step(jcfg, JRT, jocfg,
+                                compressor=jax_comp.Compressor("int8"))
+    jep, jeo = jparams, JO.init(jocfg, jparams)
+    jdata = jax_data.batches(jax_data.DataConfig(**dk))
+    for _ in range(2):
+        ep, eo, _ = step(ep, eo, next(data))
+        jep, jeo, _ = jstep(jep, jeo, {k: jnp.asarray(v)
+                                       for k, v in next(jdata).items()})
+    for a, b in zip(leaves(p), leaves(ep)):
+        assert torch.equal(a, b)
+    jp2, _, _ = JTL.train(jcfg, JRT, jocfg, jax_data.batches(
+        jax_data.DataConfig(**dk)), steps=2, params=jparams,
+        compressor=jax_comp.Compressor("int8"), donate=False)
+
+    def port(tree):
+        return from_jax_params(jax.tree.map(np.asarray, tree), cfg, RT,
+                               device="cpu")
+    assert _off_share(p, port(jep)) <= 1e-3
+    assert _off_share(p, port(jp2)) > 0.1
+
+
 # ----------------------------------------------------------- checkpoint ---
 
 def test_checkpoint_roundtrip_and_retention():
