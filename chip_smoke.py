@@ -3759,65 +3759,62 @@ def _event_counts(rec) -> dict:
     return out
 
 
-def phase_trace(torch, np, card: str, params, serve_run, int8_outs,
-                local_run, res_counts):
-    """Phase 12 on full-width yi-9b (bf16, the serve phases' weights and 20
-    requests), each run held against an earlier phase's untraced one:
-
-    1. ``[trace-local]``: the yi-9b phase's local engine six times in turns
-       (off, on, strict, strict, on, off): streams and paged launches equal
-       the yi-9b phase's; tok/s and the recorder's and auditor's host cost;
-    2. ``[trace-pipe]``: 4 stages, int8 wire, 64 ms links, the offloaded
-       pools, traced and audited: streams equal the pipeline phase's
-       untraced int8 run; the recorded ledger equals the transport's books
-       bitwise; the Chrome trace, written under ``build/trace/`` and read
-       back, is valid; one swap window a swap; paged launches the stage
-       runs x 12;
-    3. ``[trace-res]``: phase 11's fault storm and reshard 2 -> 4 -> 1,
-       traced and audited: streams equal the local engine's, the recorded
-       drops equal the lost work (3 + 2), one drain and one rebuild span a
-       reshard, ``after_reshard`` passed each time."""
+def _trace_llm(torch, params, **kw):
+    """Full-width yi-9b (bf16, the serve phases' weights) behind ``LLM``
+    with the trace phase's engine settings and ``kw``."""
     import gc
 
     from repro_torch.config import get_arch
-    from repro_torch.distributed.elastic import FaultPlan
-    from repro_torch.distributed.transport import SimulatedLinkTransport
     from repro_torch.models.common import Runtime
-    from repro_torch.obs import (chrome_trace_events, validate_chrome_trace,
-                                 write_chrome_trace)
-    from repro_torch.serving.kv_cache import PoolConfig
-    from repro_torch.serving.llm import LLM, EngineConfig, RequestOutput
+    from repro_torch.serving.llm import LLM, EngineConfig
 
-    cfg = get_arch("yi-9b")
+    gc.collect()
+    torch.cuda.empty_cache()
     rt = Runtime(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
-    vocab, new = cfg.vocab_size, SERVE_NEW
-    info, counts = {}, {}
+    return LLM(get_arch("yi-9b"),
+               config=EngineConfig(seed=SEED, max_prefill_tokens_per_tick=256,
+                                   **kw),
+               params=params, rt=rt, reduced=False, device="cuda")
 
-    def llm_of(**kw):
-        gc.collect()
-        torch.cuda.empty_cache()
-        return LLM(cfg, config=EngineConfig(seed=SEED,
-                                            max_prefill_tokens_per_tick=256,
-                                            **kw),
-                   params=params, rt=rt, reduced=False, device="cuda")
 
-    def traced(outs, tag):
-        missing = [o.request_id for o in outs if not o.trace
-                   or len(o.trace["token_times"]) != new]
-        if missing:
-            raise AssertionError(f"{tag}: requests {missing} have no full "
-                                 "request trace")
+def _check_traced(outs, tag, new: int = SERVE_NEW):
+    """Every request carries a full request trace."""
+    missing = [o.request_id for o in outs if not o.trace
+               or len(o.trace["token_times"]) != new]
+    if missing:
+        raise AssertionError(f"{tag}: requests {missing} have no full "
+                             "request trace")
 
-    # -- run 1: the local engine, in turns ----------------------------------
+
+def phase_trace_local(torch, np, card: str, params, serve_run):
+    """``[trace-local]`` of phase 12: the yi-9b phase's local engine six
+    times in turns (off, on, strict, strict, on, off): streams and paged
+    launches equal the yi-9b phase's (``serve_run``); tok/s and the
+    recorder's and auditor's host cost.  Returns the runs' launch counts
+    and their figures.  Alone, after phase 7 (``phase_serve``):
+
+        python -c "import torch, numpy as np, chip_smoke as c; \\
+            line, _ = c.phase_card(torch); p = c.yi_params(torch); \\
+            (counts, _, outs) = c.phase_serve(torch, np, line, p); \\
+            c.phase_trace_local(torch, np, line, p, \\
+                dict(outs=outs, counts=counts))"
+    """
+    from repro_torch.config import get_arch
+    from repro_torch.obs import chrome_trace_events, validate_chrome_trace
+    from repro_torch.serving.kv_cache import PoolConfig
+
+    vocab, new = get_arch("yi-9b").vocab_size, SERVE_NEW
+    counts = {}
     t0 = time.perf_counter()
     runs = []
     want_paged = serve_run["counts"]["paged_attention"]
     for i, turn in enumerate(TRACE_TURNS):
-        llm = llm_of(mb_size=SERVE_MB, num_microbatches=SERVE_N_MB,
-                     pool=PoolConfig(page_size=SERVE_PAGE,
-                                     n_local_pages=SERVE_POOL_PAGES,
-                                     max_pages_per_seq=SERVE_MAX_PAGES),
-                     trace=turn != "off", strict=turn == "strict")
+        llm = _trace_llm(torch, params, mb_size=SERVE_MB,
+                         num_microbatches=SERVE_N_MB,
+                         pool=PoolConfig(page_size=SERVE_PAGE,
+                                         n_local_pages=SERVE_POOL_PAGES,
+                                         max_pages_per_seq=SERVE_MAX_PAGES),
+                         trace=turn != "off", strict=turn == "strict")
         clock = _HookClock(llm.engine)
         tag = f"trace-local {i + 1} {turn}"
         outs, rep, c = _serve_yi(torch, np, llm, tag, card)
@@ -3826,7 +3823,7 @@ def phase_trace(torch, np, card: str, params, serve_run, int8_outs,
             raise AssertionError(f"{tag}: {c} launches, the yi-9b phase's "
                                  f"{want_paged} paged and no flash")
         if turn != "off":
-            traced(outs, tag)
+            _check_traced(outs, tag)
             errs = validate_chrome_trace(
                 chrome_trace_events(llm.engine.recorder))
             if errs:
@@ -3855,8 +3852,43 @@ def phase_trace(torch, np, card: str, params, serve_run, int8_outs,
         for turn, s in summary.items()) + "; prefill tok/s: " + "; ".join(
         f"{turn} " + " / ".join(f"{v:.1f}" for v in s["prefill_tok_per_s"])
         for turn, s in summary.items()))
-    info["local"] = {"runs": runs, "by_mode": summary,
-                     "wall_s": time.perf_counter() - t0}
+    return counts, {"runs": runs, "by_mode": summary,
+                    "wall_s": time.perf_counter() - t0}
+
+
+def phase_trace(torch, np, card: str, params, serve_run, int8_outs,
+                local_run, res_counts):
+    """Phase 12 on full-width yi-9b (bf16, the serve phases' weights and 20
+    requests), each run held against an earlier phase's untraced one:
+
+    1. ``[trace-local]`` (``phase_trace_local``);
+    2. ``[trace-pipe]``: 4 stages, int8 wire, 64 ms links, the offloaded
+       pools, traced and audited: streams equal the pipeline phase's
+       untraced int8 run; the recorded ledger equals the transport's books
+       bitwise; the Chrome trace, written under ``build/trace/`` and read
+       back, is valid; one swap window a swap; paged launches the stage
+       runs x 12;
+    3. ``[trace-res]``: phase 11's fault storm and reshard 2 -> 4 -> 1,
+       traced and audited: streams equal the local engine's, the recorded
+       drops equal the lost work (3 + 2), one drain and one rebuild span a
+       reshard, ``after_reshard`` passed each time."""
+    from repro_torch.config import get_arch
+    from repro_torch.distributed.elastic import FaultPlan
+    from repro_torch.distributed.transport import SimulatedLinkTransport
+    from repro_torch.obs import validate_chrome_trace, write_chrome_trace
+    from repro_torch.serving.kv_cache import PoolConfig
+    from repro_torch.serving.llm import RequestOutput
+
+    vocab, new = get_arch("yi-9b").vocab_size, SERVE_NEW
+    info = {}
+    counts, info["local"] = phase_trace_local(torch, np, card, params,
+                                              serve_run)
+
+    def llm_of(**kw):
+        return _trace_llm(torch, params, **kw)
+
+    traced = _check_traced
+
 
     # -- run 2: 4 stages, int8 wire, 64 ms links, offloaded pools -----------
     t0 = time.perf_counter()

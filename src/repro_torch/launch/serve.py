@@ -84,8 +84,21 @@ Observability and audit: ``--trace OUT.json`` turns on the flight
 recorder (``EngineConfig(trace=True)``) and writes a Perfetto-loadable
 Chrome-trace timeline at exit — engine step phases, per-microbatch stage
 occupancy, per-link transfers on the virtual clock, offload swaps,
-prefix-cache, SLO, fault and reshard events (check it with ``python -m
-repro_torch.obs.timeline --check OUT.json``); ``--strict`` turns on the
+prefix-cache, SLO, fault and reshard events, and where the host's time
+goes inside a step: a ``backend`` track of each decode call's
+``decode.inputs`` / ``decode.noise`` / ``decode.launch`` /
+``decode.readout`` and each prefill call's ``prefill.inputs`` /
+``prefill.launch`` / ``prefill.wait``, and an ``engine/host`` track of the
+engine's own booking (``build_chunk``, ``apply_prefill``,
+``apply_decode``); check it with ``python -m repro_torch.obs.timeline
+--check OUT.json``.  In Python, ``OfflineEngine.set_recorder(rec)``
+attaches a recorder to a running engine and ``set_recorder(None)``
+detaches it (a few seconds of a live serve), and
+``write_chrome_trace(rec, path, base_ns=...)``, given a ``torch.profiler``
+trace's ``baseTimeNanoseconds``, lays the wall events on that trace's
+time base through the recorder's clock anchor, so the two files'
+``traceEvents`` concatenate into one Perfetto view of host phases beside
+kernels.  ``--strict`` turns on the
 runtime invariant auditor (``EngineConfig(strict=True)``), which checks
 the engine's books after every submit, step and reshard.
 

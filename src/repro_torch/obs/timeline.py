@@ -24,6 +24,15 @@ Track layout — the picture the §4.3 schedule comparison needs:
   round trip exactly), and the ``stall`` counter series reconciles the
   same way against ``stall_s``.
 
+Beside a device trace: ``base_ns`` (a ``torch.profiler`` trace's
+``baseTimeNanoseconds``) lays the wall events on that trace's time base
+through the recorder's clock anchor (:meth:`~repro_torch.obs.trace
+.TraceRecorder.epoch_ns`), so the two exports' ``traceEvents`` can be
+concatenated and read in one Perfetto view, host phases beside kernels.
+Wall events that started before the profiler's base are left out and
+counted (``otherData["before_base"]``).  ``otherData`` always carries the
+anchor (``clock_anchor``: ``perf_counter_s``, ``epoch_ns``).
+
 ``validate_chrome_trace`` is the schema check the CI audit job runs
 (also exposed as ``python -m repro_torch.obs.timeline --check out.json``):
 structural keys per phase type, finite non-negative timestamps, b/e
@@ -47,8 +56,11 @@ _PIDS = {WALL: 1, VIRTUAL: 2}
 _US = 1e6
 
 
-def chrome_trace_events(rec: TraceRecorder) -> Dict:
-    """``{"traceEvents": [...], ...}`` in Chrome JSON object format."""
+def chrome_trace_events(rec: TraceRecorder,
+                        base_ns: Optional[int] = None) -> Dict:
+    """``{"traceEvents": [...], ...}`` in Chrome JSON object format; wall
+    events start near 0, or with ``base_ns`` on a profiler trace's time
+    base (see the module docstring)."""
     events: List[Dict] = []
     for clock, pid in _PIDS.items():
         events.append({"name": "process_name", "ph": "M", "pid": pid,
@@ -68,11 +80,19 @@ def chrome_trace_events(rec: TraceRecorder) -> Dict:
     # has an arbitrary epoch); the virtual clock already starts at 0
     wall0 = min((e.t0 for e in rec.events if e.clock == WALL),
                 default=0.0)
-    async_id = 0
+    async_id = before_base = 0
     for e in rec.events:
+        if e.clock == VIRTUAL:
+            t0 = e.t0
+        elif base_ns is None:
+            t0 = e.t0 - wall0
+        else:
+            t0 = (rec.epoch_ns(e.t0) - base_ns) / 1e9
+            if t0 < 0.0:
+                before_base += 1
+                continue
         pid = _PIDS[e.clock]
         tid = tid_of(pid, e.track)
-        t0 = e.t0 - wall0 if e.clock == WALL else e.t0
         args = dict(e.data)
         if e.kind == SPAN:
             events.append({"name": e.name, "ph": "X", "pid": pid,
@@ -93,15 +113,22 @@ def chrome_trace_events(rec: TraceRecorder) -> Dict:
             events.append({"name": e.name, "ph": "i", "pid": pid,
                            "tid": tid, "ts": t0 * _US, "s": "t",
                            "args": args})
+    other = {"recorder_events": len(rec.events),
+             "recorder_dropped": rec.dropped,
+             "clock_anchor": {"perf_counter_s": rec.anchor[0],
+                              "epoch_ns": rec.anchor[1]}}
+    if base_ns is not None:
+        other.update(base_ns=base_ns, before_base=before_base)
     return {"traceEvents": events, "displayTimeUnit": "ms",
-            "otherData": {"recorder_events": len(rec.events),
-                          "recorder_dropped": rec.dropped}}
+            "otherData": other}
 
 
-def write_chrome_trace(rec: TraceRecorder, path: str) -> Dict:
-    """Export ``rec`` to ``path`` (Perfetto-loadable JSON); returns the
-    trace object it wrote."""
-    trace = chrome_trace_events(rec)
+def write_chrome_trace(rec: TraceRecorder, path: str,
+                       base_ns: Optional[int] = None) -> Dict:
+    """Export ``rec`` to ``path`` (Perfetto-loadable JSON), on a profiler
+    trace's time base with ``base_ns``; returns the trace object it
+    wrote."""
+    trace = chrome_trace_events(rec, base_ns)
     with open(path, "w") as f:
         json.dump(trace, f)
     return trace

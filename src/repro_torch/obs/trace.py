@@ -20,6 +20,23 @@ Two clocks, tagged per event:
   transfers, stall ledger entries.  A 64 ms WAN run records a 64 ms
   timeline while costing CPU-milliseconds of wall time.
 
+The wall clock is tied to the epoch once, when the recorder is made: its
+``anchor`` is the tightest of a few back-to-back ``(time.perf_counter(),
+time.time_ns())`` pairs, and :meth:`TraceRecorder.epoch_ns` maps any wall
+stamp through it.  ``torch.profiler`` lays host and device events on the
+epoch (``ts`` µs after its trace's ``baseTimeNanoseconds``), so a wall
+stamp lands on a profiler trace at ``(epoch_ns(t) - baseTimeNanoseconds)
+/ 1e3`` µs (:func:`repro_torch.obs.timeline.chrome_trace_events`'s
+``base_ns``).
+
+Where the work happens, the serving core records spans on tracks of
+their own: ``backend`` (inside a backend's decode and prefill calls:
+``decode.inputs`` / ``decode.noise`` / ``decode.launch`` /
+``decode.readout``, ``prefill.inputs`` / ``prefill.launch`` /
+``prefill.wait``) and ``engine/host`` (the engine's own booking:
+``build_chunk``, ``apply_prefill``, ``apply_decode``), beside the
+``engine`` track's ``reap`` / ``prefill`` / ``decode`` phases.
+
 **Ledger events** (``link_send`` / ``tick_stall``) are recorded at the
 exact sites where :class:`SimulatedLinkTransport` accumulates its books:
 summing the recorded ``nbytes`` ints reproduces ``wire_bytes``
@@ -41,16 +58,34 @@ import time
 from collections import deque
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
-__all__ = ["Event", "TraceRecorder", "WALL", "VIRTUAL"]
+__all__ = ["Event", "TraceRecorder", "WALL", "VIRTUAL", "clock_anchor"]
 
 WALL = "wall"
 VIRTUAL = "virtual"
+
+# the tracks of the spans inside a backend call and of the engine's booking
+BACKEND_TRACK = "backend"
+ENGINE_HOST_TRACK = "engine/host"
 
 # event kinds -> how repro_torch.obs.timeline renders them
 SPAN = "span"          # complete slice (ph "X")
 ASYNC = "async"        # possibly-overlapping slice (ph "b"/"e" pair)
 INSTANT = "instant"    # point event (ph "i")
 COUNTER = "counter"    # sampled value (ph "C")
+
+
+def clock_anchor(pairs: int = 8) -> Tuple[float, int]:
+    """``(perf_counter seconds, epoch ns)`` taken at one instant: of
+    ``pairs`` epoch reads, the one whose bracketing ``perf_counter``
+    reads lie closest together, against their midpoint."""
+    best = None
+    for _ in range(pairs):
+        a = time.perf_counter()
+        ns = time.time_ns()
+        b = time.perf_counter()
+        if best is None or b - a < best[0]:
+            best = (b - a, 0.5 * (a + b), ns)
+    return best[1], best[2]
 
 
 class Event(NamedTuple):
@@ -84,6 +119,13 @@ class TraceRecorder:
         self.requests: Dict[int, dict] = {}
         self._finished_order: deque = deque()
         self.created_at = time.perf_counter()
+        self.anchor = clock_anchor()
+
+    def epoch_ns(self, t: float) -> int:
+        """Wall stamp ``t`` (``perf_counter`` seconds) as epoch
+        nanoseconds, through the recorder's ``anchor``."""
+        perf, ns = self.anchor
+        return ns + round((t - perf) * 1e9)
 
     # -- core appends -----------------------------------------------------
 

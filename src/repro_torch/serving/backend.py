@@ -99,11 +99,20 @@ keeps its jit caches steady, has nothing to do here.  The JAX backends'
 life) and ``kernel_libraries`` (the loaded kernel libraries, which must
 not be built or loaded again mid-serve).
 
-A flight recorder (``recorder=``, :mod:`repro_torch.obs`) rides on the
-backend's offloaders and, on the pipelined backend, on the outer
-transport; the pipelined backend records each plane tick's wall window
-and stage occupancy (``pipe_tick``) and each injected fault, from host
-values only.
+A flight recorder (``recorder=``, or ``set_recorder`` on a running
+backend; :mod:`repro_torch.obs`) rides on the backend's offloaders and, on
+the pipelined backend, on the outer transport; the pipelined backend
+records each plane tick's wall window and stage occupancy (``pipe_tick``)
+and each injected fault, from host values only.  Both backends record
+where a call's host time goes, on the ``backend`` track, each span
+starting where the last ended (``_lap``): a decode call's
+``decode.inputs`` (the packed inputs and their copies), ``decode.noise``
+(the sampled rows' Gumbel noise; ``rows`` drawn), ``decode.launch`` (the
+residency checks and the replays) and ``decode.readout`` (until the
+tokens are on the host, or the card is synchronised where a pipe tick
+drains nothing); a prefill call's ``prefill.inputs``, ``prefill.launch``
+and ``prefill.wait`` (the logits' copy and the synchronisation).  With no
+recorder none of this takes a stamp.
 """
 
 from __future__ import annotations
@@ -126,6 +135,7 @@ from repro_torch.kernels import build as kernel_build
 from repro_torch.kernels import paged_attention as paged_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.common import Runtime, stage_device
+from repro_torch.obs.trace import BACKEND_TRACK
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.step_graph import StepGraphs
 from repro_torch.serving.sampler import (RowSampling, greedy, gumbel_noise,
@@ -287,6 +297,8 @@ class _SlotCacheBackend:
         # the captured prefill steps' statics, by chunk shape or bucket
         self._pf: Dict[tuple, _PrefillStatics] = {}
         self.exact_prefills = 0         # exact-length prefill calls
+        self.recorder = None            # repro_torch.obs TraceRecorder
+        self._lap_t = 0.0               # where the next backend span starts
 
     @property
     def noise_gen(self) -> torch.Generator:
@@ -296,6 +308,20 @@ class _SlotCacheBackend:
         if self._noise_gen is None:
             self._noise_gen = torch.Generator(device=self.stage_devices[-1])
         return self._noise_gen
+
+    def set_recorder(self, recorder) -> None:
+        """Record into ``recorder`` (a ``TraceRecorder``, or None: off)
+        from the next call on."""
+        self.recorder = recorder
+
+    def _lap(self, name: str, data: tuple = ()) -> None:
+        """Record span ``name`` on the backend track from the end of the
+        last one (or the call's start) to now.  Callers gate on
+        ``self.recorder is not None``."""
+        now = time.perf_counter()
+        self.recorder.span(name, BACKEND_TRACK, self._lap_t, now,
+                           data=data)
+        self._lap_t = now
 
     def set_page_table(self, table: np.ndarray) -> None:
         self.caches = kvc.set_page_table(self.caches, table)
@@ -378,14 +404,30 @@ class _SlotCacheBackend:
         src = torch.from_numpy(host)
         for buf in self._inp.values():
             buf.copy_(src)
+        if self.recorder is not None:
+            self._lap("decode.inputs")
+
+    def _draw_noise(self, samp: Optional[RowSampling],
+                    sampled: bool) -> None:
+        """The sampled rows' Gumbel noise into the static noise, on the
+        last stage's device, where sampling runs."""
+        if sampled:
+            gumbel_noise(samp, self.cfg.vocab_size, self.stage_devices[-1],
+                         self.noise_gen, out=self._noise)
+        if self.recorder is not None:
+            rows = int(np.count_nonzero(samp.temp > 0)) if sampled else 0
+            self._lap("decode.noise", (("rows", rows),))
 
     def _read_out(self, mb: int) -> DecodeResult:
         """The tick's one device-to-host transfer: the drained tokens and
         log-probs, which the engine books on the host."""
         # repro-torch-audit: allow(host-sync) — the tick's one device-to-host transfer (tokens and log-probs in one copy)
         out = self._out.cpu().numpy()
-        return DecodeResult(mb=mb, tokens=out[0].astype(np.int32),
-                            logprobs=out[1].copy())
+        res = DecodeResult(mb=mb, tokens=out[0].astype(np.int32),
+                           logprobs=out[1].copy())
+        if self.recorder is not None:
+            self._lap("decode.readout")
+        return res
 
     def _prefill_statics(self, key: tuple, n_ints: int, act_shape: tuple,
                          rows: int, last_out: bool) -> _PrefillStatics:
@@ -409,8 +451,8 @@ class _SlotCacheBackend:
                                 dtype=torch.float32, device=devs[-1]))
         return st
 
-    @staticmethod
-    def _load(st: _PrefillStatics, arrays: Sequence[np.ndarray]) -> None:
+    def _load(self, st: _PrefillStatics,
+              arrays: Sequence[np.ndarray]) -> None:
         """Copy a prefill call's host arrays, packed, into its static input
         on every device (before any swap is enqueued: see
         ``LocalBackend._residency``)."""
@@ -418,6 +460,8 @@ class _SlotCacheBackend:
             [np.asarray(a, np.int32).ravel() for a in arrays]))
         for buf in st.inp.values():
             buf.copy_(src)
+        if self.recorder is not None:
+            self._lap("prefill.inputs")
 
     def kernel_libraries(self) -> Dict[str, object]:
         """The kernel libraries loaded so far, by name, for the strict
@@ -441,6 +485,8 @@ class _SlotCacheBackend:
         the bucket's second call (its first runs the step eagerly); the
         activation is copied to the next stage's static input between
         them."""
+        if self.recorder is not None:
+            self._lap_t = time.perf_counter()
         n, L = len(self.stage_devices), len(tokens)
         st = self._prefill_statics(("exact", L), 2 + L,
                                    (1, L, self.cfg.d_model), 1, False)
@@ -455,10 +501,14 @@ class _SlotCacheBackend:
                             defer=True)
             if s < n - 1:
                 st.act_in[s + 1].copy_(st.act_out[s])
+        if self.recorder is not None:
+            self._lap("prefill.launch")
         self.exact_prefills += 1
         logits = st.out[0].clone()
         # as prefill_step: the prefill phase's clock measures the card
         self._sync()
+        if self.recorder is not None:
+            self._lap("prefill.wait")
         return logits
 
     def _exact_range(self, s: int) -> tuple:
@@ -542,10 +592,13 @@ class LocalBackend(_SlotCacheBackend):
                          num_microbatches=num_microbatches, pool=pool,
                          device=device, caches=caches)
         self.offloader = offloader
-        self.recorder = recorder
-        if offloader is not None:
-            offloader.recorder = recorder
+        self.set_recorder(recorder)
         self.prefill_chunks = 0         # prefill chunks run
+
+    def set_recorder(self, recorder) -> None:
+        super().set_recorder(recorder)
+        if self.offloader is not None:
+            self.offloader.recorder = recorder
 
     def _residency(self, mb: int) -> None:
         """Make ``mb``'s global-pool parity resident before the model
@@ -571,6 +624,8 @@ class LocalBackend(_SlotCacheBackend):
                      ) -> List[PrefillResult]:
         if chunk is None:
             return []
+        if self.recorder is not None:
+            self._lap_t = time.perf_counter()
         rows, clen = chunk.tokens.shape
         key = ("chunk", rows, clen, chunk.tables.shape[1])
         layout = _chunk_layout(*key[1:], 1)
@@ -582,11 +637,15 @@ class LocalBackend(_SlotCacheBackend):
             self._residency(mb)
         self.graphs.run(key, self.device,
                         partial(self._chunk_step, st, layout))
+        if self.recorder is not None:
+            self._lap("prefill.launch")
         self.prefill_chunks += 1
         logits = st.out.clone()
         # the chunk's work ends inside the engine's prefill phase, so its
         # prefill/decode time split measures the card, not the queue
         self._sync()
+        if self.recorder is not None:
+            self._lap("prefill.wait")
         return [PrefillResult(chunk=chunk, logits=logits)]
 
     def _chunk_step(self, st: _PrefillStatics, layout) -> None:
@@ -615,18 +674,20 @@ class LocalBackend(_SlotCacheBackend):
                samp: RowSampling, active: bool = True) -> List[DecodeResult]:
         if not active:
             return []
+        if self.recorder is not None:
+            self._lap_t = time.perf_counter()
         sampled = samp.any_sampled
         self._statics(2)
         self._load_inputs((tokens, cur_pos), samp)
-        if sampled:
-            gumbel_noise(samp, self.cfg.vocab_size, self.device,
-                         self.noise_gen, out=self._noise)
+        self._draw_noise(samp, sampled)
         self._residency(mb)
         row0 = mb * self.mb_size
         self.graphs.run(("local", mb, sampled), self.device,
                         partial(self._decode_step, row0, sampled),
                         state=partial(kvc.state_rows, self.caches, row0,
                                       self.mb_size))
+        if self.recorder is not None:
+            self._lap("decode.launch")
         self.decode_ticks += 1
         return [self._read_out(mb)]
 
@@ -766,11 +827,6 @@ class PipelinedBackend(_SlotCacheBackend):
                     self.transport, method="int8",
                     elem_bytes=self._dtype_bytes,
                     row_elems=cfg.d_model).bind(n_stages)
-        # the flight recorder rides on the OUTER transport (a compressed
-        # wrap forwards to its inner, which accumulates the books, so the
-        # recorded ledger carries the re-priced wire bytes)
-        self.recorder = recorder
-        self.transport.set_recorder(recorder)
 
         # §4.2 offloading, per stage: stage s double-buffers its own layers'
         # slice of the global pools; the epilogue is one more unit, keyed
@@ -785,8 +841,16 @@ class PipelinedBackend(_SlotCacheBackend):
             if any("k_pages" in c for c in self._epi_view()["layers"]):
                 self.epilogue_offloader = DoubleBufferOffloader(
                     pool, num_microbatches, async_swap=offload_async)
-            for off in self._offload_units():
-                off[0].recorder = recorder
+        self.set_recorder(recorder)
+
+    def set_recorder(self, recorder) -> None:
+        super().set_recorder(recorder)
+        # the flight recorder rides on the OUTER transport (a compressed
+        # wrap forwards to its inner, which accumulates the books, so the
+        # recorded ledger carries the re-priced wire bytes)
+        self.transport.set_recorder(recorder)
+        for off in self._offload_units():
+            off[0].recorder = recorder
 
     # -- per-stage offload residency ---------------------------------------
 
@@ -829,6 +893,8 @@ class PipelinedBackend(_SlotCacheBackend):
 
     def prefill_step(self, chunk: Optional[PrefillChunk]
                      ) -> List[PrefillResult]:
+        if self.recorder is not None:
+            self._lap_t = time.perf_counter()
         entries = list(self._pf_entries)
         if chunk is not None:
             if entries[0] is not None:
@@ -892,12 +958,16 @@ class PipelinedBackend(_SlotCacheBackend):
             if occupied[s]:
                 st.act_in[s + 1].copy_(PL._wire(st.act_out[s],
                                                 self.wire_dtype, devs[s + 1]))
+        if self.recorder is not None:
+            self._lap("prefill.launch")
         self.prefill_stage_runs += sum(occupied)
         self.prefill_drains += drained is not None
         # the tick's device work ends inside the engine's prefill phase,
         # and the stage time the transport books is the card's
         self._sync()
         t1 = time.perf_counter()
+        if self.recorder is not None:
+            self._lap("prefill.wait")
         # a key's first tick warms up and captures its step: the stage
         # times leave it out, as the decode tick's do
         dt = t1 - t0 - (self.graphs.capture_s - captured)
@@ -969,6 +1039,8 @@ class PipelinedBackend(_SlotCacheBackend):
 
     def _decode_tick(self, mb: int, tokens: np.ndarray, cur_pos: np.ndarray,
                      samp: RowSampling, active: bool) -> List[DecodeResult]:
+        if self.recorder is not None:
+            self._lap_t = time.perf_counter()
         entries = list(self._entries)
         entries[0] = (mb, np.asarray(cur_pos, np.int32).copy(), samp) \
             if active else None
@@ -1002,9 +1074,7 @@ class PipelinedBackend(_SlotCacheBackend):
         idle = np.zeros((self.mb_size,), np.int32)
         self._load_inputs([tokens] + [e[1] if e is not None else idle
                                       for e in entries], dsamp)
-        if sampled:
-            gumbel_noise(dsamp, self.cfg.vocab_size, devs[-1],
-                         self.noise_gen, out=self._noise)
+        self._draw_noise(dsamp, sampled)
         for s, e in enumerate(entries):
             if e is not None:
                 self._ensure_stage_resident(s, e[0])
@@ -1028,6 +1098,8 @@ class PipelinedBackend(_SlotCacheBackend):
             if mb_assign[s] >= 0:
                 self._act_in[s + 1].copy_(PL._wire(
                     self._act_out[s], self.wire_dtype, devs[s + 1]))
+        if self.recorder is not None:
+            self._lap("decode.launch")
         if drained is not None:
             # §4.3 return link: the drained microbatch's token ids ride
             # back to the host injector — the tick's one device-to-host
@@ -1035,6 +1107,8 @@ class PipelinedBackend(_SlotCacheBackend):
             out = self._read_out(drained[0])
         else:
             self._sync()            # the stage times below are the card's
+            if self.recorder is not None:
+                self._lap("decode.readout")
         t1 = time.perf_counter()
         # a key's first tick warms up and captures its step, a one-off
         # that is no stage's compute: the stage times leave it out (the

@@ -58,7 +58,14 @@ unless the oldest waiting request risks its time-to-first-token target.
 Observability and audit: ``trace=`` attaches a
 :class:`repro_torch.obs.trace.TraceRecorder` (step phases, request
 traces, prefix / SLO / fault / reshard events; threaded through the
-backend, its offloaders and its transport), and ``strict=`` (default: the
+backend, its offloaders and its transport), and
+:meth:`OfflineEngine.set_recorder` attaches or detaches one on a running
+engine.  Beside the ``engine`` track's ``reap`` / ``prefill`` / ``decode``
+phases, the engine records its own booking on the ``engine/host`` track
+(``build_chunk``; ``apply_prefill``, the prefill results and the
+activations; ``apply_decode``, the decode results with the page-table
+pushes they made), and the backend the parts of its calls (``backend``
+track, ``serving.backend``).  ``strict=`` (default: the
 ``REPRO_STRICT`` environment variable) a
 :class:`repro_torch.analysis.invariants.EngineAuditor` that re-checks the
 engine's host-side books after every submit, step and reshard.  Both read
@@ -89,6 +96,7 @@ from repro_torch.models import model as model_lib
 from repro_torch.models.common import Runtime, make_layer_plan, \
     stage_device
 from repro_torch.models.model import PAGED_KINDS
+from repro_torch.obs.trace import ENGINE_HOST_TRACK
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.backend import (DecodeResult, PipelinedBackend,
                                          PrefillChunk, PrefillResult,
@@ -695,6 +703,16 @@ class OfflineEngine:
             self.auditor.after_reshard()
         return reshard_plan
 
+    def set_recorder(self, recorder) -> None:
+        """Attach a flight recorder to the running engine, or detach it
+        (None); ``recorder`` takes the forms ``trace=`` takes.  The backend,
+        its offloaders and a pipelined backend's transport record into it
+        from their next call, and a reshard hands it to the backend it
+        builds.  Requests submitted before the attach have no per-request
+        trace."""
+        self.recorder = _resolve_trace(recorder)
+        self.backend.set_recorder(self.recorder)
+
     def _drain_stage_times(self) -> None:
         """Feed the backend's stage-time observations to the mitigator."""
         if self.straggler is None:
@@ -717,14 +735,24 @@ class OfflineEngine:
             return self._step()
 
     def _step(self) -> bool:
+        rec = self.recorder
         t0 = time.perf_counter()
         self._reap()
         tp = time.perf_counter()
         if self.chunked_prefill:
             chunk = self._build_chunk()
-            for res in self.backend.prefill_step(chunk):
+            if rec is not None:
+                tb = time.perf_counter()
+                rec.span("build_chunk", ENGINE_HOST_TRACK, tp, tb)
+            results = self.backend.prefill_step(chunk)
+            if rec is not None:
+                tb = time.perf_counter()
+            for res in results:
                 self._apply_prefill_result(res)
             self._activate_ready()
+            if rec is not None:
+                rec.span("apply_prefill", ENGINE_HOST_TRACK, tb,
+                         time.perf_counter())
         else:
             self._admit()
         tp2 = time.perf_counter()
@@ -737,10 +765,9 @@ class OfflineEngine:
                 and not self.backend.prefill_pending():
             self.stats.decode_time_s += tp - t0
             self.stats.wall_time_s += time.perf_counter() - t0
-            if self.recorder is not None:
-                self.recorder.step_phase("reap", t0, tp, self.stats.steps)
-                self.recorder.step_phase("prefill", tp, tp2,
-                                         self.stats.steps)
+            if rec is not None:
+                rec.step_phase("reap", t0, tp, self.stats.steps)
+                rec.step_phase("prefill", tp, tp2, self.stats.steps)
             if self.auditor is not None:
                 self.auditor.after_step()
             return False
@@ -752,12 +779,12 @@ class OfflineEngine:
         self.stats.wall_time_s += t1 - t0
         if self.slo is not None:
             self.slo.observe_tick(t1 - t0)
-        if self.recorder is not None:
+        if rec is not None:
             # the stamps EngineStats takes anyway
             step = self.stats.steps - 1
-            self.recorder.step_phase("reap", t0, tp, step)
-            self.recorder.step_phase("prefill", tp, tp2, step)
-            self.recorder.step_phase("decode", tp2, t1, step)
+            rec.step_phase("reap", t0, tp, step)
+            rec.step_phase("prefill", tp, tp2, step)
+            rec.step_phase("decode", tp2, t1, step)
         if self.auditor is not None:
             self.auditor.after_step()
         return True
@@ -1164,10 +1191,16 @@ class OfflineEngine:
                                       self._row_sampling(lo, hi),
                                       active=mb_active)
         self.stats.swaps = self.backend.swap_count
+        rec = self.recorder
+        ta = time.perf_counter() if rec is not None else 0.0
+        pushes = 0
         for res in results:
-            self._apply_result(res)
+            pushes += self._apply_result(res)
+        if rec is not None:
+            rec.span("apply_decode", ENGINE_HOST_TRACK, ta,
+                     time.perf_counter(), data=(("pushes", pushes),))
 
-    def _apply_result(self, res: DecodeResult) -> None:
+    def _apply_result(self, res: DecodeResult) -> int:
         """Book one drained microbatch tick (possibly for an earlier
         microbatch than the one just injected: a pipe drains ``N_S − 1``
         ticks after injection) for the rows live at its injection.  A lost
@@ -1175,15 +1208,18 @@ class OfflineEngine:
         dropping the injection snapshot lets the round robin inject the
         microbatch again on its next turn, with the same tokens at the same
         positions, and the retry rewrites the same position-keyed KV and
-        samples under the same ``(seed, request_id, token_idx)`` seeds."""
+        samples under the same ``(seed, request_id, token_idx)`` seeds.
+        Returns the page-table pushes it made (one a row that crossed into
+        a new page)."""
         if res.lost:
             self._inject_snap.pop(res.mb, None)
             self.stats.decode_ticks_lost += 1
             if self.recorder is not None:
                 self.recorder.fault("recover", time.perf_counter(),
                                     (("plane", "decode"), ("mb", res.mb)))
-            return
+            return 0
         lo = res.mb * self.mb_size
+        pushes = 0
         snap = self._inject_snap.pop(res.mb, None)
         rec = self.recorder
         tnow = time.perf_counter() if rec is not None else 0.0
@@ -1207,8 +1243,10 @@ class OfflineEngine:
                 self.alloc.extend(slot, global_pool=self._global_pool(slot))
                 self.table[slot] = self.alloc.table_row(slot)
                 self.backend.set_page_table(self.table)
+                pushes += 1
                 if rec is not None:
                     rec.request_pages(seq.request.request_id, 1)
+        return pushes
 
     # ------------------------------------------------------------------
 

@@ -11,7 +11,12 @@ the CPU.
   on the same weights (``from_jax_params``): equal streams, equal
   per-request trace counts (chunks, pages, prefix-hit tokens, tokens) and
   equal event counts by (kind, name, track).
-- The port on its own: tracing and strict mode change no stream; the
+- The port on its own: the spans inside the backend's calls and the
+  engine's booking, in order inside the engine's phases, and no clock
+  read when off; a recorder attached and detached mid-serve changes no
+  token; the export laid on a profiler trace's time base through the
+  recorder's clock anchor, checked against ``torch.profiler`` markers;
+  tracing and strict mode change no stream; the
   pipelined engine's link ledger reconciles with its transport bitwise;
   one offload swap window a swap; faults, recoveries and reshards are
   recorded as they are booked, and the recorder survives a reshard; the
@@ -129,13 +134,19 @@ def test_recorder_and_timeline_match_reference(capacity, tmp_path):
     assert t.link_ledger() == j.link_ledger()
     for rid in range(6):
         assert t.request_trace(rid) == j.request_trace(rid)
-    assert tobs.chrome_trace_events(t) == jobs.chrome_trace_events(j)
+    # the port's export carries its recorder's clock anchor besides
+    anchor = {"perf_counter_s": t.anchor[0], "epoch_ns": t.anchor[1]}
+    ours = tobs.chrome_trace_events(t)
+    assert ours["otherData"].pop("clock_anchor") == anchor
+    assert ours == jobs.chrome_trace_events(j)
     want = jobs.write_chrome_trace(j, str(tmp_path / "j.json"))
     got = tobs.write_chrome_trace(t, str(tmp_path / "t.json"))
-    assert got == want
-    assert (tmp_path / "t.json").read_text() == \
-        (tmp_path / "j.json").read_text()
     assert tobs.validate_chrome_trace(got) == []
+    assert got["otherData"].pop("clock_anchor") == anchor
+    assert got == want
+    written = json.loads((tmp_path / "t.json").read_text())
+    assert written["otherData"].pop("clock_anchor") == anchor
+    assert written == json.loads((tmp_path / "j.json").read_text())
 
 
 def _broken_traces():
@@ -271,9 +282,15 @@ def _port(tcfg, tparams, pool=POOL, **kw):
                device="cpu")
 
 
-def _event_counts(rec):
+# the port's own tracks (the spans inside the backend's calls and the
+# engine's booking); the JAX package records neither
+PORT_TRACKS = ("backend", "engine/host")
+
+
+def _event_counts(rec, tracks=None):
     return collections.Counter((e.kind, e.name, e.track)
-                               for e in rec.events)
+                               for e in rec.events
+                               if tracks is None or e.track in tracks)
 
 
 def _trace_counts(tr):
@@ -307,8 +324,17 @@ def test_traced_engines_match_jax(models, arch, prefix):
         assert _trace_counts(g.trace) == _trace_counts(w.trace)
         assert g.trace["ttft_s"] == g.ttft_s        # the same floats
         assert g.trace["token_times"][0] == g.trace["first_token_time"]
-    assert _event_counts(t.engine.recorder) == \
-        _event_counts(j.engine.recorder)
+    ours = _event_counts(t.engine.recorder)
+    own = _event_counts(t.engine.recorder, PORT_TRACKS)
+    assert ours - own == _event_counts(j.engine.recorder)
+    backend = t.engine.backend
+    calls = backend.prefill_chunks if arch == "yi-9b" else \
+        backend.exact_prefills
+    for name in ("prefill.inputs", "prefill.launch", "prefill.wait"):
+        assert own[("span", name, "backend")] == calls > 0
+    for name in ("decode.inputs", "decode.noise", "decode.launch",
+                 "decode.readout"):
+        assert own[("span", name, "backend")] == backend.decode_ticks > 0
     if prefix:
         names = {e.name for e in t.engine.recorder.events}
         assert {"prefix_hit", "prefix_insert"} <= names
@@ -577,3 +603,244 @@ def test_serve_cli_metrics_banner_and_full_size_alias():
     for flag in ("--full-size", "--full"):
         assert serve.build_parser().parse_args([flag]).full
     assert not serve.build_parser().parse_args([]).full
+
+
+# ------------------------------- spans inside the calls, on one clock ---
+
+
+DECODE_SPANS = ["decode.inputs", "decode.noise", "decode.launch",
+                "decode.readout"]
+PREFILL_SPANS = ["prefill.inputs", "prefill.launch", "prefill.wait"]
+
+
+def _mixed(prompts):
+    """Alternately greedy and sampled requests."""
+    return [SamplingParams(temperature=0.8 if i % 2 else 0.0, top_p=0.9,
+                           max_new_tokens=NEW) for i in range(len(prompts))]
+
+
+def _inside(ev, outer):
+    return outer.t0 <= ev.t0 and ev.t0 + ev.dur <= outer.t0 + outer.dur
+
+
+@pytest.mark.parametrize("backend", ["local", "pipelined"])
+def test_backend_spans_nest_in_engine_phases(models, backend):
+    """Each decode call records ``decode.inputs`` -> ``noise`` -> ``launch``
+    -> ``readout``, each starting where the last ended, inside the engine's
+    ``decode`` phase, and each prefill call its three ``prefill.*`` spans
+    inside ``prefill``; the engine's booking sits inside its phases too."""
+    *_, tcfg, tparams = models["yi-9b"]
+    prompts = _prompts(tcfg.vocab_size)
+    if backend == "local":
+        llm = _port(tcfg, tparams, trace=True)
+    else:
+        llm = _pipelined(tcfg, tparams, trace=True)
+    outs = llm.generate(prompts, _mixed(prompts))
+    assert all(o.finished for o in outs)
+    eng, be = llm.engine, llm.engine.backend
+    events = list(eng.recorder.events)
+    assert eng.recorder.dropped == 0
+    phases = {n: [e for e in events if e.track == "engine" and e.name == n]
+              for n in ("reap", "prefill", "decode")}
+    inner = [e for e in events if e.track == "backend"]
+    decode = [e for e in inner if e.name.startswith("decode.")]
+    prefill = [e for e in inner if e.name.startswith("prefill.")]
+    assert [e.name for e in decode] == DECODE_SPANS * be.decode_ticks
+    n_prefill = be.prefill_chunks if backend == "local" else \
+        be.prefill_ticks
+    assert [e.name for e in prefill] == PREFILL_SPANS * n_prefill
+    for group, n in ((decode, len(DECODE_SPANS)),
+                     (prefill, len(PREFILL_SPANS))):
+        for i in range(0, len(group), n):       # the spans tile a call
+            call = group[i:i + n]
+            for a, b in zip(call, call[1:]):
+                assert b.t0 == pytest.approx(a.t0 + a.dur, abs=1e-9)
+    rows = [dict(e.data)["rows"] for e in decode
+            if e.name == "decode.noise"]
+    assert max(rows) > 0 and min(rows) == 0 and max(rows) <= eng.mb_size
+    for spans, phase in ((decode, "decode"), (prefill, "prefill")):
+        for e in spans:
+            assert any(_inside(e, p) for p in phases[phase]), (e, phase)
+    host = [e for e in events if e.track == "engine/host"]
+    where = {"build_chunk": "prefill", "apply_prefill": "prefill",
+             "apply_decode": "decode"}
+    assert {e.name for e in host} == set(where)
+    for e in host:
+        assert any(_inside(e, p) for p in phases[where[e.name]]), e
+    # admission allocates a request's whole page budget, so no decode
+    # row crosses into a page it does not hold: no push from the booking
+    assert [dict(e.data)["pushes"] for e in host
+            if e.name == "apply_decode"] == [0] * be.decode_ticks
+    assert ttimeline.validate_chrome_trace(
+        tobs.chrome_trace_events(eng.recorder)) == []
+
+
+def test_recorder_off_takes_no_stamp(models, monkeypatch):
+    """With the recorder off, ``LocalBackend.decode`` reads no clock; on,
+    it reads one a span and one to start."""
+    import time as time_mod
+    *_, tcfg, tparams = models["yi-9b"]
+    llm = _port(tcfg, tparams)
+    eng = llm.engine
+    prompts = _prompts(tcfg.vocab_size)
+    eng.submit(llm._make_requests(prompts, _mixed(prompts)))
+    while not eng.active[:eng.mb_size].any():
+        eng.step()
+    reads = {"n": 0}
+    clock = time_mod.perf_counter
+
+    def counted():
+        reads["n"] += 1
+        return clock()
+
+    def call():
+        lo, hi = 0, eng.mb_size
+        samp = eng._row_sampling(lo, hi)
+        assert samp.any_sampled and not samp.temp.all()
+        monkeypatch.setattr(time_mod, "perf_counter", counted)
+        try:
+            with torch.inference_mode():        # as OfflineEngine.step
+                eng.backend.decode(0, np.zeros((hi,), np.int32),
+                                   eng.cur_pos[lo:hi], samp)
+        finally:
+            monkeypatch.setattr(time_mod, "perf_counter", clock)
+        n, reads["n"] = reads["n"], 0
+        return n
+
+    assert eng.recorder is None
+    assert call() == 0
+    eng.set_recorder(tobs.TraceRecorder())
+    assert call() == 1 + len(DECODE_SPANS)
+    eng.set_recorder(None)
+    assert call() == 0
+
+
+@pytest.mark.parametrize("backend", ["local", "pipelined"])
+def test_attach_and_detach_mid_serve(models, backend):
+    """A recorder attached after a few steps and detached a few steps later
+    changes no token; it records only between, on every part of the stack,
+    and the requests submitted before it have no trace."""
+    *_, tcfg, tparams = models["yi-9b"]
+    prompts = _prompts(tcfg.vocab_size) * 2
+    sps = _mixed(prompts)
+    make = (lambda: _port(tcfg, tparams)) if backend == "local" else \
+        (lambda: _pipelined(tcfg, tparams, transport=SimulatedLinkTransport
+                            .uniform(2, 0.01)))
+    ref = make().generate(prompts, sps)
+    llm = make()
+    eng = llm.engine
+    seqs = eng.submit(llm._make_requests(prompts, sps))
+    rec = tobs.TraceRecorder()
+    step = 0
+    while eng.step():
+        step += 1
+        if step == 4:
+            eng.set_recorder(rec)
+            assert all(r is rec for r in _recorders(eng).values())
+        elif step == 12:
+            n = len(rec.events)
+            eng.set_recorder(None)
+            assert all(r is None for r in _recorders(eng).values())
+    assert [s.generated for s in seqs] == [o.token_ids for o in ref]
+    assert len(rec.events) == n > 0
+    steps = [dict(e.data)["step"] for e in rec.events if e.name == "reap"]
+    assert steps == list(range(4, 12))
+    assert rec.requests == {}
+    assert eng.request_trace(0) is None
+
+
+def test_export_on_a_profiler_time_base(models):
+    """Without ``base_ns`` the wall events start near 0; with it each lands
+    at ``(epoch_ns - base_ns) / 1e3`` µs through the anchor, events before
+    the base are left out and counted, and both exports are valid."""
+    *_, tcfg, tparams = models["yi-9b"]
+    llm = _port(tcfg, tparams, trace=True)
+    prompts = _prompts(tcfg.vocab_size)
+    llm.generate(prompts, _mixed(prompts))
+    rec = llm.engine.recorder
+    plain = tobs.chrome_trace_events(rec)
+    assert ttimeline.validate_chrome_trace(plain) == []
+    xs = [e for e in plain["traceEvents"] if e["ph"] == "X"]
+    assert min(e["ts"] for e in xs) == 0.0
+    walls = [e for e in rec.events if e.clock == "wall"]
+    mid = walls[len(walls) // 2]
+    for base in (rec.epoch_ns(walls[0].t0) - 5_000_000, rec.epoch_ns(mid.t0)):
+        laid = tobs.chrome_trace_events(rec, base_ns=base)
+        assert ttimeline.validate_chrome_trace(laid) == []
+        other = laid["otherData"]
+        assert other["base_ns"] == base
+        kept = [e for e in walls if rec.epoch_ns(e.t0) >= base]
+        assert other["before_base"] == len(walls) - len(kept) > 0 or \
+            base < rec.epoch_ns(walls[0].t0)
+        got = [e for e in laid["traceEvents"] if e["ph"] == "X"
+               and e["pid"] == 1]
+        assert len(got) == sum(1 for e in kept if e.kind == "span")
+        for ev, e in zip(got, [e for e in kept if e.kind == "span"]):
+            assert ev["name"] == e.name
+            assert ev["ts"] == pytest.approx(
+                (rec.epoch_ns(e.t0) - base) / 1e3, abs=1e-3)
+    # the anchor maps perf_counter onto the epoch at one instant
+    perf, ns = rec.anchor
+    assert rec.epoch_ns(perf) == ns
+    assert rec.epoch_ns(perf + 1.5) - ns == 1_500_000_000
+
+
+def test_spans_land_beside_profiler_markers(tmp_path):
+    """Recorder spans laid on a CPU ``torch.profiler`` trace through the
+    anchor start within 100 µs before ``record_function`` markers opened
+    right after them."""
+    import time as time_mod
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+    rec = tobs.TraceRecorder()
+    prof = profile(activities=[ProfilerActivity.CPU])
+    prof.start()
+    with record_function("warm-up"):
+        pass
+    for i in range(20):
+        t0 = time_mod.perf_counter()
+        with record_function(f"mark{i}"):
+            time_mod.sleep(0.0005)
+        rec.span(f"mark{i}", "backend", t0, time_mod.perf_counter())
+    prof.stop()
+    path = tmp_path / "prof.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    base = int(trace["baseTimeNanoseconds"])
+    marks = {e["name"]: e["ts"] for e in trace["traceEvents"]
+             if e.get("cat") == "user_annotation"
+             and e["name"].startswith("mark")}
+    laid = tobs.chrome_trace_events(rec, base_ns=base)
+    spans = {e["name"]: e["ts"] for e in laid["traceEvents"]
+             if e["ph"] == "X"}
+    assert set(spans) == set(marks) and len(marks) == 20
+    leads = sorted(marks[n] - spans[n] for n in marks)
+    assert leads[0] > -50.0, leads
+    assert leads[len(leads) // 2] < 100.0, leads
+    assert ttimeline.validate_chrome_trace(
+        {"traceEvents": trace["traceEvents"] + laid["traceEvents"]}) == []
+
+
+def test_lint_reaches_the_new_spans_unsuppressed():
+    """The obs-hot-path pass scans the helpers that record the new spans
+    (they are reachable from the hot roots) and finds nothing; no line of
+    the backend or the engine suppresses it."""
+    from pathlib import Path
+
+    from repro_torch.analysis import lint
+    root = Path(lint.__file__).resolve().parents[1]
+    files, errors = lint.index_paths([root])
+    assert not errors
+    reach = lint.reachable_functions(files, lint.DEFAULT_HOT_ROOTS)
+    for fn in ("_SlotCacheBackend._lap", "_SlotCacheBackend._draw_noise",
+               "_SlotCacheBackend._load_inputs", "_SlotCacheBackend._load",
+               "_SlotCacheBackend._read_out", "LocalBackend.decode",
+               "PipelinedBackend._decode_tick"):
+        assert f"serving.backend:{fn}" in reach, fn
+    assert "serving.engine:OfflineEngine._decode_microbatch" in reach
+    assert lint.run_lint([root], rules=["obs-hot-path"],
+                         strict_suppressions=False) == []
+    for fi in files:
+        if fi.module in ("serving.backend", "serving.engine"):
+            assert not any("obs-hot-path" in s.rules
+                           for s in fi.suppressions), fi.path
