@@ -8,7 +8,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
 2. the build: every ``src/repro_torch/kernels/csrc/*.cu`` compiled with
    ``nvcc``, one process per source, all started together (paged
-   attention, flash attention, the RG-LRU scan), with each library's count
+   attention, flash attention, the RG-LRU scan, the chunked-prefill
+   attention), with each library's count
    of ``HGMMA`` (wgmma), ``UTMALDG`` / ``UTMASTG`` (TMA loads and stores),
    ``LDGSTS`` (cp.async) and ``HMMA`` (mma.sync) instructions from
    ``cuobjdump -sass``;
@@ -25,6 +26,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    time), plain version, ``scaled_dot_product_attention`` over the
    gathered KV (a yardstick the port never calls) and the least time the
    card could take;
+3b. the chunked-prefill attention kernel against its plain version (the
+   gather of each row's whole table and ``models.attention
+   .chunk_attention``) on the card, bf16 and float32, at both benchmark
+   cells' chunk shapes (yi-9b heads, 256-token chunks over 4 rows of a
+   4,096-slot table and 1 row of a 2,048-slot one), with partial chunks
+   and a padding row; then its time (cold L2) beside the plain version's,
+   an SDPA call over the gathered pages (``library_ms``) and the least
+   time of its operations and bytes (``kernels.cost.chunk_cost``);
 4. the flash-attention kernel against its plain version at gemma3-12b's
    prefill shapes (B=1, H=16, Hk=8, Dh=256, S from 8 to 2048, causal, with
    and without the 1024-token window), a sweep of Dh, G, non-causal and
@@ -68,7 +77,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    full-depth yi-9b in bf16 with random weights from the seed, 20 requests
    of 64-768 prompt tokens and 32 new tokens, greedy and sampled mixed;
    every request must finish at full length with finite log-probs, and the
-   paged kernel's launch count must equal decode ticks x 48;
+   paged kernel's launch count must equal decode ticks x 48, and the
+   chunked-prefill kernel's prefill chunks x 48;
    then, on the same weights and requests, the offloaded serve (4 x 4
    slots, 400 local pages and two global pools of 400 swapped through
    pinned host memory on the offloader's copy stream, beside an engine of
@@ -365,7 +375,8 @@ SEED = 0
 HBM_BYTES_PER_S = cost.HBM_BYTES_PER_S
 PEAK_FLOPS = cost.PEAK_FLOPS
 YI_LAYERS = 48
-KERNELS = ("paged_attention", "flash_attention", "rglru_scan")
+KERNELS = ("paged_attention", "flash_attention", "rglru_scan",
+           "chunk_attention")
 # kernel against plain version, (atol, rtol).  Both compute in float32 and
 # round once to the output dtype, so bf16 outputs differ by at most one
 # bf16 ulp (2**-7 of the value) where the float32 results straddle a
@@ -1019,6 +1030,129 @@ def phase_kernel_paged(torch, np):
                               "library_ms": g_lib}}
 
 
+# the chunked-prefill attention against its plain version: as in
+# tests/test_torch_chunk_attention.py, float32 at TOL and bf16 within
+# 2**-8 max|V| (P rounded to bf16 at the running max, not the final one)
+# and one bf16 ulp
+CHUNK_BF16_TOL = (2 ** -8, 2 ** -7)
+# the benchmark cells' chunk shapes (bench/configs/yi9b.json, bench/cells):
+# rows of 256 tokens, yi-9b's heads, page 16; offsets near prefill_heavy's
+# mean prompt (log-uniform 1,024-3,968) and decode_heavy's (128-1,024)
+CHUNK_CELLS = {"yi9b.prefill_heavy": dict(b=4, max_pages=256,
+                                          offsets=(2048,) * 4),
+               "yi9b.decode_heavy": dict(b=1, max_pages=128,
+                                         offsets=(512,))}
+
+
+def chunk_case(torch, np, rng, *, b, c, h, hk, dh, page, max_pages, offsets,
+               n_valid, dtype, device):
+    """Random pools in which each row's table holds pages of its own (page
+    0 is scratch), all finite: a padded query's value and the plain
+    version's P.V read every slot of the table.  Positions ``offset + i``
+    for a row's first ``n_valid`` queries, -1 after."""
+    n_pool = 1 + b * max_pages
+    pt = rng.permutation(np.arange(1, n_pool)).astype(np.int32).reshape(
+        b, max_pages)
+    pos = np.full((b, c), -1, np.int32)
+    for r in range(b):
+        pos[r, :n_valid[r]] = offsets[r] + np.arange(n_valid[r])
+    q = torch.randn((b, c, h, dh), device=device)
+    kp = torch.randn((n_pool, page, hk, dh), device=device)
+    vp = torch.randn((n_pool, page, hk, dh), device=device)
+    return (q.to(dtype), kp.to(dtype), vp.to(dtype),
+            torch.from_numpy(pt).to(device), torch.from_numpy(pos).to(device))
+
+
+def chunk_sdpa(torch, q, kp, vp, pt, pos):
+    """The yardstick for a chunk: one SDPA call over each row's table
+    gathered into contiguous (B, Hk, T, Dh) tensors with the position mask
+    (the gather is made here, outside the timed call)."""
+    b, t = pt.shape[0], pt.shape[1] * kp.shape[1]
+    hk, dh = kp.shape[2], kp.shape[3]
+    kv_pos = torch.arange(t, device=q.device)
+    mask = (kv_pos[None, None] <= pos[:, :, None].long())[:, None]
+    kg, vg = (x[pt.long()].reshape(b, t, hk, dh).transpose(1, 2).contiguous()
+              for x in (kp, vp))
+    qt = q.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qt, kg, vg, attn_mask=mask, enable_gqa=True)
+
+
+def phase_kernel_chunk(torch, np):
+    from repro_torch.kernels import chunk_attention as ca
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 31)
+    torch.manual_seed(SEED + 31)
+    H, HK, DH, PAGE, C = 32, 4, 128, 16, 256
+
+    def check(label, args):
+        got = ca.paged_chunk_attention(*args)
+        torch.cuda.synchronize()
+        want = ref.paged_chunk_attention_ref(*args)
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{label}: non-finite kernel output")
+        if args[0].dtype == torch.float32:
+            atol, rtol = TOL["float32"]
+        else:
+            atol = CHUNK_BF16_TOL[0] * args[2].float().abs().max().item()
+            rtol = CHUNK_BF16_TOL[1]
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol, msg=lambda m: f"{label}: {m}")
+        log(f"[kernel-chunk] {label}: max |kernel - plain| = {err:.3e} "
+            f"(atol {atol:.3g}, rtol {rtol:g}) ok")
+        return err
+
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    out = {}
+    for cell, shape in CHUNK_CELLS.items():
+        b, maxp = shape["b"], shape["max_pages"]
+        t = maxp * PAGE
+        kw = dict(b=b, c=C, h=H, hk=HK, dh=DH, page=PAGE, max_pages=maxp)
+        # offsets 0, the cell's, and the chunk reaching the table's end;
+        # partial chunks and (with several rows) a padding row
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            for offs, valid in ((shape["offsets"], (C,) * b),
+                                ((0,) * b, (C,) * b),
+                                ((t - C,) + (t // 3,) * (b - 1),
+                                 (C,) + (C // 2 + 7,) * (b - 1)),
+                                ((37,) * b, (C - 101,) + (0,) * (b - 1))):
+                check(f"{cell} B={b} table {t} offsets {offs[:2]} n_valid "
+                      f"{valid[:2]} {name}",
+                      chunk_case(torch, np, rng, **kw, offsets=offs,
+                                 n_valid=valid, dtype=dtype, device=dev))
+        # times at the cell's shape, bf16, every query real
+        args = chunk_case(torch, np, rng, **kw, offsets=shape["offsets"],
+                          n_valid=(C,) * b, dtype=torch.bfloat16,
+                          device=dev)
+        err = check(f"{cell} timed case", args)
+        ms = time_ms(torch, lambda: ca.paged_chunk_attention(*args), 50,
+                     flush)
+        plain_ms = time_ms(torch, lambda: ref.paged_chunk_attention_ref(
+            *args), 10, flush)
+        library_ms = time_ms(torch, chunk_sdpa(torch, *args), 20, flush)
+        flops, nbytes = cost.chunk_cost(args[4].tolist(), H, HK, DH, 2, maxp,
+                                        PAGE)
+        bound_ms, bound_by = cost.least_ms(flops, nbytes, "bfloat16")
+        log(f"[kernel-chunk] times at {cell}: B={b} C={C} H={H} Hk={HK} "
+            f"Dh={DH} page={PAGE} table {t} offsets {shape['offsets'][0]} "
+            f"bf16, cold L2: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms(sdpa)={library_ms:.4f} bound_ms={bound_ms:.4f} "
+            f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
+            f"kernel at {bound_ms / ms:.1%} of the bound, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+        out[cell] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "flops": flops, "bytes": nbytes}
+    return out
+
+
 def flash_bound(sq, skv, causal, window, h, hk, dh, esize, dtype_name,
                 b=1):
     """Least time for the work (``kernels.cost.flash_cost``): the live
@@ -1463,6 +1597,7 @@ def phase_serve(torch, np, card: str, params):
     flash_launches = counts["flash_attention"]
     rep = llm.stats()
     ticks = rep["decode_ticks"]
+    chunks = llm.engine.backend.prefill_chunks
     graph_books(torch, "serve", llm.engine.backend, rep, spans)
     bad = [o.request_id for o in outs
            if not o.finished or len(o.token_ids) != max_new
@@ -1474,6 +1609,10 @@ def phase_serve(torch, np, card: str, params):
     if ticks == 0 or launches != ticks * YI_LAYERS:
         raise AssertionError(f"serve: {launches} kernel launches for {ticks} "
                              f"decode ticks x {YI_LAYERS} layers")
+    if chunks == 0 or counts["chunk_attention"] != chunks * YI_LAYERS:
+        raise AssertionError(f"serve: {counts['chunk_attention']} chunk "
+                             f"kernel launches for {chunks} prefill chunks x "
+                             f"{YI_LAYERS} layers")
     if flash_launches or counts["rglru_scan"]:   # fully paged, chunked
         raise AssertionError(f"serve: {flash_launches} flash and "
                              f"{counts['rglru_scan']} scan launches on the "
@@ -1496,7 +1635,8 @@ def phase_serve(torch, np, card: str, params):
         f"mean={sum(ttft) / len(ttft):.3f} (n={len(ttft)}); "
         f"peak_mem_gib={peak:.2f}; engine steps {rep['steps']}, decode "
         f"ticks {ticks}, paged-kernel launches {launches} "
-        f"(= {ticks} x {YI_LAYERS})")
+        f"(= {ticks} x {YI_LAYERS}); prefill chunks {chunks}, chunk-kernel "
+        f"launches {counts['chunk_attention']} (= {chunks} x {YI_LAYERS})")
     return counts, wall, outs
 
 
@@ -2046,7 +2186,8 @@ def phase_serve_recurrentgemma(torch, np, card: str):
         raise AssertionError(f"recurrentgemma: requests {bad} unfinished, "
                              "short, or with non-finite log-probs")
     want = {"rglru_scan": RG_REQUESTS * n_rglru,
-            "flash_attention": RG_REQUESTS * n_local, "paged_attention": 0}
+            "flash_attention": RG_REQUESTS * n_local, "paged_attention": 0,
+            "chunk_attention": 0}
     if counts != want:
         raise AssertionError(f"recurrentgemma: launches {counts}, want "
                              f"{want} ({RG_REQUESTS} requests x {n_rglru} "
@@ -4186,6 +4327,19 @@ class _DropCounter:
         return int(self.dropped), int(self.pairs)
 
 
+def chunk_launches(backend, cfg) -> int:
+    """The chunk kernel's launches over a local backend's prefill chunks:
+    one a paged layer a chunk, and one more a layer for each further
+    launch of 16 heads that a G above 16 takes (``kernels.groups``)."""
+    from repro_torch.kernels import chunk_attention as ca
+    from repro_torch.kernels import groups
+    from repro_torch.models.model import PAGED_KINDS
+    layers = sum(k in PAGED_KINDS for k in cfg.layer_kinds())
+    per_layer = len(groups.group_plan(cfg.num_heads // cfg.num_kv_heads,
+                                      ca.GROUP_SIZES))
+    return backend.prefill_chunks * layers * per_layer
+
+
 def _arch_serve(torch, np, tag, cfg, params, rt, econf, n_req, prompt_range,
                 max_new):
     """``LLM.generate`` over ``n_req`` requests of ``prompt_range`` tokens,
@@ -4401,7 +4555,9 @@ def phase_moe_phi(torch, np, card: str):
             SERVE_PROMPTS, SERVE_NEW)
     local_drops = drops.read()
     if counts != {"paged_attention": rep["decode_ticks"] * PHI_LAYERS,
-                  "flash_attention": 0, "rglru_scan": 0}:
+                  "flash_attention": 0, "rglru_scan": 0,
+                  "chunk_attention": chunk_launches(llm.engine.backend,
+                                                    cfg)}:
         raise AssertionError(f"moe-phi: launches {counts} for "
                              f"{rep['decode_ticks']} ticks x {PHI_LAYERS}")
     tick = dict(_arch_tick(torch, np, cfg, rt, params, llm.engine.backend),
@@ -4473,7 +4629,9 @@ def phase_moe_qwen3(torch, np, card: str):
     dropped = drops.read()
     per_tick = QWEN_LAYERS * 2          # G = 16: two launches of 8
     if counts != {"paged_attention": rep["decode_ticks"] * per_tick,
-                  "flash_attention": 0, "rglru_scan": 0}:
+                  "flash_attention": 0, "rglru_scan": 0,
+                  "chunk_attention": chunk_launches(llm.engine.backend,
+                                                    cfg)}:
         raise AssertionError(f"moe-qwen3: launches {counts} for "
                              f"{rep['decode_ticks']} ticks x {per_tick}")
     tick = dict(_arch_tick(torch, np, cfg, rt, params, llm.engine.backend),
@@ -4585,7 +4743,9 @@ def phase_minitron(torch, np, card: str):
         torch, np, "minitron", cfg, params, rt, econf, MT_REQUESTS,
         MT_PROMPTS, MT_NEW)
     if counts != {"paged_attention": rep["decode_ticks"] * cfg.num_layers,
-                  "flash_attention": 0, "rglru_scan": 0}:
+                  "flash_attention": 0, "rglru_scan": 0,
+                  "chunk_attention": chunk_launches(llm.engine.backend,
+                                                    cfg)}:
         raise AssertionError(f"minitron: launches {counts} for "
                              f"{rep['decode_ticks']} ticks x "
                              f"{cfg.num_layers}")
@@ -5134,7 +5294,7 @@ def phase_train_gemma(torch, np, card: str):
     first, last = _falls("train-gemma3-1b", res.losses, 5)
     want = TRAIN_STEPS * cfg.num_layers
     if counts != {"paged_attention": 0, "flash_attention": want,
-                  "rglru_scan": 0}:
+                  "rglru_scan": 0, "chunk_attention": 0}:
         raise AssertionError(f"train-gemma3-1b: launches {counts}, want "
                              f"{want} flash (steps x layers)")
     summary = {"steps": TRAIN_STEPS, "losses": res.losses,
@@ -5243,7 +5403,7 @@ def phase_train_rgemma(torch, np, card: str):
     n_rg = kinds.count("rglru")
     want = {"paged_attention": 0,
             "flash_attention": RG_TRAIN_STEPS * (len(kinds) - n_rg),
-            "rglru_scan": RG_TRAIN_STEPS * n_rg * 2}
+            "rglru_scan": RG_TRAIN_STEPS * n_rg * 2, "chunk_attention": 0}
     if counts != want:
         raise AssertionError(f"train-rgemma: launches {counts}, want {want}"
                              " (scan: steps x rglru layers x forward and "
@@ -5287,7 +5447,9 @@ def phase_frontend_serve(torch, np, card: str, arch: str, tag: str):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ticks = rep["decode_ticks"]
     if counts != {"paged_attention": ticks * cfg.num_layers,
-                  "flash_attention": 0, "rglru_scan": 0}:
+                  "flash_attention": 0, "rglru_scan": 0,
+                  "chunk_attention": chunk_launches(llm.engine.backend,
+                                                    cfg)}:
         raise AssertionError(f"{tag}: launches {counts} for {ticks} ticks x "
                              f"{cfg.num_layers} layers")
     log(f"[{tag}] on {card}: {len(outs)}/{SERVE_REQUESTS} requests; decode "
@@ -5394,7 +5556,8 @@ def phase_frontend_parity(torch, np):
                     counts = read_counts()
             logits[run] = torch.stack(steps).cpu()
         want_counts = {"paged_attention": FE_PARITY_STEPS * FE_PARITY_LAYERS,
-                       "flash_attention": 0, "rglru_scan": 0}
+                       "flash_attention": 0, "rglru_scan": 0,
+                       "chunk_attention": 0}
         if counts != want_counts:
             raise AssertionError(f"frontend-parity {arch}: card decode "
                                  f"launches {counts}, want {want_counts}")
@@ -5775,7 +5938,7 @@ def phase_fixed_pipe_yi(torch, np, card: str, params):
     run, pc, rc = _fixed_run(torch, cfg, rt, params, pcfg, tokens, FIXED_CAP,
                              FIXED_R, "cuda")
     want = {"paged_attention": 0, "flash_attention": FIXED_N_MB * YI_LAYERS,
-            "rglru_scan": 0}
+            "rglru_scan": 0, "chunk_attention": 0}
     if pc != want or any(rc.values()):
         raise AssertionError(f"fixed-pipe: prefill launches {pc}, want "
                              f"{want}; rounds launches {rc}, want none")
@@ -5826,7 +5989,8 @@ def phase_fixed_pipe_rgemma(torch, np, card: str):
     staged = kinds[:ranges[-1][0]]
     want = {"paged_attention": 0,
             "flash_attention": RG_FIXED_N_MB * staged.count("local"),
-            "rglru_scan": RG_FIXED_N_MB * staged.count("rglru") + len(epi)}
+            "rglru_scan": RG_FIXED_N_MB * staged.count("rglru") + len(epi),
+            "chunk_attention": 0}
     if pc != want or any(rc.values()):
         raise AssertionError(f"fixed-pipe-rgemma: prefill launches {pc}, "
                              f"want {want}; rounds launches {rc}")
@@ -6896,6 +7060,7 @@ def run_phases(torch, np, table, t_start: float) -> int:
     smi_line, name = phase("1 card", phase_card, torch)
     sass = phase("2 build", phase_build)
     paged = phase("3 paged kernel", phase_kernel_paged, torch, np)
+    chunk = phase("3b chunk kernel", phase_kernel_chunk, torch, np)
     flash = phase("4 flash kernel", phase_kernel_flash, torch, np)
     scan = phase("5 scan kernel", phase_kernel_scan, torch, np)
     group_sizes = phase("5b group sizes", phase_group_sizes, torch, np)
@@ -6978,7 +7143,7 @@ def run_phases(torch, np, table, t_start: float) -> int:
     graphs["script_seconds"] = time.perf_counter() - t_start
 
     def launches(kernel):
-        by_path = {path: c[kernel] for path, c in paths.items()}
+        by_path = {path: c.get(kernel, 0) for path, c in paths.items()}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -7003,6 +7168,10 @@ def run_phases(torch, np, table, t_start: float) -> int:
          "ok": True, **launches("rglru_scan"), **scan,
          "reversed": train["scan_grad"],
          "sass": sass["rglru_scan"]},
+        {"name": "paged_chunk_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/chunk_attention.cu",
+         "replaces": None, "ok": True, **launches("chunk_attention"),
+         "cells": chunk, "sass": sass["chunk_attention"]},
     ]
     print(json.dumps({"offload": {"swap_order": swap_order,
                                   "serve": offload, "plan": plan}}))

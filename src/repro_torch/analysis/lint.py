@@ -161,6 +161,7 @@ DEVICE_NAMES = {
     "pipeline_decode_tick", "pipeline_prefill_chunk_tick",
     # kernel wrappers
     "paged_decode_attention", "flash_attention", "rglru_scan",
+    "paged_chunk_attention",
 }
 # torch calls whose results are NOT device tensors
 DEVICE_EXCEPTIONS = {"torch.device", "torch.Generator", "torch.from_numpy",

@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` into a shared library with
 a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds).  The library is built from the checkout's sources at
 first use, into ``build/kernels/`` at the repository root (listed in
-``.gitignore``); its file name carries a hash of the source and flags, so
-an edited source never loads a stale library.  Nothing here runs at
+``.gitignore``); its file name carries a hash of the source, the
+``csrc`` headers it includes and the flags, so an edited source or header
+never loads a stale library.  Nothing here runs at
 import time.
 """
 
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -54,8 +56,12 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    """The library's path, named by a hash of its source, the headers of
+    ``csrc`` that the source includes, and the flags."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    headers = re.findall(rb'^#include "([^"]+)"', src, re.MULTILINE)
+    data = src + b"".join((CSRC / h.decode()).read_bytes() for h in headers)
+    digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

@@ -100,6 +100,30 @@ def paged_cost(case_lens: Iterable[int], window: int, h: int, hk: int,
     return 4 * h * dh * toks, nbytes
 
 
+def chunk_cost(q_pos: Iterable[Iterable[int]], h: int, hk: int, dh: int,
+               esize: int, max_pages: int, page: int) -> Tuple[int, int]:
+    """(flops, bytes) of one chunked-prefill attention over a paged pool,
+    ``q_pos`` each row's query positions (-1 padded): ``4 * H * Dh`` flops
+    a (real query, visible key) pair, a real query at position ``p``
+    seeing ``min(p + 1, T)`` slots of a ``T = max_pages * page`` table; a
+    padded query's mean of V, ``2 * H * Dh`` flops a slot of the whole
+    table.  Bytes: q and the output once; each row's K rows once up to its
+    last real position and its V rows once up to that or, with a padded
+    query, the whole table; the table and the positions once."""
+    t = max_pages * page
+    flops = nbytes = 0
+    for row in q_pos:
+        row = [int(p) for p in row]
+        real = [min(p + 1, t) for p in row if p >= 0]
+        pads = len(row) - len(real)
+        flops += 4 * h * dh * sum(real) + 2 * h * dh * t * pads
+        k_rows = max(real, default=0)
+        v_rows = t if pads else k_rows
+        nbytes += (k_rows + v_rows) * hk * dh * esize \
+            + 2 * len(row) * h * dh * esize + max_pages * 4 + len(row) * 4
+    return flops, nbytes
+
+
 def least_ms(flops: float, nbytes: float, dtype_name: str) -> Tuple[float,
                                                                     str]:
     """(ms, what bounds it): the larger of the bytes over the memory rate

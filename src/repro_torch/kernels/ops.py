@@ -9,8 +9,9 @@ and dtypes.  No shape ever sends a CUDA tensor to the plain version or the
 meta route, and no failure falls through to either.  The meta and CUDA
 routes book the kernel's flops and bytes (``kernels.cost``) with the dry
 run's counter when one is open; with none open that is one list test.
-The paged kernel has no meta route: the dry run decodes over dense
-caches, as the JAX dry run does, and a meta pool raises in the wrapper.
+The paged kernels have no meta route: the dry run decodes and prefills
+over dense caches, as the JAX dry run does, and a meta pool raises in the
+wrapper.
 
 When a training step asks for gradients (grad mode on and an input that
 requires grad), the flash and scan calls go through the
@@ -25,6 +26,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import cost, ref
+from repro_torch.kernels.chunk_attention import \
+    paged_chunk_attention as _chunk_cuda
 from repro_torch.kernels.flash_attention import \
     flash_attention as _flash_cuda
 from repro_torch.kernels.paged_attention import \
@@ -86,6 +89,20 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return ref.paged_decode_attention_ref(q, k_pages, v_pages, page_table,
                                               seq_lens, window=window)
     return _paged_cuda(q, k_pages, v_pages, page_table, seq_lens,
+                       window=window)
+
+
+def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, page_table: torch.Tensor,
+                          q_pos: torch.Tensor, *,
+                          window: int = 0) -> torch.Tensor:
+    """A prefill chunk's attention over the paged pool (chunked prefill);
+    shapes as in ``kernels.ref``.  The CUDA kernel takes int32 tables and
+    positions and ``window == 0`` only, and raises otherwise."""
+    if q.device.type == "cpu":
+        return ref.paged_chunk_attention_ref(q, k_pages, v_pages, page_table,
+                                             q_pos, window=window)
+    return _chunk_cuda(q, k_pages, v_pages, page_table, q_pos,
                        window=window)
 
 

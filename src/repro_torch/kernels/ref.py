@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models.attention import chunk_attention
+
 NEG_INF = -1e30
 
 
@@ -58,6 +60,34 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
     out = torch.einsum("bkgc,bckd->bkgd", p, v) / l
     return out.reshape(b, h, dh).to(q.dtype)
+
+
+def paged_chunk_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor, page_table: torch.Tensor,
+                              q_pos: torch.Tensor, *,
+                              window: int = 0) -> torch.Tensor:
+    """Gather-then-attend chunked-prefill attention.
+
+    q          (B, C, H, Dh)      the chunk's queries
+    k/v_pages  (P, page, Hk, Dh)  shared page pool, the chunk's K/V written
+    page_table (B, max_pages)     page ids per row, row-major in time
+    q_pos      (B, C)             absolute query positions, -1 = padded
+    -> (B, C, H, Dh) in q's dtype.
+
+    Each row's whole table is gathered in position order (slot ``t`` holds
+    position ``t``; page ids clamped to the pool) and attended by
+    ``models.attention.chunk_attention``, the counterpart of the JAX
+    package's chunked prefill: query ``i`` sees slots ``t <= q_pos[i]``, and
+    a padded query the mean of V over the whole table.
+    """
+    b, _, _, dh = q.shape
+    n_pool, page_size, hk, _ = k_pages.shape
+    n_ctx = page_table.shape[1] * page_size
+    pt = page_table.long().clamp(0, n_pool - 1)
+    kg = k_pages[pt].reshape(b, n_ctx, hk, dh)
+    vg = v_pages[pt].reshape(b, n_ctx, hk, dh)
+    return chunk_attention(q, kg, vg, torch.arange(n_ctx, device=q.device),
+                           q_pos, window=window)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -367,7 +367,8 @@ def _step_index(mode: str, positions: torch.Tensor, page_table: torch.Tensor,
     Decode: ``slot``, the current token's row in a pool viewed as
     ``(P * page, Hk, Dh)`` (``page * page_size + off``), and ``seq_lens``
     for the kernel.  Chunk and prefill: ``page``/``off``/``keep`` for
-    ``_write_prefill_paged`` and the row's table ``pt`` for the gather.
+    ``_write_prefill_paged``, and a chunk's int32 positions ``q_pos`` for
+    its attention.
     Positions marked ``-1`` (padding) must not touch a live page.  JAX drops
     their scatter as out of bounds; torch indexing would raise instead, and
     selecting only the valid positions would cost a device-to-host sync.
@@ -382,9 +383,12 @@ def _step_index(mode: str, positions: torch.Tensor, page_table: torch.Tensor,
                 "seq_lens": (cur + 1).to(torch.int32)}
     valid = pos >= 0
     p0 = pos.clamp(min=0)
-    return {"page": torch.where(valid, pt.gather(1, p0 // page_size), 0),
-            "off": torch.where(valid, p0 % page_size, 0),
-            "keep": valid[..., None, None], "pt": pt}
+    idx = {"page": torch.where(valid, pt.gather(1, p0 // page_size), 0),
+           "off": torch.where(valid, p0 % page_size, 0),
+           "keep": valid[..., None, None]}
+    if mode == "chunk":
+        idx["q_pos"] = positions.to(torch.int32)
+    return idx
 
 
 def _write_prefill_paged(cache: dict, k: torch.Tensor, v: torch.Tensor,
@@ -483,18 +487,15 @@ def _attn_layer(kind: str, w: dict, x: torch.Tensor, cfg: ModelConfig,
                                         window=window)[:, None]
     elif mode == "chunk":
         # write the chunk's KV into the pool, then attend the chunk's
-        # queries against the row's whole gathered extent
+        # queries against their rows' tables: the kernel reads the pool in
+        # place (the plain version gathers each row's whole table)
         if "k_pages" not in cache:
             raise NotImplementedError(
                 "chunked prefill supports paged attention layers only; "
                 "ring (sliding-window) layers must use exact-length prefill")
         _write_prefill_paged(cache, k, v, idx)
-        pt = idx["pt"]
-        n_ctx = pt.shape[1] * cache["k_pages"].shape[1]
-        kg = cache["k_pages"][pt].reshape(B, n_ctx, Hk, Dh)
-        vg = cache["v_pages"][pt].reshape(B, n_ctx, Hk, Dh)
-        out = attn_lib.chunk_attention(
-            q, kg, vg, torch.arange(n_ctx, device=x.device), positions,
+        out = kops.paged_chunk_attention(
+            q, cache["k_pages"], cache["v_pages"], page_table, idx["q_pos"],
             window=window)
     else:
         # exact-length prefill or a training forward: the whole sequence

@@ -107,6 +107,7 @@ from typing import Callable, Dict, Hashable, List, Optional
 
 import torch
 
+from repro_torch.kernels import chunk_attention as _chunk
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import rglru_scan as _scan
@@ -121,7 +122,8 @@ def counted_kernels() -> Dict[str, Callable]:
     """Each kernel wrapper, by kernel; ``.launches`` is its count."""
     return {"paged_attention": _paged.paged_decode_attention,
             "flash_attention": _flash.flash_attention,
-            "rglru_scan": _scan.rglru_scan}
+            "rglru_scan": _scan.rglru_scan,
+            "chunk_attention": _chunk.paged_chunk_attention}
 
 
 def _counts() -> Counter:

@@ -38,6 +38,7 @@ from repro.serving.request import SamplingParams as JaxSP  # noqa: E402
 from repro_torch.analysis.invariants import InvariantViolation  # noqa: E402
 from repro_torch.config import get_arch, reduced_config  # noqa: E402
 from repro_torch.core import pipeline as PL  # noqa: E402
+from repro_torch.kernels import chunk_attention as CA  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import rglru_scan as RS  # noqa: E402
@@ -141,6 +142,46 @@ def test_local_chunk_step_equals_the_eager_chunk(graphs, monkeypatch):
         assert list(be.graph_entries()) == [("chunk", 3, 8, 4)]
         assert st["replays_by_kind"] == {"chunk": 2}
         assert st["prefill_replays"] == 2 and st["decode_replays"] == 0
+
+
+def test_local_chunk_replays_book_the_chunk_kernel_a_layer(monkeypatch,
+                                                           stand_in):
+    """With the plain chunk attention standing in for counted launches of
+    the kernel (the card's route), three chunks of one key: each replay
+    gives ``_chunk_fn``'s logits and pools bit for bit and books one
+    launch a model layer, as the card's 48 a yi-9b chunk call; the
+    capture's warm-up launches are booked apart and put back."""
+    orig = kops.ref.paged_chunk_attention_ref
+
+    def counted(*a, **k):
+        CA.paged_chunk_attention.launches += 1
+        return orig(*a, **k)
+    monkeypatch.setattr(kops.ref, "paged_chunk_attention_ref", counted)
+    _, tcfg, _, tparams = _params("yi-9b")
+    layers = tcfg.num_layers
+    pool, caches = _filled(tcfg, 4, 5)
+    table = caches["page_table"].numpy().copy()
+    be = LocalBackend(tcfg, tparams, TRT, mb_size=2, num_microbatches=2,
+                      pool=pool, device=CPU, caches=caches)
+    ref = _clone(caches)
+    rng = np.random.RandomState(5)
+    chunks = [_chunk(rng, tcfg, table, [0, 2, 3], [0, 8, 16], [8, 5, 8], 8),
+              _chunk(rng, tcfg, table, [1, 0, -1], [16, 8, 0], [3, 8, 0], 8),
+              _chunk(rng, tcfg, table, [3, 1, 2], [8, 0, 16], [8, 8, 2], 8)]
+    for i, chunk in enumerate(chunks):
+        before = CA.paged_chunk_attention.launches
+        (res,) = be.prefill_step(chunk)
+        assert CA.paged_chunk_attention.launches - before == layers
+        want = LocalBackend._chunk_fn(
+            tparams, ref, _t(chunk.tokens), _t(chunk.offsets),
+            _t(chunk.n_valid), _t(chunk.lasts), _t(chunk.tables), cfg=tcfg,
+            rt=TRT)
+        assert torch.equal(res.logits, want)
+        _assert_caches_equal(be.caches, ref)
+    st = be.graphs.stats()
+    assert st["captures"] == 1 and st["replays"] == len(chunks)
+    assert be.graphs.warmup_launches == {"chunk_attention": layers}
+    assert layers == sum(k in ("attn", "global") for k in tcfg.layer_kinds())
 
 
 # ------------------------------------------------------------ the pipe
