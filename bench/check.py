@@ -23,7 +23,6 @@ float8 forward ranks first, and is judged by ``judge`` as the program's
 
 from __future__ import annotations
 
-import importlib
 from typing import Dict, List
 
 import numpy as np
@@ -31,12 +30,6 @@ import torch
 
 
 SEED_SALT = 0x5EED_C4EC
-
-
-def reference(conf: dict):
-    """The plain reference a configuration file names (``reference``):
-    the module ``bench/reference/<name>.py``."""
-    return importlib.import_module(f"bench.reference.{conf['reference']}")
 
 
 def draw_sample(finished: List[dict], seed: int, tokens: int,
@@ -59,17 +52,17 @@ def draw_sample(finished: List[dict], seed: int, tokens: int,
     return out
 
 
-def gaps(params: dict, conf: dict, sample: List[dict],
+def gaps(arch, params: dict, conf: dict, sample: List[dict],
          control: bool = False) -> Dict[str, float]:
     """``logit_gap_max`` of the served tokens (and ``control_gap`` of the
     float8 reference's first choices when ``control``), with
     ``tokens_compared`` and ``tokens_off_top`` (served tokens that are not
-    the reference's first choice)."""
+    the reference's first choice).  The reference is ``logits`` of
+    ``arch``, the configuration's module."""
     seqs = [r["prompt"] + r["tokens"][:-1] for r in sample]
     starts = [len(r["prompt"]) - 1 for r in sample]
-    ref_model = reference(conf)
-    ref = ref_model.logits(params, conf, seqs, starts)
-    ctl = ref_model.logits(params, conf, seqs, starts, fp8=True) \
+    ref = arch.logits(params, conf, seqs, starts)
+    ctl = arch.logits(params, conf, seqs, starts, fp8=True) \
         if control else None
     worst, worst_ctl, n, off = 0.0, 0.0, 0, 0
     for i, r in enumerate(sample):

@@ -46,8 +46,8 @@ def readings(cell, seed: int, seconds: float, device, control: bool) -> dict:
     sample = check.draw_sample(finished, seed, int(lim["sample_tokens"]),
                                int(lim["sample_requests"]))
     t0 = time.perf_counter()
-    out = check.gaps(runner.params, cell.config, sample, control=control) \
-        if sample else {}
+    out = check.gaps(cell.arch, runner.params, cell.config, sample,
+                     control=control) if sample else {}
     ok, _ = check.judge(out, lim, short)
     if control and sample:
         out["control_correct"], _ = check.judge(

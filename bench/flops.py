@@ -1,15 +1,19 @@
 """The yardstick: the H100's published rates, the paged decode kernel's
-bytes and operations, and a model's operations a token.
+bytes and operations, the lengths a window's tokens attend, and the
+window's model FLOP utilisation.
 
 The kernel arithmetic is a frozen copy of ``repro_torch.kernels.cost``
-(``paged_cost``, ``least_ms``, the rates) taken when the benchmark was
+(``paged_cost``, ``least_s``, the rates) taken when the benchmark was
 written, so that a change to the program cannot move the measure it is
-judged by.
+judged by.  Each architecture's operations a token are kept with its
+plain reference, in ``bench/reference/<name>.py`` (``window_ops``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Iterable, Tuple
+
+import numpy as np
 
 # One NVIDIA H100 SXM (NVIDIA's data sheet; dense rates, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -35,38 +39,21 @@ def least_s(flops: float, nbytes: float, dtype_name: str) -> float:
     return max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name])
 
 
-def matmul_params(s: Dict[str, int]) -> Dict[str, int]:
-    """Parameters that a token multiplies through: ``layers`` (every
-    layer's projections and the FFN a token uses: its top-k experts and
-    the router on a sparse model) and ``head`` (the unembedding)."""
-    D, H, Hk, Dh, F = s["D"], s["H"], s["Hk"], s["Dh"], s["F"]
-    attn = D * H * Dh + 2 * D * Hk * Dh + H * Dh * D
-    ffn = s["K"] * 3 * D * F + D * s["E"] if s["E"] else 3 * D * F
-    return {"layers": s["L"] * (attn + ffn), "head": D * s["V"]}
-
-
-def token_flops(s: Dict[str, int], tokens: int, ctx_sum: int,
-                head_rows: int) -> float:
-    """Model operations of ``tokens`` real tokens whose attended lengths
-    sum to ``ctx_sum`` (a token at position ``p`` attends ``p + 1``), with
-    ``head_rows`` rows through the unembedding: two a multiply-add over
-    the layers' parameters, ``4 * H * Dh`` a token attended a layer, two
-    a head parameter a row."""
-    p = matmul_params(s)
-    return (2.0 * p["layers"] * tokens
-            + 4.0 * s["H"] * s["Dh"] * s["L"] * ctx_sum
-            + 2.0 * p["head"] * head_rows)
+def attended(offsets, n_valid, window: int = 0) -> int:
+    """The lengths attended, summed over the real tokens of a call's rows
+    (a ``Call``'s ``offsets`` and ``n_valid``): a token at position ``p``
+    attends ``p + 1`` positions, at most ``window`` where ``window > 0``."""
+    o = np.asarray(offsets, np.int64)
+    n = np.asarray(n_valid, np.int64)
+    if window <= 0:
+        return int((n * o + n * (n + 1) // 2).sum())
+    m = np.clip(window - o, 0, n)           # tokens below the window's cap
+    return int((m * o + m * (m + 1) // 2 + (n - m) * window).sum())
 
 
 def window_mfu(run) -> float:
-    """The window's model operations over its seconds times the bf16 peak a
-    card, in %: every real token of the decode calls (live rows, at their
-    lengths, each through the head) and of the prefill calls (real tokens,
-    causal lengths, each chunk row through the head)."""
-    ph, s = run.phase, run.sizes
-    toks = sum(c.live for c in ph.decode) + sum(c.live for c in ph.prefill)
-    ctx = sum(c.ctx for c in ph.decode) + sum(c.ctx for c in ph.prefill)
-    head = sum(c.live for c in ph.decode) + sum(c.rows for c in ph.prefill)
-    ops = token_flops(s, toks, ctx, head)
+    """The window's model operations (the configuration's module's
+    ``window_ops``) over its seconds times the bf16 peak a card, in %."""
+    ops = run.arch.window_ops(run.sizes, run.phase)
     peak = PEAK_FLOPS[run.dtype_name] * run.cards
-    return 100.0 * ops / (ph.seconds * peak)
+    return 100.0 * ops / (run.phase.seconds * peak)

@@ -1,7 +1,7 @@
 """Model FLOP utilisation of the window, in %: the operations of every
-real token prefilled or decoded (``bench.flops.token_flops``) over the
-window's seconds times 989 TFLOP/s a card.  Moves with generated tokens a
-second in the decode cells."""
+real token prefilled or decoded (the configuration's ``window_ops``, in
+``bench/reference/<name>.py``) over the window's seconds times 989 TFLOP/s
+a card.  Moves with generated tokens a second in the decode cells."""
 
 from bench import flops
 

@@ -12,17 +12,32 @@ FFN and the unembedding) takes its operands rounded to float8 e4m3, the
 activations with a scale a row and the weights with a scale an output
 column, and multiplies them in float32: the step below bfloat16 that
 would tempt a faster path.
+
+Beside the reference, the module holds what the harness asks of the
+configuration's architecture (``bench/README.md``): ``sizes``,
+``layout`` (the weights it draws, in the port's layout), ``window_ops``
+(the model operations of a window's calls) and ``CONFIG_FIELDS`` (the
+published keys that must equal the port's ``ModelConfig`` fields).
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 FP8_MAX = 448.0
+# published keys of a configuration file -> the port's ModelConfig fields
+CONFIG_FIELDS = {"hidden_size": "d_model", "num_attention_heads": "num_heads",
+                 "num_key_value_heads": "num_kv_heads",
+                 "head_dim": "head_dim", "num_hidden_layers": "num_layers",
+                 "vocab_size": "vocab_size", "rope_theta": "rope_theta",
+                 "rms_norm_eps": "norm_eps",
+                 "tie_word_embeddings": "tie_embeddings",
+                 "max_position_embeddings": "max_position_embeddings",
+                 "intermediate_size": "d_ff"}
 # the port's ModelConfig fields this reference does not model: a
 # configuration that names it must hold these values
 PROGRAM_FIELDS = {"block_pattern": ("attn",), "window_size": 0, "moe": None,
@@ -145,3 +160,105 @@ def logits(params: dict, conf: dict, seqs: Sequence[Sequence[int]],
                     for i in range(0, x.shape[0], row_block)]
             out.append(torch.cat(rows))
         return out
+
+
+# -- what the harness asks of the architecture -------------------------------
+
+
+def sizes(conf: dict) -> Dict[str, int]:
+    """The sizes the layout needs, from a configuration file's published
+    keys (experts keyed as Mixtral and PhiMoE publish them)."""
+    d = int(conf["hidden_size"])
+    h = int(conf["num_attention_heads"])
+    out = {"D": d, "H": h, "Hk": int(conf["num_key_value_heads"]),
+           "Dh": int(conf.get("head_dim", d // h)),
+           "L": int(conf["num_hidden_layers"]),
+           "V": int(conf["vocab_size"]),
+           "F": int(conf["intermediate_size"]),
+           "E": int(conf.get("num_local_experts", 0)),
+           "K": int(conf.get("num_experts_per_tok", 0)),
+           "tied": bool(conf.get("tie_word_embeddings", False))}
+    return out
+
+
+def leaves(s: Dict[str, int]) -> List[Tuple[tuple, tuple, int, str]]:
+    """``(path, shape, fan_in, dtype name)`` of every random matrix, in
+    draw order; norms are not listed (``norm_paths``)."""
+    D, H, Hk, Dh, V, F = s["D"], s["H"], s["Hk"], s["Dh"], s["V"], s["F"]
+    out = [(("embed", "tok"), (V, D), D, "model")]
+    if not s["tied"]:
+        out.append((("embed", "untok"), (V, D), D, "model"))
+    for i in range(s["L"]):
+        out += [(("layers", i, "wq"), (D, H * Dh), D, "model"),
+                (("layers", i, "wk"), (D, Hk * Dh), D, "model"),
+                (("layers", i, "wv"), (D, Hk * Dh), D, "model"),
+                (("layers", i, "wo"), (H * Dh, D), H * Dh, "model")]
+        if s["E"]:
+            E = s["E"]
+            out += [(("layers", i, "moe", "router"), (D, E), D, "float32"),
+                    (("layers", i, "moe", "wg"), (E, D, F), D, "model"),
+                    (("layers", i, "moe", "wu"), (E, D, F), D, "model"),
+                    (("layers", i, "moe", "wd"), (E, F, D), F, "model")]
+        else:
+            out += [(("layers", i, "wg"), (D, F), D, "model"),
+                    (("layers", i, "wu"), (D, F), D, "model"),
+                    (("layers", i, "wd"), (F, D), F, "model")]
+    return out
+
+
+def norm_paths(s: Dict[str, int]) -> List[tuple]:
+    """Every norm weight's path, in draw order; each is ``(D,)``."""
+    return [("final_norm",)] + [("layers", i, k) for i in range(s["L"])
+                                for k in ("ln1", "ln2")]
+
+
+def layout(conf: dict) -> Tuple[list, list]:
+    """The weights a configuration draws (``bench.weights.make_params``):
+    every matrix as ``(path, shape, fan_in, dtype name)`` in draw order,
+    and every norm weight as ``(path, shape)`` in draw order.  The layout
+    is ``repro_torch.models.model``'s::
+
+        {"embed": {"tok": (V, D), "untok": (V, D)}, "final_norm": (D,),
+         "layers": [{"ln1", "wq", "wk", "wv", "wo", "ln2",
+                     "wg", "wu", "wd"}]}        # dense FFN, or
+                    "moe": {"router" (D, E) float32, "wg", "wu" (E, D, F),
+                            "wd" (E, F, D)}      # sparse experts
+    """
+    s = sizes(conf)
+    return leaves(s), [(p, (s["D"],)) for p in norm_paths(s)]
+
+
+def matmul_params(s: Dict[str, int]) -> Dict[str, int]:
+    """Parameters that a token multiplies through: ``layers`` (every
+    layer's projections and the FFN a token uses: its top-k experts and
+    the router on a sparse model) and ``head`` (the unembedding)."""
+    D, H, Hk, Dh, F = s["D"], s["H"], s["Hk"], s["Dh"], s["F"]
+    attn = D * H * Dh + 2 * D * Hk * Dh + H * Dh * D
+    ffn = s["K"] * 3 * D * F + D * s["E"] if s["E"] else 3 * D * F
+    return {"layers": s["L"] * (attn + ffn), "head": D * s["V"]}
+
+
+def token_flops(s: Dict[str, int], tokens: int, ctx_sum: int,
+                head_rows: int) -> float:
+    """Model operations of ``tokens`` real tokens whose attended lengths
+    sum to ``ctx_sum`` (a token at position ``p`` attends ``p + 1``), with
+    ``head_rows`` rows through the unembedding: two a multiply-add over
+    the layers' parameters, ``4 * H * Dh`` a token attended a layer, two
+    a head parameter a row."""
+    p = matmul_params(s)
+    return (2.0 * p["layers"] * tokens
+            + 4.0 * s["H"] * s["Dh"] * s["L"] * ctx_sum
+            + 2.0 * p["head"] * head_rows)
+
+
+def window_ops(s: Dict[str, int], phase) -> float:
+    """The model operations of a phase's calls: every real token of the
+    decode calls (live rows, at their lengths, each through the head) and
+    of the prefill calls (real tokens, causal lengths, each chunk row
+    through the head).  Every layer attends the whole context."""
+    toks = sum(c.live for c in phase.decode) + \
+        sum(c.live for c in phase.prefill)
+    ctx = sum(c.ctx for c in phase.decode) + sum(c.ctx for c in phase.prefill)
+    head = sum(c.live for c in phase.decode) + \
+        sum(c.rows for c in phase.prefill)
+    return token_flops(s, toks, ctx, head)

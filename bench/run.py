@@ -103,13 +103,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     lim = cell.limits
     sample = check.draw_sample(finished, seed, int(lim["sample_tokens"]),
                                int(lim["sample_requests"]))
-    readings = check.gaps(runner.params, cell.config, sample) if sample \
-        else {}
+    readings = check.gaps(cell.arch, runner.params, cell.config,
+                          sample) if sample else {}
     ok, checks = check.judge(readings, lim, short)
 
     dtype = getattr(torch, cell.config["dtype"])
     run = Run(phase=phase, traced=traced, timeline=tl, sizes=runner.sizes,
-              setup_s=setup_s, cards=cell.chips, pages_seq=pages_seq,
+              arch=cell.arch, setup_s=setup_s, cards=cell.chips,
+              pages_seq=pages_seq,
               esize=torch.empty((), dtype=dtype).element_size(),
               dtype_name=cell.config["dtype"], cell=cell)
     wanted = cell.per_layer if trace else cell.end_to_end

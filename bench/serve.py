@@ -33,36 +33,34 @@ import torch
 from bench import traffic as traffic_lib
 from bench import weights as weights_lib
 
-# published keys of a configuration file -> the port's ModelConfig fields
-CONFIG_FIELDS = {"hidden_size": "d_model", "num_attention_heads": "num_heads",
-                 "num_key_value_heads": "num_kv_heads",
-                 "head_dim": "head_dim", "num_hidden_layers": "num_layers",
-                 "vocab_size": "vocab_size", "rope_theta": "rope_theta",
-                 "rms_norm_eps": "norm_eps",
-                 "tie_word_embeddings": "tie_embeddings",
-                 "max_position_embeddings": "max_position_embeddings"}
 WARMUP_STEP_LIMIT = 20000
 
 
-def program_config(conf: dict):
+def _field(cfg, name: str):
+    """A ModelConfig field by name; a dotted name (``a.b``) reads a field
+    of a nested one (None where a level is None)."""
+    for part in name.split("."):
+        cfg = None if cfg is None else getattr(cfg, part)
+    return cfg
+
+
+def program_config(arch, conf: dict):
     """The port's ModelConfig for a configuration file: the registered arch
     with the file's ``program.set`` fields, checked against the file's
-    published sizes and the fields its reference must find."""
+    published keys that ``arch`` maps to fields (``CONFIG_FIELDS``) and
+    the fields its reference must find (``PROGRAM_FIELDS``).  ``arch`` is
+    the configuration's module."""
     from repro_torch.config import get_arch
-
-    from bench.check import reference
 
     prog = conf["program"]
     cfg = dataclasses.replace(get_arch(prog["arch"]), **prog.get("set", {}))
     wrong = {}
-    for key, field in CONFIG_FIELDS.items():
-        if key in conf and getattr(cfg, field) != conf[key]:
-            wrong[key] = (conf[key], getattr(cfg, field))
-    if cfg.d_ff != conf["intermediate_size"]:
-        wrong["intermediate_size"] = (conf["intermediate_size"], cfg.d_ff)
-    for field, want in reference(conf).PROGRAM_FIELDS.items():
-        if getattr(cfg, field) != want:
-            wrong[field] = (want, getattr(cfg, field))
+    for key, field in arch.CONFIG_FIELDS.items():
+        if key in conf and _field(cfg, field) != conf[key]:
+            wrong[key] = (conf[key], _field(cfg, field))
+    for field, want in arch.PROGRAM_FIELDS.items():
+        if _field(cfg, field) != want:
+            wrong[field] = (want, _field(cfg, field))
     if wrong:
         raise ValueError(f"{conf['name']}: the program's config differs "
                          f"from the file (file, program): {wrong}")
@@ -80,6 +78,14 @@ class Call:
     ctx: int            # sum over the real tokens of the lengths attended
     kernel_toks: int    # decode: sum over every row of the paged kernel's
                         # lengths (what it reads, idle rows included)
+    # each real row's first position and its real tokens, positions
+    # offsets[i] .. offsets[i] + n_valid[i] - 1 (decode: a live row's
+    # position, one token; prefill: the chunk's offsets and n_valid), so
+    # that a reader can cap the lengths attended by a window
+    offsets: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int64))
+    n_valid: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int64))
 
 
 @dataclasses.dataclass
@@ -123,10 +129,11 @@ class Runner:
         self.seed = int(seed)
         self.device = torch.device(device)
         conf, eng = cell.config, cell.engine
-        self.sizes = weights_lib.sizes(conf)
-        self.cfg = program_config(conf)
+        self.sizes = cell.arch.sizes(conf)
+        self.cfg = program_config(cell.arch, conf)
         dtype = getattr(torch, conf["dtype"])
-        self.params = weights_lib.make_params(conf, seed, self.device, dtype)
+        self.params = weights_lib.make_params(cell.arch, conf, seed,
+                                              self.device, dtype)
         rows = int(eng["rows"])
         mbs = int(eng.get("microbatches", 1))
         page = int(eng.get("page_size", 16))
@@ -178,9 +185,11 @@ class Runner:
             with self._span("bench.decode"):
                 out = decode(mb, tokens, cur_pos, samp, active)
             if active and self.phase is not None:
+                at = pos[live]
                 self.phase.decode.append(Call(
-                    t0, time.perf_counter(), len(pos), int(live.sum()),
-                    int((pos[live] + 1).sum()), int((pos + 1).sum())))
+                    t0, time.perf_counter(), len(pos), len(at),
+                    int((at + 1).sum()), int((pos + 1).sum()), at,
+                    np.ones_like(at)))
             return out
 
         def wrapped_prefill(chunk):
@@ -190,11 +199,12 @@ class Runner:
             with self._span("bench.prefill"):
                 out = prefill_step(chunk)
             if self.phase is not None:
-                n = np.asarray(chunk.n_valid, np.int64)
-                o = np.asarray(chunk.offsets, np.int64)
+                n = np.array(chunk.n_valid, np.int64)
+                o = np.array(chunk.offsets, np.int64)
                 self.phase.prefill.append(Call(
                     t0, time.perf_counter(), chunk.tokens.shape[0],
-                    int(n.sum()), int((n * o + n * (n + 1) // 2).sum()), 0))
+                    int(n.sum()), int((n * o + n * (n + 1) // 2).sum()), 0,
+                    o, n))
             return out
 
         backend.decode = wrapped_decode

@@ -331,7 +331,7 @@ def collect(cell, seed: int, seconds: float, trace_seconds: float, device,
 
     dtype = getattr(torch, cell.config["dtype"])
     run = Run(phase=window or stretch, traced=traced, timeline=tl,
-              sizes=runner.sizes, cards=cell.chips,
+              sizes=runner.sizes, arch=cell.arch, cards=cell.chips,
               pages_seq=runner.pages_seq, cell=cell,
               esize=torch.empty((), dtype=dtype).element_size(),
               dtype_name=cell.config["dtype"], spans=rec,

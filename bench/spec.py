@@ -15,7 +15,11 @@ files and entries: nothing here lists them.
   optional ``engine`` block that overrides the configuration's, the one
   place where a cell's deployment departs from its configuration's;
 - ``bench/metrics/<metric>.py``: a per-layer metric's reader, a function
-  ``read(run)`` that returns a number or None.
+  ``read(run)`` that returns a number or None;
+- ``bench/reference/<name>.py``, named by the configuration's
+  ``reference``: its architecture (the plain reference, the weight
+  layout, the operations a token, the published keys to check; see
+  ``bench/README.md``).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import importlib.util
 import json
 import re
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List
 
 BENCH = Path(__file__).resolve().parent
@@ -60,6 +65,7 @@ class Cell:
         conf_entry = _by_name(bench["configs"], self.entry["config"],
                               "configuration")
         self.config = read_json(root / conf_entry["file"])
+        self.arch = load_arch(self.config["reference"], bench_dir)
         self.traffic = read_json(bench_dir / "traffic" /
                                  f"{self.entry['traffic']}.json")
         if "engine" in self.traffic:
@@ -77,15 +83,28 @@ class Cell:
         self.bench_dir = bench_dir
 
 
-def load_reader(name: str, bench_dir: Path = BENCH) -> Callable:
-    """``bench/metrics/<name>.py``'s ``read``."""
-    if not NAME.match(name):
-        raise ValueError(f"bad metric name {name!r}")
-    path = bench_dir / "metrics" / f"{name}.py"
-    mod_name = "bench_metric_" + re.sub(r"[^A-Za-z0-9_]", "_", name)
+def _load_file(path: Path, prefix: str, name: str) -> ModuleType:
+    mod_name = prefix + re.sub(r"[^A-Za-z0-9_]", "_", name)
     spec = importlib.util.spec_from_file_location(mod_name, path)
     if spec is None or spec.loader is None:
         raise FileNotFoundError(path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(name: str, bench_dir: Path = BENCH) -> Callable:
+    """``bench/metrics/<name>.py``'s ``read``."""
+    if not NAME.match(name):
+        raise ValueError(f"bad metric name {name!r}")
+    return _load_file(bench_dir / "metrics" / f"{name}.py", "bench_metric_",
+                      name).read
+
+
+def load_arch(name: str, bench_dir: Path = BENCH) -> ModuleType:
+    """``bench/reference/<name>.py``, the module of a configuration's
+    architecture."""
+    if not NAME.match(name):
+        raise ValueError(f"bad reference name {name!r}")
+    return _load_file(bench_dir / "reference" / f"{name}.py", "bench_arch_",
+                      name)

@@ -8,6 +8,7 @@ import pytest
 
 from bench import flops, guard, spec, weights
 from bench import timeline as T
+from bench.reference import llama
 from bench.serve import Call, Phase
 
 # D=2, H=1, Hk=1, Dh=2, F=3, one layer, V=5: attention 2*2 + 2*2*2 + 2*2
@@ -22,8 +23,8 @@ class Run:
 
 
 def test_yi9b_parameters_by_hand():
-    s = weights.sizes(spec.read_json(spec.BENCH / "configs" / "yi9b.json"))
-    p = flops.matmul_params(s)
+    s = llama.sizes(spec.read_json(spec.BENCH / "configs" / "yi9b.json"))
+    p = llama.matmul_params(s)
     per_layer = (4096 * 4096 + 2 * 4096 * 512 + 4096 * 4096
                  + 3 * 4096 * 11008)
     assert per_layer == 173_015_040
@@ -32,7 +33,7 @@ def test_yi9b_parameters_by_hand():
     # with the input table and the norms: the published 8.83 B
     total = p["layers"] + p["head"] + 64000 * 4096 + 97 * 4096
     assert abs(total / 1e9 - 8.83) < 0.01
-    assert flops.token_flops(s, 10, 100, 2) == \
+    assert llama.token_flops(s, 10, 100, 2) == \
         2 * 8_304_721_920 * 10 + 4 * 32 * 128 * 48 * 100 \
         + 2 * 262_144_000 * 2 == 167_221_657_600
 
@@ -41,7 +42,8 @@ def test_window_mfu_by_hand():
     ph = Phase(t0=0.0, t1=2.0)
     ph.decode = [Call(0, 1, rows=4, live=3, ctx=30, kernel_toks=0)]
     ph.prefill = [Call(0, 1, rows=1, live=5, ctx=15, kernel_toks=0)]
-    run = Run(phase=ph, sizes=SMALL, dtype_name="bfloat16", cards=1)
+    run = Run(phase=ph, sizes=SMALL, arch=spec.load_arch("llama"),
+              dtype_name="bfloat16", cards=1)
     # 8 tokens through 34 layer parameters, 45 lengths attended at
     # 4 * 1 * 2 a layer, 4 rows through the 10 head parameters
     ops = 2 * 34 * 8 + 4 * 1 * 2 * 1 * 45 + 2 * 10 * 4
@@ -112,9 +114,9 @@ def test_weights_are_seeded_and_laid_out():
     conf = {"hidden_size": 8, "intermediate_size": 12,
             "num_attention_heads": 2, "num_key_value_heads": 1,
             "head_dim": 4, "num_hidden_layers": 2, "vocab_size": 16}
-    a = weights.make_params(conf, 2**31 + 3, "cpu", torch.float32)
-    b = weights.make_params(conf, 2**31 + 3, "cpu", torch.float32)
-    c = weights.make_params(conf, 2**31 + 4, "cpu", torch.float32)
+    a = weights.make_params(llama, conf, 2**31 + 3, "cpu", torch.float32)
+    b = weights.make_params(llama, conf, 2**31 + 3, "cpu", torch.float32)
+    c = weights.make_params(llama, conf, 2**31 + 4, "cpu", torch.float32)
     assert torch.equal(a["layers"][1]["wd"], b["layers"][1]["wd"])
     assert not torch.equal(a["layers"][1]["wd"], c["layers"][1]["wd"])
     assert a["layers"][0]["wq"].shape == (8, 8)
@@ -124,8 +126,8 @@ def test_weights_are_seeded_and_laid_out():
     assert a["layers"][0]["ln1"].shape == (8,)
     assert torch.equal(a["final_norm"], b["final_norm"])
     assert not torch.equal(a["layers"][0]["ln1"], a["layers"][0]["ln2"])
-    big = weights.make_params(dict(conf, hidden_size=256,
-                                   intermediate_size=512), 1, "cpu",
+    big = weights.make_params(llama, dict(conf, hidden_size=256,
+                                          intermediate_size=512), 1, "cpu",
                               torch.float32)
     std = float(big["layers"][0]["wg"].std())
     assert abs(std * math.sqrt(256) - 1.0) < 0.02
@@ -141,7 +143,7 @@ def test_sparse_expert_layout():
             "num_attention_heads": 2, "num_key_value_heads": 1,
             "head_dim": 4, "num_hidden_layers": 1, "vocab_size": 16,
             "num_local_experts": 4, "num_experts_per_tok": 2}
-    p = weights.make_params(conf, 9, "cpu", torch.bfloat16)
+    p = weights.make_params(llama, conf, 9, "cpu", torch.bfloat16)
     moe = p["layers"][0]["moe"]
     assert moe["router"].shape == (8, 4) and moe["router"].dtype == \
         torch.float32
@@ -149,6 +151,6 @@ def test_sparse_expert_layout():
     assert moe["wd"].shape == (4, 6, 8) and moe["wd"].dtype == torch.bfloat16
     assert "wg" not in p["layers"][0]
     # a token multiplies through its top 2 experts and the router
-    s = weights.sizes(conf)
+    s = llama.sizes(conf)
     attn = 8 * 8 + 2 * 8 * 4 + 8 * 8
-    assert flops.matmul_params(s)["layers"] == attn + 2 * 3 * 8 * 6 + 8 * 4
+    assert llama.matmul_params(s)["layers"] == attn + 2 * 3 * 8 * 6 + 8 * 4

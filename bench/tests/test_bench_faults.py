@@ -80,7 +80,8 @@ def test_control_is_not_correct(tmp_path):
     lim = cell.limits
     sample = check.draw_sample(finished, SEED, lim["sample_tokens"],
                                lim["sample_requests"])
-    r = check.gaps(runner.params, cell.config, sample, control=True)
+    r = check.gaps(cell.arch, runner.params, cell.config, sample,
+                   control=True)
     program_ok, _ = check.judge(r, lim, 0)
     control_ok, checks = check.judge(
         dict(r, logit_gap_max=r["control_gap"]), lim, 0)

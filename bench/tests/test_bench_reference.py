@@ -14,8 +14,8 @@ def test_reference_matches_the_port_prefill_and_decode():
     from repro_torch.models.common import Runtime
 
     conf = dict(tiny.TINY_CONFIG)
-    cfg = serve.program_config(conf)
-    params = weights.make_params(conf, 2**31 + 11, "cpu", torch.float32)
+    cfg = serve.program_config(ref, conf)
+    params = weights.make_params(ref, conf, 2**31 + 11, "cpu", torch.float32)
     rt = Runtime(param_dtype=torch.float32, compute_dtype=torch.float32)
     rng = np.random.default_rng(3)
     prompt = rng.integers(0, 256, size=37).tolist()

@@ -1,6 +1,6 @@
 """A CPU-sized cell for the harness's tests: a two-layer yi-shaped model,
 short prompts and outputs, written into a temporary benchmark folder that
-holds the real metric readers."""
+holds the real metric readers and references."""
 
 from __future__ import annotations
 
@@ -35,12 +35,14 @@ TINY_LIMITS = {"logit_gap_max": 0.05, "min_tokens": 8,
 
 def make_bench(tmp: Path, limits: dict = None) -> dict:
     """A benchmark folder under ``tmp`` with the tiny cell ``tiny.mix``;
-    returns its BENCHMARK dict (the real metric readers are copied)."""
+    returns its BENCHMARK dict (the real metric readers and references are
+    copied)."""
     bench_dir = tmp / "bench"
     for sub in ("configs", "traffic", "cells"):
         (bench_dir / sub).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(spec.BENCH / "metrics", bench_dir / "metrics",
-                    dirs_exist_ok=True)
+    for sub in ("metrics", "reference"):
+        shutil.copytree(spec.BENCH / sub, bench_dir / sub,
+                        dirs_exist_ok=True)
     (bench_dir / "configs" / "tiny.json").write_text(json.dumps(TINY_CONFIG))
     (bench_dir / "traffic" / "mix.json").write_text(json.dumps(TINY_MIX))
     (bench_dir / "cells" / "tiny.mix.json").write_text(
